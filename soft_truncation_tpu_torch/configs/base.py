@@ -2,7 +2,7 @@
 
 Mirrors ``soft_truncation_tpu/configs/base.py`` without ``ml_collections``:
 the same section/key names and values, limited to the keys the serving
-slice reads. Config files under ``configs/`` are copies of the JAX
+slices read. Config files under ``configs/`` are copies of the JAX
 package's files, importing this module instead of the JAX one.
 """
 
@@ -45,8 +45,8 @@ _CIFAR10 = dict(
         continuous=True, unbounded_parametrization=False, ddpm_score=True,
         truncation_time=1e-5, stabilizing_constant=1e-3),
     sampling=dict(
-        noise_removal=True, batch_size=1024, truncation_time=1e-5,
-        dpm_steps=50),
+        n_steps_each=1, noise_removal=True, probability_flow=False,
+        snr=0.16, batch_size=1024, truncation_time=1e-5, dpm_steps=50),
     data=dict(dataset="CIFAR10", image_size=32, centered=False,
               num_channels=3),
     model=dict(

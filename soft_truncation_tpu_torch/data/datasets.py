@@ -1,6 +1,6 @@
 """Data scaling. Counterpart of ``soft_truncation_tpu/data/datasets.py``
 for the serving slice: only the inverse scaler. The data pipelines come
-with ROADMAP.md slice 2."""
+with ROADMAP.md slice 3."""
 
 from __future__ import annotations
 

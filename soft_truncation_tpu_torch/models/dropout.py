@@ -2,7 +2,7 @@
 
 Counterpart of ``soft_truncation_tpu/models/dropout.py``. The serving slice
 runs the network at eval only; the training forward (and its mask draws)
-comes with ROADMAP.md slice 2.
+comes with ROADMAP.md slice 3.
 """
 
 from __future__ import annotations
@@ -20,6 +20,6 @@ class Dropout(nn.Module):
   def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
     if train:
       raise NotImplementedError(
-          "training-mode dropout arrives with ROADMAP.md slice 2 "
+          "training-mode dropout arrives with ROADMAP.md slice 3 "
           "(ST train step)")
     return x

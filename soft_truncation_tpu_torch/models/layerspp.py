@@ -1,29 +1,36 @@
 """NCSN++ building blocks (NHWC), in PyTorch.
 
 Counterpart of ``soft_truncation_tpu/models/layerspp.py``: the blocks the
-flagship DDPM++ runs (``AttnBlockpp``, ``ResnetBlockBigGANpp`` without FIR)
-and the Gaussian Fourier time embedding.
+flagship DDPM++ and UNCSN++ run (``AttnBlockpp``, ``ResnetBlockBigGANpp``
+with or without FIR resampling), the FIR ``Resample`` (``Upsample`` /
+``Downsample``), ``ConvResample`` and ``Combine`` of the progressive
+pyramids, and the Gaussian Fourier time embedding.
 
 At eval with SiLU, each res-block's GroupNorm -> SiLU -> conv3x3 chain runs
 as one call of ``ops.gn_silu_conv3x3``, at the sites the JAX package fuses:
 norm0 -> conv0 when the block neither up- nor down-samples, and norm1 ->
 conv1 always. On a CUDA tensor that is the hand-written kernel; on a CPU
-tensor its plain version.
+tensor its plain version. Each factor-2 FIR resample of a block or a
+pyramid goes through ``ops.upsample_2d`` / ``downsample_2d``, which launch
+the ``fir2`` kernel on a CUDA tensor; ``last_fir_sites`` records each
+call's (mode, H, W, C).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops import (gn_silu_conv3x3, gn_stats, naive_downsample_2d,
-                   naive_upsample_2d)
+from ..ops import (conv_downsample_2d, downsample_2d, gn_silu_conv3x3,
+                   gn_stats, naive_downsample_2d, naive_upsample_2d,
+                   upsample_2d, upsample_conv_2d)
 from .dropout import Dropout
-from .layers import NIN, DDPMConv, Dense, GroupNorm, spatial_attention
+from .layers import (NIN, DDPMConv, Dense, GroupNorm, default_init,
+                     spatial_attention)
 
 
 def _groups(ch: int) -> int:
@@ -47,6 +54,16 @@ def _fused_gn_silu_conv(block, h: torch.Tensor, norm: GroupNorm,
   n, hh, ww, c = h.shape
   block.last_fused_sites.append((hh, ww, c, out.shape[-1]))
   return out
+
+
+def _fir_resample(module, x: torch.Tensor, mode: str,
+                  fir_kernel: Sequence[float]) -> torch.Tensor:
+  """Factor-2 FIR up/down-sample; records the site's (mode, H, W, C)."""
+  n, h, w, c = x.shape
+  module.last_fir_sites.append((mode, h, w, c))
+  if mode == "up":
+    return upsample_2d(x, k=tuple(fir_kernel), factor=2)
+  return downsample_2d(x, k=tuple(fir_kernel), factor=2)
 
 
 class GaussianFourierProjection(nn.Module):
@@ -88,24 +105,94 @@ class AttnBlockpp(nn.Module):
     return x + h
 
 
+class Combine(nn.Module):
+  """Merge a progressive-input pyramid branch: 1x1-conv x, then cat or sum
+  with y."""
+
+  def __init__(self, in_ch: int, out_ch: int, method: str = "cat"):
+    super().__init__()
+    if method not in ("cat", "sum"):
+      raise ValueError(f"combine method {method} not recognized")
+    self.method = method
+    self.conv = DDPMConv(in_ch, out_ch, 1)
+
+  def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    h = self.conv(x)
+    if self.method == "cat":
+      return torch.cat([h, y], dim=-1)
+    return h + y
+
+
+class ConvResample(nn.Module):
+  """A conv fused with FIR 2x up- or down-sampling (StyleGAN2's Conv2d):
+  ``upsample_conv_2d`` / ``conv_downsample_2d``, plain torch ops."""
+
+  def __init__(self, mode: str, in_ch: int, out_ch: int, kernel: int = 3,
+               fir_kernel: Sequence[float] = (1, 3, 3, 1)):
+    super().__init__()
+    self.up = mode == "up"
+    self.fir_kernel = tuple(fir_kernel)
+    self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel))
+    self.bias = nn.Parameter(torch.zeros(out_ch))
+
+  def reset_parameters(self, generator: Optional[torch.Generator] = None):
+    o, i, kh, kw = self.weight.shape
+    default_init()(self.weight, i * kh * kw, o * kh * kw, generator)
+    with torch.no_grad():
+      self.bias.zero_()
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    w = self.weight.permute(2, 3, 1, 0)  # HWIO view
+    if self.up:
+      x = upsample_conv_2d(x, w, k=self.fir_kernel)
+    else:
+      x = conv_downsample_2d(x, w, k=self.fir_kernel)
+    return x + self.bias
+
+
+class Resample(nn.Module):
+  """FIR 2x up- or down-sampling of a pyramid branch (the JAX package's
+  ``Upsample`` / ``Downsample`` with ``fir=True``): ``upsample_2d`` /
+  ``downsample_2d`` alone, or fused with a 3x3 conv (``ConvResample``,
+  named ``conv``) when ``with_conv``."""
+
+  def __init__(self, mode: str, in_ch: int, out_ch: Optional[int] = None,
+               with_conv: bool = False,
+               fir_kernel: Sequence[float] = (1, 3, 3, 1)):
+    super().__init__()
+    if mode not in ("up", "down"):
+      raise ValueError(f"mode must be 'up' or 'down', got {mode!r}")
+    self.mode = mode
+    self.fir_kernel = tuple(fir_kernel)
+    self.conv = (ConvResample(mode, in_ch, out_ch or in_ch, 3, fir_kernel)
+                 if with_conv else None)
+    self.last_fir_sites = []
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    self.last_fir_sites = []
+    if self.conv is not None:
+      return self.conv(x)
+    return _fir_resample(self, x, self.mode, self.fir_kernel)
+
+
 class ResnetBlockBigGANpp(nn.Module):
-  """BigGAN-style residual block with in-block nearest/mean-pool resampling.
+  """BigGAN-style residual block with in-block resampling: FIR with
+  ``fir``, else nearest / mean-pool.
 
   ``last_fused_sites`` lists the (H, W, C, O) of every fused
-  norm->SiLU->conv call of the latest forward."""
+  norm->SiLU->conv call of the latest forward, ``last_fir_sites`` the
+  (mode, H, W, C) of every FIR resample."""
 
   def __init__(self, act: Callable, in_ch: int, out_ch: Optional[int] = None,
                temb_dim: Optional[int] = None, up: bool = False,
                down: bool = False, dropout: float = 0.1, fir: bool = False,
+               fir_kernel: Sequence[float] = (1, 3, 3, 1),
                skip_rescale: bool = True, init_scale: float = 0.0):
     super().__init__()
-    if fir:
-      raise NotImplementedError(
-          "fir=True (FIR resampling) arrives with ROADMAP.md slice 4 "
-          "(FIR family)")
     out_ch = out_ch or in_ch
     self.act = act
     self.up, self.down = up, down
+    self.fir, self.fir_kernel = fir, tuple(fir_kernel)
     self.skip_rescale = skip_rescale
     self.norm0 = GroupNorm(_groups(in_ch), in_ch)
     self.conv0 = DDPMConv(in_ch, out_ch, 3)
@@ -117,10 +204,12 @@ class ResnetBlockBigGANpp(nn.Module):
     self.shortcut = (DDPMConv(in_ch, out_ch, 1)
                      if in_ch != out_ch or up or down else None)
     self.last_fused_sites = []
+    self.last_fir_sites = []
 
   def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None,
               train: bool = False) -> torch.Tensor:
     self.last_fused_sites = []
+    self.last_fir_sites = []
     # fused norm0->SiLU->conv0 only when no resampling sits between them
     fuse0 = (not self.up and not self.down
              and _gn_conv_eligible(self, x, train))
@@ -129,7 +218,11 @@ class ResnetBlockBigGANpp(nn.Module):
     else:
       h = self.act(self.norm0(x))
 
-    if self.up:
+    if self.fir and (self.up or self.down):
+      mode = "up" if self.up else "down"
+      h = _fir_resample(self, h, mode, self.fir_kernel)
+      x = _fir_resample(self, x, mode, self.fir_kernel)
+    elif self.up:
       h = naive_upsample_2d(h, factor=2)
       x = naive_upsample_2d(x, factor=2)
     elif self.down:

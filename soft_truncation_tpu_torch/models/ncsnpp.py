@@ -7,13 +7,17 @@ names as the Flax module (``temb_dense0/1``, ``stem``, ``down_{i}_{j}``,
 ``out_conv``), so a Flax parameter tree maps onto the state_dict by path.
 
 Ported: positional and Fourier time embeddings, ``conditional``, BigGAN
-res-blocks with ``auxiliary_resblock``, attention, ``skip_rescale``,
-``centered`` and ``scale_by_sigma``. Other options raise
-``NotImplementedError`` naming the ROADMAP.md slice that brings them.
+res-blocks with ``auxiliary_resblock`` and FIR or naive resampling,
+attention, the progressive input (``input_skip`` / ``residual``, combined by
+``sum`` or ``cat``) and output (``output_skip`` / ``residual``) pyramids
+with FIR, ``skip_rescale``, ``centered`` and ``scale_by_sigma``. Other
+options raise ``NotImplementedError`` naming the ROADMAP.md slice that
+brings them.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -21,7 +25,8 @@ import torch
 import torch.nn as nn
 
 from . import layerspp
-from .layers import DDPMConv, Dense, GroupNorm, get_act, get_timestep_embedding
+from .layers import (DDPMConv, Dense, GroupNorm, get_act,
+                     get_timestep_embedding)
 from .registry import register_model
 
 
@@ -37,14 +42,18 @@ def _refuse(option: str, slice_: str):
 
 @register_model(name="ncsnpp")
 class NCSNpp(nn.Module):
-  """Config-driven NCSN++ family U-Net (BigGAN blocks, no FIR)."""
+  """Config-driven NCSN++ family U-Net (BigGAN blocks)."""
 
   def __init__(self, nf: int = 128, ch_mult: Sequence[int] = (1, 2, 2, 2),
                num_res_blocks: int = 4,
                attn_resolutions: Sequence[int] = (16,),
                attention: bool = True, dropout: float = 0.1,
                image_size: int = 32, num_channels: int = 3,
-               conditional: bool = True, skip_rescale: bool = True,
+               conditional: bool = True, fir: bool = False,
+               fir_kernel: Sequence[float] = (1, 3, 3, 1),
+               skip_rescale: bool = True, progressive: str = "none",
+               progressive_input: str = "none",
+               progressive_combine: str = "sum",
                embedding_type: str = "fourier", fourier_scale: float = 16.0,
                init_scale: float = 0.0, nonlinearity: str = "swish",
                scale_by_sigma: bool = False, sigma_min: float = 0.01,
@@ -53,6 +62,10 @@ class NCSNpp(nn.Module):
     super().__init__()
     if embedding_type not in ("fourier", "positional"):
       raise ValueError(f"unknown embedding_type {embedding_type!r}")
+    if progressive not in ("none", "output_skip", "residual"):
+      raise ValueError(f"unknown progressive {progressive!r}")
+    if progressive_input not in ("none", "input_skip", "residual"):
+      raise ValueError(f"unknown progressive_input {progressive_input!r}")
     act = get_act(nonlinearity)
     self.nf = nf
     self.embedding_type = embedding_type
@@ -63,6 +76,9 @@ class NCSNpp(nn.Module):
     self.act = act
     self.num_resolutions = len(ch_mult)
     self.num_res_blocks = num_res_blocks
+    self.skip_rescale = skip_rescale
+    self.progressive = progressive
+    self.progressive_input = progressive_input
 
     if embedding_type == "fourier":
       self.fourier_emb = layerspp.GaussianFourierProjection(
@@ -77,7 +93,8 @@ class NCSNpp(nn.Module):
     def res_block(in_ch, out_ch=None, up=False, down=False):
       return layerspp.ResnetBlockBigGANpp(
           act, in_ch, out_ch, temb_dim=temb_dim, up=up, down=down,
-          dropout=dropout, skip_rescale=skip_rescale, init_scale=init_scale)
+          dropout=dropout, fir=fir, fir_kernel=fir_kernel,
+          skip_rescale=skip_rescale, init_scale=init_scale)
 
     def attn_block(ch):
       return layerspp.AttnBlockpp(ch, skip_rescale=skip_rescale,
@@ -87,6 +104,7 @@ class NCSNpp(nn.Module):
     self.stem = DDPMConv(num_channels, nf, 3)
     hs_ch = [nf]
     ch, res = nf, image_size
+    pyr_ch = num_channels  # channels of the input pyramid
     self._attn_down, self._attn_up = set(), set()
     for i in range(self.num_resolutions):
       for j in range(num_res_blocks):
@@ -99,6 +117,17 @@ class NCSNpp(nn.Module):
         hs_ch.append(ch)
       if i != self.num_resolutions - 1:
         self.add_module(f"down_{i}_ds", res_block(ch, down=True))
+        if progressive_input == "input_skip":
+          self.add_module(f"pyr_ds_{i}", layerspp.Resample(
+              "down", num_channels, fir_kernel=fir_kernel))
+          self.add_module(f"combine_{i}", layerspp.Combine(
+              num_channels, ch, method=progressive_combine))
+          if progressive_combine == "cat":
+            ch *= 2
+        elif progressive_input == "residual":
+          self.add_module(f"pyr_ds_{i}", layerspp.Resample(
+              "down", pyr_ch, ch, with_conv=True, fir_kernel=fir_kernel))
+          pyr_ch = ch
         hs_ch.append(ch)
         res //= 2
 
@@ -114,13 +143,32 @@ class NCSNpp(nn.Module):
       if res in attn_resolutions and attention:
         self.add_module(f"up_attn_{i}", attn_block(ch))
         self._attn_up.add(i)
+      if progressive != "none":
+        if i == self.num_resolutions - 1:
+          out = num_channels if progressive == "output_skip" else ch
+          self.add_module(f"pyr_norm_{i}", GroupNorm(min(ch // 4, 32), ch))
+          self.add_module(f"pyr_conv_{i}", DDPMConv(
+              ch, out, 3,
+              init_scale=init_scale if progressive == "output_skip" else 1.0))
+          pyr_ch = out
+        elif progressive == "output_skip":
+          self.add_module(f"pyr_us_{i}", layerspp.Resample(
+              "up", num_channels, fir_kernel=fir_kernel))
+          self.add_module(f"pyr_norm_{i}", GroupNorm(min(ch // 4, 32), ch))
+          self.add_module(f"pyr_conv_{i}", DDPMConv(ch, num_channels, 3,
+                                                    init_scale=init_scale))
+        else:
+          self.add_module(f"pyr_us_{i}", layerspp.Resample(
+              "up", pyr_ch, ch, with_conv=True, fir_kernel=fir_kernel))
+          pyr_ch = ch
       if i != 0:
         self.add_module(f"up_{i}_us", res_block(ch, up=True))
         res *= 2
     assert not hs_ch
 
-    self.out_norm = GroupNorm(min(ch // 4, 32), ch)
-    self.out_conv = DDPMConv(ch, num_channels, 3, init_scale=init_scale)
+    if progressive != "output_skip":
+      self.out_norm = GroupNorm(min(ch // 4, 32), ch)
+      self.out_conv = DDPMConv(ch, num_channels, 3, init_scale=init_scale)
 
   def reset_parameters(self, generator: Optional[torch.Generator] = None):
     """Draw every parameter from ``generator`` in module order."""
@@ -134,10 +182,15 @@ class NCSNpp(nn.Module):
             if isinstance(m, layerspp.ResnetBlockBigGANpp)
             for s in m.last_fused_sites]
 
+  def fir_sites(self) -> List[Tuple[str, int, int, int]]:
+    """(mode, H, W, C) of each FIR 2x resample of the last forward."""
+    return [s for m in self.modules() for s in getattr(m, "last_fir_sites",
+                                                       ())]
+
   def forward(self, x: torch.Tensor, time_cond: torch.Tensor,
               train: bool = False) -> torch.Tensor:
     if train:
-      _refuse("the training forward (train=True)", "slice 2 (ST train step)")
+      _refuse("the training forward (train=True)", "slice 3 (ST train step)")
     act = self.act
     if self.embedding_type == "fourier":
       used_sigmas = time_cond
@@ -153,6 +206,7 @@ class NCSNpp(nn.Module):
     if not self.centered:
       x = 2 * x - 1.0
 
+    input_pyramid = x if self.progressive_input != "none" else None
     hs = [self.stem(x)]
     for i in range(self.num_resolutions):
       for j in range(self.num_res_blocks):
@@ -161,7 +215,15 @@ class NCSNpp(nn.Module):
           h = getattr(self, f"down_attn_{i}_{j}")(h)
         hs.append(h)
       if i != self.num_resolutions - 1:
-        hs.append(getattr(self, f"down_{i}_ds")(hs[-1], temb, train))
+        h = getattr(self, f"down_{i}_ds")(hs[-1], temb, train)
+        if self.progressive_input == "input_skip":
+          input_pyramid = getattr(self, f"pyr_ds_{i}")(input_pyramid)
+          h = getattr(self, f"combine_{i}")(input_pyramid, h)
+        elif self.progressive_input == "residual":
+          input_pyramid = self._merge(getattr(self, f"pyr_ds_{i}")(
+              input_pyramid), h)
+          h = input_pyramid
+        hs.append(h)
 
     h = hs[-1]
     h = self.mid_res0(h, temb, train)
@@ -174,11 +236,27 @@ class NCSNpp(nn.Module):
                                          temb, train)
       if i in self._attn_up:
         h = getattr(self, f"up_attn_{i}")(h)
+      if self.progressive != "none":
+        top = i == self.num_resolutions - 1
+        if self.progressive == "output_skip":
+          pyramid_h = getattr(self, f"pyr_conv_{i}")(
+              act(getattr(self, f"pyr_norm_{i}")(h)))
+          pyramid = (pyramid_h if top else
+                     getattr(self, f"pyr_us_{i}")(pyramid) + pyramid_h)
+        elif top:
+          pyramid = getattr(self, f"pyr_conv_{i}")(
+              act(getattr(self, f"pyr_norm_{i}")(h)))
+        else:
+          pyramid = self._merge(getattr(self, f"pyr_us_{i}")(pyramid), h)
+          h = pyramid
       if i != 0:
         h = getattr(self, f"up_{i}_us")(h, temb, train)
 
-    h = act(self.out_norm(h))
-    h = self.out_conv(h)
+    if self.progressive == "output_skip":
+      h = pyramid
+    else:
+      h = act(self.out_norm(h))
+      h = self.out_conv(h)
 
     if self.scale_by_sigma:
       if self.embedding_type == "positional":
@@ -190,17 +268,22 @@ class NCSNpp(nn.Module):
       h = h / used_sigmas.reshape((x.shape[0],) + (1,) * (h.dim() - 1))
     return h
 
+  def _merge(self, pyramid: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """A residual pyramid step: the sum, rescaled with ``skip_rescale``."""
+    if self.skip_rescale:
+      return (pyramid + h) / math.sqrt(2.0)
+    return pyramid + h
+
   @classmethod
   def from_config(cls, config) -> "NCSNpp":
     """Build from a config with the JAX package's schema."""
     m, d = config.model, config.data
     if m.resblock_type.lower() != "biggan":
       _refuse(f"resblock_type={m.resblock_type!r}", "slice 6 (the rest)")
-    if m.fir:
-      _refuse("fir=True (FIR resampling)", "slice 4 (FIR family)")
-    if (m.progressive.lower() != "none"
-        or m.progressive_input.lower() != "none"):
-      _refuse("progressive input/output paths", "slice 4 (FIR family)")
+    if not m.fir and (m.progressive.lower() != "none"
+                      or m.progressive_input.lower() != "none"):
+      _refuse("progressive paths without FIR (fir=False)",
+              "slice 6 (the rest)")
     if not m.get("auxiliary_resblock", True):
       _refuse("auxiliary_resblock=False", "slice 6 (the rest)")
     if m.get("fourier_feature", False) or m.get("lsgm", False):
@@ -210,7 +293,11 @@ class NCSNpp(nn.Module):
         attn_resolutions=tuple(m.attn_resolutions),
         attention=m.get("attention", True), dropout=m.dropout,
         image_size=d.image_size, num_channels=d.num_channels,
-        conditional=m.conditional, skip_rescale=m.skip_rescale,
+        conditional=m.conditional, fir=m.fir,
+        fir_kernel=tuple(m.fir_kernel), skip_rescale=m.skip_rescale,
+        progressive=m.progressive.lower(),
+        progressive_input=m.progressive_input.lower(),
+        progressive_combine=m.progressive_combine.lower(),
         embedding_type=m.embedding_type.lower(),
         fourier_scale=m.get("fourier_scale", 16.0),
         init_scale=m.init_scale, nonlinearity=m.nonlinearity,

@@ -1,14 +1,15 @@
 """Score-function wrapping: label transforms and output calibration.
 
-Counterpart of ``soft_truncation_tpu/models/score.py`` for the VP SDE:
+Counterpart of ``soft_truncation_tpu/models/score.py``:
 
-  continuous: labels = t*999, or, with unbounded parametrization, the
+  VP, continuous: labels = t*999, or, with unbounded parametrization, the
     normalised antiderivative of the log-variance scaled to [0, 999]; with
     ``training.ddpm_score`` the model predicts scaled noise and
     score = -out / std(t).
-  discrete: labels = t*(N-1), std from the DDPM alphas grid.
-
-The VE / reciprocal-VE branches come with ROADMAP.md slice 4.
+  VP, discrete: labels = t*(N-1), std from the DDPM alphas grid.
+  VE / reciprocal VE, continuous: labels = sigma(t) (the model embeds
+    log sigma); discrete: labels = round((T-t)*(N-1)). The network's output
+    is the score.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Callable
 
 import torch
 
-from ..sde.core import SDE, VPSDE, batch_mul
+from ..sde.core import SDE, VESDE, VPSDE, ReciprocalVESDE, batch_mul
 
 
 def get_model_fn(model, train: bool = False) -> Callable:
@@ -33,10 +34,19 @@ def get_score_fn(config, sde: SDE, model, train: bool = False,
                  continuous: bool = False) -> Callable:
   """Build s(x, t) from the raw network."""
   model_fn = get_model_fn(model, train=train)
+  if isinstance(sde, (VESDE, ReciprocalVESDE)):
+
+    def ve_score_fn(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+      if continuous:
+        labels = sde.marginal_prob(torch.zeros_like(t), t)[1]
+      else:
+        labels = torch.round((sde.T - t) * (sde.N - 1)).long()
+      return model_fn(x, labels)
+
+    return ve_score_fn
   if not isinstance(sde, VPSDE):
     raise NotImplementedError(
-        f"score of {type(sde).__name__} arrives with a later ROADMAP.md "
-        "slice")
+        f"score of {type(sde).__name__} arrives with ROADMAP.md slice 6")
   unbounded = config.training.get("unbounded_parametrization", False)
   stab = config.training.get("stabilizing_constant", 1e-3)
   ddpm_score = config.training.get("ddpm_score", True)

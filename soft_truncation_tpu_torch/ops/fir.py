@@ -1,0 +1,212 @@
+"""2x FIR up/down-sampling (NHWC, forward) for Hopper.
+
+Counterpart of ``soft_truncation_tpu/ops/pallas/fir.py``: the separable
+polyphase resampler that ``ops/resample.py::upsample_2d`` /
+``downsample_2d`` take at factor 2 with a 1-D kernel. The per-axis taps
+(``k / sum(k) * sqrt(gain)``, doubled for up) and the pads are those of
+the JAX package's ``_fir2_op``, computed on the host in float64. The
+resample itself is one hand-written CUDA kernel (``csrc/fir2.cu``) that
+sums over both axes in one pass.
+
+:func:`fir_upsample2` / :func:`fir_downsample2` launch the kernel for CUDA
+tensors and take the plain versions, :func:`fir_upsample2_plain` /
+:func:`fir_downsample2_plain`, only for CPU tensors. Each wrapper counts
+its launches in ``.launches`` and, per input ``(H, W, C)``, in
+``.launches_by_shape``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ._build import load_library
+
+_KERNEL = "fir2"
+MAX_TAPS = 8
+
+
+def _phase_taps_up2(T: int, pad0: int) -> Tuple[List, List]:
+  """For each output phase p of up2, the (kernel index, input offset)
+  pairs: ``out[2i+p] = sum K[ki] * x[i + offset]`` (K unflipped)."""
+  phases = []
+  for p in (0, 1):
+    phases.append([(T - 1 - t, (p + t - pad0) // 2) for t in range(T)
+                   if (p + t - pad0) % 2 == 0])
+  return phases[0], phases[1]
+
+
+def fir2_pads(T: int, mode: str) -> Tuple[int, int]:
+  """Leading and trailing pad per axis of a T-tap 2x resample."""
+  p = T - 2
+  if mode == "up":
+    return (p + 1) // 2 + 1, p // 2
+  return (p + 1) // 2, p // 2
+
+
+def fir2_taps(k: Sequence[float], gain: float, mode: str) -> np.ndarray:
+  """Per-axis taps in float64: ``k / sum(k) * sqrt(gain)``, x2 for up."""
+  k = np.asarray(k, dtype=np.float64)
+  if k.ndim != 1:
+    raise ValueError(f"the 2x FIR kernel is separable: k must be 1-D, got "
+                     f"shape {k.shape}")
+  if not 1 <= k.shape[0] <= MAX_TAPS:
+    raise ValueError(f"the 2x FIR kernel takes 1..{MAX_TAPS} taps, got "
+                     f"{k.shape[0]}")
+  return k / np.sum(k) * (math.sqrt(gain) * (2.0 if mode == "up" else 1.0))
+
+
+def _out_size(L: int, T: int, mode: str) -> int:
+  if mode == "up":
+    return 2 * L
+  pad0, pad1 = fir2_pads(T, mode)
+  return (L + pad0 + pad1 - T) // 2 + 1
+
+
+def _take(x, dim: int, start: int, n: int):
+  """``x[start:start+n]`` along ``dim``, zero outside ``[0, L)``."""
+  L = x.shape[dim]
+  lo, hi = max(start, 0), min(start + n, L)
+  if hi <= lo:
+    shape = list(x.shape)
+    shape[dim] = n
+    return x.new_zeros(shape)
+  pad = [0, 0] * (x.dim() - 1 - dim) + [lo - start, start + n - hi]
+  return torch.nn.functional.pad(x.narrow(dim, lo, hi - lo), pad)
+
+
+def _up2_axis(x, k: np.ndarray, pad0: int, dim: int):
+  """Polyphase 2x upsample + FIR along ``dim`` (``_up2_axis`` of JAX)."""
+  L = x.shape[dim]
+  outs = []
+  for taps in _phase_taps_up2(len(k), pad0):
+    acc = None
+    for ki, o in taps:
+      term = float(k[ki]) * _take(x, dim, o, L)
+      acc = term if acc is None else acc + term
+    outs.append(acc)
+  shape = list(x.shape)
+  shape[dim] = 2 * L
+  return torch.stack(outs, dim=dim + 1).reshape(shape)
+
+
+def _down2_axis(x, k: np.ndarray, pad0: int, dim: int):
+  """FIR + 2x downsample along ``dim`` (``_down2_axis`` of JAX)."""
+  T, L = len(k), x.shape[dim]
+  M = _out_size(L, T, "down")
+  acc = None
+  for t in range(T):
+    # x_padded[2j + t] for j < M, a stride-2 slice
+    term = float(k[T - 1 - t]) * _take(x, dim, t - pad0, 2 * M).unflatten(
+        dim, (M, 2)).select(dim + 1, 0)
+    acc = term if acc is None else acc + term
+  return acc
+
+
+def _fir2_plain(x, k, gain: float, mode: str):
+  _check(x, k, mode)
+  taps = fir2_taps(k, gain, mode).astype(np.float32)
+  pad0, _ = fir2_pads(len(taps), mode)
+  f = _up2_axis if mode == "up" else _down2_axis
+  return f(f(x, taps, pad0, 1), taps, pad0, 2)
+
+
+def fir_upsample2_plain(x, k: Sequence[float], gain: float = 1.0):
+  """Plain torch 2x FIR upsample of NHWC ``x``, as
+  ``ops/resample.py::upsample_2d(x, k, factor=2, gain)`` with a 1-D ``k``.
+  The CPU path and the reference the kernel is held against on the card."""
+  return _fir2_plain(x, k, gain, "up")
+
+
+def fir_downsample2_plain(x, k: Sequence[float], gain: float = 1.0):
+  """Plain torch 2x FIR downsample of NHWC ``x``, as
+  ``downsample_2d(x, k, factor=2, gain)`` with a 1-D ``k``."""
+  return _fir2_plain(x, k, gain, "down")
+
+
+def _check(x, k, mode: str):
+  if x.dim() != 4:
+    raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
+  T = len(fir2_taps(k, 1.0, mode))
+  n, h, w, c = x.shape
+  if min(n, c, _out_size(h, T, mode), _out_size(w, T, mode)) <= 0:
+    raise ValueError(f"no output for x of shape {tuple(x.shape)} and "
+                     f"{T} taps")
+
+
+def _fir2(x, k, gain: float, mode: str, wrapper):
+  if torch.is_grad_enabled() and x.requires_grad:
+    raise RuntimeError(f"fir_{mode}sample2 is forward-only: call it under "
+                       "torch.no_grad() or torch.inference_mode(); the "
+                       "backward comes with the training slice")
+  if x.device.type == "cpu":
+    return _fir2_plain(x, k, gain, mode)
+  if x.device.type != "cuda":
+    raise ValueError(f"fir_{mode}sample2 runs on cuda or cpu, not "
+                     f"{x.device}")
+  _check(x, k, mode)
+  if x.dtype != torch.float32:
+    raise NotImplementedError(
+        f"the fir2 kernel takes float32 only (x is {x.dtype}); bfloat16 "
+        "is listed in ROADMAP.md Queue 2")
+  if not x.is_contiguous():
+    raise ValueError("x must be contiguous")
+  taps = fir2_taps(k, gain, mode)[::-1].astype(np.float32)  # flipped
+  T = len(taps)
+  pad0, _ = fir2_pads(T, mode)
+  n, h, w, c = x.shape
+  oh, ow = _out_size(h, T, mode), _out_size(w, T, mode)
+  out = torch.empty((n, oh, ow, c), dtype=x.dtype, device=x.device)
+  vec = 4 if c % 4 == 0 and x.data_ptr() % 16 == 0 else 1
+  host_taps = (ctypes.c_float * T)(*taps.tolist())
+  launch = _kernel_fn()
+  with torch.cuda.device(x.device):
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = launch(x.data_ptr(), out.data_ptr(), n, h, w, c, oh, ow,
+                 int(mode == "up"), T, pad0, host_taps, vec, stream)
+  if err != 0:
+    raise RuntimeError(f"fir2 launch failed: cudaError {err}")
+  wrapper.launches += 1
+  by_shape = wrapper.launches_by_shape
+  by_shape[(h, w, c)] = by_shape.get((h, w, c), 0) + 1
+  return out
+
+
+def fir_upsample2(x, k: Sequence[float], gain: float = 1.0):
+  """2x FIR upsample of NHWC float32 ``x`` with the separable kernel ``k``
+  (1-D, <= 8 taps): [N, H, W, C] -> [N, 2H, 2W, C]. A CUDA tensor launches
+  the kernel; a CPU tensor takes :func:`fir_upsample2_plain`."""
+  return _fir2(x, k, gain, "up", fir_upsample2)
+
+
+def fir_downsample2(x, k: Sequence[float], gain: float = 1.0):
+  """2x FIR downsample of NHWC float32 ``x`` with the separable kernel
+  ``k`` (1-D, <= 8 taps): [N, H, W, C] -> [N, H/2, W/2, C] for even sizes.
+  A CUDA tensor launches the kernel; a CPU tensor takes
+  :func:`fir_downsample2_plain`."""
+  return _fir2(x, k, gain, "down", fir_downsample2)
+
+
+def reset_launch_counts() -> None:
+  """Set both wrappers' launch counts (total and per shape) to zero."""
+  for wrapper in (fir_upsample2, fir_downsample2):
+    wrapper.launches = 0
+    wrapper.launches_by_shape = {}
+
+
+reset_launch_counts()
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fn():
+  fn = load_library(_KERNEL).fir2_f32
+  fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 9
+                 + [ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+                    ctypes.c_void_p])
+  fn.restype = ctypes.c_int
+  return fn

@@ -1,12 +1,23 @@
-"""Non-FIR 2x resampling on NHWC tensors.
+"""2x resampling on NHWC tensors: naive, FIR, and FIR fused with a conv.
 
-Counterpart of ``soft_truncation_tpu/ops/resample.py:90-102``. The FIR
-family (``upfirdn2d`` and its Pallas kernels) comes with ROADMAP.md slice 4.
+Counterpart of ``soft_truncation_tpu/ops/resample.py``. The general
+``upfirdn2d`` (upsample by zero insertion, pad or crop, FIR filter,
+downsample) is plain torch ops: a depthwise ``F.conv2d`` with the flipped
+kernel, since the FIR filter is a true convolution. ``upsample_2d`` /
+``downsample_2d`` route statically: factor 2 with a 1-D kernel goes to
+``ops.fir`` (the CUDA kernel for a CUDA tensor, its plain version for a
+CPU tensor); any other factor or a 2-D kernel goes to ``upfirdn2d``.
 """
 
 from __future__ import annotations
 
+from typing import Sequence, Tuple, Union
+
+import numpy as np
 import torch
+import torch.nn.functional as F
+
+from .fir import fir_downsample2, fir_upsample2
 
 
 def naive_upsample_2d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
@@ -21,3 +32,97 @@ def naive_downsample_2d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
   b, h, w, c = x.shape
   x = x.reshape(b, h // factor, factor, w // factor, factor, c)
   return x.mean(dim=(2, 4))
+
+
+def setup_fir_kernel(k: Union[Sequence[float], np.ndarray],
+                     gain: float = 1.0) -> np.ndarray:
+  """Normalise a 1-D (separable, made 2-D as an outer product) or 2-D FIR
+  kernel to unit sum and multiply by ``gain``; float32 [kh, kw]."""
+  k = np.asarray(k, dtype=np.float32)
+  if k.ndim == 1:
+    k = np.outer(k, k)
+  if k.ndim != 2:
+    raise ValueError(f"FIR kernel must be 1-D or 2-D, got shape {k.shape}")
+  return k / np.sum(k) * gain
+
+
+def upfirdn2d(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
+              pad: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+  """[B, H, W, C] -> upsample x``up``, pad, FIR-filter, downsample /``down``.
+
+  ``pad[0]`` leading and ``pad[1]`` trailing on both spatial axes; negative
+  values crop. Output size ``(size * up + pad0 + pad1 - k) // down + 1``.
+  """
+  b, h, w, c = x.shape
+  k = torch.as_tensor(np.asarray(kernel, dtype=np.float32), device=x.device)
+  kh, kw = k.shape
+  y = x.permute(0, 3, 1, 2)
+  if up > 1:  # zeros after every sample, the last one included
+    z = y.new_zeros((b, c, h * up, w * up))
+    z[:, :, ::up, ::up] = y
+    y = z
+  y = F.pad(y, (pad[0], pad[1], pad[0], pad[1]))  # negative pads crop
+  weight = torch.flip(k, (0, 1)).to(y.dtype).expand(c, 1, kh, kw)
+  return F.conv2d(y, weight, stride=down, groups=c).permute(0, 2, 3, 1)
+
+
+def _is_separable_2x(k, factor: int) -> bool:
+  return factor == 2 and np.asarray(k).ndim == 1
+
+
+def upsample_2d(x: torch.Tensor, k=None, factor: int = 2,
+                gain: float = 1.0) -> torch.Tensor:
+  """FIR upsample by ``factor``, NHWC (StyleGAN2's ``upsample_2d``)."""
+  if k is None:
+    k = [1.0] * factor
+  if _is_separable_2x(k, factor):
+    return fir_upsample2(x.contiguous(), k, gain)
+  k = setup_fir_kernel(k, gain * (factor ** 2))
+  p = k.shape[0] - factor
+  return upfirdn2d(x, k, up=factor, pad=((p + 1) // 2 + factor - 1, p // 2))
+
+
+def downsample_2d(x: torch.Tensor, k=None, factor: int = 2,
+                  gain: float = 1.0) -> torch.Tensor:
+  """FIR downsample by ``factor``, NHWC (StyleGAN2's ``downsample_2d``)."""
+  if k is None:
+    k = [1.0] * factor
+  if _is_separable_2x(k, factor):
+    return fir_downsample2(x.contiguous(), k, gain)
+  k = setup_fir_kernel(k, gain)
+  p = k.shape[0] - factor
+  return upfirdn2d(x, k, down=factor, pad=((p + 1) // 2, p // 2))
+
+
+def upsample_conv_2d(x: torch.Tensor, w: torch.Tensor, k=None,
+                     factor: int = 2, gain: float = 1.0) -> torch.Tensor:
+  """Zero-insertion upsample, conv, then FIR: StyleGAN2's fused upsample
+  conv. ``w`` is HWIO ``[kh, kw, inC, outC]``."""
+  kh, kw_, _, _ = w.shape
+  if kh != kw_:
+    raise ValueError(f"square conv kernels only, got {tuple(w.shape)}")
+  if k is None:
+    k = [1.0] * factor
+  k = setup_fir_kernel(k, gain * (factor ** 2))
+  p = (k.shape[0] - factor) - (kh - 1)
+  b, h, wd, c = x.shape
+  # full correlation over the input with zeros between its samples
+  z = x.new_zeros((b, c, (h - 1) * factor + 1, (wd - 1) * factor + 1))
+  z[:, :, ::factor, ::factor] = x.permute(0, 3, 1, 2)
+  y = F.conv2d(z, w.permute(3, 2, 0, 1).to(x.dtype), padding=kh - 1)
+  return upfirdn2d(y.permute(0, 2, 3, 1), k,
+                   pad=((p + 1) // 2 + factor - 1, p // 2 + 1))
+
+
+def conv_downsample_2d(x: torch.Tensor, w: torch.Tensor, k=None,
+                       factor: int = 2, gain: float = 1.0) -> torch.Tensor:
+  """FIR, then a strided VALID conv: StyleGAN2's fused downsample conv.
+  ``w`` is HWIO ``[kh, kw, inC, outC]``."""
+  kh = w.shape[0]
+  if k is None:
+    k = [1.0] * factor
+  k = setup_fir_kernel(k, gain)
+  p = (k.shape[0] - factor) + (kh - 1)
+  y = upfirdn2d(x, k, pad=((p + 1) // 2, p // 2)).permute(0, 3, 1, 2)
+  out = F.conv2d(y, w.permute(3, 2, 0, 1).to(x.dtype), stride=factor)
+  return out.permute(0, 2, 3, 1)

@@ -1,22 +1,157 @@
-"""Samplers of the serving slice: probability-flow ODE and DPM-Solver++(2M).
+"""Samplers of the serving slices: Predictor-Corrector, probability-flow
+ODE and DPM-Solver++(2M).
 
 Counterpart of ``soft_truncation_tpu/sample/sampling.py``. A sampler is
 ``sampler(model, generator=None, x=None) -> (samples in [0, 1], nfe)``:
 the prior is drawn with ``generator`` on the model's device unless ``x``
-hands in the starting state. Runs under ``torch.inference_mode``. The PC
-sampler comes with ROADMAP.md slice 3, the Picard samplers with slice 6.
+hands in the starting state. The PC sampler also draws its predictor and
+corrector noise from ``generator``, through ``draw(like) -> standard
+normal of like's shape``, which a caller may replace (``draw=``) to hand
+the same noise to two devices. Runs under ``torch.inference_mode``. The
+Picard samplers and ``sampling.chunk`` come with ROADMAP.md slice 6.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models.score import get_score_fn
-from ..sde.core import SDE, ReverseSDE
+from ..sde.core import (SDE, VESDE, VPSDE, ReciprocalVESDE, ReverseSDE,
+                        batch_mul)
 from .ode import odeint_dopri5
+
+Draw = Callable[[torch.Tensor], torch.Tensor]
+_PREDICTORS = {}
+_CORRECTORS = {}
+
+
+def _registrar(registry):
+  def register(name):
+    def add(fn):
+      if name in registry:
+        raise ValueError(f"already registered: {name}")
+      registry[name] = fn
+      return fn
+    return add
+  return register
+
+
+register_predictor = _registrar(_PREDICTORS)
+register_corrector = _registrar(_CORRECTORS)
+
+
+def get_predictor(name: str):
+  return _PREDICTORS[name.lower()]
+
+
+def get_corrector(name: str):
+  return _CORRECTORS[name.lower()]
+
+
+# Predictors: predictor(rsde, x, t, draw, next_t=None) -> (x, x_mean)
+
+
+@register_predictor("euler_maruyama")
+def euler_maruyama_predictor(rsde: ReverseSDE, x, t, draw: Draw,
+                             next_t=None):
+  dt = -1.0 / rsde.N
+  z = draw(x)
+  drift, diffusion = rsde.sde(x, t)
+  x_mean = x + drift * dt
+  return x_mean + batch_mul(diffusion, z) * math.sqrt(-dt), x_mean
+
+
+@register_predictor("reverse_diffusion")
+def reverse_diffusion_predictor(rsde: ReverseSDE, x, t, draw: Draw,
+                                next_t=None):
+  f, G = rsde.discretize(x, t, next_t)
+  z = draw(x)
+  x_mean = x - f
+  return x_mean + batch_mul(G, z), x_mean
+
+
+@register_predictor("ancestral_sampling")
+def ancestral_sampling_predictor(rsde: ReverseSDE, x, t, draw: Draw,
+                                 next_t=None):
+  """VE and VP only, on their discrete grids."""
+  sde, score_fn = rsde.forward, rsde.score_fn
+  z = draw(x)
+  timestep = (t * (sde.N - 1) / sde.T).long()
+  if isinstance(sde, VESDE):
+    sigmas = sde.discrete_sigmas(t.device)
+    sigma = sigmas[timestep]
+    adjacent = torch.where(timestep == 0, torch.zeros_like(t),
+                           sigmas[torch.clamp(timestep - 1, min=0)])
+    x_mean = x + batch_mul(sigma ** 2 - adjacent ** 2, score_fn(x, t))
+    std = torch.sqrt(adjacent ** 2 * (sigma ** 2 - adjacent ** 2)
+                     / sigma ** 2)
+    return x_mean + batch_mul(std, z), x_mean
+  if isinstance(sde, VPSDE):
+    beta = sde.discrete_betas(t.device)[timestep]
+    x_mean = batch_mul(1.0 / torch.sqrt(1.0 - beta),
+                       x + batch_mul(beta, score_fn(x, t)))
+    return x_mean + batch_mul(torch.sqrt(beta), z), x_mean
+  raise NotImplementedError(
+      f"SDE class {type(sde).__name__} not yet supported.")
+
+
+@register_predictor("none")
+def none_predictor(rsde, x, t, draw: Draw, next_t=None):
+  return x, x
+
+
+# Correctors: corrector(sde, score_fn, x, t, draw, snr, n_steps)
+#   -> (x, x_mean)
+
+
+def _corrector_alpha(sde: SDE, t):
+  if isinstance(sde, VPSDE):
+    return sde.alphas(t.device)[(t * (sde.N - 1) / sde.T).long()]
+  return torch.ones_like(t)
+
+
+def _langevin(sde, score_fn, x, t, draw: Draw, n_steps, step_size_fn):
+  alpha = _corrector_alpha(sde, t)
+  x_mean = x
+  for _ in range(n_steps):
+    grad = score_fn(x, t)
+    noise = draw(x)
+    step_size = step_size_fn(grad, noise) * alpha
+    x_mean = x + batch_mul(step_size, grad)
+    x = x_mean + batch_mul(torch.sqrt(step_size * 2), noise)
+  return x, x_mean
+
+
+@register_corrector("langevin")
+def langevin_corrector(sde, score_fn, x, t, draw: Draw, snr, n_steps):
+  """Langevin steps sized to a target signal-to-noise ratio ``snr``."""
+
+  def step_size(grad, noise):
+    grad_norm = torch.linalg.norm(grad.reshape(grad.shape[0], -1),
+                                  dim=-1).mean()
+    noise_norm = torch.linalg.norm(noise.reshape(noise.shape[0], -1),
+                                   dim=-1).mean()
+    return (snr * noise_norm / grad_norm) ** 2 * 2
+
+  return _langevin(sde, score_fn, x, t, draw, n_steps, step_size)
+
+
+@register_corrector("ald")
+def annealed_langevin_corrector(sde, score_fn, x, t, draw: Draw, snr,
+                                n_steps):
+  """The original NCSN annealed Langevin dynamics."""
+  std = sde.marginal_prob(x, t)[1]
+  return _langevin(sde, score_fn, x, t, draw, n_steps,
+                   lambda grad, noise: (snr * std) ** 2 * 2)
+
+
+@register_corrector("none")
+def none_corrector(sde, score_fn, x, t, draw: Draw, snr, n_steps):
+  return x, x
 
 
 def get_sampling_fn(config, sde: SDE, shape, inverse_scaler,
@@ -32,8 +167,13 @@ def get_sampling_fn(config, sde: SDE, shape, inverse_scaler,
         steps=config.sampling.get("dpm_steps", 50),
         denoise=config.sampling.noise_removal, eps=eps)
   if name == "pc":
-    raise NotImplementedError(
-        "sampling.method='pc' arrives with ROADMAP.md slice 3")
+    return get_pc_sampler(
+        config, sde, shape, predictor=config.sampling.predictor,
+        corrector=config.sampling.corrector, inverse_scaler=inverse_scaler,
+        snr=config.sampling.snr, n_steps=config.sampling.n_steps_each,
+        probability_flow=config.sampling.probability_flow,
+        continuous=config.training.continuous,
+        denoise=config.sampling.noise_removal, eps=eps)
   if name in ("picard", "picard_dpm"):
     raise NotImplementedError(
         f"sampling.method={name!r} arrives with ROADMAP.md slice 6")
@@ -56,6 +196,51 @@ def _denoise_step(sde, score_fn, x, eps, probability_flow=True):
   vec_eps = torch.full((x.shape[0],), eps, device=x.device)
   f, _ = rsde.discretize(x, vec_eps, torch.zeros_like(vec_eps))
   return x - f
+
+
+def get_pc_sampler(config, sde: SDE, shape, predictor: str, corrector: str,
+                   inverse_scaler, snr: float, n_steps: int = 1,
+                   probability_flow: bool = False, continuous: bool = False,
+                   denoise: bool = True, eps: float = 1e-3) -> Callable:
+  """Predictor-Corrector sampler over N steps from T to ``eps``.
+
+  Each step runs the corrector, then the predictor; the reciprocal VE SDE
+  gets the next grid time (0 after the last step) for its discretization.
+  A final probability-flow denoising step at ``sde.eps`` maps the last
+  ``x_mean`` (``x`` without ``denoise``) to the sample. nfe is
+  N * (n_steps + 1), as the JAX package counts it (the denoising
+  evaluation not included)."""
+  predictor_fn = get_predictor(predictor)
+  corrector_fn = get_corrector(corrector)
+  N = sde.N
+  timesteps = torch.linspace(sde.T, eps, N, dtype=torch.float32).tolist()
+  next_timesteps = timesteps[1:] + [0.0]
+  rve = isinstance(sde, ReciprocalVESDE)
+
+  @torch.inference_mode()
+  def sampler(model, generator: Optional[torch.Generator] = None,
+              x: Optional[torch.Tensor] = None,
+              draw: Optional[Draw] = None) -> Tuple[torch.Tensor, int]:
+    score_fn = get_score_fn(config, sde, model, train=False,
+                            continuous=continuous)
+    rsde = ReverseSDE(sde, score_fn, probability_flow=probability_flow,
+                      lambda_=0.0 if probability_flow else 1.0)
+    x = _start(sde, shape, model, generator, x)
+    if draw is None:
+      def draw(like):
+        return torch.randn(like.shape, generator=generator,
+                           device=like.device, dtype=like.dtype)
+    x_mean = x
+    for t, nt in zip(timesteps, next_timesteps):
+      t_vec = torch.full((shape[0],), t, device=x.device)
+      nt_vec = torch.full((shape[0],), nt, device=x.device) if rve else None
+      x, x_mean = corrector_fn(sde, score_fn, x, t_vec, draw, snr, n_steps)
+      x, x_mean = predictor_fn(rsde, x, t_vec, draw, next_t=nt_vec)
+    x = _denoise_step(sde, score_fn, x_mean if denoise else x, sde.eps,
+                      probability_flow=True)
+    return inverse_scaler(x), N * (n_steps + 1)
+
+  return sampler
 
 
 def _interp(x, xp, fp):

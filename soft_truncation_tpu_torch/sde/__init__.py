@@ -1,5 +1,7 @@
 """Diffusion SDEs of the PyTorch port."""
 
-from .core import SDE, VPSDE, ReverseSDE, batch_mul, get_sde
+from .core import (SDE, VESDE, VPSDE, ReciprocalVESDE, ReverseSDE, batch_mul,
+                   get_sde)
 
-__all__ = ["SDE", "VPSDE", "ReverseSDE", "batch_mul", "get_sde"]
+__all__ = ["SDE", "VESDE", "VPSDE", "ReciprocalVESDE", "ReverseSDE",
+           "batch_mul", "get_sde"]

@@ -1,11 +1,14 @@
 """Forward and reverse diffusion SDEs on torch tensors.
 
-Counterpart of ``soft_truncation_tpu/sde/core.py`` for the serving slice:
-the VP SDE, the reverse-time SDE / probability-flow ODE, and ``get_sde``.
-SDE objects are frozen dataclasses of Python floats; ``x`` is NHWC
-``[B, H, W, C]`` and ``t`` is ``[B]``, on any device. Random draws take an
-explicit ``torch.Generator``. The other SDEs (subVP, VE, reciprocal VE) and
-the training-time samplers come with later ROADMAP.md slices.
+Counterpart of ``soft_truncation_tpu/sde/core.py`` for the serving
+slices: the VP, VE and reciprocal-VE SDEs, the reverse-time SDE /
+probability-flow ODE, and ``get_sde``. SDE objects are frozen dataclasses
+of Python floats; ``x`` is NHWC ``[B, H, W, C]`` and ``t`` is ``[B]``, on any
+device. Random draws take an explicit ``torch.Generator``. The reciprocal
+VE SDE keeps the JAX design: its constants and their logs are Python
+float64, and the device evaluates ``exp((2/t) * log b)`` in f32. subVP and
+the training-time samplers (diffusion time, ``t_min``) come with later
+ROADMAP.md slices.
 """
 
 from __future__ import annotations
@@ -126,6 +129,134 @@ class VPSDE(SDE):
 
 
 @dataclasses.dataclass(frozen=True)
+class VESDE(SDE):
+  """Variance-exploding SDE: sigma(t) = sigma_min (sigma_max/sigma_min)^t."""
+
+  sigma_min: float = 0.01
+  sigma_max: float = 50.0
+  eps: float = 1e-5
+
+  @property
+  def _log_ratio(self) -> float:
+    return math.log(self.sigma_max) - math.log(self.sigma_min)
+
+  def discrete_sigmas(self, device=None) -> Tensor:
+    return torch.exp(torch.linspace(math.log(self.sigma_min),
+                                    math.log(self.sigma_max), self.N,
+                                    dtype=torch.float32, device=device))
+
+  def sigma(self, t):
+    return self.sigma_min * (self.sigma_max / self.sigma_min) ** t
+
+  def sde(self, x, t):
+    return torch.zeros_like(x), self.sigma(t) * math.sqrt(
+        2.0 * self._log_ratio)
+
+  def marginal_prob(self, x, t):
+    return x, self.sigma(t)
+
+  def prior_sampling(self, generator, shape, device):
+    return torch.randn(shape, generator=generator,
+                       device=device) * self.sigma_max
+
+  def prior_logp(self, z):
+    return _gaussian_logp(z, self.sigma_max)
+
+  def discretize(self, x, t, next_t=None):
+    """SMLD (NCSN) discretization on the sigma grid, or between ``t`` and
+    ``next_t`` when it is given."""
+    if next_t is None:
+      timestep = (t * (self.N - 1) / self.T).long()
+      sigmas = self.discrete_sigmas(t.device)
+      sigma = sigmas[timestep]
+      adjacent = torch.where(timestep == 0, torch.zeros_like(t),
+                             sigmas[torch.clamp(timestep - 1, min=0)])
+    else:
+      sigma = self.sigma(t)
+      adjacent = self.sigma(next_t)
+    return torch.zeros_like(x), torch.sqrt(sigma ** 2 - adjacent ** 2)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReciprocalVESDE(SDE):
+  """Reciprocal-time VE SDE of UNCSN++:
+  sigma(t)^2 = c1 b1^(2/t) + c2 b2^(2/t), constants fixed by (eta,
+  sigma_min, sigma_max, eps) in Python float64."""
+
+  sigma_min: float = 0.01
+  sigma_max: float = 50.0
+  eta: float = 1e-5
+  eps: float = 1e-5
+
+  @property
+  def base_sigma(self) -> float:  # b1, slightly below 1
+    return (self.eta / self.sigma_max) ** (1.0 / (1.0 / self.eps - 1.0))
+
+  @property
+  def const(self) -> float:  # c1
+    return self.sigma_max ** 2 / self.base_sigma ** 2
+
+  @property
+  def base_sigma_2(self) -> float:  # b2, slightly below 1
+    return 1.01 ** (-1.0 / (2.0 * (1.0 / self.eps - 1.0)))
+
+  @property
+  def const_2(self) -> float:  # c2 (>= 0 when eta <= sigma_min)
+    return -(1.01 ** ((1.0 / self.eps) / (1.0 / self.eps - 1.0))) * (
+        self.eta ** 2 - self.sigma_min ** 2)
+
+  def sigma(self, t):
+    inv2t = 2.0 / t
+    return torch.sqrt(
+        self.const * torch.exp(inv2t * math.log(self.base_sigma))
+        + self.const_2 * torch.exp(inv2t * math.log(self.base_sigma_2)))
+
+  def sde(self, x, t):
+    log_b1 = math.log(self.base_sigma)
+    log_b2 = math.log(self.base_sigma_2)
+    var_rate = ((-2.0 * self.const * log_b1) * torch.exp((2.0 / t) * log_b1)
+                / t ** 2
+                + 2.0 * self.const_2 * log_b2
+                * torch.exp((2.0 / t) * log_b2) / t ** 2)
+    return torch.zeros_like(x), torch.sqrt(var_rate)
+
+  def marginal_prob(self, x, t):
+    return x, self.sigma(t)
+
+  def prior_sampling(self, generator, shape, device):
+    return torch.randn(shape, generator=generator,
+                       device=device) * self.sigma_max
+
+  def prior_logp(self, z):
+    return _gaussian_logp(z, self.sigma_max)
+
+  def discretize(self, x, t, next_t=None):
+    """G = sqrt(sigma(t)^2 - sigma(next_t)^2), each c_i (b_i^{2/t} -
+    b_i^{2/nt}) taken as -c_i b_i^{2/t} expm1((2/nt - 2/t) log b_i) so that
+    close grid times do not cancel in f32. ``next_t == 0`` means
+    sigma(next) = 0."""
+    if next_t is None:
+      raise ValueError("the reciprocal VE SDE needs an explicit next_t")
+    log_b1 = math.log(self.base_sigma)
+    log_b2 = math.log(self.base_sigma_2)
+    safe_nt = torch.where(next_t > 0.0, next_t, t)  # no inf * 0
+    dinv = 2.0 * (1.0 / safe_nt - 1.0 / t)  # >= 0
+    d1 = (-self.const * torch.exp((2.0 / t) * log_b1)
+          * torch.expm1(dinv * log_b1))
+    d2 = (-self.const_2 * torch.exp((2.0 / t) * log_b2)
+          * torch.expm1(dinv * log_b2))
+    var_diff = torch.where(next_t > 0.0, d1 + d2, self.sigma(t) ** 2)
+    return torch.zeros_like(x), torch.sqrt(torch.clamp(var_diff, min=0.0))
+
+
+def _gaussian_logp(z: Tensor, std: float) -> Tensor:
+  n = math.prod(z.shape[1:])
+  dims = tuple(range(1, z.dim()))
+  return (-n / 2.0 * math.log(2 * math.pi * std ** 2)
+          - torch.sum(z ** 2, dim=dims) / (2 * std ** 2))
+
+
+@dataclasses.dataclass(frozen=True)
 class ReverseSDE:
   """Reverse-time SDE dx = [f - g^2 * score * w] dt + lambda g dw.
 
@@ -167,14 +298,22 @@ class ReverseSDE:
 
 
 def get_sde(config) -> SDE:
-  """Build the SDE named by ``config.training.sde`` (VP only here)."""
+  """Build the SDE named by ``config.training.sde``."""
   name = config.training.sde.lower()
+  m = config.model
   if name == "vpsde":
-    return VPSDE(beta_0=config.model.beta_min, beta_1=config.model.beta_max,
-                 N=config.model.num_scales,
+    return VPSDE(beta_0=m.beta_min, beta_1=m.beta_max, N=m.num_scales,
                  eps=config.training.truncation_time)
-  if name in ("subvpsde", "vesde", "reciprocal_vesde", "rve-sde"):
+  if name == "vesde":
+    return VESDE(sigma_min=m.sigma_min, sigma_max=m.sigma_max,
+                 N=m.num_scales)
+  if name == "reciprocal_vesde":
+    return ReciprocalVESDE(sigma_min=m.sigma_min, sigma_max=m.sigma_max,
+                           N=m.num_scales, eta=config.training.eta)
+  if name == "rve-sde":  # the legacy flat ve/*_uncsn.py configs' spelling
+    return ReciprocalVESDE(sigma_min=m.sigma_min, sigma_max=m.sigma_max,
+                           N=m.num_scales, eta=config.uncsn.eta)
+  if name == "subvpsde":
     raise NotImplementedError(
-        f"SDE {config.training.sde} arrives with a later ROADMAP.md slice "
-        "(VE / reciprocal VE with slice 4, subVP with slice 6)")
+        f"SDE {config.training.sde} arrives with ROADMAP.md slice 6")
   raise NotImplementedError(f"SDE {config.training.sde} unknown.")

@@ -12,16 +12,19 @@ Endpoints::
     GET  /healthz            -> 200 {"status": "ok", "meta": {...}}
     POST /sample             -> body {"num": int, "seed": int,
                                       "format": "npz" | "png",
-                                      "method": "ode" | "dpm_solver",
+                                      "method": "pc" | "ode" | "dpm_solver",
                                       "dpm_steps": int}
         npz: application/octet-stream, np.savez{"samples": uint8 NHWC,
              "nfe": int}
         png: image/png grid (up to 64 images); needs PIL, and where PIL is
              not installed the server answers npz only (``meta.formats``)
 
-``method`` and ``dpm_steps`` default to the config's. Determinism: the same
-``seed`` always returns the same samples; round ``r`` of a request draws its
-prior from a ``torch.Generator`` on the device seeded from ``(seed, r)``.
+``method`` and ``dpm_steps`` default to the config's (``pc`` runs the
+config's predictor and corrector over ``model.num_scales`` steps).
+Determinism: the same ``seed`` always returns the same samples; round ``r``
+of a request draws its prior from a ``torch.Generator`` on the device
+seeded from ``(seed, r)``, and the PC sampler's noise from a second one
+seeded from ``(seed, r)`` on a separate stream.
 
 Run: ``python -m soft_truncation_tpu_torch.serve.server --config <file>
 --params <npz> [--batch B] [--cpu] --port P``, with a config file of the
@@ -55,14 +58,15 @@ from ..utils.jax_params import from_jax_params, load_params_npz
 
 log = logging.getLogger(__name__)
 
-METHODS = ("ode", "dpm_solver")
+METHODS = ("pc", "ode", "dpm_solver")
 MAX_DPM_STEPS = 1000
 
 
-def _round_seed(seed: int, r: int) -> int:
-  """A 64-bit generator seed for round ``r`` of a request with ``seed``."""
-  state = np.random.SeedSequence([seed % 2 ** 64, r]).generate_state(
-      1, np.uint64)
+def _round_seed(seed: int, r: int, stream: int = 0) -> int:
+  """A 64-bit generator seed for round ``r`` of a request with ``seed``:
+  stream 0 for the prior, 1 for the sampler's noise."""
+  words = [seed % 2 ** 64, r] + ([stream] if stream else [])
+  state = np.random.SeedSequence(words).generate_state(1, np.uint64)
   return int(state[0])
 
 
@@ -93,7 +97,10 @@ class SamplingService:
     self.meta = {
         "model_name": config.model.name,
         "sde": config.training.sde,
+        "num_scales": config.model.num_scales,
         "sampling_method": config.sampling.method,
+        "predictor": config.sampling.get("predictor"),
+        "corrector": config.sampling.get("corrector"),
         "methods": list(METHODS),
         "sample_shape": list(self.shape),
         "formats": list(self.formats),
@@ -108,9 +115,15 @@ class SamplingService:
     gen = torch.Generator(self.device).manual_seed(_round_seed(seed, r))
     return self.sde.prior_sampling(gen, self.shape, self.device)
 
+  def noise(self, seed: int, r: int = 0) -> torch.Generator:
+    """The generator of the PC sampler's noise in round ``r``."""
+    return torch.Generator(self.device).manual_seed(
+        _round_seed(seed, r, stream=1))
+
   def sampler(self, method: str, dpm_steps: int):
     """The sampling function of ``method``, built once per (method, steps):
-    ``sampler(self.model, x=prior) -> (samples in [0, 1], nfe)``."""
+    ``sampler(self.model, generator, x=prior) -> (samples in [0, 1],
+    nfe)``; ``pc`` draws its noise from ``generator`` (or ``draw=``)."""
     key = (method, dpm_steps if method == "dpm_solver" else None)
     if key not in self._samplers:
       config = copy.deepcopy(self.config)
@@ -139,7 +152,8 @@ class SamplingService:
     with self._lock:
       sampler = self.sampler(method, dpm_steps)
       for r in range((num + self.batch - 1) // self.batch):
-        samples, n = sampler(self.model, x=self.prior(seed, r))
+        samples, n = sampler(self.model, self.noise(seed, r),
+                             x=self.prior(seed, r))
         chunks.append(_to_uint8(samples).cpu().numpy())
         nfe += int(n)
     return np.concatenate(chunks, axis=0)[:num], nfe

@@ -1,12 +1,15 @@
 """The port stands alone: no module of soft_truncation_tpu_torch/ and not
 chip_smoke.py imports jax, flax, ml_collections, absl or the JAX package
-(the machine with the card has none of them), and the port's copy of the
-flagship config carries the JAX config's values."""
+(the machine with the card has none of them), and the port's copies of
+the config files carry the JAX files' values."""
 
 import ast
+import importlib
 import pathlib
 
 import pytest
+
+from soft_truncation_tpu_torch.configs.base import load_config
 
 import torch_tiny
 
@@ -36,8 +39,7 @@ def test_port_imports_nothing_of_jax(path):
   assert not set(_imported_roots(path)) & BANNED
 
 
-def test_port_flagship_config_equals_jax_config():
-  jc, pc = torch_tiny.configs(changes={})
+def _assert_same_values(jc, pc):
   checked = 0
   for section, values in pc.items():
     if not isinstance(values, dict):
@@ -50,3 +52,22 @@ def test_port_flagship_config_equals_jax_config():
       assert want == value, f"{section}.{key}: {value!r} != {want!r}"
       checked += 1
   assert checked > 40
+
+
+def test_port_flagship_config_equals_jax_config():
+  _assert_same_values(*torch_tiny.configs(changes={}))
+
+
+PORT_CONFIGS = pathlib.Path(torch_tiny.PORT_CONFIGS)
+COPIED_CONFIGS = sorted(p for p in PORT_CONFIGS.rglob("*.py")
+                        if p.name not in ("__init__.py", "base.py"))
+
+
+@pytest.mark.parametrize("path", COPIED_CONFIGS,
+                         ids=lambda p: str(p.relative_to(PORT_CONFIGS)))
+def test_port_config_copy_equals_jax_config(path):
+  """Every config file of the port carries its JAX file's values."""
+  rel = path.relative_to(PORT_CONFIGS).with_suffix("")
+  jax_module = importlib.import_module(
+      "soft_truncation_tpu.configs." + ".".join(rel.parts))
+  _assert_same_values(jax_module.get_config(), load_config(str(path)))

@@ -90,7 +90,7 @@ def test_service_bounds_and_device(service):
     with pytest.raises(ValueError):
       service.sample(num, seed=0)
   with pytest.raises(ValueError):
-    service.sample(2, seed=0, method="pc")
+    service.sample(2, seed=0, method="picard")
   if not torch.cuda.is_available():
     with pytest.raises(RuntimeError, match="no CUDA device"):
       SamplingService(_config(), service.model.state_dict(), batch=2)

@@ -1,9 +1,15 @@
-"""Shared set-up of the port's parity tests: a tiny flagship-shaped model
-built once in JAX and carried into the port through the params npz.
+"""Shared set-up of the port's parity tests: tiny models built once in JAX
+and carried into the port through the params npz.
 
-Tiny = the flagship config (DDPM++ BigGAN blocks, positional embedding,
-attention, fir=False) cut to nf 16, ch_mult (1, 2), one res-block, 16x16,
-attention at 8x8, with init_scale 0.1 so that every conv carries signal.
+Tiny = a config cut to nf 16, ch_mult (1, 2), one res-block, 16x16,
+attention at 8x8, with init_scale 0.1 so that every conv carries signal:
+the flagship (DDPM++ BigGAN blocks, positional embedding, fir=False) by
+default, or UNCSN++ (``UNCSNPP``: FIR resampling, residual input pyramid,
+Fourier embedding, scale_by_sigma, reciprocal VE SDE).
+
+Importing this module caps torch's intra-op threads at 2: the port's tests
+run tiny shapes beside the rest of the suite's workers, and torch's default
+of one thread per core would crowd them.
 """
 
 import os
@@ -11,7 +17,9 @@ import tempfile
 
 import jax
 import numpy as np
+import torch
 
+from soft_truncation_tpu.configs.ve.CIFAR10 import uncsnpp_st as jax_uncsnpp
 from soft_truncation_tpu.configs.vp.CIFAR10 import ddpmpp_nll_st as jax_flagship
 from soft_truncation_tpu.configs.base import override as jax_override
 from soft_truncation_tpu.models import create_model as jax_create_model
@@ -21,9 +29,15 @@ from soft_truncation_tpu_torch.models import create_model
 from soft_truncation_tpu_torch.utils.jax_params import (from_jax_params,
                                                         load_params_npz)
 
+torch.set_num_threads(2)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PORT_FLAGSHIP = os.path.join(REPO, "soft_truncation_tpu_torch", "configs",
-                             "vp", "CIFAR10", "ddpmpp_nll_st.py")
+PORT_CONFIGS = os.path.join(REPO, "soft_truncation_tpu_torch", "configs")
+PORT_FLAGSHIP = os.path.join(PORT_CONFIGS, "vp", "CIFAR10", "ddpmpp_nll_st.py")
+PORT_UNCSNPP = os.path.join(PORT_CONFIGS, "ve", "CIFAR10", "uncsnpp_st.py")
+FLAGSHIP, UNCSNPP = "flagship", "uncsnpp"
+_FAMILIES = {FLAGSHIP: (jax_flagship, PORT_FLAGSHIP),
+             UNCSNPP: (jax_uncsnpp, PORT_UNCSNPP)}
 TINY = {
     "data": dict(image_size=16),
     "model": dict(nf=16, ch_mult=(1, 2), num_res_blocks=1,
@@ -35,9 +49,10 @@ SHAPE = (2, 16, 16, 3)  # NHWC sample batch of the tiny model
 FULL = {"model": dict(init_scale=0.1)}
 
 
-def configs(changes=TINY):
-  """(JAX config, port config) of the flagship with ``changes`` applied."""
-  jc, pc = jax_flagship.get_config(), load_config(PORT_FLAGSHIP)
+def configs(changes=TINY, family=FLAGSHIP):
+  """(JAX config, port config) of ``family`` with ``changes`` applied."""
+  jax_module, port_path = _FAMILIES[family]
+  jc, pc = jax_module.get_config(), load_config(port_path)
   jax_override(jc, changes)
   override(pc, changes)
   return jc, pc
@@ -52,12 +67,12 @@ def via_npz(params):
   return tree, from_jax_params(tree)
 
 
-def build(changes=TINY, batch=2, seed=0):
+def build(changes=TINY, batch=2, seed=0, family=FLAGSHIP):
   """JAX model + params and the port model carrying the same weights."""
-  jc, pc = configs(changes)
+  jc, pc = configs(changes, family)
   size = jc.data.image_size
   x = np.zeros((batch, size, size, 3), np.float32)
-  t = np.full((batch,), 500.0, np.float32)
+  t = np.full((batch,), 0.5, np.float32)
   jmodel = jax_create_model(jc)
   params = jax.jit(lambda k: jmodel.init({"params": k}, x, t, train=False))(
       jax.random.PRNGKey(seed))["params"]
