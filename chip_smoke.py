@@ -28,13 +28,31 @@ Phases; any failure exits non-zero before the last line is printed:
      the phase-3 weights 'pc' at N = 3, whose batch is held against a CPU
      SamplingService given the same prior and the same noise. Both kernels'
      launches per shape equal their sites x the evaluations;
-  6. kernels: each kernel against its plain PyTorch version (TF32 off) at
-     every shape the serve phases launched it at (N=8), with its time as
-     issued from the host (``kernel_ms``, the `kernels` line's ``ms``) and
-     on the device alone (``device_ms``, replayed from a CUDA graph), the
-     plain version's, one library call's, the bound and the launches per
-     forward measured in phases 4-5; one JSON line per shape, then the
-     `kernels` line.
+  6. train step, card vs CPU: one step of each full-width model with the
+     phase-3 weights at batch 2 (dropout 0, no warmup, TF32 off as
+     everywhere here), the draws (t_min,
+     t, z) made on the CPU and handed to both sides: per-example losses,
+     per-tensor gradients (Adam's first moment) and each parameter's move
+     in the update (within 0.05 lr, where the gradient is above its bar). For UNCSN++ the fir2 forward tally equals the CPU model's
+     12 sites and the backward tally the 12 adjoint launches, per shape;
+  7. train (the third main path), counted the same way: the CLI trainer
+     (``soft_truncation_tpu_torch.main --mode train``) for each config as
+     published, batch 128, Synthetic data, in build/chip_smoke_train/
+     (removed after), steps 0..TRAIN_ITERS with a rolling checkpoint every
+     2 steps, then a resume to TRAIN_ITERS + 2
+     that must start at the saved step: every logged loss finite, ms per
+     step (CUDA events around each step, the steps after the first two),
+     imgs/s and peak device memory; UNCSN++'s fir2 launches per shape equal
+     12 forward and 12 backward per step, the flagship's none;
+  8. kernels: each kernel against its plain PyTorch version (TF32 off) at
+     every shape the serve phases launched it at (N=8) and, for fir2, at
+     every shape the train phase launched it at (N=128), forward and
+     backward (the backward held against torch.autograd.grad of the plain
+     forward), with its time as issued from the host (``kernel_ms``, the
+     `kernels` line's ``ms``) and on the device alone (``device_ms``,
+     replayed from a CUDA graph), the plain version's, one library call's,
+     the bound and the launches per forward or per step measured in phases
+     4, 5 and 7; one JSON line per shape, then the `kernels` line.
 Imports torch and the port only, never jax or the JAX package.
 """
 
@@ -44,6 +62,7 @@ import collections
 import concurrent.futures
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -72,9 +91,18 @@ UNCSNPP_FIR_SITES = {("down", 32, 32, 128): 2, ("down", 16, 16, 256): 2,
                      ("up", 8, 8, 256): 2, ("up", 16, 16, 256): 2}
 FIR_KERNEL = (1, 3, 3, 1)
 PC_PUBLISHED_STEPS = 1000  # model.num_scales of ve/CIFAR10/uncsnpp_st.py
+TRAIN_BATCH = 128        # training.batch_size of both configs
+TRAIN_CHECK_BATCH = 2    # phase 6
+TRAIN_ITERS = 5          # phase 7: steps 0..5, then a resume to 7
+# the adjoint's launches of one UNCSN++ train step: (launched mode, H, W, C)
+# of each cotangent -> count (the backward of an up site launches down)
+UNCSNPP_FIR_BWD_SITES = {("up", 16, 16, 128): 2, ("up", 8, 8, 256): 2,
+                         ("up", 4, 4, 256): 2, ("down", 8, 8, 256): 2,
+                         ("down", 16, 16, 256): 2, ("down", 32, 32, 256): 2}
 KERNEL_REL_TOL = 1e-4   # gn_silu_conv3x3: reordered f32 sums, K <= 9*512
 FIR_REL_TOL = 1e-5      # fir2: <= 16 f32 products, summed in another order
 FORWARD_REL_TOL = 1e-3  # card vs CPU, the whole network or sampler
+PARAM_MOVE_TOL = 0.05   # card vs CPU, a parameter's move in one step, x lr
 # served uint8 vs the CPU run: a float difference within FORWARD_REL_TOL
 # moves a pixel across at most one quantisation step, and few of them
 SERVED_MAX_STEP, SERVED_MAX_MOVED = 1, 0.01
@@ -177,6 +205,17 @@ def _launch_counts():
   firs.update({("down",) + s: k for s, k in
                fir.fir_downsample2.launches_by_shape.items()})
   return dict(gn_conv.gn_silu_conv3x3.launches_by_shape), firs
+
+
+def _backward_launch_counts():
+  """fir2's launches by the adjoint, per (launched mode, H, W, C) of the
+  cotangent."""
+  from soft_truncation_tpu_torch.ops import fir
+  firs = {("down",) + s: k for s, k in
+          fir.fir_upsample2.backward_launches_by_shape.items()}
+  firs.update({("up",) + s: k for s, k in
+               fir.fir_downsample2.backward_launches_by_shape.items()})
+  return firs
 
 
 def _reset_launch_counts():
@@ -458,6 +497,193 @@ def phase_serve_uncsnpp(sites, fir_sites, params):
   return launched, fir_launched, evals
 
 
+def phase_train_step(name, config, want_fir, want_bwd):
+  """One train step at full width and batch 2 on the card and on a CPU copy
+  with the same weights and draws. ``want_fir`` / ``want_bwd``: fir2's
+  forward and adjoint launches per shape in one step (UNCSN++) or {}."""
+  import torch
+  from soft_truncation_tpu_torch.data import get_data_scaler
+  from soft_truncation_tpu_torch.models import create_model
+  from soft_truncation_tpu_torch.sde import get_sde
+  from soft_truncation_tpu_torch.train import init_train_state, make_train_step
+
+  config.model.dropout, config.optim.warmup = 0.0, 0
+  step = make_train_step(config, get_sde(config))
+  gen = torch.Generator().manual_seed(2)
+  batch = get_data_scaler(config)(torch.rand(TRAIN_CHECK_BATCH, 32, 32, 3,
+                                             generator=gen))
+  draws = []
+
+  def record(kind, shape):
+    value = (torch.rand if kind == "uniform" else torch.randn)(
+        shape, generator=gen)
+    draws.append((kind, value))
+    return value
+
+  replay = iter(draws)
+
+  def replayed(kind, shape):
+    want_kind, value = next(replay)
+    if (kind, tuple(shape)) != (want_kind, tuple(value.shape)):
+      raise AssertionError(f"draw {kind} {shape} where the CPU drew "
+                           f"{want_kind} {tuple(value.shape)}")
+    return value.to(DEVICE)
+
+  cpu_model = create_model(config, "cpu", seed=0)
+  cpu_state = init_train_state(config, cpu_model)
+  gpu_state = init_train_state(config, create_model(config, DEVICE, seed=0))
+  start = [p.detach().clone() for p in cpu_state.optimizer.params]
+  want = step(cpu_state, batch, torch.Generator(), record)
+  fir_sites = collections.Counter(cpu_model.fir_sites())
+  _reset_launch_counts()
+  got = step(gpu_state, batch.to(DEVICE), torch.Generator(DEVICE), replayed)
+  torch.cuda.synchronize()
+  launched, fir_fwd = _launch_counts()
+  fir_bwd = _backward_launch_counts()
+
+  loss_err = (got.cpu() - want).abs().max().item()
+  loss_scale = want.abs().max().item()
+  floor = 1e-6 * max(m.abs().max().item() for m in cpu_state.optimizer.mu)
+  grad_err, param_err, moves = 0.0, 0.0, []
+  for m_gpu, m_cpu, p_gpu, p_cpu, p0 in zip(
+      gpu_state.optimizer.mu, cpu_state.optimizer.mu,
+      gpu_state.optimizer.params, cpu_state.optimizer.params, start):
+    scale = max(m_cpu.abs().max().item(), floor)
+    grad_err = max(grad_err, (m_gpu.cpu() - m_cpu).abs().max().item() / scale)
+    # each element's move from the shared start, where the gradient is
+    # above the bar its card and CPU values are held to (so its sign, and
+    # Adam's first step of ~lr times that sign, agree)
+    keep = m_cpu.abs() > FORWARD_REL_TOL * scale
+    moved = p_cpu.detach() - p0
+    param_err = max(param_err, ((p_gpu.detach().cpu() - p0) - moved)[keep]
+                    .abs().max().item() if keep.any() else 0.0)
+    moves.append(moved[keep].abs())
+  moves = torch.cat(moves)
+  lr = config.optim.lr
+  log(f"train step {name}: losses {want.tolist()} max_abs_diff {loss_err}; "
+      f"gradients max error {grad_err:.3e} of each tensor's max |g|; "
+      f"parameters' moves max_abs_diff {param_err:.3e} over "
+      f"{moves.numel()} of {sum(p.numel() for p in start)} elements, median "
+      f"move {moves.median().item():.3e} (lr {lr}); fir2 launches forward "
+      f"{sum(fir_fwd.values())} backward "
+      f"{sum(fir_bwd.values())}")
+  if not (torch.isfinite(got).all() and loss_err <= FORWARD_REL_TOL
+          * loss_scale):
+    raise AssertionError(f"{name}: card losses disagree with CPU: "
+                         f"{got.tolist()} vs {want.tolist()}")
+  if grad_err > FORWARD_REL_TOL:
+    raise AssertionError(f"{name}: card gradients disagree with CPU by "
+                         f"{grad_err} of a tensor's max |g|")
+  # Adam's first step moves each element by ~lr: a bar of 0.05 lr fails a
+  # missing, halved or sign-flipped update
+  if param_err > PARAM_MOVE_TOL * lr or moves.median().item() < 0.5 * lr:
+    raise AssertionError(f"{name}: the parameters' moves differ by "
+                         f"{param_err} > {PARAM_MOVE_TOL} lr, or the median "
+                         f"move {moves.median().item()} is under lr / 2")
+  if launched or fir_fwd != dict(fir_sites) or dict(fir_sites) != want_fir:
+    raise AssertionError(f"{name}: expected FIR sites {want_fir} each "
+                         f"launching the kernel once and no fused site; "
+                         f"sites {dict(fir_sites)}, launches {fir_fwd}, "
+                         f"gn_silu_conv3x3 {launched}")
+  if fir_bwd != want_bwd:
+    raise AssertionError(f"{name}: expected the adjoint's launches "
+                         f"{want_bwd}, got {fir_bwd}")
+
+
+def _timed_steps(make_train_step, events):
+  """``make_train_step`` whose steps record CUDA events around each call."""
+  import torch
+
+  def make(config, sde):
+    step = make_train_step(config, sde)
+
+    def timed(*args, **kwargs):
+      start = torch.cuda.Event(enable_timing=True)
+      end = torch.cuda.Event(enable_timing=True)
+      start.record()
+      losses = step(*args, **kwargs)
+      end.record()
+      events.append((start, end))
+      return losses
+
+    return timed
+
+  return make
+
+
+def phase_train(name, path, fir_per_step, fir_bwd_per_step):
+  """The third main path: the CLI trainer on a published config, batch 128,
+  Synthetic data, then a resume. Returns the steps run, the fir2 launches
+  per shape (forward and backward) and the step time."""
+  import re
+  import shutil
+
+  import torch
+  from soft_truncation_tpu_torch import main as port_main
+  from soft_truncation_tpu_torch import run_lib
+
+  line = re.compile(r"step: (\d+), training loss mean: (\S+), training "
+                    r"loss std: (\S+) \((\S+) steps/s, (\S+) imgs/s\)")
+  workdir = os.path.join(REPO, "build", "chip_smoke_train", name)
+  shutil.rmtree(workdir, ignore_errors=True)
+  argv = ["--config", path, "--workdir", workdir, "--mode", "train",
+          "--config.data.dataset", "Synthetic",
+          "--config.training.log_freq", "1",
+          "--config.training.snapshot_freq_for_preemption", "2",
+          "--config.training.snapshot_freq", "1000000"]
+  if DEVICE == "cpu":  # a run on the host, without the card
+    argv.append("--cpu")
+  events, make = [], run_lib.make_train_step
+  run_lib.make_train_step = _timed_steps(make, events)
+  try:
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    port_main.main(argv + ["--config.training.n_iters", str(TRAIN_ITERS)])
+    first_run = len(events)
+    port_main.main(argv + ["--config.training.n_iters",
+                           str(TRAIN_ITERS + 2)])
+    torch.cuda.synchronize()
+    launched, fir_fwd = _launch_counts()
+    fir_bwd = _backward_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(workdir, "stdout.txt")) as f:
+      logged = [m.groups() for m in map(line.search, f) if m]
+  finally:
+    run_lib.make_train_step = make
+    shutil.rmtree(workdir, ignore_errors=True)
+  steps = len(events)
+  ms = [a.elapsed_time(b) for a, b in events]
+  timed = ms[2:first_run]
+  ms_step = sum(timed) / len(timed)
+  for groups in logged:
+    log(f"train {name}: step {groups[0]} loss mean {groups[1]} std "
+        f"{groups[2]} ({groups[3]} steps/s, {groups[4]} imgs/s)")
+  summary = {"train": name, "batch": TRAIN_BATCH, "steps": steps,
+             "ms_per_step": ms_step, "imgs_per_s": TRAIN_BATCH / ms_step * 1e3,
+             "ms_each_step": ms, "peak_memory_bytes": peak,
+             "fir2_forward_launches": sum(fir_fwd.values()),
+             "fir2_backward_launches": sum(fir_bwd.values())}
+  emit(summary)
+  labels = [int(g[0]) for g in logged]
+  # the rolling checkpoint of step label 4 holds 5 steps: resume at 5
+  want_labels = list(range(TRAIN_ITERS + 1)) + list(
+      range(TRAIN_ITERS, TRAIN_ITERS + 3))
+  if labels != want_labels or steps != len(want_labels):
+    raise AssertionError(f"{name}: logged steps {labels}, expected "
+                         f"{want_labels} (a resume at the saved step)")
+  if not all(math.isfinite(float(g[1])) and math.isfinite(float(g[2]))
+             for g in logged):
+    raise AssertionError(f"{name}: a training loss is not finite")
+  want_fwd = {s: k * steps for s, k in fir_per_step.items()}
+  want_bwd = {s: k * steps for s, k in fir_bwd_per_step.items()}
+  if launched or fir_fwd != want_fwd or fir_bwd != want_bwd:
+    raise AssertionError(f"{name}: fir2 launches per shape forward {fir_fwd}"
+                         f" and backward {fir_bwd}, expected {want_fwd} and "
+                         f"{want_bwd} ({steps} steps); gn_silu_conv3x3 "
+                         f"{launched}, expected none")
+  return steps, fir_fwd, fir_bwd
+
+
 def _held(name, shape, got, want, tol):
   import torch
   torch.cuda.synchronize()
@@ -513,7 +739,7 @@ def kernels_gn(launches_by_shape, evals):
   return rows
 
 
-def _fir_library(mode, x, k):
+def _fir_library(mode, x, k, gain=1.0):
   """One PyTorch call computing the same resample on the channels-last view
   of ``x``: a depthwise strided conv (down) or transposed conv (up)."""
   import torch
@@ -521,7 +747,7 @@ def _fir_library(mode, x, k):
   from soft_truncation_tpu_torch.ops import fir
 
   c = x.shape[-1]
-  taps = torch.tensor(fir.fir2_taps(k, 1.0, mode), dtype=torch.float32,
+  taps = torch.tensor(fir.fir2_taps(k, gain, mode), dtype=torch.float32,
                       device=x.device)
   T = taps.shape[0]
   pad0, pad1 = fir.fir2_pads(T, mode)
@@ -538,62 +764,140 @@ def _fir_library(mode, x, k):
                                     groups=c)
 
 
-def kernels_fir(fir_launched, evals):
-  """fir2 (up and down) vs plain vs library at every shape the UNCSN++
-  serve phase launched it at, N=8, T=4."""
+def kernels_fir(fir_launched, units, batch, per_key):
+  """fir2 (up and down) vs plain vs library at every shape of
+  ``fir_launched`` ((mode, H, W, C) -> launches over ``units`` forwards or
+  steps), at ``batch``, T=4."""
   import torch
   from soft_truncation_tpu_torch.ops import fir
 
   gen = torch.Generator(DEVICE).manual_seed(0)
   rows = []
   for (mode, h, w, c) in sorted(fir_launched):
-    x = torch.randn(SERVE_BATCH, h, w, c, generator=gen, device=DEVICE)
+    x = torch.randn(batch, h, w, c, generator=gen, device=DEVICE)
     wrapper, plain = ((fir.fir_upsample2, fir.fir_upsample2_plain)
                       if mode == "up" else
                       (fir.fir_downsample2, fir.fir_downsample2_plain))
-    shape = (mode, SERVE_BATCH, h, w, c)
-    want = plain(x, FIR_KERNEL)
-    err, scale = _held(f"fir_{mode}sample2", shape, wrapper(x, FIR_KERNEL),
-                       want, FIR_REL_TOL)
-    library = _fir_library(mode, x, FIR_KERNEL)
-    _held(f"the library {mode}sample", shape,
-          library().permute(0, 2, 3, 1), want, FIR_REL_TOL)
-    bound, bound_by = fir_bound(mode, SERVE_BATCH, h, w, c, len(FIR_KERNEL))
-    launches = fir_launched[(mode, h, w, c)]
-    row = {"kernel": f"fir_{mode}sample2",
-           "shape_nhwc": [SERVE_BATCH, h, w, c], "taps": len(FIR_KERNEL),
-           "max_abs_err": err, "max_abs_plain": scale,
-           "kernel_ms": time_ms(lambda: wrapper(x, FIR_KERNEL)),
-           "device_ms": graph_ms(lambda: wrapper(x, FIR_KERNEL)),
-           "plain_ms": time_ms(lambda: plain(x, FIR_KERNEL)),
-           "library_ms": time_ms(library), "bound_ms": bound,
-           "bound_by": bound_by, "launches": launches,
-           "launches_per_forward": launches / evals}
+    shape = (mode, batch, h, w, c)
+    with torch.inference_mode():
+      want = plain(x, FIR_KERNEL)
+      err, scale = _held(f"fir_{mode}sample2", shape,
+                         wrapper(x, FIR_KERNEL), want, FIR_REL_TOL)
+      library = _fir_library(mode, x, FIR_KERNEL)
+      _held(f"the library {mode}sample", shape,
+            library().permute(0, 2, 3, 1), want, FIR_REL_TOL)
+      bound, bound_by = fir_bound(mode, batch, h, w, c, len(FIR_KERNEL))
+      launches = fir_launched[(mode, h, w, c)]
+      # A/B, interleaved: the wrapper (which calls the kernel directly
+      # where autograd records nothing) against the same call through the
+      # autograd Function that training takes
+      def through_function():
+        return fir._Fir2.apply(x, FIR_KERNEL, 1.0, mode, wrapper, False,
+                               None)
+
+      ab = [time_ms(f) for f in (lambda: wrapper(x, FIR_KERNEL),
+                                 through_function) * 2]
+      row = {"kernel": f"fir_{mode}sample2", "shape_nhwc": [batch, h, w, c],
+             "taps": len(FIR_KERNEL), "max_abs_err": err,
+             "max_abs_plain": scale,
+             "kernel_ms": time_ms(lambda: wrapper(x, FIR_KERNEL)),
+             "device_ms": graph_ms(lambda: wrapper(x, FIR_KERNEL)),
+             "plain_ms": time_ms(lambda: plain(x, FIR_KERNEL)),
+             "library_ms": time_ms(library), "bound_ms": bound,
+             "bound_by": bound_by, "launches": launches,
+             "ab_direct_ms": [ab[0], ab[2]], "ab_function_ms": [ab[1], ab[3]],
+             per_key: launches / units}
     emit(row)
     rows.append(row)
+  direct, function = (sum(sum(r[key]) / 2 * r[per_key] for r in rows)
+                      for key in ("ab_direct_ms", "ab_function_ms"))
+  log(f"fir2 issued per {per_key[len('launches_per_'):]} at batch {batch}: "
+      f"{direct:.4f} ms called directly, {function:.4f} ms through the "
+      f"autograd Function")
   return rows
 
 
-def _kernel_entry(name, source, replaces, rows, per):
-  """One entry of the ``kernels`` line: launches of the main paths, times
-  summed over the shapes weighted by their launches per forward."""
+def kernels_fir_backward(bwd_launched, steps):
+  """The adjoint (``fir2_backward``: fir2 in the other mode, taps reversed)
+  at every cotangent shape the train phase launched it at, N=128, held
+  against torch.autograd.grad of the plain forward; its plain version is
+  the plain resample in the launched mode, its library call the one
+  PyTorch call of that resample."""
+  import torch
+  from soft_truncation_tpu_torch.ops import fir
 
-  def per_forward(key):
-    return sum(r[key] * r["launches_per_forward"] for r in rows)
+  gen = torch.Generator(DEVICE).manual_seed(1)
+  k_rev = tuple(reversed(FIR_KERNEL))
+  rows = []
+  for (mode, h, w, c) in sorted(bwd_launched):
+    # the forward this adjoint belongs to, and its input's shape
+    fwd, gain = ("down", 1.0 / 4.0) if mode == "up" else ("up", 4.0)
+    x_shape = ((TRAIN_BATCH, 2 * h, 2 * w, c) if mode == "up"
+               else (TRAIN_BATCH, h // 2, w // 2, c))
+    fwd_plain = (fir.fir_upsample2_plain if fwd == "up"
+                 else fir.fir_downsample2_plain)
+    x = torch.randn(x_shape, generator=gen, device=DEVICE,
+                    requires_grad=True)
+    ybar = torch.randn(TRAIN_BATCH, h, w, c, generator=gen, device=DEVICE)
+    (want,) = torch.autograd.grad(fwd_plain(x, FIR_KERNEL), x, ybar)
+    shape = (mode, TRAIN_BATCH, h, w, c)
+    with torch.inference_mode():
+      def kernel():
+        return fir.fir2_backward(ybar, FIR_KERNEL, 1.0, fwd, x_shape)
+
+      def plain():
+        return fir._fir2_plain(ybar, k_rev, gain, mode)
+
+      err, scale = _held("fir2_backward", shape, kernel(), want,
+                         FIR_REL_TOL)
+      library = _fir_library(mode, ybar, k_rev, gain)
+      _held(f"the library adjoint of {fwd}sample", shape,
+            library().permute(0, 2, 3, 1), want, FIR_REL_TOL)
+      bound, bound_by = fir_bound(mode, TRAIN_BATCH, h, w, c,
+                                  len(FIR_KERNEL))
+      launches = bwd_launched[(mode, h, w, c)]
+      row = {"kernel": "fir2_backward", "adjoint_of": f"fir_{fwd}sample2",
+             "launched_mode": mode, "shape_nhwc": [TRAIN_BATCH, h, w, c],
+             "taps": len(FIR_KERNEL), "max_abs_err": err,
+             "max_abs_plain": scale, "kernel_ms": time_ms(kernel),
+             "device_ms": graph_ms(kernel), "plain_ms": time_ms(plain),
+             "library_ms": time_ms(library), "bound_ms": bound,
+             "bound_by": bound_by, "launches": launches,
+             "launches_per_step": launches / steps}
+    emit(row)
+    rows.append(row)
+  # no config downsamples an odd size; its adjoint launches the upsample
+  # sized one row and column past 2x the cotangent
+  x = torch.randn(8, 33, 31, 64, generator=gen, device=DEVICE,
+                  requires_grad=True)
+  ybar = torch.randn(8, 16, 15, 64, generator=gen, device=DEVICE)
+  (want,) = torch.autograd.grad(fir.fir_downsample2_plain(x, FIR_KERNEL), x,
+                                ybar)
+  (got,) = torch.autograd.grad(fir.fir_downsample2(x, FIR_KERNEL), x, ybar)
+  err, scale = _held("fir2_backward of an odd-sized downsample",
+                     tuple(x.shape), got, want, FIR_REL_TOL)
+  log(f"fir2_backward of the downsample of {tuple(x.shape)}: max_abs_err "
+      f"{err} max|autograd of plain| {scale}")
+  return rows
+
+
+def _kernel_entry(name, source, replaces, rows, per, per_key):
+  """One entry of the ``kernels`` line: launches of its main path, times
+  summed over the shapes weighted by their launches per forward or step."""
+
+  def per_unit(key):
+    return sum(r[key] * r[per_key] for r in rows)
 
   bound_by = max(("operations", "bytes"), key=lambda k: sum(
-      r["bound_ms"] * r["launches_per_forward"] for r in rows
-      if r["bound_by"] == k))
+      r["bound_ms"] * r[per_key] for r in rows if r["bound_by"] == k))
   return {"name": name, "route": "cuda", "source": source,
           "replaces": replaces, "launches": sum(r["launches"] for r in rows),
           "max_abs_err": max(r["max_abs_err"] for r in rows),
-          "ms": per_forward("kernel_ms"),
-          "device_ms": per_forward("device_ms"),
-          "plain_ms": per_forward("plain_ms"),
-          "bound_ms": per_forward("bound_ms"), "bound_by": bound_by,
-          "library_ms": per_forward("library_ms"),
-          "per": f"{per}: {sum(r['launches_per_forward'] for r in rows):g} "
-                 "launches, the serve phases' per shape"}
+          "ms": per_unit("kernel_ms"), "device_ms": per_unit("device_ms"),
+          "plain_ms": per_unit("plain_ms"), "bound_ms": per_unit("bound_ms"),
+          "bound_by": bound_by, "library_ms": per_unit("library_ms"),
+          "per": f"{per}: {sum(r[per_key] for r in rows):g} launches, the "
+                 "main path's per shape"}
 
 
 def main() -> int:
@@ -640,26 +944,49 @@ def main() -> int:
   u_launched, fir_launched, u_evals = phase(
       "serve uncsnpp", phase_serve_uncsnpp, u_sites, u_fir_sites, u_params)
 
+  phase("train step flagship", phase_train_step, "flagship",
+        load_config(FLAGSHIP, init_scale=0.1), {}, {})
+  phase("train step uncsnpp", phase_train_step, "uncsnpp",
+        load_config(UNCSNPP, init_scale=0.1), UNCSNPP_FIR_SITES,
+        UNCSNPP_FIR_BWD_SITES)
+  phase("train flagship", phase_train, "flagship", FLAGSHIP, {}, {})
+  t_steps, t_fwd, t_bwd = phase("train uncsnpp", phase_train, "uncsnpp",
+                                UNCSNPP, UNCSNPP_FIR_SITES,
+                                UNCSNPP_FIR_BWD_SITES)
+
   gn_launched = collections.Counter(launched) + collections.Counter(
       u_launched)
   t0 = time.perf_counter()
   gn_rows = kernels_gn(gn_launched, evals + u_evals)
-  fir_rows = kernels_fir(fir_launched, u_evals)
+  fir_rows = kernels_fir(fir_launched, u_evals, SERVE_BATCH,
+                         "launches_per_forward")
+  train_rows = kernels_fir(t_fwd, t_steps, TRAIN_BATCH, "launches_per_step")
+  bwd_rows = kernels_fir_backward(t_bwd, t_steps)
   log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 
+  fir_src = "soft_truncation_tpu_torch/csrc/fir2.cu"
+  fir_fwd = "soft_truncation_tpu/ops/pallas/fir.py:137"
+  step = f"one UNCSN++ train step at batch {TRAIN_BATCH}"
   emit({"kernels": [
       _kernel_entry("gn_silu_conv3x3",
                     "soft_truncation_tpu_torch/csrc/gn_silu_conv3x3.cu",
                     "soft_truncation_tpu/ops/pallas/gn_conv.py:74", gn_rows,
                     f"one flagship or UNCSN++ eval forward at batch "
-                    f"{SERVE_BATCH}"),
-      *(_kernel_entry(f"fir_{mode}sample2",
-                      "soft_truncation_tpu_torch/csrc/fir2.cu",
-                      "soft_truncation_tpu/ops/pallas/fir.py:137",
+                    f"{SERVE_BATCH}", "launches_per_forward"),
+      *(_kernel_entry(f"fir_{mode}sample2", fir_src, fir_fwd,
                       [r for r in fir_rows
                        if r["kernel"] == f"fir_{mode}sample2"],
-                      f"one UNCSN++ eval forward at batch {SERVE_BATCH}")
-        for mode in ("up", "down"))]})
+                      f"one UNCSN++ eval forward at batch {SERVE_BATCH}",
+                      "launches_per_forward")
+        for mode in ("up", "down")),
+      *(_kernel_entry(f"fir_{mode}sample2_train", fir_src, fir_fwd,
+                      [r for r in train_rows
+                       if r["kernel"] == f"fir_{mode}sample2"],
+                      step, "launches_per_step")
+        for mode in ("up", "down")),
+      _kernel_entry("fir2_backward", fir_src,
+                    "soft_truncation_tpu/ops/pallas/fir.py:212", bwd_rows,
+                    step, "launches_per_step")]})
   log(f"total: {time.perf_counter() - t_all:.1f} s")
   log(device_line())
   emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -2,7 +2,7 @@
 
 Mirrors ``soft_truncation_tpu/configs/base.py`` without ``ml_collections``:
 the same section/key names and values, limited to the keys the serving
-slices read. Config files under ``configs/`` are copies of the JAX
+and training slices read. Config files under ``configs/`` are copies of the JAX
 package's files, importing this module instead of the JAX one.
 """
 
@@ -39,21 +39,31 @@ class Config(dict):
 
 
 # The values of soft_truncation_tpu/configs/base.py::_CIFAR10 for every key
-# the serving slice reads.
+# the serving and training slices read.
 _CIFAR10 = dict(
     training=dict(
-        continuous=True, unbounded_parametrization=False, ddpm_score=True,
-        truncation_time=1e-5, stabilizing_constant=1e-3),
+        batch_size=128, n_iters=13000001, snapshot_freq=100000, log_freq=100,
+        snapshot_freq_for_preemption=10000, snapshot_sampling=False,
+        likelihood_weighting=True, continuous=True, reduce_mean=False,
+        importance_sampling=True, unbounded_parametrization=False,
+        ddpm_score=True, st=False, truncation_time=1e-5,
+        num_train_data=50000, reconstruction_loss=False,
+        stabilizing_constant=1e-3, mixed=False, ddpm_weight=0.01,
+        balanced=False),
     sampling=dict(
         n_steps_each=1, noise_removal=True, probability_flow=False,
         snr=0.16, batch_size=1024, truncation_time=1e-5, dpm_steps=50),
-    data=dict(dataset="CIFAR10", image_size=32, centered=False,
-              num_channels=3),
+    eval=dict(enable_sampling=False, enable_bpd=False),
+    data=dict(dataset="CIFAR10", image_size=32, random_flip=True,
+              centered=False, dequantization="none", num_channels=3),
     model=dict(
         sigma_min=0.01, sigma_max=50.0, num_scales=1000, beta_min=0.1,
         beta_max=20.0, dropout=0.1, embedding_type="fourier",
         auxiliary_resblock=True, attention=True, fourier_feature=False,
         lsgm=False),
+    optim=dict(
+        weight_decay=0.0, optimizer="Adam", lr=2e-4, beta1=0.9, eps=1e-8,
+        warmup=5000, grad_clip=1.0, num_micro_batch=1, amsgrad=False),
 )
 
 _DEFAULTS = {"cifar10": _CIFAR10}

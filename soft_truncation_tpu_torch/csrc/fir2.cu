@@ -145,7 +145,9 @@ int launch(const float* x, float* out, int N, int H, int W, int C, int OH,
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). x [N,H,W,C] and out
-// [N,OH,OW,C] are contiguous f32 on the current device; ``taps`` is a host
+// [N,OH,OW,C] are contiguous f32 on the current device, OH and OW as the
+// caller sizes them (2H for up2, or 2H+1 where up2 is the adjoint of a
+// down2 of an odd size: taps past the input read zero); ``taps`` is a host
 // array of T <= 8 flipped f32 taps, copied into the launch's parameters;
 // ``up`` selects up2 (1) or down2 (0); ``vec`` is 4 (C % 4 == 0 and both
 // pointers 16-byte aligned) or 1. Returns cudaGetLastError() after the

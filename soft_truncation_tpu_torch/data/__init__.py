@@ -1,5 +1,8 @@
-"""Data helpers of the PyTorch port (the serving slice needs the scaler)."""
+"""Data of the PyTorch port: scalers, sources and batches."""
 
-from .datasets import get_data_inverse_scaler
+from .datasets import (BatchIterator, get_data_inverse_scaler,
+                       get_data_scaler, get_train_iterator,
+                       make_preprocess_fn)
 
-__all__ = ["get_data_inverse_scaler"]
+__all__ = ["BatchIterator", "get_data_inverse_scaler", "get_data_scaler",
+           "get_train_iterator", "make_preprocess_fn"]

@@ -1,0 +1,247 @@
+"""Training losses and the optimizer.
+
+Counterpart of ``soft_truncation_tpu/losses/losses.py``:
+
+- :class:`Optimizer`: the JAX package's optax chain, in order: clip by the
+  global norm (``g * max_norm / norm`` when ``norm >= max_norm``, no epsilon),
+  Adam (b2 0.999, or AMSGrad) or AdamW (b2 0.99), decoupled weight decay,
+  then the learning rate ``lr * min(count / warmup, 1)`` at the
+  pre-increment count, so the first update has learning rate 0 (with
+  warmup > 0) while Adam's moments still move. Plain tensor code; the
+  parameters are updated in place on themselves under ``torch.no_grad()``,
+  which bumps their ``_version`` (``DDPMConv.weight_hwio`` keys its cached
+  transpose by it). The JAX package's ``config.tpu.adam_mu_dtype`` (a
+  bf16 first moment, a TPU byte diet) is not read: the moments are f32.
+- :func:`get_sde_loss_fn`: the continuous score-matching loss with the
+  importance-sampling, likelihood (g^2) and default weightings and the
+  reconstruction term with both decoders; per-example losses [B].
+- The discrete SMLD / DDPM losses arrive with ROADMAP.md slice 6.
+
+Random draws go through ``draw(kind, shape)`` (kind 'uniform' or 'normal'),
+in the order JAX's keys make them: t's uniforms, z, then the
+reconstruction's z. :func:`make_draw` makes one from a ``torch.Generator``;
+tests hand in the numbers JAX draws.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from ..models.score import get_score_fn
+from ..sde.core import SDE, batch_mul
+
+Draw = Callable[[str, tuple], torch.Tensor]
+
+
+def make_draw(generator: torch.Generator, device) -> Draw:
+  """``draw(kind, shape)``: uniforms or standard normals from ``generator``
+  on ``device``."""
+
+  def draw(kind: str, shape) -> torch.Tensor:
+    if kind == "uniform":
+      return torch.rand(shape, generator=generator, device=device)
+    if kind == "normal":
+      return torch.randn(shape, generator=generator, device=device)
+    raise ValueError(f"unknown draw {kind!r}")
+
+  return draw
+
+
+# ---------------------------------------------------------------------------
+# Optimizer
+# ---------------------------------------------------------------------------
+
+
+def lr_schedule(config) -> Callable[[int], float]:
+  """Linear warmup to optim.lr over optim.warmup steps, then constant."""
+  lr, warmup = config.optim.lr, config.optim.warmup
+
+  def schedule(count: int) -> float:
+    if warmup <= 0:
+      return lr
+    return lr * min(count / warmup, 1.0)
+
+  return schedule
+
+
+class Optimizer:
+  """Clip -> Adam/AMSGrad/AdamW -> weight decay -> lr, over ``params`` (the
+  model's parameters that require a gradient), updating them in place."""
+
+  def __init__(self, config, params: List[torch.nn.Parameter]):
+    o = config.optim
+    if o.optimizer not in ("Adam", "AdamW"):
+      raise NotImplementedError(f"Optimizer {o.optimizer} not supported yet!")
+    self.params = list(params)
+    self.b1, self.eps = o.beta1, o.eps
+    self.b2 = 0.999 if o.optimizer == "Adam" else 0.99
+    self.amsgrad = o.optimizer == "Adam" and o.get("amsgrad", False)
+    self.weight_decay = o.weight_decay
+    self.grad_clip = o.grad_clip
+    self.schedule = lr_schedule(config)
+    self.count = 0
+    self.mu = [torch.zeros_like(p) for p in self.params]
+    self.nu = [torch.zeros_like(p) for p in self.params]
+    self.nu_max = ([torch.zeros_like(p) for p in self.params]
+                   if self.amsgrad else [])
+
+  @torch.no_grad()
+  def step(self, grads: Optional[List[torch.Tensor]] = None) -> None:
+    """One update from ``grads`` (default: each parameter's ``.grad``)."""
+    if grads is None:
+      grads = [p.grad for p in self.params]
+    if self.grad_clip >= 0:
+      norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+      scale = torch.where(norm < self.grad_clip, norm.new_tensor(1.0),
+                          self.grad_clip / norm)
+      grads = torch._foreach_mul(grads, scale)
+    count_inc = self.count + 1
+    torch._foreach_mul_(self.mu, self.b1)
+    torch._foreach_add_(self.mu, grads, alpha=1.0 - self.b1)
+    torch._foreach_mul_(self.nu, self.b2)
+    torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - self.b2)
+    mu_hat = torch._foreach_div(self.mu, 1.0 - self.b1 ** count_inc)
+    nu_hat = torch._foreach_div(self.nu, 1.0 - self.b2 ** count_inc)
+    if self.amsgrad:
+      torch._foreach_maximum_(self.nu_max, nu_hat)
+      nu_hat = self.nu_max
+    denom = torch._foreach_sqrt(nu_hat)
+    torch._foreach_add_(denom, self.eps)
+    updates = torch._foreach_div(mu_hat, denom)
+    if self.weight_decay:
+      torch._foreach_add_(updates, self.params, alpha=self.weight_decay)
+    lr = self.schedule(self.count)
+    torch._foreach_add_(self.params, updates, alpha=-lr)
+    self.count = count_inc
+
+  def state_dict(self) -> Dict:
+    return {"count": self.count, "mu": self.mu, "nu": self.nu,
+            "nu_max": self.nu_max}
+
+  @torch.no_grad()
+  def load_state_dict(self, sd: Dict) -> None:
+    self.count = int(sd["count"])
+    for mine, theirs in ((self.mu, sd["mu"]), (self.nu, sd["nu"]),
+                         (self.nu_max, sd["nu_max"])):
+      if len(mine) != len(theirs):
+        raise ValueError(f"optimizer state holds {len(theirs)} tensors, "
+                         f"this model {len(mine)}")
+      for dst, src in zip(mine, theirs):
+        dst.copy_(src)
+
+
+def get_optimizer(config, model: torch.nn.Module) -> Optimizer:
+  """The optimizer over ``model``'s trainable parameters (the frozen
+  Fourier ``W`` is not one of them)."""
+  return Optimizer(config, [p for p in model.parameters() if p.requires_grad])
+
+
+# ---------------------------------------------------------------------------
+# Discretized Gaussian decoder
+# ---------------------------------------------------------------------------
+
+
+def _approx_standard_normal_cdf(x):
+  return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi)
+                                 * (x + 0.044715 * x ** 3)))
+
+
+def discretized_gaussian_log_likelihood(x, means, log_scales):
+  """log P(x | N(means, exp(log_scales))) for 8-bit data scaled to [-1, 1]."""
+  if x.shape != means.shape:
+    raise ValueError(f"x {tuple(x.shape)} and means {tuple(means.shape)}")
+  centered = x - means
+  inv_stdv = torch.exp(-log_scales)
+  cdf_plus = _approx_standard_normal_cdf(inv_stdv * (centered + 1.0 / 255.0))
+  cdf_min = _approx_standard_normal_cdf(inv_stdv * (centered - 1.0 / 255.0))
+  log_cdf_plus = torch.log(torch.clamp(cdf_plus, min=1e-12))
+  log_one_minus_cdf_min = torch.log(torch.clamp(1.0 - cdf_min, min=1e-12))
+  cdf_delta = cdf_plus - cdf_min
+  return torch.where(
+      x < -0.999, log_cdf_plus,
+      torch.where(x > 0.999, log_one_minus_cdf_min,
+                  torch.log(torch.clamp(cdf_delta, min=1e-12))))
+
+
+# ---------------------------------------------------------------------------
+# Continuous score-matching loss
+# ---------------------------------------------------------------------------
+
+
+def get_sde_loss_fn(config, sde: SDE, train: bool,
+                    variance: str = "scoreflow") -> Callable:
+  """Returns ``loss_fn(model, batch, t_min, importance_sampling, draw,
+  generator=None)`` -> per-example losses [B]; ``generator`` feeds the
+  network's dropout at train."""
+  if not config.training.continuous:
+    raise NotImplementedError("the discrete SMLD / DDPM losses arrive with "
+                              "ROADMAP.md slice 6")
+  if variance not in ("ddpm", "scoreflow"):
+    raise ValueError(variance)
+  reduce_mean = config.training.reduce_mean
+  likelihood_weighting = config.training.likelihood_weighting
+  reconstruction_loss = config.training.reconstruction_loss
+  dequantization = config.data.dequantization
+
+  def reduce_op(x):
+    return torch.mean(x, dim=-1) if reduce_mean else 0.5 * torch.sum(x, dim=-1)
+
+  def loss_fn(model, batch: torch.Tensor, t_min: torch.Tensor,
+              importance_sampling: bool, draw: Draw,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    b = batch.shape[0]
+    t, Z = sde.sample_diffusion_time(draw("uniform", (b,)), t_min,
+                                     importance_sampling)
+    score_fn = get_score_fn(config, sde, model, train=train,
+                            continuous=True, generator=generator)
+    z = draw("normal", tuple(batch.shape))
+    mean, std = sde.marginal_prob(batch, t)
+    perturbed = mean + batch_mul(std, z)
+    score = score_fn(perturbed, t)
+
+    if not importance_sampling and likelihood_weighting:
+      g2 = sde.sde(torch.zeros_like(batch), t)[1] ** 2
+      sq = torch.square(score + batch_mul(1.0 / std, z))
+      losses = 0.5 * Z * reduce_op(sq.reshape(b, -1)) * g2
+    else:
+      sq = torch.square(batch_mul(std, score) + z)
+      losses = 0.5 * Z * reduce_op(sq.reshape(b, -1))
+
+    if reconstruction_loss:
+      eps_vec = t_min.expand(b)
+      r_mean, r_std = sde.marginal_prob(batch, eps_vec)
+      rz = draw("normal", tuple(batch.shape))
+      r_perturbed = r_mean + batch_mul(r_std, rz)
+      r_score = score_fn(r_perturbed, eps_vec)
+
+      alpha, beta = sde.marginal_prob(torch.ones_like(batch), eps_vec)
+      q_mean = r_perturbed / alpha + batch_mul(beta ** 2, r_score) / alpha
+      if variance == "ddpm":
+        q_std = beta
+      else:
+        q_std = beta / torch.mean(alpha, dim=(1, 2, 3))
+
+      n_dim = math.prod(batch.shape[1:])
+      if dequantization == "lossless":
+        decoder_nll = -discretized_gaussian_log_likelihood(
+            batch, means=q_mean, log_scales=torch.log(q_std).reshape(b, 1, 1,
+                                                                     1))
+        recon = decoder_nll.sum(dim=(1, 2, 3))
+      else:
+        p_entropy = n_dim / 2.0 * (math.log(2 * math.pi)
+                                   + 2 * torch.log(r_std) + 1.0)
+        q_recon = (n_dim / 2.0 * (math.log(2 * math.pi)
+                                  + 2 * torch.log(q_std))
+                   + 0.5 / (q_std ** 2)
+                   * torch.square(batch - q_mean).sum(dim=(1, 2, 3)))
+        recon = q_recon - p_entropy
+      if reduce_mean:
+        recon = recon / n_dim
+      losses = losses + recon
+
+    return losses
+
+  return loss_fn

@@ -1,0 +1,122 @@
+"""CLI entry point of the port:
+
+    python -m soft_truncation_tpu_torch.main --config <cfg.py> \\
+        --workdir <dir> --mode {train,eval} [--assetdir ...] \\
+        [--eval_folder ...] [--cpu] [--config.<section>.<key> <value> ...]
+
+The flags of ``soft_truncation_tpu/main.py``, parsed with argparse. Config
+overrides name an existing key, as ``--config.training.n_iters 3`` or
+``--config.eval.enable_bpd=False``; the value is read as a Python literal
+(``3``, ``1e-3``, ``(1,2)``, ``False``) and kept as text when it is none or
+the key holds text. ``--mode eval`` arrives with ROADMAP.md slice 5. The
+trainer runs on the card unless ``--cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ast
+import logging
+import os
+import sys
+
+from .configs.base import Config, load_config
+
+_PREFIX = "--config."
+
+
+def _parse_value(text: str, old):
+  if isinstance(old, str):
+    return text
+  try:
+    value = ast.literal_eval(text)
+  except (ValueError, SyntaxError):
+    return text
+  if isinstance(old, float) and isinstance(value, int) and not isinstance(
+      value, bool):
+    return float(value)
+  return value
+
+
+def apply_overrides(config: Config, args) -> Config:
+  """Apply ``--config.a.b value`` / ``--config.a.b=value`` arguments."""
+  i = 0
+  while i < len(args):
+    arg = args[i]
+    if not arg.startswith(_PREFIX):
+      raise SystemExit(f"unrecognized argument: {arg}")
+    if "=" in arg:
+      name, text = arg[len(_PREFIX):].split("=", 1)
+      i += 1
+    else:
+      if i + 1 >= len(args):
+        raise SystemExit(f"{arg} needs a value")
+      name, text = arg[len(_PREFIX):], args[i + 1]
+      i += 2
+    *path, key = name.split(".")
+    node = config
+    for part in path:
+      if part not in node or not isinstance(node[part], dict):
+        raise SystemExit(f"--config.{name}: no config section {part!r}")
+      node = node[part]
+    if key not in node:
+      raise SystemExit(f"--config.{name}: no such config key")
+    node[key] = _parse_value(text, node[key])
+  return config
+
+
+def _log_handlers(workdir: str, filename: str):
+  """Handlers writing the log to stdout and to ``workdir/filename``."""
+  fmt = logging.Formatter(
+      "%(levelname)s - %(filename)s - %(asctime)s - %(message)s")
+  handlers = [logging.StreamHandler(sys.stdout),
+              logging.FileHandler(os.path.join(workdir, filename))]
+  for handler in handlers:
+    handler.setFormatter(fmt)
+  return handlers
+
+
+def _dump_config(config: Config, workdir: str) -> None:
+  with open(os.path.join(workdir, "config.txt"), "w") as f:
+    for k, v in config.items():
+      f.write(f"{k}\n")
+      if isinstance(v, dict):
+        for k2, v2 in v.items():
+          f.write(f"> {k2}: {v2}\n")
+      f.write("\n\n")
+
+
+def main(argv=None) -> None:
+  parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+  parser.add_argument("--config", required=True, help="config file")
+  parser.add_argument("--workdir", required=True, help="work directory")
+  parser.add_argument("--mode", required=True, choices=["train", "eval"])
+  parser.add_argument("--assetdir", default="assets/stats",
+                      help="dataset statistics / inception weights")
+  parser.add_argument("--eval_folder", default="eval",
+                      help="folder name for evaluation results")
+  parser.add_argument("--cpu", action="store_true",
+                      help="run on the host instead of the card")
+  args, rest = parser.parse_known_args(argv)
+  config = apply_overrides(load_config(args.config), rest)
+  if args.mode == "eval":
+    raise NotImplementedError("--mode eval arrives with ROADMAP.md slice 5")
+  from . import run_lib
+  os.makedirs(args.workdir, exist_ok=True)
+  _dump_config(config, args.workdir)
+  logger = logging.getLogger()
+  logger.setLevel("INFO")
+  handlers = _log_handlers(args.workdir, "stdout.txt")
+  for handler in handlers:
+    logger.addHandler(handler)
+  try:
+    run_lib.train(config, args.workdir, args.assetdir,
+                  device="cpu" if args.cpu else "cuda")
+  finally:
+    for handler in handlers:
+      logger.removeHandler(handler)
+      handler.close()
+
+
+if __name__ == "__main__":
+  main()

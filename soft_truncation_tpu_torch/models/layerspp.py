@@ -14,6 +14,11 @@ tensor its plain version. Each factor-2 FIR resample of a block or a
 pyramid goes through ``ops.upsample_2d`` / ``downsample_2d``, which launch
 the ``fir2`` kernel on a CUDA tensor; ``last_fir_sites`` records each
 call's (mode, H, W, C).
+
+At train (``train=True``) nothing is fused: each block runs norm -> act ->
+(dropout) -> conv as plain torch ops, as the JAX package does, and its FIR
+resamples take gradients through ``ops.fir``'s adjoint. Dropout draws its
+mask from the ``generator`` passed down with the forward.
 """
 
 from __future__ import annotations
@@ -207,7 +212,8 @@ class ResnetBlockBigGANpp(nn.Module):
     self.last_fir_sites = []
 
   def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None,
-              train: bool = False) -> torch.Tensor:
+              train: bool = False,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
     self.last_fused_sites = []
     self.last_fir_sites = []
     # fused norm0->SiLU->conv0 only when no resampling sits between them
@@ -238,7 +244,7 @@ class ResnetBlockBigGANpp(nn.Module):
       h = _fused_gn_silu_conv(self, h, self.norm1, self.conv1)
     else:
       h = self.act(self.norm1(h))
-      h = self.dropout(h, train)
+      h = self.dropout(h, train, generator)
       h = self.conv1(h)
 
     if self.shortcut is not None:

@@ -10,7 +10,9 @@ Ported: positional and Fourier time embeddings, ``conditional``, BigGAN
 res-blocks with ``auxiliary_resblock`` and FIR or naive resampling,
 attention, the progressive input (``input_skip`` / ``residual``, combined by
 ``sum`` or ``cat``) and output (``output_skip`` / ``residual``) pyramids
-with FIR, ``skip_rescale``, ``centered`` and ``scale_by_sigma``. Other
+with FIR, ``skip_rescale``, ``centered`` and ``scale_by_sigma``, at eval
+and at train (``train=True``: dropout, whose mask comes from the
+``generator`` passed to the forward, and no fused sites). Other
 options raise ``NotImplementedError`` naming the ROADMAP.md slice that
 brings them.
 """
@@ -188,9 +190,8 @@ class NCSNpp(nn.Module):
                                                        ())]
 
   def forward(self, x: torch.Tensor, time_cond: torch.Tensor,
-              train: bool = False) -> torch.Tensor:
-    if train:
-      _refuse("the training forward (train=True)", "slice 3 (ST train step)")
+              train: bool = False,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
     act = self.act
     if self.embedding_type == "fourier":
       used_sigmas = time_cond
@@ -210,12 +211,12 @@ class NCSNpp(nn.Module):
     hs = [self.stem(x)]
     for i in range(self.num_resolutions):
       for j in range(self.num_res_blocks):
-        h = getattr(self, f"down_{i}_{j}")(hs[-1], temb, train)
+        h = getattr(self, f"down_{i}_{j}")(hs[-1], temb, train, generator)
         if (i, j) in self._attn_down:
           h = getattr(self, f"down_attn_{i}_{j}")(h)
         hs.append(h)
       if i != self.num_resolutions - 1:
-        h = getattr(self, f"down_{i}_ds")(hs[-1], temb, train)
+        h = getattr(self, f"down_{i}_ds")(hs[-1], temb, train, generator)
         if self.progressive_input == "input_skip":
           input_pyramid = getattr(self, f"pyr_ds_{i}")(input_pyramid)
           h = getattr(self, f"combine_{i}")(input_pyramid, h)
@@ -226,14 +227,14 @@ class NCSNpp(nn.Module):
         hs.append(h)
 
     h = hs[-1]
-    h = self.mid_res0(h, temb, train)
+    h = self.mid_res0(h, temb, train, generator)
     h = self.mid_attn(h)
-    h = self.mid_res1(h, temb, train)
+    h = self.mid_res1(h, temb, train, generator)
 
     for i in reversed(range(self.num_resolutions)):
       for j in range(self.num_res_blocks + 1):
         h = getattr(self, f"up_{i}_{j}")(torch.cat([h, hs.pop()], dim=-1),
-                                         temb, train)
+                                         temb, train, generator)
       if i in self._attn_up:
         h = getattr(self, f"up_attn_{i}")(h)
       if self.progressive != "none":
@@ -250,7 +251,7 @@ class NCSNpp(nn.Module):
           pyramid = self._merge(getattr(self, f"pyr_us_{i}")(pyramid), h)
           h = pyramid
       if i != 0:
-        h = getattr(self, f"up_{i}_us")(h, temb, train)
+        h = getattr(self, f"up_{i}_us")(h, temb, train, generator)
 
     if self.progressive == "output_skip":
       h = pyramid

@@ -14,26 +14,31 @@ Counterpart of ``soft_truncation_tpu/models/score.py``:
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from ..sde.core import SDE, VESDE, VPSDE, ReciprocalVESDE, batch_mul
 
 
-def get_model_fn(model, train: bool = False) -> Callable:
-  """Raw network apply with the train/eval switch."""
+def get_model_fn(model, train: bool = False,
+                 generator: Optional[torch.Generator] = None) -> Callable:
+  """Raw network apply with the train/eval switch; at train the network's
+  dropout draws from ``generator``."""
 
   def model_fn(x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    return model(x, labels, train=train)
+    if train:
+      return model(x, labels, train=True, generator=generator)
+    return model(x, labels, train=False)
 
   return model_fn
 
 
 def get_score_fn(config, sde: SDE, model, train: bool = False,
-                 continuous: bool = False) -> Callable:
+                 continuous: bool = False,
+                 generator: Optional[torch.Generator] = None) -> Callable:
   """Build s(x, t) from the raw network."""
-  model_fn = get_model_fn(model, train=train)
+  model_fn = get_model_fn(model, train=train, generator=generator)
   if isinstance(sde, (VESDE, ReciprocalVESDE)):
 
     def ve_score_fn(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""2x FIR up/down-sampling (NHWC, forward) for Hopper.
+"""2x FIR up/down-sampling (NHWC) for Hopper, with its adjoint.
 
 Counterpart of ``soft_truncation_tpu/ops/pallas/fir.py``: the separable
 polyphase resampler that ``ops/resample.py::upsample_2d`` /
@@ -10,9 +10,30 @@ sums over both axes in one pass.
 
 :func:`fir_upsample2` / :func:`fir_downsample2` launch the kernel for CUDA
 tensors and take the plain versions, :func:`fir_upsample2_plain` /
-:func:`fir_downsample2_plain`, only for CPU tensors. Each wrapper counts
-its launches in ``.launches`` and, per input ``(H, W, C)``, in
-``.launches_by_shape``.
+:func:`fir_downsample2_plain`, only for CPU tensors. Both are a
+``torch.autograd.Function`` whose backward is the exact adjoint, chosen
+statically as the JAX package's ``_fir2_bwd`` chooses it:
+
+- even T (every config's ``[1, 3, 3, 1]``): the same Function in the other
+  mode with the taps reversed and the gain 4g (adjoint of up) or g/4
+  (adjoint of down), its output sized to the forward's input; the mirrored
+  pads coincide with ``fir2_pads``, so on the card the backward launches
+  the same ``fir2`` kernel, and double backward follows. The output size
+  matters for a downsample of an odd-sized input 2M+1: its adjoint is the
+  upsample of the M-sized cotangent to 2M+1 rows, not 2M (taps that fall
+  past the cotangent read zero, as everywhere);
+- odd T: the transpose of the general ``upfirdn2d`` formulation (autograd
+  through its depthwise conv), as JAX takes ``jax.linear_transpose`` of
+  ``_lax_equivalent``.
+
+Where autograd records nothing (no gradient asked for, or under
+``torch.no_grad`` / ``inference_mode``, as when serving), the wrappers
+call the resample directly, without the Function.
+
+Each wrapper counts its forward launches in ``.launches`` and, per input
+``(H, W, C)``, in ``.launches_by_shape``; the launches its backward makes
+(in the other mode) in ``.backward_launches`` and, per cotangent
+``(H, W, C)``, in ``.backward_launches_by_shape``.
 """
 
 from __future__ import annotations
@@ -80,8 +101,11 @@ def _take(x, dim: int, start: int, n: int):
   return torch.nn.functional.pad(x.narrow(dim, lo, hi - lo), pad)
 
 
-def _up2_axis(x, k: np.ndarray, pad0: int, dim: int):
-  """Polyphase 2x upsample + FIR along ``dim`` (``_up2_axis`` of JAX)."""
+def _up2_axis(x, k: np.ndarray, pad0: int, dim: int, n: int):
+  """Polyphase 2x upsample + FIR along ``dim`` (``_up2_axis`` of JAX), the
+  first ``n`` outputs of the upsample of ``x`` zero-extended."""
+  if n > 2 * x.shape[dim]:
+    x = _take(x, dim, 0, (n + 1) // 2)
   L = x.shape[dim]
   outs = []
   for taps in _phase_taps_up2(len(k), pad0):
@@ -92,13 +116,13 @@ def _up2_axis(x, k: np.ndarray, pad0: int, dim: int):
     outs.append(acc)
   shape = list(x.shape)
   shape[dim] = 2 * L
-  return torch.stack(outs, dim=dim + 1).reshape(shape)
+  return torch.stack(outs, dim=dim + 1).reshape(shape).narrow(dim, 0, n)
 
 
-def _down2_axis(x, k: np.ndarray, pad0: int, dim: int):
-  """FIR + 2x downsample along ``dim`` (``_down2_axis`` of JAX)."""
-  T, L = len(k), x.shape[dim]
-  M = _out_size(L, T, "down")
+def _down2_axis(x, k: np.ndarray, pad0: int, dim: int, M: int):
+  """FIR + 2x downsample along ``dim`` (``_down2_axis`` of JAX), ``M``
+  outputs."""
+  T = len(k)
   acc = None
   for t in range(T):
     # x_padded[2j + t] for j < M, a stride-2 slice
@@ -108,12 +132,12 @@ def _down2_axis(x, k: np.ndarray, pad0: int, dim: int):
   return acc
 
 
-def _fir2_plain(x, k, gain: float, mode: str):
-  _check(x, k, mode)
+def _fir2_plain(x, k, gain: float, mode: str, out_hw=None):
+  oh, ow = _check(x, k, mode, out_hw)
   taps = fir2_taps(k, gain, mode).astype(np.float32)
   pad0, _ = fir2_pads(len(taps), mode)
   f = _up2_axis if mode == "up" else _down2_axis
-  return f(f(x, taps, pad0, 1), taps, pad0, 2)
+  return f(f(x, taps, pad0, 1, oh), taps, pad0, 2, ow)
 
 
 def fir_upsample2_plain(x, k: Sequence[float], gain: float = 1.0):
@@ -129,27 +153,22 @@ def fir_downsample2_plain(x, k: Sequence[float], gain: float = 1.0):
   return _fir2_plain(x, k, gain, "down")
 
 
-def _check(x, k, mode: str):
+def _check(x, k, mode: str, out_hw=None):
+  """The output's (H, W): ``out_hw``, or the resample's own size."""
   if x.dim() != 4:
     raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
   T = len(fir2_taps(k, 1.0, mode))
   n, h, w, c = x.shape
-  if min(n, c, _out_size(h, T, mode), _out_size(w, T, mode)) <= 0:
+  oh, ow = out_hw or (_out_size(h, T, mode), _out_size(w, T, mode))
+  if min(n, c, oh, ow) <= 0:
     raise ValueError(f"no output for x of shape {tuple(x.shape)} and "
                      f"{T} taps")
+  return oh, ow
 
 
-def _fir2(x, k, gain: float, mode: str, wrapper):
-  if torch.is_grad_enabled() and x.requires_grad:
-    raise RuntimeError(f"fir_{mode}sample2 is forward-only: call it under "
-                       "torch.no_grad() or torch.inference_mode(); the "
-                       "backward comes with the training slice")
-  if x.device.type == "cpu":
-    return _fir2_plain(x, k, gain, mode)
-  if x.device.type != "cuda":
-    raise ValueError(f"fir_{mode}sample2 runs on cuda or cpu, not "
-                     f"{x.device}")
-  _check(x, k, mode)
+def _launch(x, k, gain: float, mode: str, out_hw=None):
+  """One launch of the fir2 kernel on the CUDA tensor ``x``."""
+  oh, ow = _check(x, k, mode, out_hw)
   if x.dtype != torch.float32:
     raise NotImplementedError(
         f"the fir2 kernel takes float32 only (x is {x.dtype}); bfloat16 "
@@ -160,7 +179,6 @@ def _fir2(x, k, gain: float, mode: str, wrapper):
   T = len(taps)
   pad0, _ = fir2_pads(T, mode)
   n, h, w, c = x.shape
-  oh, ow = _out_size(h, T, mode), _out_size(w, T, mode)
   out = torch.empty((n, oh, ow, c), dtype=x.dtype, device=x.device)
   vec = 4 if c % 4 == 0 and x.data_ptr() % 16 == 0 else 1
   host_taps = (ctypes.c_float * T)(*taps.tolist())
@@ -171,16 +189,102 @@ def _fir2(x, k, gain: float, mode: str, wrapper):
                  int(mode == "up"), T, pad0, host_taps, vec, stream)
   if err != 0:
     raise RuntimeError(f"fir2 launch failed: cudaError {err}")
-  wrapper.launches += 1
-  by_shape = wrapper.launches_by_shape
-  by_shape[(h, w, c)] = by_shape.get((h, w, c), 0) + 1
   return out
+
+
+def _count(counts: dict, key) -> None:
+  counts[key] = counts.get(key, 0) + 1
+
+
+def _resample(x, k, gain: float, mode: str, wrapper, backward: bool,
+              out_hw=None):
+  """The plain version for a CPU tensor, the kernel for a CUDA tensor,
+  counted on ``wrapper`` as a forward or a backward launch."""
+  if x.device.type == "cpu":
+    return _fir2_plain(x, k, gain, mode, out_hw)
+  if x.device.type != "cuda":
+    raise ValueError(f"fir_{mode}sample2 runs on cuda or cpu, not "
+                     f"{x.device}")
+  out = _launch(x, k, gain, mode, out_hw)
+  shape = tuple(x.shape[1:])
+  if backward:
+    wrapper.backward_launches += 1
+    _count(wrapper.backward_launches_by_shape, shape)
+  else:
+    wrapper.launches += 1
+    _count(wrapper.launches_by_shape, shape)
+  return out
+
+
+def _lax_equivalent(x, k, gain: float, mode: str):
+  """The general ``upfirdn2d`` form of the same resample."""
+  from .resample import setup_fir_kernel, upfirdn2d
+  if mode == "up":
+    k2 = setup_fir_kernel(k, gain * 4)
+    p = k2.shape[0] - 2
+    return upfirdn2d(x, k2, up=2, pad=((p + 1) // 2 + 1, p // 2))
+  k2 = setup_fir_kernel(k, gain)
+  p = k2.shape[0] - 2
+  return upfirdn2d(x, k2, down=2, pad=((p + 1) // 2, p // 2))
+
+
+def _transpose(ybar, k, gain: float, mode: str, in_shape):
+  """Adjoint of :func:`_lax_equivalent` at ``ybar``, by autograd."""
+  create_graph = torch.is_grad_enabled()
+  with torch.enable_grad():
+    x0 = ybar.new_zeros(in_shape, requires_grad=True)
+    (xbar,) = torch.autograd.grad(_lax_equivalent(x0, k, gain, mode), x0,
+                                  ybar, create_graph=create_graph)
+  return xbar
+
+
+class _Fir2(torch.autograd.Function):
+  """A 2x FIR resample whose backward is its adjoint (module docstring)."""
+
+  @staticmethod
+  def forward(ctx, x, k, gain, mode, wrapper, backward, out_hw):
+    ctx.args = (k, gain, mode, tuple(x.shape))
+    return _resample(x, k, gain, mode, wrapper, backward, out_hw)
+
+  @staticmethod
+  def backward(ctx, ybar):
+    return (fir2_backward(ybar, *ctx.args),) + (None,) * 6
+
+
+def _apply(x, k, gain: float, mode: str, wrapper, backward: bool,
+           out_hw=None):
+  """The resample, through the Function only where autograd records it."""
+  if torch.is_grad_enabled() and x.requires_grad:
+    return _Fir2.apply(x, k, gain, mode, wrapper, backward, out_hw)
+  return _resample(x, k, gain, mode, wrapper, backward, out_hw)
+
+
+def fir2_backward(ybar, k, gain: float, mode: str, x_shape):
+  """The gradient that autograd hands back through ``fir_{mode}sample2(x,
+  k, gain)`` for the cotangent ``ybar``, ``x`` being of ``x_shape``: for
+  even T the kernel in the other mode at ``x``'s size (counted as a
+  backward launch of the forward's wrapper), for odd T the transpose
+  (module docstring)."""
+  k = tuple(float(v) for v in k)
+  if len(k) % 2 == 0:
+    other, g = ("down", 4.0 * gain) if mode == "up" else ("up", gain / 4.0)
+    wrapper = fir_upsample2 if mode == "up" else fir_downsample2
+    return _apply(ybar.contiguous(), tuple(reversed(k)), g, other, wrapper,
+                  True, tuple(x_shape[1:3]))
+  return _transpose(ybar, k, gain, mode, x_shape)
+
+
+def _fir2(x, k, gain: float, mode: str, wrapper):
+  fir2_taps(k, gain, mode)  # a 1-D kernel of 1..MAX_TAPS taps, or raise
+  return _apply(x, tuple(float(v) for v in k), float(gain), mode, wrapper,
+                False)
 
 
 def fir_upsample2(x, k: Sequence[float], gain: float = 1.0):
   """2x FIR upsample of NHWC float32 ``x`` with the separable kernel ``k``
   (1-D, <= 8 taps): [N, H, W, C] -> [N, 2H, 2W, C]. A CUDA tensor launches
-  the kernel; a CPU tensor takes :func:`fir_upsample2_plain`."""
+  the kernel; a CPU tensor takes :func:`fir_upsample2_plain`.
+  Differentiable: the backward is the exact adjoint."""
   return _fir2(x, k, gain, "up", fir_upsample2)
 
 
@@ -188,15 +292,19 @@ def fir_downsample2(x, k: Sequence[float], gain: float = 1.0):
   """2x FIR downsample of NHWC float32 ``x`` with the separable kernel
   ``k`` (1-D, <= 8 taps): [N, H, W, C] -> [N, H/2, W/2, C] for even sizes.
   A CUDA tensor launches the kernel; a CPU tensor takes
-  :func:`fir_downsample2_plain`."""
+  :func:`fir_downsample2_plain`. Differentiable: the backward is the exact
+  adjoint."""
   return _fir2(x, k, gain, "down", fir_downsample2)
 
 
 def reset_launch_counts() -> None:
-  """Set both wrappers' launch counts (total and per shape) to zero."""
+  """Set both wrappers' launch counts (forward and backward, total and per
+  shape) to zero."""
   for wrapper in (fir_upsample2, fir_downsample2):
     wrapper.launches = 0
     wrapper.launches_by_shape = {}
+    wrapper.backward_launches = 0
+    wrapper.backward_launches_by_shape = {}
 
 
 reset_launch_counts()

@@ -6,9 +6,20 @@ probability-flow ODE, and ``get_sde``. SDE objects are frozen dataclasses
 of Python floats; ``x`` is NHWC ``[B, H, W, C]`` and ``t`` is ``[B]``, on any
 device. Random draws take an explicit ``torch.Generator``. The reciprocal
 VE SDE keeps the JAX design: its constants and their logs are Python
-float64, and the device evaluates ``exp((2/t) * log b)`` in f32. subVP and
-the training-time samplers (diffusion time, ``t_min``) come with later
-ROADMAP.md slices.
+float64, and the device evaluates ``exp((2/t) * log b)`` in f32. subVP
+comes with ROADMAP.md slice 6.
+
+Training-time samplers: ``sample_diffusion_time`` (uniform or importance
+sampled) and the Soft-Truncation prior ``sample_t_min`` map uniforms the
+caller drew (from the train step's ``torch.Generator``, or handed in by a
+test, the same draws JAX's keys make) to times. ``t_min`` is a 0-d float32
+tensor.
+
+Reference behaviour quirk (the JAX package's ``sde/core.py`` docstring):
+the released reference samples ``t_min`` only for the VP SDE; the JAX
+package and this port apply Soft-Truncation to every SDE when
+``training.st`` is set, and ``training.reference_st_quirk = True`` restores
+the released behaviour (:func:`st_active_for`).
 """
 
 from __future__ import annotations
@@ -57,6 +68,31 @@ class SDE:
     dt = 1.0 / self.N
     drift, diffusion = self.sde(x, t)
     return drift * dt, diffusion * math.sqrt(dt)
+
+  # --- diffusion-time samplers -------------------------------------------
+  def sample_diffusion_time(self, u: Tensor, t_min: Tensor,
+                            importance_sampling: bool
+                            ) -> Tuple[Tensor, Tensor]:
+    """Per-example diffusion times on [t_min, T] from uniforms ``u`` [B].
+
+    Returns (t [B], Z): Z is the importance-sampling normaliser, 1.0 when
+    sampling uniformly."""
+    if importance_sampling:
+      return self._importance_time(u, t_min)
+    return u * (self.T - t_min) + t_min, u.new_tensor(1.0)
+
+  def _importance_time(self, u: Tensor, t_min: Tensor):
+    raise NotImplementedError(
+        f"{type(self).__name__} has no importance sampler.")
+
+  def sample_t_min(self, u: Tensor, k: float,
+                   truncation_time: float) -> Tensor:
+    """Soft-Truncation prior P(t_min) ~ t_min^-k on [eps, T], by inverse
+    CDF of the 0-d uniform ``u``; ``truncation_time`` is eps."""
+    eps = truncation_time
+    if k == 1.0:
+      return eps ** (1.0 - u)
+    return eps / (1.0 - u * (1.0 - eps ** (k - 1.0))) ** (1.0 / (k - 1.0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,8 +160,19 @@ class VPSDE(SDE):
     return torch.log(1.0 - torch.exp(-ib) + stabilizing_constant) + ib
 
   def normalizing_constant(self, t_min):
-    return (self.antiderivative(torch.as_tensor(self.T, dtype=torch.float32))
+    return (self.antiderivative(t_min.new_tensor(self.T))
             - self.antiderivative(t_min))
+
+  def _importance_time(self, u, t_min):
+    """Importance-sampled t with density ~ beta(t) / sigma(t)^2 (ScoreFlow)."""
+    Z = self.normalizing_constant(t_min)
+    bd = self.beta_1 - self.beta_0
+    t = (-self.beta_0 + torch.sqrt(
+        self.beta_0 ** 2
+        + 2.0 * bd * torch.log(1.0 + torch.exp(Z * u
+                                               + self.antiderivative(t_min))))
+         ) / bd
+    return t, Z
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,6 +222,17 @@ class VESDE(SDE):
       sigma = self.sigma(t)
       adjacent = self.sigma(next_t)
     return torch.zeros_like(x), torch.sqrt(sigma ** 2 - adjacent ** 2)
+
+  def antiderivative(self, t):
+    return 2.0 * (math.log(self.sigma_min) + t * self._log_ratio)
+
+  def normalizing_constant(self, t_min):
+    return (self.antiderivative(t_min.new_tensor(self.T))
+            - self.antiderivative(t_min))
+
+  def _importance_time(self, u, t_min):
+    Z = self.normalizing_constant(t_min)
+    return t_min + (Z * u) / (2.0 * self._log_ratio), Z
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,6 +306,18 @@ class ReciprocalVESDE(SDE):
     var_diff = torch.where(next_t > 0.0, d1 + d2, self.sigma(t) ** 2)
     return torch.zeros_like(x), torch.sqrt(torch.clamp(var_diff, min=0.0))
 
+  def sample_diffusion_time(self, u, t_min, importance_sampling=False):
+    """Uniform in reciprocal time; the importance-sampling flag is ignored,
+    as in the reference."""
+    time = u * (1.0 / t_min - 1.0 / self.T) + 1.0 / self.T
+    return 1.0 / time, u.new_tensor(1.0)
+
+  def sample_t_min(self, u, k, truncation_time):
+    """The Soft-Truncation prior, uniform in reciprocal time (``k`` is not
+    read, as in the reference)."""
+    max_ = u * (1.0 / truncation_time - 1.0 / self.T) + 1.0 / self.T
+    return 1.0 / max_
+
 
 def _gaussian_logp(z: Tensor, std: float) -> Tensor:
   n = math.prod(z.shape[1:])
@@ -317,3 +387,14 @@ def get_sde(config) -> SDE:
     raise NotImplementedError(
         f"SDE {config.training.sde} arrives with ROADMAP.md slice 6")
   raise NotImplementedError(f"SDE {config.training.sde} unknown.")
+
+
+def st_active_for(sde: SDE, config) -> bool:
+  """Whether Soft-Truncation ``t_min`` sampling applies for this run: paper
+  semantics, or with ``training.reference_st_quirk`` the released
+  reference's, where only the VP SDE honours ``training.st``."""
+  if not config.training.st:
+    return False
+  if config.training.get("reference_st_quirk", False):
+    return isinstance(sde, VPSDE)
+  return True

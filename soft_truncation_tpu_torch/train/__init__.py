@@ -1,0 +1,8 @@
+"""Training of the PyTorch port: state, step and checkpoints."""
+
+from .checkpoint import CheckpointManager
+from .state import TrainState, init_train_state
+from .step import make_train_step
+
+__all__ = ["CheckpointManager", "TrainState", "init_train_state",
+           "make_train_step"]

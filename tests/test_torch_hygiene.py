@@ -58,6 +58,28 @@ def test_port_flagship_config_equals_jax_config():
   _assert_same_values(*torch_tiny.configs(changes={}))
 
 
+# the base keys the training slice reads (every optim key)
+TRAIN_KEYS = {
+    "training": {"batch_size", "n_iters", "snapshot_freq", "log_freq",
+                 "snapshot_freq_for_preemption", "snapshot_sampling",
+                 "likelihood_weighting", "reduce_mean",
+                 "importance_sampling", "st", "reconstruction_loss", "mixed",
+                 "ddpm_weight", "balanced", "num_train_data"},
+    "eval": {"enable_bpd", "enable_sampling"},
+    "data": {"random_flip", "dequantization"},
+}
+
+
+def test_port_base_holds_the_training_keys_with_jax_values():
+  from soft_truncation_tpu.configs.base import default_config as jax_default
+  from soft_truncation_tpu_torch.configs.base import default_config
+  jc, pc = jax_default("cifar10"), default_config("cifar10")
+  assert set(pc.optim) == set(jc.optim)
+  for section, keys in TRAIN_KEYS.items():
+    assert keys <= set(pc[section]), section
+  _assert_same_values(jc, pc)
+
+
 PORT_CONFIGS = pathlib.Path(torch_tiny.PORT_CONFIGS)
 COPIED_CONFIGS = sorted(p for p in PORT_CONFIGS.rglob("*.py")
                         if p.name not in ("__init__.py", "base.py"))

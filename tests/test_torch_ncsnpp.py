@@ -156,14 +156,12 @@ def test_out_of_slice_options_raise():
   from soft_truncation_tpu_torch.models import create_model
   for section, key, value in (("model", "fourier_feature", True),
                               ("model", "resblock_type", "ddpm"),
-                              ("model", "progressive", "output_skip")):
+                              ("model", "progressive", "output_skip"),
+                              ("model", "auxiliary_resblock", False)):
     _, pc = torch_tiny.configs()  # fir=False
     pc[section][key] = value
     with pytest.raises(NotImplementedError, match="ROADMAP.md slice"):
       create_model(pc, "cpu")
-  pmodel = create_model(torch_tiny.configs()[1], "cpu")
-  with pytest.raises(NotImplementedError, match="slice 3"):
-    pmodel(torch.zeros(1, 16, 16, 3), torch.ones(1), train=True)
 
 
 @pytest.mark.slow

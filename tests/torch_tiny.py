@@ -1,5 +1,7 @@
-"""Shared set-up of the port's parity tests: tiny models built once in JAX
-and carried into the port through the params npz.
+"""Shared set-up of the port's parity tests: tiny models whose weights are
+drawn by the port, set into the JAX model's parameter tree (its structure
+from ``jax.eval_shape`` of the init: no XLA compile of the init) and carried
+back into the port through the params npz.
 
 Tiny = a config cut to nf 16, ch_mult (1, 2), one res-block, 16x16,
 attention at 8x8, with init_scale 0.1 so that every conv carries signal:
@@ -67,15 +69,35 @@ def via_npz(params):
   return tree, from_jax_params(tree)
 
 
+def to_jax_params(state_dict, template):
+  """A port state_dict as a Flax parameter tree shaped like ``template``
+  (the inverse of ``from_jax_params``)."""
+
+  def leaf(path, spec):
+    *mods, name = [p.key for p in path]
+    a = state_dict[".".join(mods + [{"kernel": "weight", "scale": "weight"}
+                                    .get(name, name)])].numpy()
+    if name == "kernel":
+      a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+    assert a.shape == spec.shape, (path, a.shape, spec.shape)
+    return np.ascontiguousarray(a, dtype=np.float32)
+
+  return jax.tree_util.tree_map_with_path(leaf, template)
+
+
 def build(changes=TINY, batch=2, seed=0, family=FLAGSHIP):
-  """JAX model + params and the port model carrying the same weights."""
+  """JAX model + params and the port model carrying the same weights
+  (drawn by the port from ``seed``)."""
   jc, pc = configs(changes, family)
   size = jc.data.image_size
   x = np.zeros((batch, size, size, 3), np.float32)
   t = np.full((batch,), 0.5, np.float32)
   jmodel = jax_create_model(jc)
-  params = jax.jit(lambda k: jmodel.init({"params": k}, x, t, train=False))(
-      jax.random.PRNGKey(seed))["params"]
+  template = jax.eval_shape(
+      lambda k: jmodel.init({"params": k}, x, t, train=False),
+      jax.random.PRNGKey(0))["params"]
+  params = to_jax_params(create_model(pc, "cpu", seed=seed).state_dict(),
+                         template)
   pmodel = create_model(pc, "cpu")
   pmodel.load_state_dict(via_npz(params)[1])
   return jc, pc, jmodel, params, pmodel
