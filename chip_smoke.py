@@ -28,6 +28,10 @@ Phases; any failure exits non-zero before the last line is printed:
      the phase-3 weights 'pc' at N = 3, whose batch is held against a CPU
      SamplingService given the same prior and the same noise. Both kernels'
      launches per shape equal their sites x the evaluations;
+  5b. trace: one eval forward of each model at batch 8 with the phase-3
+     weights, its wall without a profiler and a torch.profiler trace of
+     TRACE_FORWARDS forwards: the device's busy share, the hand-written
+     kernels' device time, and the top kernels and host ops;
   6. train step, card vs CPU: one step of each full-width model with the
      phase-3 weights at batch 2 (dropout 0, no warmup, TF32 off as
      everywhere here), the draws (t_min,
@@ -50,9 +54,18 @@ Phases; any failure exits non-zero before the last line is printed:
      backward (the backward held against torch.autograd.grad of the plain
      forward), with its time as issued from the host (``kernel_ms``, the
      `kernels` line's ``ms``) and on the device alone (``device_ms``,
-     replayed from a CUDA graph), the plain version's, one library call's,
-     the bound and the launches per forward or per step measured in phases
-     4, 5 and 7; one JSON line per shape, then the `kernels` line.
+     replayed from a CUDA graph), the plain version's, one library call's
+     (issued, ``library_ms``, and on the device, ``library_device_ms``;
+     gn_silu_conv3x3 and its library chain timed interleaved, A B A B, and
+     fir2, its autograd Function route and its library call in three
+     interleaved rounds), the
+     bound (gn_silu_conv3x3: its flops once at the dense TF32 rate, with
+     the kernel's 3xTF32 figure and the FP32-pipe figure of its earlier
+     FMA form beside it) and the launches per forward or per step
+     measured in phases 4, 5 and 7; gn_silu_conv3x3's split-K grid per
+     shape, and its agreement at shapes no model reaches (ragged tiles, C
+     and O off the tile widths); one JSON line per shape, then the
+     `kernels` line and each kernel's time beside its library call's.
 Imports torch and the port only, never jax or the JAX package.
 """
 
@@ -81,8 +94,9 @@ KERNELS = ("gn_silu_conv3x3", "fir2")
 LISTED_SHAPES = [(32, 32, 128, 128), (32, 32, 384, 128), (32, 32, 256, 256),
                  (16, 16, 384, 256), (16, 16, 512, 256), (8, 8, 256, 256),
                  (4, 4, 512, 256)]
-# H100 SXM datasheet: FP32 (no tensor cores) and HBM3 rates
+# H100 SXM datasheet: FP32 (no tensor cores), dense TF32 and HBM3 rates
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 FUSED_SITES = 82        # fused sites of one flagship or UNCSN++ eval forward
 # FIR sites of one UNCSN++ eval forward: (mode, H, W, C) -> count
@@ -94,6 +108,7 @@ PC_PUBLISHED_STEPS = 1000  # model.num_scales of ve/CIFAR10/uncsnpp_st.py
 TRAIN_BATCH = 128        # training.batch_size of both configs
 TRAIN_CHECK_BATCH = 2    # phase 6
 TRAIN_ITERS = 5          # phase 7: steps 0..5, then a resume to 7
+TRACE_FORWARDS = 5       # phase 5b: eval forwards traced per model
 # the adjoint's launches of one UNCSN++ train step: (launched mode, H, W, C)
 # of each cotangent -> count (the backward of an up site launches down)
 UNCSNPP_FIR_BWD_SITES = {("up", 16, 16, 128): 2, ("up", 8, 8, 256): 2,
@@ -164,20 +179,25 @@ def graph_ms(fn, iters=20):
   return start.elapsed_time(end) / iters
 
 
-def _bound(flops, bytes_):
-  """Least time (ms) for ``flops`` at the FP32 peak and ``bytes_`` at the
-  HBM rate, and which of the two bounds it."""
-  t_ops, t_bytes = flops / PEAK_FP32_FLOPS, bytes_ / PEAK_BYTES
+def _bound(flops, bytes_, peak=PEAK_FP32_FLOPS):
+  """Least time (ms) for ``flops`` at ``peak`` and ``bytes_`` at the HBM
+  rate, and which of the two bounds it."""
+  t_ops, t_bytes = flops / peak, bytes_ / PEAK_BYTES
   return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                      else "bytes")
 
 
 def gn_conv_bound(n, h, w, c, o, groups):
   """Every input read once, the output written once, 2*9*C flops per
-  output element."""
-  return _bound(2 * n * h * w * c * o * 9,
-                4 * (n * h * w * (c + o) + 9 * c * o + o + 2 * c
-                     + 2 * n * groups))
+  output element at the dense TF32 peak (the card's tensor-core rate for
+  f32 inputs): ``(bound_ms, bound_by)``. Beside it the same with the flops
+  taken three times, the kernel's own 3xTF32 scheme, and the flops once on
+  the FP32 pipe, the bound of the kernel's earlier FMA form."""
+  flops = 2 * n * h * w * c * o * 9
+  bytes_ = 4 * (n * h * w * (c + o) + 9 * c * o + o + 2 * c + 2 * n * groups)
+  bound, bound_by = _bound(flops, bytes_, PEAK_TF32_FLOPS)
+  return (bound, bound_by, _bound(3 * flops, bytes_, PEAK_TF32_FLOPS)[0],
+          _bound(flops, bytes_)[0])
 
 
 def fir_bound(mode, n, h, w, c, taps):
@@ -497,6 +517,73 @@ def phase_serve_uncsnpp(sites, fir_sites, params):
   return launched, fir_launched, evals
 
 
+def phase_trace(name, config, params, label):
+  """Where one eval forward's time goes at the serving batch: the wall per
+  forward without a profiler (host clock, synchronised), then a
+  torch.profiler trace of TRACE_FORWARDS forwards: the device's busy time
+  (the kernels' self time, summed) against the traced wall, the kernels
+  taking the most device time and the ops taking the most host time."""
+  import torch
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  from soft_truncation_tpu_torch.models import create_model
+
+  model = create_model(config, DEVICE, seed=0)
+  model.load_state_dict(params)
+  x = torch.randn(SERVE_BATCH, 32, 32, 3, device=DEVICE)
+  labels = torch.full((SERVE_BATCH,), label, device=DEVICE)
+
+  def forwards(n):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+      model(x, labels)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+  with torch.inference_mode():
+    forwards(3)
+    wall_ms = forwards(TRACE_FORWARDS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      traced_ms = forwards(TRACE_FORWARDS)
+  events = prof.key_averages()
+
+  def device_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0))
+
+  # the kernels themselves: the ops that launch them carry the same device
+  # time as their own
+  kernels = [e for e in events
+             if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+  busy_ms = sum(device_us(e) for e in kernels) / 1e3 / TRACE_FORWARDS
+  ours = sum(device_us(e) for e in kernels if any(
+      k in e.key for k in ("gn_silu_conv3x3", "splitk_reduce", "fir2")))
+  top_device = sorted(kernels, key=device_us, reverse=True)[:8]
+  top_host = sorted(events, key=lambda e: e.self_cpu_time_total,
+                    reverse=True)[:8]
+  row = {"trace": name, "batch": SERVE_BATCH, "forwards": TRACE_FORWARDS,
+         "wall_ms_per_forward": wall_ms,
+         "traced_wall_ms_per_forward": traced_ms,
+         "device_busy_ms_per_forward": busy_ms if kernels else None,
+         "device_busy_share": busy_ms / traced_ms if kernels else None,
+         "hand_written_kernels_ms_per_forward":
+             ours / 1e3 / TRACE_FORWARDS if kernels else None,
+         "top_device_ms_per_forward": [
+             [e.key[:60], e.count / TRACE_FORWARDS,
+              device_us(e) / 1e3 / TRACE_FORWARDS] for e in top_device],
+         "top_host_ms_per_forward": [
+             [e.key[:60], e.count / TRACE_FORWARDS,
+              e.self_cpu_time_total / 1e3 / TRACE_FORWARDS]
+             for e in top_host]}
+  emit(row)
+  if not kernels:
+    log(f"trace {name}: the profiler recorded no device time: device busy "
+        f"share not measured")
+  return row
+
+
 def phase_train_step(name, config, want_fir, want_bwd):
   """One train step at full width and batch 2 on the card and on a CPU copy
   with the same weights and draws. ``want_fir`` / ``want_bwd``: fir2's
@@ -715,8 +802,10 @@ def kernels_gn(launches_by_shape, evals):
     w_oihw = wgt.permute(3, 2, 0, 1).contiguous()
     mean, rsqrt = gn_conv.gn_stats(x, groups)
     args = (x, mean, rsqrt, gamma, beta, wgt, b, groups)
+    # split once per weight value, as the model's DDPMConv keeps it
+    split = gn_conv.weight_operand(wgt)
     err, scale = _held("gn_silu_conv3x3", (n, h, w, c, o),
-                       gn_conv.gn_silu_conv3x3(*args),
+                       gn_conv.gn_silu_conv3x3(*args, w_split=split),
                        gn_conv.gn_silu_conv3x3_plain(*args), KERNEL_REL_TOL)
 
     def library():
@@ -724,18 +813,48 @@ def kernels_gn(launches_by_shape, evals):
                                           gamma, beta, 1e-6)),
                       w_oihw, b, padding=1)
 
-    bound, bound_by = gn_conv_bound(n, h, w, c, o, groups)
+    def kernel():
+      return gn_conv.gn_silu_conv3x3(*args, w_split=split)
+
+    bound, bound_by, bound_3x, bound_fp32 = gn_conv_bound(n, h, w, c, o,
+                                                         groups)
     launches = launches_by_shape.get((h, w, c, o), 0)
+    plan = gn_conv.launch_plan(n, h, w, c, o, groups, gn_conv._sms(x.device))
+    # kernel and library interleaved, issued (A, B, A, B) then on the device
+    ab = [time_ms(f) for f in (kernel, library) * 2]
+    ab_dev = [graph_ms(f) for f in (kernel, library) * 2]
     row = {"kernel": "gn_silu_conv3x3", "shape_nhwc_o": [n, h, w, c, o],
-           "groups": groups, "max_abs_err": err, "max_abs_plain": scale,
-           "kernel_ms": time_ms(lambda: gn_conv.gn_silu_conv3x3(*args)),
-           "device_ms": graph_ms(lambda: gn_conv.gn_silu_conv3x3(*args)),
+           "groups": groups, "grid": list(plan.grid), "splits": plan.splits,
+           "max_abs_err": err, "max_abs_plain": scale,
+           "kernel_ms": (ab[0] + ab[2]) / 2,
+           "device_ms": (ab_dev[0] + ab_dev[2]) / 2,
            "plain_ms": time_ms(lambda: gn_conv.gn_silu_conv3x3_plain(*args)),
-           "library_ms": time_ms(library), "bound_ms": bound,
-           "bound_by": bound_by, "launches": launches,
+           "library_ms": (ab[1] + ab[3]) / 2,
+           "library_device_ms": (ab_dev[1] + ab_dev[3]) / 2,
+           "ab_kernel_ms": [ab[0], ab[2]], "ab_library_ms": [ab[1], ab[3]],
+           "ab_kernel_device_ms": [ab_dev[0], ab_dev[2]],
+           "ab_library_device_ms": [ab_dev[1], ab_dev[3]],
+           "bound_ms": bound, "bound_by": bound_by,
+           "bound_3xtf32_ms": bound_3x, "bound_fp32_pipe_ms": bound_fp32,
+           "launches": launches,
            "launches_per_forward": launches / evals}
+    log(f"gn_silu_conv3x3 {(n, h, w, c, o)}: grid {plan.grid} (O tiles, M "
+        f"tiles, split-K {plan.splits}), {plan.smem} B shared memory")
     emit(row)
     rows.append(row)
+  # no model reaches these: ragged tiles, images straddling a tile, C and O
+  # off the tile widths, groups of 3 and 4 channels
+  for (n, h, w, c, o, groups) in ((3, 5, 7, 36, 20, 12), (2, 4, 4, 16, 16, 4),
+                                  (1, 32, 32, 128, 128, 32)):
+    x = torch.randn(n, h, w, c, generator=gen, device=DEVICE)
+    args = (x, *gn_conv.gn_stats(x, groups),
+            *(torch.randn(s, generator=gen, device=DEVICE)
+              for s in ((c,), (c,), (3, 3, c, o), (o,))), groups)
+    err, scale = _held("gn_silu_conv3x3", (n, h, w, c, o),
+                       gn_conv.gn_silu_conv3x3(*args),
+                       gn_conv.gn_silu_conv3x3_plain(*args), KERNEL_REL_TOL)
+    log(f"gn_silu_conv3x3 {(n, h, w, c, o)} groups {groups}: max_abs_err "
+        f"{err} max|plain| {scale}")
   return rows
 
 
@@ -788,28 +907,31 @@ def kernels_fir(fir_launched, units, batch, per_key):
             library().permute(0, 2, 3, 1), want, FIR_REL_TOL)
       bound, bound_by = fir_bound(mode, batch, h, w, c, len(FIR_KERNEL))
       launches = fir_launched[(mode, h, w, c)]
-      # A/B, interleaved: the wrapper (which calls the kernel directly
-      # where autograd records nothing) against the same call through the
-      # autograd Function that training takes
+      # interleaved, three rounds: the wrapper (which calls the kernel
+      # directly where autograd records nothing), the same call through the
+      # autograd Function that training takes, and the library call; the
+      # host's pace drifts within a run, so issued times compare only in
+      # turns
       def through_function():
         return fir._Fir2.apply(x, FIR_KERNEL, 1.0, mode, wrapper, False,
                                None)
 
       ab = [time_ms(f) for f in (lambda: wrapper(x, FIR_KERNEL),
-                                 through_function) * 2]
+                                 through_function, library) * 3]
       row = {"kernel": f"fir_{mode}sample2", "shape_nhwc": [batch, h, w, c],
              "taps": len(FIR_KERNEL), "max_abs_err": err,
-             "max_abs_plain": scale,
-             "kernel_ms": time_ms(lambda: wrapper(x, FIR_KERNEL)),
+             "max_abs_plain": scale, "kernel_ms": sum(ab[0::3]) / 3,
              "device_ms": graph_ms(lambda: wrapper(x, FIR_KERNEL)),
              "plain_ms": time_ms(lambda: plain(x, FIR_KERNEL)),
-             "library_ms": time_ms(library), "bound_ms": bound,
+             "library_ms": sum(ab[2::3]) / 3,
+             "library_device_ms": graph_ms(library), "bound_ms": bound,
              "bound_by": bound_by, "launches": launches,
-             "ab_direct_ms": [ab[0], ab[2]], "ab_function_ms": [ab[1], ab[3]],
-             per_key: launches / units}
+             "ab_direct_ms": ab[0::3], "ab_function_ms": ab[1::3],
+             "ab_library_ms": ab[2::3], per_key: launches / units}
     emit(row)
     rows.append(row)
-  direct, function = (sum(sum(r[key]) / 2 * r[per_key] for r in rows)
+  direct, function = (sum(sum(r[key]) / len(r[key]) * r[per_key]
+                          for r in rows)
                       for key in ("ab_direct_ms", "ab_function_ms"))
   log(f"fir2 issued per {per_key[len('launches_per_'):]} at batch {batch}: "
       f"{direct:.4f} ms called directly, {function:.4f} ms through the "
@@ -861,7 +983,8 @@ def kernels_fir_backward(bwd_launched, steps):
              "taps": len(FIR_KERNEL), "max_abs_err": err,
              "max_abs_plain": scale, "kernel_ms": time_ms(kernel),
              "device_ms": graph_ms(kernel), "plain_ms": time_ms(plain),
-             "library_ms": time_ms(library), "bound_ms": bound,
+             "library_ms": time_ms(library),
+             "library_device_ms": graph_ms(library), "bound_ms": bound,
              "bound_by": bound_by, "launches": launches,
              "launches_per_step": launches / steps}
     emit(row)
@@ -890,14 +1013,19 @@ def _kernel_entry(name, source, replaces, rows, per, per_key):
 
   bound_by = max(("operations", "bytes"), key=lambda k: sum(
       r["bound_ms"] * r[per_key] for r in rows if r["bound_by"] == k))
-  return {"name": name, "route": "cuda", "source": source,
-          "replaces": replaces, "launches": sum(r["launches"] for r in rows),
-          "max_abs_err": max(r["max_abs_err"] for r in rows),
-          "ms": per_unit("kernel_ms"), "device_ms": per_unit("device_ms"),
-          "plain_ms": per_unit("plain_ms"), "bound_ms": per_unit("bound_ms"),
-          "bound_by": bound_by, "library_ms": per_unit("library_ms"),
-          "per": f"{per}: {sum(r[per_key] for r in rows):g} launches, the "
-                 "main path's per shape"}
+  entry = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": sum(r["launches"] for r in rows),
+           "max_abs_err": max(r["max_abs_err"] for r in rows),
+           "ms": per_unit("kernel_ms"), "device_ms": per_unit("device_ms"),
+           "plain_ms": per_unit("plain_ms"), "bound_ms": per_unit("bound_ms"),
+           "bound_by": bound_by, "library_ms": per_unit("library_ms"),
+           "library_device_ms": per_unit("library_device_ms"),
+           "per": f"{per}: {sum(r[per_key] for r in rows):g} launches, the "
+                  "main path's per shape"}
+  for key in ("bound_3xtf32_ms", "bound_fp32_pipe_ms"):
+    if key in rows[0]:
+      entry[key] = per_unit(key)
+  return entry
 
 
 def main() -> int:
@@ -944,6 +1072,10 @@ def main() -> int:
   u_launched, fir_launched, u_evals = phase(
       "serve uncsnpp", phase_serve_uncsnpp, u_sites, u_fir_sites, u_params)
 
+  phase("trace flagship", phase_trace, "flagship",
+        load_config(FLAGSHIP, init_scale=0.1), flag_params, 0.6 * 999.0)
+  phase("trace uncsnpp", phase_trace, "uncsnpp",
+        load_config(UNCSNPP, init_scale=0.1), u_params, 1.0)
   phase("train step flagship", phase_train_step, "flagship",
         load_config(FLAGSHIP, init_scale=0.1), {}, {})
   phase("train step uncsnpp", phase_train_step, "uncsnpp",
@@ -967,7 +1099,7 @@ def main() -> int:
   fir_src = "soft_truncation_tpu_torch/csrc/fir2.cu"
   fir_fwd = "soft_truncation_tpu/ops/pallas/fir.py:137"
   step = f"one UNCSN++ train step at batch {TRAIN_BATCH}"
-  emit({"kernels": [
+  entries = [
       _kernel_entry("gn_silu_conv3x3",
                     "soft_truncation_tpu_torch/csrc/gn_silu_conv3x3.cu",
                     "soft_truncation_tpu/ops/pallas/gn_conv.py:74", gn_rows,
@@ -986,7 +1118,14 @@ def main() -> int:
         for mode in ("up", "down")),
       _kernel_entry("fir2_backward", fir_src,
                     "soft_truncation_tpu/ops/pallas/fir.py:212", bwd_rows,
-                    step, "launches_per_step")]})
+                    step, "launches_per_step")]
+  emit({"kernels": entries})
+  for entry in entries:
+    log(f"{entry['name']} ({entry['per']}): issued {entry['ms']:.4f} ms vs "
+        f"library {entry['library_ms']:.4f} ms; device "
+        f"{entry['device_ms']:.4f} ms vs library "
+        f"{entry['library_device_ms']:.4f} ms; bound {entry['bound_ms']:.4f}"
+        f" ms")
   log(f"total: {time.perf_counter() - t_all:.1f} s")
   log(device_line())
   emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,37 +3,52 @@
 //
 // Replaces the TPU kernel soft_truncation_tpu/ops/pallas/fir.py::
 // _resample_pallas (:137), reached through fir_upsample2_pallas and
-// fir_downsample2_pallas. With the flipped per-axis taps kf[t] = K[T-1-t]
-// (host float64, cast to f32 by ops/fir.py) and the pads of _fir2_op:
-//   up2:   out[o] = sum_t kf[t] * x[(o + t - pad0) / 2]  over even o+t-pad0
-//   down2: out[o] = sum_t kf[t] * x[2*o + t - pad0]
-// per axis, with taps outside the image reading zero (the zero padding of
-// the reference), applied over H and W: out[oy, ox] = sum_tx kf[tx] *
-// sum_ty kf[ty] * x[iy(oy, ty), ix(ox, tx)].
+// fir_downsample2_pallas, and, launched in the other mode with the taps
+// reversed, its custom VJP _fir2_bwd (:212). Per axis, with K the taps of
+// ops/fir.py::fir2_taps (host float64, cast to f32) and the pads of _fir2_op:
+//   up2:   out[2i+p] = sum_s coef[p][s] * x[i + lo + s]   (p = 0, 1)
+//   down2: out[o]    = sum_t kf[t] * x[2*o + t - pad0]     (kf = K flipped)
+// where the phase table coef[p][s] (ops/fir.py::_up2_phase_table, from
+// _phase_taps_up2) holds the taps of phase p at input offset lo + s and 0
+// elsewhere. Taps outside the image read zero (the reference's padding); the
+// 2-D sum is taken in registers over both axes at once.
 //
 // What bounds it on an H100: bytes. Per output it does (T/2)^2 (up) or T^2
 // (down) multiply-adds, 4 or 16 at T = 4, against 4 bytes written and 1 or
 // 16 bytes read: far below the ~20 FLOP per byte where the FP32 pipe, not
 // HBM at 3.35 TB/s, would be the limit.
 //
-// Design (simple first): one thread per output pixel and 4-channel vector
-// (a float4 load per tap; a scalar path when C % 4 != 0, as for the C = 3
-// pyramid inputs), channels fastest so that a warp reads contiguous
-// memory. The TPU kernel runs two passes, H then W, through a VMEM
-// intermediate; here the 2-D sum is taken in registers and the only device
-// memory traffic is one read of the taps' input pixels (reused between
-// neighbouring outputs through L1/L2) and one write of the output: no
-// per-axis intermediate reaches device memory.
+// Design:
+//   * up-mode: one thread per 2x2 output quad (2i+p, 2j+q) and 4-channel
+//     vector. It reads the S x S input pixels the four phases share once (S =
+//     T/2 + 1: 9 float4 at T = 4), sums each column for both row phases,
+//     then each column into both column phases, and writes 4 float4. The
+//     phase table is a launch parameter (constant space), S a template
+//     argument, so there is no per-tap parity test and no inserted zero is
+//     read;
+//   * down-mode keeps one thread per output pixel and vector: its 16 taps at
+//     T = 4 are distinct input pixels that neighbouring outputs share through
+//     L1, and it already ran at 54-62 % of its bound (an H100 80GB HBM3 at
+//     700 W, batch 128; PERF.md), so a shared-memory stage would add
+//     a barrier for little;
+//   * both: 32-bit indices; blockIdx.z = image, blockIdx.y = output row (or
+//     quad row), x over (column, channel vector), so the only division left
+//     is one 32-bit split of x into column and vector;
+//   * a scalar path (vec = 1) when C % 4 != 0 (the C = 3 pyramid inputs) or
+//     x is not 16-byte aligned; OH and OW are the caller's (2H + 1 where up2
+//     is the adjoint of a down2 of an odd size).
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxTaps = 8;
-constexpr int kThreads = 256;
+constexpr int kMaxSlots = 5;  // S of up2 at T = 8
+constexpr int kThreads = 128;
 
-struct Taps {
-  float k[kMaxTaps];  // flipped: k[t] = K[T-1-t]
+struct Table {
+  // up2: coef[p * S + s]; down2: kf[t] = K[T-1-t]
+  float k[2 * kMaxSlots];
 };
 
 template <int kVec>
@@ -67,100 +82,172 @@ __device__ __forceinline__ void store(float* p, const float (&acc)[1]) {
   *p = acc[0];
 }
 
-// Input index of output ``o`` under tap ``t``, or -1 where the tap falls
-// on an inserted zero (up) or outside [0, L).
-template <bool kUp>
-__device__ __forceinline__ int tap_index(int o, int t, int pad0, int L) {
-  int i;
-  if (kUp) {
-    const int m = o + t - pad0;
-    if (m & 1) return -1;
-    i = m >> 1;  // m is even, so the shift divides exactly
-  } else {
-    i = 2 * o + t - pad0;
+template <int kS, int kVec>
+__global__ void __launch_bounds__(kThreads)
+fir2_up_kernel(const float* __restrict__ x, float* __restrict__ out, int H,
+               int W, int C, int OH, int OW, int lo, Table tab) {
+  using V = typename Vec<kVec>::T;
+  const int cv = C / kVec;
+  const int qw = (OW + 1) >> 1;
+  const int idx = blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= qw * cv) return;
+  const int j = idx / cv;
+  const int c = (idx - j * cv) * kVec;
+  const int i = blockIdx.y;
+  const int n = blockIdx.z;
+  const float* xn = x + n * H * W * C + c;
+
+  float acc[2][2][kVec];
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int v = 0; v < kVec; ++v) acc[p][q][v] = 0.f;
+
+#pragma unroll
+  for (int sx = 0; sx < kS; ++sx) {
+    const int ix = j + lo + sx;
+    if (ix < 0 || ix >= W) continue;
+    float col[2][kVec];
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int v = 0; v < kVec; ++v) col[p][v] = 0.f;
+#pragma unroll
+    for (int sy = 0; sy < kS; ++sy) {
+      const int iy = i + lo + sy;
+      if (iy < 0 || iy >= H) continue;
+      const V val = *reinterpret_cast<const V*>(xn + (iy * W + ix) * C);
+      axpy(tab.k[sy], val, col[0]);
+      axpy(tab.k[kS + sy], val, col[1]);
+    }
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int v = 0; v < kVec; ++v)
+          acc[p][q][v] = fmaf(tab.k[q * kS + sx], col[p][v], acc[p][q][v]);
   }
-  return (i >= 0 && i < L) ? i : -1;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int oy = 2 * i + p;
+    if (oy >= OH) continue;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int ox = 2 * j + q;
+      if (ox < OW) store(out + ((n * OH + oy) * OW + ox) * C + c, acc[p][q]);
+    }
+  }
 }
 
-template <bool kUp, int kVec>
+template <int kT, int kVec>
 __global__ void __launch_bounds__(kThreads)
-fir2_f32_kernel(const float* __restrict__ x, float* __restrict__ out,
-                int H, int W, int C, int OH, int OW, int T, int pad0,
-                Taps taps, long long total) {
+fir2_down_kernel(const float* __restrict__ x, float* __restrict__ out, int H,
+                 int W, int C, int OH, int OW, int pad0, Table tab) {
   using V = typename Vec<kVec>::T;
-  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= total) return;
   const int cv = C / kVec;
-  const int c = (int)(idx % cv) * kVec;
-  long long p = idx / cv;
-  const int ox = (int)(p % OW);
-  p /= OW;
-  const int oy = (int)(p % OH);
-  const int n = (int)(p / OH);
-  const float* xn = x + (size_t)n * H * W * C + c;
+  const int idx = blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= OW * cv) return;
+  const int ox = idx / cv;
+  const int c = (idx - ox * cv) * kVec;
+  const int oy = blockIdx.y;
+  const int n = blockIdx.z;
+  const float* xn = x + n * H * W * C + c;
 
   float acc[kVec];
 #pragma unroll
   for (int v = 0; v < kVec; ++v) acc[v] = 0.f;
-
 #pragma unroll
-  for (int tx = 0; tx < kMaxTaps; ++tx) {
-    if (tx >= T) break;
-    const int ix = tap_index<kUp>(ox, tx, pad0, W);
-    if (ix < 0) continue;
+  for (int tx = 0; tx < kT; ++tx) {
+    const int ix = 2 * ox + tx - pad0;
+    if (ix < 0 || ix >= W) continue;
     float col[kVec];
 #pragma unroll
     for (int v = 0; v < kVec; ++v) col[v] = 0.f;
 #pragma unroll
-    for (int ty = 0; ty < kMaxTaps; ++ty) {
-      if (ty >= T) break;
-      const int iy = tap_index<kUp>(oy, ty, pad0, H);
-      if (iy < 0) continue;
-      const V val =
-          *reinterpret_cast<const V*>(xn + ((size_t)iy * W + ix) * C);
-      axpy(taps.k[ty], val, col);
+    for (int ty = 0; ty < kT; ++ty) {
+      const int iy = 2 * oy + ty - pad0;
+      if (iy < 0 || iy >= H) continue;
+      axpy(tab.k[ty], *reinterpret_cast<const V*>(xn + (iy * W + ix) * C),
+           col);
     }
 #pragma unroll
-    for (int v = 0; v < kVec; ++v) acc[v] = fmaf(taps.k[tx], col[v], acc[v]);
+    for (int v = 0; v < kVec; ++v) acc[v] = fmaf(tab.k[tx], col[v], acc[v]);
   }
-  store(out + (((size_t)n * OH + oy) * OW + ox) * C + c, acc);
+  store(out + ((n * OH + oy) * OW + ox) * C + c, acc);
 }
 
-template <bool kUp>
-int launch(const float* x, float* out, int N, int H, int W, int C, int OH,
-           int OW, int T, int pad0, const Taps& taps, int vec,
-           cudaStream_t stream) {
-  const long long total = (long long)N * OH * OW * (C / vec);
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  if (vec == 4) {
-    fir2_f32_kernel<kUp, 4><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        x, out, H, W, C, OH, OW, T, pad0, taps, total);
-  } else {
-    fir2_f32_kernel<kUp, 1><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        x, out, H, W, C, OH, OW, T, pad0, taps, total);
+template <int kVec>
+void launch_up(int S, dim3 grid, cudaStream_t s, const float* x, float* out,
+               int H, int W, int C, int OH, int OW, int lo, const Table& t) {
+  switch (S) {
+#define FIR2_UP(S_)                                                   \
+  case S_:                                                            \
+    fir2_up_kernel<S_, kVec><<<grid, kThreads, 0, s>>>(x, out, H, W, C, \
+                                                       OH, OW, lo, t); \
+    break;
+    FIR2_UP(1) FIR2_UP(2) FIR2_UP(3) FIR2_UP(4) FIR2_UP(5)
+#undef FIR2_UP
   }
-  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kVec>
+void launch_down(int T, dim3 grid, cudaStream_t s, const float* x,
+                 float* out, int H, int W, int C, int OH, int OW, int pad0,
+                 const Table& t) {
+  switch (T) {
+#define FIR2_DOWN(T_)                                                   \
+  case T_:                                                              \
+    fir2_down_kernel<T_, kVec><<<grid, kThreads, 0, s>>>(x, out, H, W, C, \
+                                                         OH, OW, pad0, t); \
+    break;
+    FIR2_DOWN(1) FIR2_DOWN(2) FIR2_DOWN(3) FIR2_DOWN(4) FIR2_DOWN(5)
+    FIR2_DOWN(6) FIR2_DOWN(7) FIR2_DOWN(8)
+#undef FIR2_DOWN
+  }
 }
 
 }  // namespace
 
+// One resample's launch arguments besides the pointers, the vector width
+// and the stream: built once per (taps, gain, mode, shape) by ops/fir.py
+// (``_Args``), so a call passes one pointer where it passed ten values.
+struct Fir2Args {
+  int N, H, W, C, OH, OW;
+  int up;    // up2 (1) or down2 (0)
+  int len;   // the phase table's S (up2) or the tap count T (down2)
+  int base;  // the first input offset lo (up2) or pad0 (down2)
+  Table table;  // 2*S (up2) or T (down2) f32 values
+};
+
 // Plain C entry point (loaded with ctypes). x [N,H,W,C] and out
-// [N,OH,OW,C] are contiguous f32 on the current device, OH and OW as the
-// caller sizes them (2H for up2, or 2H+1 where up2 is the adjoint of a
-// down2 of an odd size: taps past the input read zero); ``taps`` is a host
-// array of T <= 8 flipped f32 taps, copied into the launch's parameters;
-// ``up`` selects up2 (1) or down2 (0); ``vec`` is 4 (C % 4 == 0 and both
-// pointers 16-byte aligned) or 1. Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for arguments it does not take.
-extern "C" int fir2_f32(const float* x, float* out, int N, int H, int W,
-                        int C, int OH, int OW, int up, int T, int pad0,
-                        const float* taps, int vec, void* stream) {
-  if (T < 1 || T > kMaxTaps || (vec != 1 && vec != 4) || C % vec != 0) {
+// [N,OH,OW,C] are contiguous f32 on the current device, both under 2^31
+// elements; ``a`` is a host Fir2Args, copied into the launch's parameters;
+// ``vec`` is 4 (C % 4 == 0 and x 16-byte aligned) or 1. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// arguments it does not take.
+extern "C" int fir2_f32(const float* x, float* out, const Fir2Args* a,
+                        int vec, void* stream) {
+  const int N = a->N, H = a->H, W = a->W, C = a->C, OH = a->OH, OW = a->OW;
+  const int up = a->up, len = a->len, base = a->base;
+  const int max_len = up ? kMaxSlots : kMaxTaps;
+  if (len < 1 || len > max_len || (vec != 1 && vec != 4) || C % vec != 0 ||
+      N < 1 || N > 65535 || (up ? (OH + 1) / 2 : OH) > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Taps k = {};
-  for (int t = 0; t < T; ++t) k.k[t] = taps[t];
+  const Table& t = a->table;
   const auto s = static_cast<cudaStream_t>(stream);
-  return up ? launch<true>(x, out, N, H, W, C, OH, OW, T, pad0, k, vec, s)
-            : launch<false>(x, out, N, H, W, C, OH, OW, T, pad0, k, vec, s);
+  const int cols = up ? (OW + 1) / 2 : OW;
+  const dim3 grid((cols * (C / vec) + kThreads - 1) / kThreads,
+                  up ? (OH + 1) / 2 : OH, N);
+  if (up) {
+    if (vec == 4) launch_up<4>(len, grid, s, x, out, H, W, C, OH, OW, base, t);
+    else launch_up<1>(len, grid, s, x, out, H, W, C, OH, OW, base, t);
+  } else {
+    if (vec == 4) launch_down<4>(len, grid, s, x, out, H, W, C, OH, OW, base, t);
+    else launch_down<1>(len, grid, s, x, out, H, W, C, OH, OW, base, t);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

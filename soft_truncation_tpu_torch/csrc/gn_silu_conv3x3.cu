@@ -1,157 +1,435 @@
-// Fused GroupNorm-apply -> SiLU -> 3x3 SAME conv, NHWC, float32, forward.
+// Fused GroupNorm-apply -> SiLU -> 3x3 SAME conv, NHWC, float32, forward,
+// as an implicit GEMM on the tensor cores in 3xTF32.
 //
 // Replaces the TPU kernel soft_truncation_tpu/ops/pallas/gn_conv.py::
 // gn_silu_conv3x3:  out = conv3x3(SiLU(x * scale + shift), zero pad) + b,
 // with scale = rsqrt_g * gamma and shift = beta - mean_g * scale folded per
-// (sample, channel) by the Python wrapper (ops/gn_conv.py).
+// (sample, channel) inside the kernel from the per-(sample, group) stats.
 //
-// What bounds it on an H100: in float32 without TF32 it runs on the FP32
-// pipe, 2*N*H*W*C*O*9 FLOP against a datasheet peak of about 67 TFLOP/s.
-// Its bytes, 4*(N*H*W*(C+O) + 9*C*O), at 3.35 TB/s take roughly an order
-// of magnitude less time at the hot shape (N=8, 32x32, 128->128), so it is
-// bound by operations. The design keeps the normalised, activated slab out
-// of device memory: each block activates its haloed input tile on the way
-// into shared memory and feeds it straight to the FMA loop.
+// What bounds it on an H100: operations at the larger sites, bytes at the
+// 4x4 ones. The function is 2*N*H*W*C*O*9 FLOP on f32 inputs, against the
+// 495 TFLOP/s of dense TF32; its bytes, 4*(N*H*W*(C+O) + 9*C*O), move at
+// 3.35 TB/s. The 3xTF32 scheme below does those FLOP three times over, a
+// cost of this design, not of the function. The previous form ran plain
+// FMA on the FP32 pipe (67 TFLOP/s) in per-image 8x8 tiles and lost to
+// cuDNN's f32 chain.
 //
-// Design (an implicit-GEMM direct convolution, simple first):
-//   * one block = an 8x8 tile of output pixels x 64 output channels of one
-//     image, 256 threads, each owning 4 pixels (one row) x 4 channels;
-//   * input channels are walked in chunks of 16: the block stages the
-//     (8+2)x(8+2)x16 input tile, normalised and activated as it loads, and
-//     the 3x3x16x64 weight slice in shared memory (43 KB), then every thread
-//     accumulates 9*16 products per output in f32 registers;
-//   * taps outside the image are 0, not SiLU(shift): the reference pads the
-//     activated tensor, not x;
-//   * plain f32 FMA, no tensor cores, so it agrees with the f32 reference to
-//     the rounding of a reordered sum.
-// Faster forms (wgmma, TMA, bf16/TF32 tensor cores) are later work.
+// Design:
+//   * GEMM view: M = N*H*W output pixels flattened across images (so a 4x4
+//     site fills its tiles), N_gemm = O, K = 9*C. A block takes R = 128 / W
+//     whole pixel rows (R*W <= 128 GEMM rows) x 128 output channels; 8
+//     warps of 64 x 32, each a 4 x 4 grid of mma.sync.m16n8k8 tf32 tiles
+//     accumulating in f32; at most 128 registers, so two blocks share an SM.
+//   * Operand A is built on the way in, 16 channels at a time: cp.async
+//     copies the raw x rows of the tile with their halo (the R rows, one row
+//     above and one below, each with a zero column either side: (R+2) x
+//     (W+2) pixels) into a 2-stage ring in dynamic shared memory; then each
+//     element gets the GroupNorm fold (scale/shift from the per-(sample,
+//     group) stats and gamma/beta, in shared memory), SiLU and the TF32
+//     split once, into the buffer the MMA reads. The 9 taps of the chunk are
+//     9 shifted views of that buffer: each GEMM row reads its pixel's
+//     neighbour, or a zero row where the tap falls outside its image (taps
+//     outside the image are 0, not SiLU(shift): the reference pads the
+//     activated tensor, not x). The activated slab never reaches device
+//     memory, and each x element is copied and activated once per block,
+//     not once per tap.
+//   * 3xTF32: a = hi + lo with hi = tf32(a) and lo = tf32(a - hi), the sum
+//     taken as a_lo*b_hi + a_hi*b_lo + a_hi*b_hi in f32, which keeps about
+//     f32 accuracy (1xTF32 keeps ~3 decimal digits). The weights come split
+//     once per weight value by the wrapper, zero-padded to [9*Cp, Op]
+//     (tap-major rows of Cp channels); each K step's 16 x 128 slice of both
+//     halves streams through a 2-stage cp.async ring.
+//   * mma.sync (Ampere's warp-level MMA), not wgmma: wgmma wants its B (and
+//     A, or A in registers) in swizzled shared-memory layouts written by TMA
+//     or matched by hand, three products per tile pair, and the shifted tap
+//     views above would have to become TMA boxes; mma.sync kept this first
+//     tensor-core form small. wgmma is listed as a follow-up in ROADMAP.md.
+//   * Split-K: where the tiles are fewer than the blocks the SMs hold at
+//     once (every site of the models at batch 8; ops/gn_conv.py::
+//     launch_plan), blockIdx.z takes a contiguous range of the 16-channel
+//     chunks (all 9 taps of each) and writes its partial tile to an f32
+//     workspace; a second small kernel sums the splits in a fixed order and
+//     adds the bias. No atomics, so the result is the same bits run after
+//     run.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kTileH = 8;
-constexpr int kTileW = 8;
-constexpr int kTileO = 64;
-constexpr int kChunkC = 16;
+constexpr int kBM = 128;               // GEMM rows per block (R * W used)
+constexpr int kBN = 128;
+constexpr int kBK = 16;                // channels per chunk and K step
 constexpr int kThreads = 256;
-constexpr int kHaloH = kTileH + 2;
-constexpr int kHaloW = kTileW + 2;
+constexpr int kMinBlocks = 2;          // per SM: <= 128 registers
+constexpr int kWarpsN = 4;             // warps laid out 2 (M) x 4 (N)
+constexpr int kWM = 64;                // warp tile rows
+constexpr int kWN = 32;                // warp tile columns
+constexpr int kMF = kWM / 16;          // m16 fragments per warp
+constexpr int kNF = kWN / 8;           // n8 fragments per warp
+constexpr int kCPP = kBK / 4;          // 16-byte chunks per pixel
+constexpr int kAStride = kBK + 4;      // conflict-free A fragment reads
+constexpr int kBStride = kBN + 8;      // conflict-free B fragment reads
+constexpr int kBFloats = kBK * kBStride;  // B tile, per stage, hi or lo
+constexpr int kMaxSmem = 232448;       // an H100 block's dynamic maximum
 
-__global__ void __launch_bounds__(kThreads)
-gn_silu_conv3x3_f32_kernel(const float* __restrict__ x,
-                           const float* __restrict__ scale,
-                           const float* __restrict__ shift,
-                           const float* __restrict__ w,
-                           const float* __restrict__ b,
-                           float* __restrict__ out,
-                           int H, int W, int C, int O, int tiles_w) {
-  __shared__ float sx[kChunkC][kHaloH][kHaloW];
-  __shared__ __align__(16) float sw[9][kChunkC][kTileO];
+struct Params {
+  const float* x;      // [N, H, W, C]
+  const float* mean;   // [N, G]
+  const float* rsqrt;  // [N, G]
+  const float* gamma;  // [C]
+  const float* beta;   // [C]
+  const float* w_hi;   // [9 * Cp, Op], tf32 values
+  const float* w_lo;
+  const float* bias;   // [O]
+  float* out;          // [N, H, W, O]
+  float* ws;           // [splits, M, O] when splits > 1
+  int N, H, W, C, O, G, Cp, Op, M, rows, chunks, splits, slots;
+};
 
-  const int n = blockIdx.z;
-  const int o0 = blockIdx.y * kTileO;
-  const int ty0 = (blockIdx.x / tiles_w) * kTileH;
-  const int tx0 = (blockIdx.x % tiles_w) * kTileW;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+__device__ __forceinline__ uint32_t tf32(float a) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
+  return r;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ float silu(float u) {
+  return u * __frcp_rn(1.f + __expf(-u));
+}
+
+// Shared memory, in floats: the raw halo tile ring [2][hp][kBK], the
+// activated tile [hi, lo][hp + 1][kAStride] (row hp stays zero), the B ring
+// [2][hi, lo][kBK][kBStride], gamma and beta [Cp], mean and rsqrt
+// [slots][G] and, as ints, each GEMM row's base offset per dy [3][kBM].
+__host__ __device__ inline int act_floats(int hp) {
+  return (hp + 1) * kAStride;
+}
+
+__host__ __device__ inline int smem_floats(int hp, int Cp, int slots,
+                                           int G) {
+  return 2 * hp * kBK + 2 * act_floats(hp) + 2 * 2 * kBFloats + 2 * Cp +
+         2 * slots * G + 3 * kBM;
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+gn_silu_conv3x3_tf32x3_kernel(const Params p) {
+  extern __shared__ __align__(16) float smem[];
+  const int W2 = p.W + 2;
+  const int hp = (p.rows + 2) * W2;  // halo pixels
+  const int act = act_floats(hp);
+  float* raw = smem;                         // [2][hp][kBK]
+  float* ahi = raw + 2 * hp * kBK;           // [hp + 1][kAStride], then lo
+  float* bsm = ahi + 2 * act;                // [2][2][kBK][kBStride]
+  float* sgamma = bsm + 2 * 2 * kBFloats;    // [Cp]
+  float* sbeta = sgamma + p.Cp;
+  float* smean = sbeta + p.Cp;               // [slots][G]
+  float* srsqrt = smean + p.slots * p.G;
+  int* rowoff = reinterpret_cast<int*>(srsqrt + p.slots * p.G);  // [3][kBM]
+
   const int tid = threadIdx.x;
-  const int og = tid % (kTileO / 4);   // channels o0 + 4*og .. +3
-  const int pg = tid / (kTileO / 4);   // pixels (py, px0 .. px0+3)
-  const int py = pg / 2;
-  const int px0 = (pg % 2) * 4;
+  const int o0 = blockIdx.x * kBN;
+  const int r0 = blockIdx.y * p.rows;        // first pixel row (n * H + y)
+  const int split = blockIdx.z;
+  const int NH = p.N * p.H;
+  const int n_first = max(r0 - 1, 0) / p.H;  // image of the first halo row
 
-  const float* xn = x + (size_t)n * H * W * C;
-  const float* scn = scale + (size_t)n * C;
-  const float* shn = shift + (size_t)n * C;
-
-  float acc[4][4];
+  // prologue tables: the affine, the stats of the images the halo touches,
+  // and for each GEMM row m the activated-tile offset of its pixel's
+  // neighbour at dy = -1, 0, 1 (dx = 0), or -1 for a zero
+  for (int i = tid; i < p.Cp; i += kThreads) {
+    sgamma[i] = i < p.C ? p.gamma[i] : 0.f;
+    sbeta[i] = i < p.C ? p.beta[i] : 0.f;
+  }
+  for (int i = tid; i < p.slots * p.G; i += kThreads) {
+    const int n = n_first + i / p.G;
+    const int src = n * p.G + i % p.G;
+    smean[i] = n < p.N ? p.mean[src] : 0.f;
+    srsqrt[i] = n < p.N ? p.rsqrt[src] : 0.f;
+  }
+  for (int m = tid; m < kBM; m += kThreads) {
+    const int r = m / p.W;
+    const int xx = m - r * p.W;
+    const int row = r0 + r;
+    const bool ok = r < p.rows && row < NH;
+    const int y = row % p.H;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int dy = -1; dy <= 1; ++dy) {
+      const bool in = ok && y + dy >= 0 && y + dy < p.H;
+      rowoff[(dy + 1) * kBM + m] =
+          in ? ((r + 1 + dy) * W2 + xx + 1) * kAStride : -1;
+    }
+  }
 
-  for (int c0 = 0; c0 < C; c0 += kChunkC) {
-    // activated, zero-padded input tile; channel fastest for coalescing
-    for (int i = tid; i < kChunkC * kHaloH * kHaloW; i += kThreads) {
-      const int cc = i % kChunkC;
-      const int p = i / kChunkC;
-      const int iy = p / kHaloW;
-      const int ix = p % kHaloW;
-      const int gy = ty0 + iy - 1;
-      const int gx = tx0 + ix - 1;
-      const int c = c0 + cc;
-      float v = 0.f;
-      if (c < C && gy >= 0 && gy < H && gx >= 0 && gx < W) {
-        const float u = xn[((size_t)gy * W + gx) * C + c] * scn[c] + shn[c];
-        v = u / (1.f + expf(-u));
+  const int cg = p.C / p.G;
+  // copy chunk ch's raw halo tile into ring slot s (zero where no pixel)
+  auto load_a = [&](int ch, int s) {
+    float* dst = raw + s * hp * kBK;
+    const int c0 = ch * kBK;
+    for (int i = tid; i < hp * kCPP; i += kThreads) {
+      const int pix = i / kCPP;
+      const int c = c0 + (i - pix * kCPP) * 4;
+      const int sr = pix / W2;
+      const int sx = pix - sr * W2 - 1;
+      const int row = r0 - 1 + sr;
+      const bool ok = row >= 0 && row < NH && sx >= 0 && sx < p.W && c < p.C;
+      const float* src = ok ? p.x + ((size_t)row * p.W + sx) * p.C + c : p.x;
+      cp_async16(smem_u32(dst + pix * kBK + (c - c0)), src, ok ? 16 : 0);
+    }
+  };
+  // fold, SiLU and split ring slot s into the activated tile
+  auto activate = [&](int ch, int s) {
+    const float* src = raw + s * hp * kBK;
+    const int c0 = ch * kBK;
+    for (int i = tid; i < hp * kCPP; i += kThreads) {
+      const int pix = i / kCPP;
+      const int cc = (i - pix * kCPP) * 4;
+      const int sr = pix / W2;
+      const int sx = pix - sr * W2 - 1;
+      const int row = r0 - 1 + sr;
+      float a[4] = {0.f, 0.f, 0.f, 0.f};
+      if (row >= 0 && row < NH && sx >= 0 && sx < p.W && c0 + cc < p.C) {
+        const float4 v = *reinterpret_cast<const float4*>(src + pix * kBK + cc);
+        const float vv[4] = {v.x, v.y, v.z, v.w};
+        const int slot = row / p.H - n_first;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = c0 + cc + e;
+          const int g = slot * p.G + c / cg;
+          const float sc = __fmul_rn(srsqrt[g], sgamma[c]);
+          const float sh = __fsub_rn(sbeta[c], __fmul_rn(smean[g], sc));
+          a[e] = silu(fmaf(vv[e], sc, sh));
+        }
       }
-      sx[cc][iy][ix] = v;
+      uint4 hi, lo;
+      hi.x = tf32(a[0]);
+      hi.y = tf32(a[1]);
+      hi.z = tf32(a[2]);
+      hi.w = tf32(a[3]);
+      lo.x = tf32(a[0] - __uint_as_float(hi.x));
+      lo.y = tf32(a[1] - __uint_as_float(hi.y));
+      lo.z = tf32(a[2] - __uint_as_float(hi.z));
+      lo.w = tf32(a[3] - __uint_as_float(hi.w));
+      *reinterpret_cast<uint4*>(ahi + pix * kAStride + cc) = hi;
+      *reinterpret_cast<uint4*>(ahi + act + pix * kAStride + cc) = lo;
     }
-    // weight slice [tap][c][o]; output channel fastest for coalescing
-    for (int i = tid; i < 9 * kChunkC * kTileO; i += kThreads) {
-      const int oo = i % kTileO;
-      const int r = i / kTileO;
-      const int cc = r % kChunkC;
-      const int tap = r / kChunkC;
-      const int c = c0 + cc;
-      const int o = o0 + oo;
-      sw[tap][cc][oo] =
-          (c < C && o < O) ? w[((size_t)tap * C + c) * O + o] : 0.f;
+  };
+  // K step (chunk ch, tap) of both weight halves into B ring slot s
+  auto load_b = [&](int ch, int tap, int s) {
+    const int k0 = tap * p.Cp + ch * kBK;
+    float* bh = bsm + s * 2 * kBFloats;
+#pragma unroll
+    for (int i = 0; i < kBK * kBN / 4 / kThreads; ++i) {
+      const int chunk = tid + i * kThreads;
+      const int k = chunk / (kBN / 4);
+      const int col = (chunk % (kBN / 4)) * 4;
+      const int g = (k0 + k) * p.Op + o0 + col;
+      cp_async16(smem_u32(bh + k * kBStride + col), p.w_hi + g, 16);
+      cp_async16(smem_u32(bh + kBFloats + k * kBStride + col), p.w_lo + g,
+                 16);
     }
-    __syncthreads();
+  };
 
-#pragma unroll 2
-    for (int cc = 0; cc < kChunkC; ++cc) {
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wm = (warp / kWarpsN) * kWM;
+  const int wn = (warp % kWarpsN) * kWN;
+
+  // the zero row (index hp) of both halves of the activated tile
+  for (int i = tid; i < kAStride; i += kThreads) {
+    ahi[hp * kAStride + i] = 0.f;
+    ahi[act + hp * kAStride + i] = 0.f;
+  }
+
+  float acc[kMF][kNF][4];
 #pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-        float a[6];
+  for (int mf = 0; mf < kMF; ++mf)
 #pragma unroll
-        for (int k = 0; k < 6; ++k) a[k] = sx[cc][py + dy][px0 + k];
+    for (int nf = 0; nf < kNF; ++nf)
 #pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const float4 w4 =
-              *reinterpret_cast<const float4*>(&sw[dy * 3 + dx][cc][og * 4]);
+      for (int e = 0; e < 4; ++e) acc[mf][nf][e] = 0.f;
+
+  const int ch0 = split * p.chunks / p.splits;
+  const int ch1 = (split + 1) * p.chunks / p.splits;
+  load_a(ch0, 0);
+  load_b(ch0, 0, 0);
+  cp_async_commit();
+  __syncthreads();  // the prologue tables
+  int it = 0;
+  for (int ch = ch0; ch < ch1; ++ch) {
+    for (int tap = 0; tap < 9; ++tap, ++it) {
+      cp_async_wait_all();
+      if (tap == 0) {
+        __syncthreads();  // every warp is past its MMAs on the last chunk
+        activate(ch, (ch - ch0) & 1);
+      }
+      // the activated tile and every thread's copies are visible; every
+      // warp is past its MMA of step it - 1, so that B slot is free
+      __syncthreads();
+      if (tap < 8) {
+        load_b(ch, tap + 1, (it + 1) & 1);
+      } else if (ch + 1 < ch1) {
+        load_b(ch + 1, 0, (it + 1) & 1);
+      }
+      if (tap == 0 && ch + 1 < ch1) load_a(ch + 1, (ch + 1 - ch0) & 1);
+      cp_async_commit();
+
+      // this tap's view: row m reads pixel offset rowoff + dx * kAStride
+      const int dy = tap / 3;
+      const int shift = (tap - dy * 3 - 1) * kAStride;
+      int off[kMF][2];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][0] = fmaf(a[i + dx], w4.x, acc[i][0]);
-            acc[i][1] = fmaf(a[i + dx], w4.y, acc[i][1]);
-            acc[i][2] = fmaf(a[i + dx], w4.z, acc[i][2]);
-            acc[i][3] = fmaf(a[i + dx], w4.w, acc[i][3]);
+      for (int mf = 0; mf < kMF; ++mf)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int o = rowoff[dy * kBM + wm + mf * 16 + g + 8 * h];
+          off[mf][h] = o < 0 ? hp * kAStride : o + shift;
+        }
+      const uint32_t* A = reinterpret_cast<const uint32_t*>(ahi);
+      const uint32_t* Bh =
+          reinterpret_cast<const uint32_t*>(bsm + (it & 1) * 2 * kBFloats);
+      const uint32_t* Bl = Bh + kBFloats;
+#pragma unroll
+      for (int kk = 0; kk < kBK; kk += 8) {
+        uint32_t bh[kNF][2], bl[kNF][2];
+#pragma unroll
+        for (int nf = 0; nf < kNF; ++nf) {
+          const int c0 = (kk + t) * kBStride + wn + nf * 8 + g;
+          bh[nf][0] = Bh[c0];
+          bh[nf][1] = Bh[c0 + 4 * kBStride];
+          bl[nf][0] = Bl[c0];
+          bl[nf][1] = Bl[c0 + 4 * kBStride];
+        }
+#pragma unroll
+        for (int mf = 0; mf < kMF; ++mf) {
+          const int i0 = off[mf][0] + kk + t;
+          const int i1 = off[mf][1] + kk + t;
+          const int idx[4] = {i0, i1, i0 + 4, i1 + 4};
+          uint32_t ah[4], al[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ah[e] = A[idx[e]];
+            al[e] = A[act + idx[e]];
+          }
+#pragma unroll
+          for (int nf = 0; nf < kNF; ++nf) {
+            mma_tf32(acc[mf][nf], al, bh[nf]);
+            mma_tf32(acc[mf][nf], ah, bl[nf]);
+            mma_tf32(acc[mf][nf], ah, bh[nf]);
           }
         }
       }
     }
-    __syncthreads();
   }
+  cp_async_wait_all();
 
-  const int y = ty0 + py;
-  if (y >= H) return;
+  // GEMM row m is pixel r0 * W + m of the flattened N*H*W
+  const bool direct = p.splits == 1;
+  float* dst = direct ? p.out : p.ws + (size_t)split * p.M * p.O;
+  const int pix0 = r0 * p.W;
+  const int used = min(p.rows * p.W, p.M - pix0);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int xg = tx0 + px0 + i;
-    if (xg >= W) continue;
-    float* op = out + (((size_t)n * H + y) * W + xg) * O;
+  for (int mf = 0; mf < kMF; ++mf)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = o0 + og * 4 + j;
-      if (o < O) op[o] = acc[i][j] + b[o];
-    }
-  }
+    for (int nf = 0; nf < kNF; ++nf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = wm + mf * 16 + g + (e >> 1) * 8;
+        const int o = o0 + wn + nf * 8 + 2 * t + (e & 1);
+        if (m < used && o < p.O)
+          dst[(size_t)(pix0 + m) * p.O + o] =
+              direct ? acc[mf][nf][e] + p.bias[o] : acc[mf][nf][e];
+      }
+}
+
+// out = bias + the splits' partial sums, in split order.
+__global__ void __launch_bounds__(256)
+splitk_reduce_kernel(const float* __restrict__ ws,
+                     const float* __restrict__ bias, float* __restrict__ out,
+                     int MO, int O, int splits) {
+  const int i = blockIdx.x * 256 + threadIdx.x;
+  if (i >= MO) return;
+  float s = bias[i % O];
+  for (int k = 0; k < splits; ++k) s += ws[(size_t)k * MO + i];
+  out[i] = s;
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). All tensors are contiguous f32
-// on the current device: x [N,H,W,C], scale/shift [N,C], w [3,3,C,O],
-// b [O], out [N,H,W,O]. Returns cudaGetLastError() after the launch.
-extern "C" int gn_silu_conv3x3_f32(const float* x, const float* scale,
-                                   const float* shift, const float* w,
-                                   const float* b, float* out, int N, int H,
-                                   int W, int C, int O, void* stream) {
-  const int tiles_h = (H + kTileH - 1) / kTileH;
-  const int tiles_w = (W + kTileW - 1) / kTileW;
-  const dim3 grid(tiles_h * tiles_w, (O + kTileO - 1) / kTileO, N);
-  gn_silu_conv3x3_f32_kernel<<<grid, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      x, scale, shift, w, b, out, H, W, C, O, tiles_w);
+// on the current device: x [N,H,W,C], mean/rsqrt [N,G], gamma/beta [C],
+// w_hi/w_lo [9*Cp, Op] (tap-major rows of Cp channels, tf32 values, zero
+// padding), bias [O], out [N,H,W,O], ws [splits,N*H*W,O] (unused when
+// splits == 1). C % 4 == 0, W <= 128, Cp a multiple of 16 >= C, Op a
+// multiple of 128 >= O; ``rows`` (pixel rows per block) <= 128 / W;
+// ``splits`` <= Cp / 16; ``slots`` >= the images rows + 2 consecutive
+// pixel rows touch. Returns cudaGetLastError() after the launches, or
+// cudaErrorInvalidValue for arguments it does not take.
+extern "C" int gn_silu_conv3x3_tf32x3(
+    const float* x, const float* mean, const float* rsqrt, const float* gamma,
+    const float* beta, const float* w_hi, const float* w_lo,
+    const float* bias, float* out, float* ws, int N, int H, int W, int C,
+    int O, int G, int Cp, int Op, int rows, int splits, int slots,
+    void* stream) {
+  const long long M = (long long)N * H * W;
+  const int chunks = Cp / kBK;
+  const long long smem =
+      4LL * smem_floats((rows + 2) * (W + 2), Cp, slots, G);
+  if (N < 1 || H < 1 || W < 1 || W > kBM || C < 4 || C % 4 || O < 1 ||
+      G < 1 || C % G || Cp % kBK || Cp < C || Op % kBN || Op < O ||
+      rows < 1 || rows * W > kBM || splits < 1 || splits > chunks ||
+      splits > 65535 || slots < 1 || smem > kMaxSmem ||
+      M * C >= (1LL << 31) || M * O * splits >= (1LL << 31) ||
+      ((long long)N * H + rows - 1) / rows > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gn_silu_conv3x3_tf32x3_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const Params p = {x,  mean, rsqrt, gamma, beta,   w_hi,   w_lo,  bias,
+                    out, ws,  N,     H,     W,      C,      O,     G,
+                    Cp, Op,   (int)M, rows, chunks, splits, slots};
+  const auto s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(Op / kBN, (unsigned)(((long long)N * H + rows - 1) / rows),
+                  splits);
+  gn_silu_conv3x3_tf32x3_kernel<<<grid, kThreads, (size_t)smem, s>>>(p);
+  if (splits > 1) {
+    const int MO = (int)M * O;
+    splitk_reduce_kernel<<<(MO + 255) / 256, 256, 0, s>>>(ws, bias, out, MO,
+                                                          O, splits);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,6 +17,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.gn_conv import weight_operand
+
 
 def get_act(nonlinearity: str) -> Callable[[torch.Tensor], torch.Tensor]:
   """Activation by config name."""
@@ -59,7 +61,7 @@ class DDPMConv(nn.Module):
     self.weight = nn.Parameter(
         torch.empty(out_ch, in_ch, kernel_size, kernel_size))
     self.bias = nn.Parameter(torch.zeros(out_ch))
-    self._hwio, self._hwio_key = None, None
+    self._derived, self._derived_key = {}, None
 
   def reset_parameters(self, generator: Optional[torch.Generator] = None):
     o, i, kh, kw = self.weight.shape
@@ -68,16 +70,26 @@ class DDPMConv(nn.Module):
     with torch.no_grad():
       self.bias.zero_()
 
-  def weight_hwio(self) -> torch.Tensor:
-    """The kernel as ``[kh, kw, I, O]``, the fused kernel's layout.
-
-    Transposed once per weight value (a load, an in-place update or a move
-    to another device makes a new copy), not once per forward."""
+  def _once_per_weight(self, name: str, make):
+    """``make()`` once per weight value (a load, an in-place update or a
+    move to another device makes a new one), not once per forward."""
     key = (self.weight.device, self.weight.data_ptr(), self.weight._version)
-    if self._hwio_key != key:
-      self._hwio = self.weight.detach().permute(2, 3, 1, 0).contiguous()
-      self._hwio_key = key
-    return self._hwio
+    if self._derived_key != key:
+      self._derived, self._derived_key = {}, key
+    if name not in self._derived:
+      self._derived[name] = make()
+    return self._derived[name]
+
+  def weight_hwio(self) -> torch.Tensor:
+    """The kernel as ``[kh, kw, I, O]``, the fused kernel's layout."""
+    return self._once_per_weight(
+        "hwio", lambda: self.weight.detach().permute(2, 3, 1, 0).contiguous())
+
+  def weight_tf32_split(self):
+    """The fused kernel's weight operand, ``ops.gn_conv.weight_operand`` of
+    :meth:`weight_hwio`: padded and split into TF32 hi and lo."""
+    return self._once_per_weight(
+        "tf32_split", lambda: weight_operand(self.weight_hwio()))
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     pad = self.weight.shape[-1] // 2

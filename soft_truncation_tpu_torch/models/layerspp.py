@@ -55,7 +55,8 @@ def _fused_gn_silu_conv(block, h: torch.Tensor, norm: GroupNorm,
   g = _groups(h.shape[-1])
   mean, rsqrt = gn_stats(h, g, eps=norm.eps)
   out = gn_silu_conv3x3(h, mean, rsqrt, norm.weight, norm.bias,
-                        conv.weight_hwio(), conv.bias, g)
+                        conv.weight_hwio(), conv.bias, g,
+                        conv.weight_tf32_split() if h.is_cuda else None)
   n, hh, ww, c = h.shape
   block.last_fused_sites.append((hh, ww, c, out.shape[-1]))
   return out

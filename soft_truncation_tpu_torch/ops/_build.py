@@ -6,7 +6,8 @@ compiled with ``nvcc`` for ``sm_90a`` (Hopper) into
 named by a hash of the source and flags, and loaded with ``ctypes``. The
 compiler's report (``-Xptxas -v``: registers, shared memory, spills) is
 kept beside it as ``.log``. Importing this module needs neither ``nvcc``
-nor a card.
+nor a card. :func:`launch` calls a loaded entry point on the current
+stream of a tensor's device.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -58,3 +61,14 @@ def load_library(name: str) -> ctypes.CDLL:
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
   return ctypes.CDLL(str(out))
+
+
+def launch(fn, device: torch.device, *args) -> int:
+  """``fn(*args, stream)`` on ``device`` with its current raw CUDA stream:
+  the entry points launch on the current device, and the raw stream
+  handle spares building a ``torch.cuda.Stream`` object on every call."""
+  index = device.index
+  if index == torch._C._cuda_getDevice():
+    return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+  with torch.cuda.device(index):
+    return fn(*args, torch._C._cuda_getCurrentRawStream(index))

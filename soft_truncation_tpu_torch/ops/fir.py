@@ -4,9 +4,11 @@ Counterpart of ``soft_truncation_tpu/ops/pallas/fir.py``: the separable
 polyphase resampler that ``ops/resample.py::upsample_2d`` /
 ``downsample_2d`` take at factor 2 with a 1-D kernel. The per-axis taps
 (``k / sum(k) * sqrt(gain)``, doubled for up) and the pads are those of
-the JAX package's ``_fir2_op``, computed on the host in float64. The
-resample itself is one hand-written CUDA kernel (``csrc/fir2.cu``) that
-sums over both axes in one pass.
+the JAX package's ``_fir2_op``, computed on the host in float64 once per
+(taps, gain, mode) by the cached launch plan ``_plan``, which also holds
+the kernel's tap table as a ready ctypes array: a call on the card touches
+no numpy. The resample itself is one hand-written CUDA kernel
+(``csrc/fir2.cu``) that sums over both axes in one pass.
 
 :func:`fir_upsample2` / :func:`fir_downsample2` launch the kernel for CUDA
 tensors and take the plain versions, :func:`fir_upsample2_plain` /
@@ -41,12 +43,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ._build import load_library
+from ._build import launch, load_library
 
 _KERNEL = "fir2"
 MAX_TAPS = 8
@@ -80,6 +82,63 @@ def fir2_taps(k: Sequence[float], gain: float, mode: str) -> np.ndarray:
     raise ValueError(f"the 2x FIR kernel takes 1..{MAX_TAPS} taps, got "
                      f"{k.shape[0]}")
   return k / np.sum(k) * (math.sqrt(gain) * (2.0 if mode == "up" else 1.0))
+
+
+class _Plan(NamedTuple):
+  """What a 2x FIR resample needs, per (taps, gain, mode): see _plan."""
+  taps: np.ndarray      # per-axis taps in f32, unflipped (fir2_taps)
+  T: int
+  pad0: int
+  pad1: int
+  up: int               # 1 for up2, 0 for down2
+  length: int           # the kernel's table length: S (up2) or T (down2)
+  base: int             # first input offset lo (up2) or pad0 (down2)
+  table: ctypes.Array   # the kernel's f32 table (fir2.cu's ``Table``)
+
+
+def _up2_phase_table(taps: np.ndarray, pad0: int):
+  """Up2's two phases over the input offsets they share: ``(lo, coef)``
+  with ``out[2i+p] = sum_s coef[p, s] * x[i + lo + s]``, coef [2, S] f32
+  (0 where phase p has no tap at that offset), from _phase_taps_up2."""
+  phases = _phase_taps_up2(len(taps), pad0)
+  offsets = [o for phase in phases for _, o in phase]
+  lo = min(offsets)
+  coef = np.zeros((2, max(offsets) - lo + 1), np.float32)
+  for p, phase in enumerate(phases):
+    for ki, o in phase:
+      coef[p, o - lo] = taps[ki]
+  return lo, coef
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(k: Tuple[float, ...], gain: float, mode: str) -> _Plan:
+  """The launch plan of one (taps, gain, mode), computed once: the taps and
+  pads, and the kernel's table as a ready ctypes array. Raises as
+  :func:`fir2_taps` does for what the kernel does not take."""
+  taps = fir2_taps(k, gain, mode).astype(np.float32)
+  T = len(taps)
+  pad0, pad1 = fir2_pads(T, mode)
+  if mode == "up":
+    base, coef = _up2_phase_table(taps, pad0)
+    length, values = coef.shape[1], coef.ravel()
+  else:
+    base, length, values = pad0, T, taps[::-1]
+  table = (ctypes.c_float * len(values))(*values.tolist())
+  return _Plan(taps, T, pad0, pad1, int(mode == "up"), length, base, table)
+
+
+def _taps_key(k) -> Tuple[float, ...]:
+  """``k`` as a tuple of floats, the plan's key; a tuple or list of numbers
+  takes no numpy."""
+  if isinstance(k, (tuple, list)):
+    try:
+      return tuple(float(v) for v in k)
+    except TypeError:  # nested: let fir2_taps name the shape
+      pass
+  k = np.asarray(k, dtype=np.float64)
+  if k.ndim != 1:
+    fir2_taps(k, 1.0, "up")  # raises
+  return tuple(k.tolist())
 
 
 def _out_size(L: int, T: int, mode: str) -> int:
@@ -133,11 +192,10 @@ def _down2_axis(x, k: np.ndarray, pad0: int, dim: int, M: int):
 
 
 def _fir2_plain(x, k, gain: float, mode: str, out_hw=None):
-  oh, ow = _check(x, k, mode, out_hw)
-  taps = fir2_taps(k, gain, mode).astype(np.float32)
-  pad0, _ = fir2_pads(len(taps), mode)
+  plan = _plan(_taps_key(k), float(gain), mode)
+  oh, ow = _check(tuple(x.shape), plan, mode, out_hw)
   f = _up2_axis if mode == "up" else _down2_axis
-  return f(f(x, taps, pad0, 1, oh), taps, pad0, 2, ow)
+  return f(f(x, plan.taps, plan.pad0, 1, oh), plan.taps, plan.pad0, 2, ow)
 
 
 def fir_upsample2_plain(x, k: Sequence[float], gain: float = 1.0):
@@ -153,40 +211,53 @@ def fir_downsample2_plain(x, k: Sequence[float], gain: float = 1.0):
   return _fir2_plain(x, k, gain, "down")
 
 
-def _check(x, k, mode: str, out_hw=None):
-  """The output's (H, W): ``out_hw``, or the resample's own size."""
-  if x.dim() != 4:
-    raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
-  T = len(fir2_taps(k, 1.0, mode))
-  n, h, w, c = x.shape
-  oh, ow = out_hw or (_out_size(h, T, mode), _out_size(w, T, mode))
+def _check(shape: tuple, plan: _Plan, mode: str, out_hw=None):
+  """The output's (H, W) for x of ``shape``: ``out_hw``, or the resample's
+  own size."""
+  if len(shape) != 4:
+    raise ValueError(f"x must be NHWC, got shape {shape}")
+  n, h, w, c = shape
+  oh, ow = out_hw or (_out_size(h, plan.T, mode), _out_size(w, plan.T, mode))
   if min(n, c, oh, ow) <= 0:
-    raise ValueError(f"no output for x of shape {tuple(x.shape)} and "
-                     f"{T} taps")
+    raise ValueError(f"no output for x of shape {shape} and {plan.T} taps")
   return oh, ow
 
 
-def _launch(x, k, gain: float, mode: str, out_hw=None):
+class _Args(ctypes.Structure):
+  """fir2.cu's ``Fir2Args``: one launch's arguments besides the pointers,
+  the vector width and the stream."""
+  _fields_ = [(name, ctypes.c_int) for name in
+              ("N", "H", "W", "C", "OH", "OW", "up", "len", "base")] + [
+                  ("table", ctypes.c_float * 10)]
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_args(k, gain: float, mode: str, shape: tuple, out_hw):
+  """Per (taps, gain, mode, x's shape, out_hw), checked once: the output's
+  shape and the kernel's ``_Args``."""
+  plan = _plan(k, gain, mode)
+  oh, ow = _check(shape, plan, mode, out_hw)
+  n, h, w, c = shape
+  if max(n * h * w * c, n * oh * ow * c) >= 2 ** 31:
+    raise ValueError(f"the fir2 kernel indexes in 32 bits: x of shape "
+                     f"{shape} is too large")
+  return (n, oh, ow, c), _Args(n, h, w, c, oh, ow, plan.up, plan.length,
+                               plan.base, (ctypes.c_float * 10)(*plan.table))
+
+
+def _launch(x, k, gain: float, mode: str, out_hw, device: torch.device):
   """One launch of the fir2 kernel on the CUDA tensor ``x``."""
-  oh, ow = _check(x, k, mode, out_hw)
   if x.dtype != torch.float32:
     raise NotImplementedError(
         f"the fir2 kernel takes float32 only (x is {x.dtype}); bfloat16 "
         "is listed in ROADMAP.md Queue 2")
   if not x.is_contiguous():
     raise ValueError("x must be contiguous")
-  taps = fir2_taps(k, gain, mode)[::-1].astype(np.float32)  # flipped
-  T = len(taps)
-  pad0, _ = fir2_pads(T, mode)
-  n, h, w, c = x.shape
-  out = torch.empty((n, oh, ow, c), dtype=x.dtype, device=x.device)
-  vec = 4 if c % 4 == 0 and x.data_ptr() % 16 == 0 else 1
-  host_taps = (ctypes.c_float * T)(*taps.tolist())
-  launch = _kernel_fn()
-  with torch.cuda.device(x.device):
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = launch(x.data_ptr(), out.data_ptr(), n, h, w, c, oh, ow,
-                 int(mode == "up"), T, pad0, host_taps, vec, stream)
+  out_shape, args = _launch_args(k, gain, mode, tuple(x.shape), out_hw)
+  out = x.new_empty(out_shape)
+  vec = 4 if out_shape[3] % 4 == 0 and x.data_ptr() % 16 == 0 else 1
+  err = launch(_kernel_fn(), device, x.data_ptr(), out.data_ptr(),
+               ctypes.addressof(args), vec)
   if err != 0:
     raise RuntimeError(f"fir2 launch failed: cudaError {err}")
   return out
@@ -200,12 +271,12 @@ def _resample(x, k, gain: float, mode: str, wrapper, backward: bool,
               out_hw=None):
   """The plain version for a CPU tensor, the kernel for a CUDA tensor,
   counted on ``wrapper`` as a forward or a backward launch."""
-  if x.device.type == "cpu":
+  device = x.device
+  if device.type == "cpu":
     return _fir2_plain(x, k, gain, mode, out_hw)
-  if x.device.type != "cuda":
-    raise ValueError(f"fir_{mode}sample2 runs on cuda or cpu, not "
-                     f"{x.device}")
-  out = _launch(x, k, gain, mode, out_hw)
+  if device.type != "cuda":
+    raise ValueError(f"fir_{mode}sample2 runs on cuda or cpu, not {device}")
+  out = _launch(x, k, gain, mode, out_hw, device)
   shape = tuple(x.shape[1:])
   if backward:
     wrapper.backward_launches += 1
@@ -275,9 +346,11 @@ def fir2_backward(ybar, k, gain: float, mode: str, x_shape):
 
 
 def _fir2(x, k, gain: float, mode: str, wrapper):
-  fir2_taps(k, gain, mode)  # a 1-D kernel of 1..MAX_TAPS taps, or raise
-  return _apply(x, tuple(float(v) for v in k), float(gain), mode, wrapper,
-                False)
+  if type(k) is not tuple:  # the model's taps come as a tuple: used as is
+    k = _taps_key(k)
+  gain = float(gain)
+  _plan(k, gain, mode)  # a 1-D kernel of 1..MAX_TAPS taps, or raise
+  return _apply(x, k, gain, mode, wrapper, False)
 
 
 def fir_upsample2(x, k: Sequence[float], gain: float = 1.0):
@@ -313,8 +386,6 @@ reset_launch_counts()
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
   fn = load_library(_KERNEL).fir2_f32
-  fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 9
-                 + [ctypes.POINTER(ctypes.c_float), ctypes.c_int,
-                    ctypes.c_void_p])
+  fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
   fn.restype = ctypes.c_int
   return fn

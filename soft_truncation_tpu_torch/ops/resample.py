@@ -67,7 +67,11 @@ def upfirdn2d(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
 
 
 def _is_separable_2x(k, factor: int) -> bool:
-  return factor == 2 and np.asarray(k).ndim == 1
+  if factor != 2:
+    return False
+  if isinstance(k, (tuple, list)):  # the model's taps: no numpy per call
+    return not (k and isinstance(k[0], (tuple, list, np.ndarray)))
+  return np.asarray(k).ndim == 1
 
 
 def upsample_2d(x: torch.Tensor, k=None, factor: int = 2,

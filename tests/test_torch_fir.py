@@ -5,7 +5,8 @@ The CUDA kernel (csrc/fir2.cu) runs only on the card: chip_smoke.py holds it
 against its plain version there, and ``test_kernel_matches_plain_on_card``
 does when a card is present. Here the plain versions are held against the
 Pallas kernel in interpret mode and the lax path, and a numpy replay of the
-kernel's index arithmetic (``tap_index`` in fir2.cu) against JAX, at
+kernel's index arithmetic (fir2.cu's quads of up2 over the launch plan's
+phase table, its per-output taps of down2) against JAX, at
 rtol = atol = 1e-5 as tests/test_pallas_fir.py: the same f32 products,
 summed in another order.
 """
@@ -86,39 +87,52 @@ def test_plain_matches_pallas_interpret_and_lax(k, shape, mode, gain):
     np.testing.assert_allclose(got, want, err_msg=route, **TOL)
 
 
-def _kernel_replay(x, k, gain, mode):
-  """numpy replay of fir2.cu: per output, the flipped taps at
-  ``tap_index``, summed over ty inside tx."""
-  taps = fir.fir2_taps(k, gain, mode)[::-1].astype(np.float32)
-  T = len(taps)
-  pad0, _ = fir.fir2_pads(T, mode)
+def _kernel_replay(x, k, gain, mode, out_hw=None):
+  """numpy replay of fir2.cu over the launch plan: up2 per 2x2 output quad
+  (i, j), the S x S input pixels the four phases share summed per column
+  into both row phases, then each column into both column phases; down2 per
+  output, the flipped taps at 2*o + t - pad0. Taps outside [0, L) read 0."""
+  plan = fir._plan(fir._taps_key(k), gain, mode)
+  table = np.array(plan.table[:], np.float32)
   n, h, w, c = x.shape
-  oh, ow = fir._out_size(h, T, mode), fir._out_size(w, T, mode)
-
-  def tap_index(o, t, L):
-    if mode == "up":
-      m = o + t - pad0
-      if m & 1:
-        return -1
-      i = m >> 1
-    else:
-      i = 2 * o + t - pad0
-    return i if 0 <= i < L else -1
-
+  oh, ow = out_hw or (fir._out_size(h, plan.T, mode),
+                      fir._out_size(w, plan.T, mode))
   out = np.zeros((n, oh, ow, c), np.float32)
+  if mode == "up":
+    S, lo = plan.length, plan.base
+    coef = table.reshape(2, S)
+    for i in range((oh + 1) // 2):
+      for j in range((ow + 1) // 2):
+        acc = np.zeros((2, 2, n, c), np.float32)
+        for sx in range(S):
+          ix = j + lo + sx
+          if not 0 <= ix < w:
+            continue
+          col = np.zeros((2, n, c), np.float32)
+          for sy in range(S):
+            iy = i + lo + sy
+            if 0 <= iy < h:
+              col += coef[:, sy, None, None] * x[:, iy, ix]
+          acc += coef[None, :, sx, None, None] * col[:, None]
+        for p in range(2):
+          for q in range(2):
+            if 2 * i + p < oh and 2 * j + q < ow:
+              out[:, 2 * i + p, 2 * j + q] = acc[p, q]
+    return out
+  kf, pad0 = table[:plan.T], plan.base
   for oy in range(oh):
     for ox in range(ow):
       acc = np.zeros((n, c), np.float32)
-      for tx in range(T):
-        ix = tap_index(ox, tx, w)
-        if ix < 0:
+      for tx in range(plan.T):
+        ix = 2 * ox + tx - pad0
+        if not 0 <= ix < w:
           continue
         col = np.zeros((n, c), np.float32)
-        for ty in range(T):
-          iy = tap_index(oy, ty, h)
-          if iy >= 0:
-            col += taps[ty] * x[:, iy, ix]
-        acc += taps[tx] * col
+        for ty in range(plan.T):
+          iy = 2 * oy + ty - pad0
+          if 0 <= iy < h:
+            col += kf[ty] * x[:, iy, ix]
+        acc += kf[tx] * col
       out[:, oy, ox] = acc
   return out
 
@@ -130,6 +144,57 @@ def test_kernel_index_math_matches_jax(k, mode):
   want = _jax_resample(x, KERNELS[k], 2.0, mode, "lax")
   np.testing.assert_allclose(_kernel_replay(x, KERNELS[k], 2.0, mode), want,
                              **TOL)
+
+
+@pytest.mark.parametrize("k", sorted(KERNELS))
+def test_quad_upsample_replay_one_row_past_2x(k):
+  """Up2 sized 2H+1 x 2W+1 (the adjoint of a downsample of an odd size):
+  the quads' last row and column read zeros past the input. JAX's reference
+  is the upsample of the input zero-extended, cropped (on the shape of the
+  test above, so no new compile)."""
+  x = _x((2, 5, 7, 3), seed=9)
+  xp = np.zeros((2, 6, 8, 3), np.float32)
+  xp[:, :5, :7] = x
+  want = _jax_resample(xp, KERNELS[k], 2.0, "up", "lax")[:, :11, :15]
+  got = _kernel_replay(x, KERNELS[k], 2.0, "up", out_hw=(11, 15))
+  np.testing.assert_allclose(got, want, **TOL)
+  plain = fir._fir2_plain(torch.from_numpy(x), KERNELS[k], 2.0, "up",
+                          (11, 15))
+  np.testing.assert_allclose(plain.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("mode", ["up", "down"])
+def test_launch_plan_holds_taps_and_pads_and_refuses_the_same(mode):
+  """The cached plan returns fir2_taps / fir2_pads' values and a kernel
+  table built from them (down2: the taps flipped; up2: _phase_taps_up2's
+  taps at their offsets), and refuses what fir2_taps refuses."""
+  for k in KERNELS.values():
+    for gain in (1.0, 2.0):
+      key = fir._taps_key(np.asarray(k))
+      assert key == fir._taps_key(k) == tuple(k)
+      plan = fir._plan(key, gain, mode)
+      assert fir._plan(key, gain, mode) is plan
+      taps = fir.fir2_taps(k, gain, mode).astype(np.float32)
+      np.testing.assert_array_equal(plan.taps, taps)
+      assert (plan.T, (plan.pad0, plan.pad1)) == (len(k),
+                                                 fir.fir2_pads(len(k), mode))
+      table = np.array(plan.table[:], np.float32)
+      if mode == "down":
+        assert (plan.length, plan.base) == (len(k), plan.pad0)
+        np.testing.assert_array_equal(table, taps[::-1])
+        continue
+      coef = table.reshape(2, plan.length)
+      for p, phase in enumerate(fir._phase_taps_up2(len(k), plan.pad0)):
+        want = np.zeros(plan.length, np.float32)
+        for ki, o in phase:
+          want[o - plan.base] = taps[ki]
+        np.testing.assert_array_equal(coef[p], want)
+  for bad in ([1.] * (fir.MAX_TAPS + 1), [], np.outer([1, 3], [3, 1]),
+              [[1., 3.], [3., 1.]]):
+    with pytest.raises(ValueError):
+      fir.fir2_taps(bad, 1.0, mode)
+    with pytest.raises(ValueError):
+      fir._plan(fir._taps_key(bad), 1.0, mode)
 
 
 def test_upfirdn2d_matches_jax():
@@ -213,17 +278,20 @@ def test_wrapper_refuses_what_it_does_not_take(fault):
 
 @pytest.mark.gpu
 def test_kernel_matches_plain_on_card():
-  """fir2 on the card against its plain version at the UNCSN++ shapes."""
+  """fir2 on the card against its plain version at the UNCSN++ shapes, for
+  every kernel of KERNELS (up2's phase tables of S = 1, 3 and 3 taps wide)."""
   if not torch.cuda.is_available():
     pytest.skip("needs a CUDA card: the fir2 kernel has no CPU mode")
   fir.reset_launch_counts()
   gen = torch.Generator("cuda").manual_seed(0)
   for (h, c) in ((32, 128), (16, 256), (8, 256), (4, 256), (16, 3)):
     x = torch.randn(8, h, h, c, generator=gen, device="cuda")
-    for wrapper, plain in ((fir.fir_upsample2, fir.fir_upsample2_plain),
-                           (fir.fir_downsample2, fir.fir_downsample2_plain)):
-      got, want = wrapper(x, [1, 3, 3, 1]), plain(x, [1, 3, 3, 1])
-      torch.cuda.synchronize()
-      err = (got - want).abs().max().item()
-      assert err <= 1e-5 * want.abs().max().item(), (h, c, wrapper)
-  assert fir.fir_upsample2.launches == fir.fir_downsample2.launches == 5
+    for k in KERNELS.values():
+      for wrapper, plain in ((fir.fir_upsample2, fir.fir_upsample2_plain),
+                             (fir.fir_downsample2,
+                              fir.fir_downsample2_plain)):
+        got, want = wrapper(x, k), plain(x, k)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item(), (h, c, k, wrapper)
+  assert fir.fir_upsample2.launches == fir.fir_downsample2.launches == 15

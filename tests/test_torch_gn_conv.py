@@ -7,6 +7,9 @@ the port takes, is held against the JAX reference (gn_stats +
 gn_silu_conv3x3_reference; not interpret-mode Pallas, which deadlocks on
 this suite's CPU, see test_gn_conv_fused.py), in f32 at rtol=atol=1e-5:
 the same f32 arithmetic summed in another order over K <= 9*128 terms.
+A numpy replay of the kernel's arithmetic (its tiles, A-tile rows, K order,
+split-K partition and 3xTF32 products) is held to the same reference and
+bar, which a 1xTF32 replay fails.
 """
 
 import os
@@ -56,6 +59,136 @@ def test_plain_matches_jax_reference(n, h, w, c, o, groups):
                              atol=1e-5)
 
 
+def split_chunks(plan, split):
+  """The channel chunks of one split, as csrc/gn_silu_conv3x3.cu takes
+  them: split s takes [s * chunks // S, (s + 1) * chunks // S)."""
+  return range(split * plan.chunks // plan.splits,
+               (split + 1) * plan.chunks // plan.splits)
+
+
+def tile_rows(plan, tile, n, h, w, tap):
+  """The kernel's A rows for tap ``tap`` (dy, dx = divmod(tap, 3)) in row
+  tile ``tile``: GEMM row m is pixel tile * rows * W + m of the flattened
+  N*H*W; it reads the flat index of that pixel's neighbour (n, y + dy - 1,
+  x + dx - 1), or -1 where the kernel reads zeros (a tap outside the
+  image, or a row past the tile or past N*H*W)."""
+  m = np.arange(gn_conv.BM)
+  pix = tile * plan.rows * w + m
+  img, rem = np.divmod(pix, h * w)
+  sy = rem // w + tap // 3 - 1
+  sx = rem % w + tap % 3 - 1
+  ok = ((m < plan.rows * w) & (pix < n * h * w) & (sy >= 0) & (sy < h)
+        & (sx >= 0) & (sx < w))
+  return np.where(ok, (img * h + sy) * w + sx, -1)
+
+
+def _replay_kernel(x, gamma, beta, wgt, b, groups, passes):
+  """numpy replay of csrc/gn_silu_conv3x3.cu: per row tile and split, the
+  chunks of the split in order and the 9 taps of each, each adding the
+  TF32 products of the activated A rows (tile_rows) and the weight operand
+  in f32; then the bias plus the splits in order. ``passes`` 3 is the
+  kernel's 3xTF32 (lo*hi + hi*lo + hi*hi), 1 plain TF32 (hi*hi)."""
+  n, h, w, c = x.shape
+  o = wgt.shape[-1]
+  plan = gn_conv.launch_plan(n, h, w, c, o, groups)
+  mean, rsqrt = (t.numpy() for t in gn_conv.gn_stats(torch.from_numpy(x),
+                                                     groups))
+  cg = c // groups
+  scale = np.repeat(rsqrt, cg, axis=1) * gamma
+  shift = beta - np.repeat(mean, cg, axis=1) * scale
+  u = x * scale[:, None, None] + shift[:, None, None]
+  act = np.zeros((plan.m, plan.cp), np.float32)
+  act[:, :c] = (u / (1 + np.exp(-u))).reshape(plan.m, c)
+
+  def split(a):
+    return tuple(t.numpy() for t in gn_conv.tf32_split(torch.from_numpy(a)))
+
+  w_hi, w_lo = (t.numpy() for t in gn_conv.weight_operand(
+      torch.from_numpy(wgt)))
+  used = plan.rows * w
+  out = np.zeros((plan.grid[1] * used, plan.op), np.float32)
+  bias = np.zeros(plan.op, np.float32)
+  bias[:o] = b
+  for tile in range(plan.grid[1]):
+    total = bias.copy()
+    for s in range(plan.splits):
+      acc = np.zeros((gn_conv.BM, plan.op), np.float32)
+      for chunk in split_chunks(plan, s):
+        c0 = chunk * gn_conv.BK
+        for tap in range(9):
+          rows = tile_rows(plan, tile, n, h, w, tap)
+          a = np.where(rows[:, None] >= 0,
+                       act[np.maximum(rows, 0), c0:c0 + gn_conv.BK], 0)
+          a_hi, a_lo = split(a.astype(np.float32))
+          k = slice(tap * plan.cp + c0, tap * plan.cp + c0 + gn_conv.BK)
+          acc += a_hi @ w_hi[k]
+          if passes == 3:
+            acc += a_lo @ w_hi[k] + a_hi @ w_lo[k]
+      total = total + acc
+    out[tile * used:(tile + 1) * used] = total[:used]
+  return out[:plan.m, :o].reshape(n, h, w, o)
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+@pytest.mark.parametrize("n,h,w,c,o,groups", [(2, 8, 8, 32, 48, 8),
+                                              (1, 4, 4, 64, 32, 16)])
+def test_kernel_tf32x3_replay_matches_jax(n, h, w, c, o, groups, passes):
+  """3xTF32 in the kernel's order and split-K partition meets the f32 bar
+  against JAX; 1xTF32 does not, so the bar tells the two apart."""
+  x, gamma, beta, wgt, b = _inputs(n, h, w, c, o)
+  assert gn_conv.launch_plan(n, h, w, c, o, groups).splits > 1  # split-K
+  want = np.asarray(jax_gn_conv.gn_silu_conv3x3_reference(
+      jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta),
+      jnp.asarray(wgt), jnp.asarray(b), groups))
+  got = _replay_kernel(x, gamma, beta, wgt, b, groups, passes)
+  if passes == 3:
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+  else:
+    assert not np.allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,h,w", [(3, 4, 4), (4, 5, 7)])
+def test_tile_rows_map_pixels_and_zero_the_halo(n, h, w):
+  """Each tile row's source pixel per tap, against an im2col of the
+  zero-padded image, at a ragged 4x4 (48 of 128 rows, images sharing a
+  tile) and an odd 5x7 (18 rows of 7 pixels a tile, 126 of 128 GEMM rows,
+  the last tile ragged, images straddling tiles)."""
+  plan = gn_conv.launch_plan(n, h, w, 16, 16, 4)
+  used = plan.rows * w
+  m = n * h * w
+  flat = np.arange(m)
+  padded = np.pad(flat.reshape(n, h, w) + 1, ((0, 0), (1, 1), (1, 1))) - 1
+  for tap in range(9):
+    dy, dx = divmod(tap, 3)
+    want = padded[:, dy:dy + h, dx:dx + w].reshape(m)
+    for tile in range(plan.grid[1]):
+      got = tile_rows(plan, tile, n, h, w, tap)
+      assert got.shape == (gn_conv.BM,)
+      lo = tile * used
+      live = min(used, m - lo)
+      np.testing.assert_array_equal(got[:live], want[lo:lo + live])
+      assert (got[live:] == -1).all()
+    assert plan.grid[1] * used >= m
+
+
+def test_launch_plan_fills_the_card_and_covers_k_once():
+  """At the serving batch the split-K grid keeps the blocks the SMs hold
+  at once busy wherever the tiles alone are fewer (as far as there are
+  chunks to split), and the splits take every chunk once."""
+  for shape in [(32, 32, 128, 128), (32, 32, 256, 256), (16, 16, 512, 256),
+                (8, 8, 256, 256), (4, 4, 512, 256), (5, 7, 36, 20)]:
+    plan = gn_conv.launch_plan(8, *shape, 4 if shape[2] % 32 else 32)
+    tiles = plan.grid[0] * plan.grid[1]
+    assert plan.grid[2] == plan.splits and plan.rows * shape[1] <= gn_conv.BM
+    if tiles < gn_conv.H100_SMS // 2:
+      assert tiles * plan.splits >= min(gn_conv.H100_SMS // 2,
+                                        tiles * plan.chunks), shape
+    chunks = [ch for s in range(plan.splits)
+              for ch in split_chunks(plan, s)]
+    assert chunks == list(range(plan.chunks)), shape
+    assert plan.smem <= 232448
+
+
 def test_cpu_wrapper_takes_plain_version_without_launching():
   x, gamma, beta, wgt, b = (torch.from_numpy(a)
                             for a in _inputs(2, 8, 8, 32, 48, seed=1))
@@ -97,3 +230,29 @@ def test_package_imports_without_nvcc_or_card():
                         capture_output=True, text=True, timeout=120)
   assert proc.returncode == 0, proc.stderr[-2000:]
   assert "imported" in proc.stdout
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_on_card():
+  """gn_silu_conv3x3 on the card against its plain version: split-K at 8x8
+  and 4x4, ragged tiles at 5x7, C and O off the tile widths."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card: the gn_silu_conv3x3 kernel has no CPU "
+                "mode")
+  gn_conv.reset_launch_counts()
+  cases = [(8, 8, 8, 256, 256, 32), (8, 4, 4, 512, 256, 32),
+           (3, 5, 7, 36, 20, 12), (2, 32, 32, 128, 128, 32)]
+  for n, h, w, c, o, groups in cases:
+    x, gamma, beta, wgt, b = (torch.from_numpy(a).cuda()
+                              for a in _inputs(n, h, w, c, o, seed=3))
+    mean, rsqrt = gn_conv.gn_stats(x, groups)
+    args = (x, mean, rsqrt, gamma, beta, wgt, b, groups)
+    got = gn_conv.gn_silu_conv3x3(*args)
+    want = gn_conv.gn_silu_conv3x3_plain(*args)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), (n, h, w, c, o)
+    # no atomics: the same bits again, from the caller's weight operand
+    assert torch.equal(gn_conv.gn_silu_conv3x3(
+        *args, w_split=gn_conv.weight_operand(wgt)), got)
+  assert gn_conv.gn_silu_conv3x3.launches == 2 * len(cases)

@@ -98,18 +98,24 @@ def test_converter_consumes_every_leaf_and_sets_every_parameter(tiny):
 
 def test_fused_conv_weight_is_transposed_once_per_weight_value():
   from soft_truncation_tpu_torch.models.layers import DDPMConv
+  from soft_truncation_tpu_torch.ops import gn_conv
   gen = torch.Generator().manual_seed(0)
   conv = DDPMConv(4, 6, 3)
   conv.reset_parameters(gen)
   first = conv.weight_hwio()
-  assert conv.weight_hwio() is first
+  split = conv.weight_tf32_split()
+  assert conv.weight_hwio() is first and conv.weight_tf32_split() is split
   assert first.is_contiguous() and first.shape == (3, 3, 4, 6)
   assert torch.equal(first, conv.weight.detach().permute(2, 3, 1, 0))
+  assert all(torch.equal(a, b) for a, b in zip(
+      split, gn_conv.weight_operand(first)))
   new = torch.randn(6, 4, 3, 3, generator=gen)
   conv.load_state_dict({"weight": new, "bias": torch.zeros(6)})
   again = conv.weight_hwio()
   assert again is not first
   assert torch.equal(again, new.permute(2, 3, 1, 0))
+  assert all(torch.equal(a, b) for a, b in zip(
+      conv.weight_tf32_split(), gn_conv.weight_operand(again)))
 
 
 def _jax_block(kind):
