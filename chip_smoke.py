@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card (an H100): the quickest
-proof that the port still builds, agrees with its plain versions and serves.
+proof that the port still builds, agrees with its plain versions, serves,
+trains and evaluates the likelihood.
 
     python3 chip_smoke.py
 
@@ -20,7 +21,8 @@ Phases; any failure exits non-zero before the last line is printed:
      phase-3 weights (init_scale 0.1) it answers 'dpm_solver' (5 steps),
      and that batch is held against a CPU SamplingService run from the same
      prior. Every request twice: uint8 NHWC [8, 32, 32, 3], the same bytes
-     per seed, one launch per fused site per evaluation, no FIR launch;
+     per seed, one launch per fused site per evaluation, no FIR launch,
+     and (as in phase 5) no autograd.Function on the way;
   5. serve UNCSN++ (the other main path), counted the same way: with the
      config as published (init_scale 0) /healthz, then /sample with no
      method, i.e. the config's 'pc' at N = PC_PUBLISHED_STEPS, once, with
@@ -28,10 +30,12 @@ Phases; any failure exits non-zero before the last line is printed:
      the phase-3 weights 'pc' at N = 3, whose batch is held against a CPU
      SamplingService given the same prior and the same noise. Both kernels'
      launches per shape equal their sites x the evaluations;
-  5b. trace: one eval forward of each model at batch 8 with the phase-3
-     weights, its wall without a profiler and a torch.profiler trace of
-     TRACE_FORWARDS forwards: the device's busy share, the hand-written
-     kernels' device time, and the top kernels and host ops;
+  5b. trace: one eval forward and one likelihood ODE function evaluation
+     (a torch.func.jvp of the drift) of each model at batch 8 with the
+     phase-3 weights, each one's wall without a profiler and a
+     torch.profiler trace of TRACE_FORWARDS calls: the device's busy share,
+     the hand-written kernels' device time, and the top kernels and host
+     ops;
   6. train step, card vs CPU: one step of each full-width model with the
      phase-3 weights at batch 2 (dropout 0, no warmup, TF32 off as
      everywhere here), the draws (t_min,
@@ -42,17 +46,35 @@ Phases; any failure exits non-zero before the last line is printed:
   7. train (the third main path), counted the same way: the CLI trainer
      (``soft_truncation_tpu_torch.main --mode train``) for each config as
      published, batch 128, Synthetic data, in build/chip_smoke_train/
-     (removed after), steps 0..TRAIN_ITERS with a rolling checkpoint every
+     (removed after phase 7b), steps 0..TRAIN_ITERS with a rolling checkpoint every
      2 steps, then a resume to TRAIN_ITERS + 2
      that must start at the saved step: every logged loss finite, ms per
      step (CUDA events around each step, the steps after the first two),
      imgs/s and peak device memory; UNCSN++'s fir2 launches per shape equal
      12 forward and 12 backward per step, the flagship's none;
+  7b. likelihood (the fourth main path), counted the same way: the CLI
+     evaluation (``soft_truncation_tpu_torch.main --mode eval``) of each
+     config as published, in phase 7's workdir (its rolling checkpoint's
+     EMA weights; the workdir is removed after), Synthetic test images,
+     batch LIKELIHOOD_BATCH, the eval loss, one NELBO and one exact-NLL
+     batch at the published ODE tolerances (rtol = atol = 1e-5, 'correct'
+     mode): finite eval loss, NELBO and NLL bpd, the nfe, the NLL batch's
+     wall and ms per function evaluation from the log; over the NLL batch
+     each fused site launches gn_silu_conv3x3 for the primal and its
+     tangent mode for the tangent once per function evaluation (plus the
+     residual's forward), each UNCSN++ FIR site fir2 the same way; then,
+     with the phase-3 weights at batch 2, the ODE function at t in
+     LIKELIHOOD_TIMES (drift and Hutchinson term) and the per-example NELBO
+     and residual, card vs CPU from the same draws;
   8. kernels: each kernel against its plain PyTorch version (TF32 off) at
      every shape the serve phases launched it at (N=8) and, for fir2, at
      every shape the train phase launched it at (N=128), forward and
      backward (the backward held against torch.autograd.grad of the plain
-     forward), with its time as issued from the host (``kernel_ms``, the
+     forward), and both tangents at every shape phase 7b launched them at
+     (N=8; gn_silu_conv3x3's against gn_silu_conv3x3_jvp_plain, which is
+     held against torch.func.jvp of the plain chain, its library call
+     torch.func.jvp of the library chain), with its time as issued from
+     the host (``kernel_ms``, the
      `kernels` line's ``ms``) and on the device alone (``device_ms``,
      replayed from a CUDA graph), the plain version's, one library call's
      (issued, ``library_ms``, and on the device, ``library_device_ms``;
@@ -61,8 +83,8 @@ Phases; any failure exits non-zero before the last line is printed:
      interleaved rounds), the
      bound (gn_silu_conv3x3: its flops once at the dense TF32 rate, with
      the kernel's 3xTF32 figure and the FP32-pipe figure of its earlier
-     FMA form beside it) and the launches per forward or per step
-     measured in phases 4, 5 and 7; gn_silu_conv3x3's split-K grid per
+     FMA form beside it) and the launches per forward, step or function
+     evaluation measured in phases 4, 5, 7 and 7b; gn_silu_conv3x3's split-K grid per
      shape, and its agreement at shapes no model reaches (ragged tiles, C
      and O off the tile widths); one JSON line per shape, then the
      `kernels` line and each kernel's time beside its library call's.
@@ -108,12 +130,15 @@ PC_PUBLISHED_STEPS = 1000  # model.num_scales of ve/CIFAR10/uncsnpp_st.py
 TRAIN_BATCH = 128        # training.batch_size of both configs
 TRAIN_CHECK_BATCH = 2    # phase 6
 TRAIN_ITERS = 5          # phase 7: steps 0..5, then a resume to 7
-TRACE_FORWARDS = 5       # phase 5b: eval forwards traced per model
+TRACE_FORWARDS = 5       # phase 5b: calls traced per model and kind
 # the adjoint's launches of one UNCSN++ train step: (launched mode, H, W, C)
 # of each cotangent -> count (the backward of an up site launches down)
 UNCSNPP_FIR_BWD_SITES = {("up", 16, 16, 128): 2, ("up", 8, 8, 256): 2,
                          ("up", 4, 4, 256): 2, ("down", 8, 8, 256): 2,
                          ("down", 16, 16, 256): 2, ("down", 32, 32, 256): 2}
+LIKELIHOOD_BATCH = 8     # phase 7b: eval.batch_size of the CLI evaluation
+LIKELIHOOD_CHECK_BATCH = 2  # phase 7b: card vs CPU
+LIKELIHOOD_TIMES = (1e-5, 0.5, 1.0)  # phase 7b: the ODE function's t
 KERNEL_REL_TOL = 1e-4   # gn_silu_conv3x3: reordered f32 sums, K <= 9*512
 FIR_REL_TOL = 1e-5      # fir2: <= 16 f32 products, summed in another order
 FORWARD_REL_TOL = 1e-3  # card vs CPU, the whole network or sampler
@@ -236,6 +261,48 @@ def _backward_launch_counts():
   firs.update({("up",) + s: k for s, k in
                fir.fir_downsample2.backward_launches_by_shape.items()})
   return firs
+
+
+def _jvp_launch_counts():
+  """The tangent launches per shape so far: gn_silu_conv3x3's per (H, W,
+  C, O), fir2's per (mode, H, W, C)."""
+  from soft_truncation_tpu_torch.ops import fir, gn_conv
+  firs = {("up",) + s: k for s, k in
+          fir.fir_upsample2.jvp_launches_by_shape.items()}
+  firs.update({("down",) + s: k for s, k in
+               fir.fir_downsample2.jvp_launches_by_shape.items()})
+  return dict(gn_conv.gn_silu_conv3x3.jvp_launches_by_shape), firs
+
+
+def _all_launch_counts():
+  """Primal and tangent launches per shape so far, as Counters:
+  (gn_silu_conv3x3, fir2, gn_silu_conv3x3 tangent, fir2 tangent)."""
+  return tuple(collections.Counter(c)
+               for c in _launch_counts() + _jvp_launch_counts())
+
+
+class _FunctionApplies:
+  """Counts the kernels' autograd.Function applications while it is
+  entered: serving must call the kernels directly."""
+
+  def __enter__(self):
+    from soft_truncation_tpu_torch.ops import fir, gn_conv
+    self.classes = (gn_conv._GnSiluConv3x3, fir._Fir2)
+    self.count = 0
+
+    def counted(orig):
+      def apply(*args, **kwargs):
+        self.count += 1
+        return orig(*args, **kwargs)
+      return apply
+
+    for cls in self.classes:
+      cls.apply = counted(cls.apply)
+    return self
+
+  def __exit__(self, *exc):
+    for cls in self.classes:
+      del cls.apply  # the inherited classmethod again
 
 
 def _reset_launch_counts():
@@ -517,36 +584,29 @@ def phase_serve_uncsnpp(sites, fir_sites, params):
   return launched, fir_launched, evals
 
 
-def phase_trace(name, config, params, label):
-  """Where one eval forward's time goes at the serving batch: the wall per
-  forward without a profiler (host clock, synchronised), then a
-  torch.profiler trace of TRACE_FORWARDS forwards: the device's busy time
-  (the kernels' self time, summed) against the traced wall, the kernels
-  taking the most device time and the ops taking the most host time."""
+def _traced(name, fn):
+  """``fn``'s wall per call without a profiler (host clock, synchronised),
+  then a torch.profiler trace of TRACE_FORWARDS calls: the device's busy
+  time (the kernels' self time, summed) against the traced wall, the
+  kernels taking the most device time and the ops taking the most host
+  time. Emits and returns the row, per call."""
   import torch
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
-  from soft_truncation_tpu_torch.models import create_model
 
-  model = create_model(config, DEVICE, seed=0)
-  model.load_state_dict(params)
-  x = torch.randn(SERVE_BATCH, 32, 32, 3, device=DEVICE)
-  labels = torch.full((SERVE_BATCH,), label, device=DEVICE)
-
-  def forwards(n):
+  def calls(n):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
-      model(x, labels)
+      fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / n * 1e3
 
-  with torch.inference_mode():
-    forwards(3)
-    wall_ms = forwards(TRACE_FORWARDS)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-      traced_ms = forwards(TRACE_FORWARDS)
+  calls(3)
+  wall_ms = calls(TRACE_FORWARDS)
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    traced_ms = calls(TRACE_FORWARDS)
   events = prof.key_averages()
 
   def device_us(e):
@@ -563,17 +623,16 @@ def phase_trace(name, config, params, label):
   top_device = sorted(kernels, key=device_us, reverse=True)[:8]
   top_host = sorted(events, key=lambda e: e.self_cpu_time_total,
                     reverse=True)[:8]
-  row = {"trace": name, "batch": SERVE_BATCH, "forwards": TRACE_FORWARDS,
-         "wall_ms_per_forward": wall_ms,
-         "traced_wall_ms_per_forward": traced_ms,
-         "device_busy_ms_per_forward": busy_ms if kernels else None,
+  row = {"trace": name, "batch": SERVE_BATCH, "calls": TRACE_FORWARDS,
+         "wall_ms_per_call": wall_ms, "traced_wall_ms_per_call": traced_ms,
+         "device_busy_ms_per_call": busy_ms if kernels else None,
          "device_busy_share": busy_ms / traced_ms if kernels else None,
-         "hand_written_kernels_ms_per_forward":
+         "hand_written_kernels_ms_per_call":
              ours / 1e3 / TRACE_FORWARDS if kernels else None,
-         "top_device_ms_per_forward": [
+         "top_device_ms_per_call": [
              [e.key[:60], e.count / TRACE_FORWARDS,
               device_us(e) / 1e3 / TRACE_FORWARDS] for e in top_device],
-         "top_host_ms_per_forward": [
+         "top_host_ms_per_call": [
              [e.key[:60], e.count / TRACE_FORWARDS,
               e.self_cpu_time_total / 1e3 / TRACE_FORWARDS]
              for e in top_host]}
@@ -582,6 +641,29 @@ def phase_trace(name, config, params, label):
     log(f"trace {name}: the profiler recorded no device time: device busy "
         f"share not measured")
   return row
+
+
+def phase_trace(name, config, params, label):
+  """Where the time goes at the serving batch (``_traced``): one eval
+  forward, under inference_mode, and one function evaluation of the
+  likelihood's ODE (a ``torch.func.jvp`` of the drift at t = 0.5: the
+  primal and the tangent of every site), under no_grad."""
+  import torch
+  from soft_truncation_tpu_torch.likelihood import get_ode_fn
+  from soft_truncation_tpu_torch.models import create_model
+  from soft_truncation_tpu_torch.sde import get_sde
+
+  model = create_model(config, DEVICE, seed=0)
+  model.load_state_dict(params)
+  x = torch.randn(SERVE_BATCH, 32, 32, 3, device=DEVICE)
+  labels = torch.full((SERVE_BATCH,), label, device=DEVICE)
+  with torch.inference_mode():
+    _traced(f"{name} eval forward", lambda: model(x, labels))
+  eps = torch.randint(0, 2, x.shape, device=DEVICE).float() * 2.0 - 1.0
+  ode_fn = get_ode_fn(config, get_sde(config), model, eps)
+  flat = torch.cat([x.reshape(-1), x.new_zeros(SERVE_BATCH)])
+  with torch.no_grad():
+    _traced(f"{name} ODE function evaluation", lambda: ode_fn(0.5, flat))
 
 
 def phase_train_step(name, config, want_fir, want_bwd):
@@ -701,7 +783,8 @@ def _timed_steps(make_train_step, events):
 def phase_train(name, path, fir_per_step, fir_bwd_per_step):
   """The third main path: the CLI trainer on a published config, batch 128,
   Synthetic data, then a resume. Returns the steps run, the fir2 launches
-  per shape (forward and backward) and the step time."""
+  per shape (forward and backward) and the workdir, which the likelihood
+  phase evaluates and then removes."""
   import re
   import shutil
 
@@ -737,7 +820,6 @@ def phase_train(name, path, fir_per_step, fir_bwd_per_step):
       logged = [m.groups() for m in map(line.search, f) if m]
   finally:
     run_lib.make_train_step = make
-    shutil.rmtree(workdir, ignore_errors=True)
   steps = len(events)
   ms = [a.elapsed_time(b) for a, b in events]
   timed = ms[2:first_run]
@@ -768,7 +850,208 @@ def phase_train(name, path, fir_per_step, fir_bwd_per_step):
                          f" and backward {fir_bwd}, expected {want_fwd} and "
                          f"{want_bwd} ({steps} steps); gn_silu_conv3x3 "
                          f"{launched}, expected none")
-  return steps, fir_fwd, fir_bwd
+  return steps, fir_fwd, fir_bwd, workdir
+
+
+def _scalars_in_float64(sde):
+  """``sde`` with its time-dependent methods run in float64 and their
+  results cast to f32, so that the card and the CPU get the same SDE
+  scalars. In f32, ``1 - exp(2 lmc)`` of the VP std at t = 1e-5 cancels to
+  ~17 ulps of 1, and the card's and the CPU's exp round one ulp apart: a
+  ~3 % difference in std that the drift, the divergence, the NELBO's Z and
+  the residual inherit (the JAX formula; logged by the caller)."""
+  import dataclasses
+
+  import torch
+
+  def in_float64(method):
+    def run(self, *args):
+      out = method(self, *(a.double() if torch.is_tensor(a) else a
+                           for a in args))
+      if isinstance(out, tuple):
+        return tuple(o.float() for o in out)
+      return out.float()
+    return run
+
+  cls = type(sde)
+  sub = type(cls.__name__, (cls,), {
+      m: in_float64(getattr(cls, m))
+      for m in ("marginal_prob", "sde", "sample_diffusion_time")})
+  return sub(**{f.name: getattr(sde, f.name)
+                for f in dataclasses.fields(sde)})
+
+
+def _ode_and_elbo_card_vs_cpu(name, config, params):
+  """The likelihood's functions at full width, batch 2, card vs CPU from the
+  same weights (phase 3's, init_scale 0.1), the same draws and the same SDE
+  scalars (``_scalars_in_float64``): the ODE function at each of
+  LIKELIHOOD_TIMES (drift and Hutchinson term, each within FORWARD_REL_TOL
+  of its own max) and the per-example NELBO and residual (within
+  FORWARD_REL_TOL of the largest). Logs the f32 marginal std at the
+  smallest time on both."""
+  import torch
+  from soft_truncation_tpu_torch.data import get_data_inverse_scaler
+  from soft_truncation_tpu_torch.likelihood import get_elbo_fn, get_ode_fn
+  from soft_truncation_tpu_torch.losses import make_draw
+  from soft_truncation_tpu_torch.models import create_model
+  from soft_truncation_tpu_torch.sde import get_sde
+
+  sde32 = get_sde(config)
+  t_min = torch.full((1,), min(LIKELIHOOD_TIMES))
+  stds = [sde32.marginal_std(t_min.to(d)).item() for d in (DEVICE, "cpu")]
+  log(f"likelihood {name}: f32 marginal std at t={t_min.item()}: card "
+      f"{stds[0]!r} cpu {stds[1]!r} (relative difference "
+      f"{abs(stds[0] - stds[1]) / stds[1]:.3e})")
+  sde = _scalars_in_float64(sde32)
+  models = {}
+  for device in ("cpu", DEVICE):
+    models[device] = create_model(config, device).requires_grad_(False)
+    models[device].load_state_dict(params)
+  gen = torch.Generator().manual_seed(5)
+  shape = (LIKELIHOOD_CHECK_BATCH, 32, 32, 3)
+  x = torch.randn(shape, generator=gen)
+  eps = torch.randint(0, 2, shape, generator=gen).float() * 2.0 - 1.0
+  flat = torch.cat([x.reshape(-1), torch.zeros(shape[0])])
+  n = x.numel()
+  worst = 0.0
+  with torch.no_grad():
+    for t in LIKELIHOOD_TIMES:
+      got, want = (get_ode_fn(config, sde, models[d], eps.to(d))(
+          t, flat.to(d)).cpu() for d in (DEVICE, "cpu"))
+      for part, sl in (("drift", slice(0, n)), ("logp", slice(n, None))):
+        err = (got[sl] - want[sl]).abs().max().item()
+        scale = want[sl].abs().max().item()
+        worst = max(worst, err / scale)
+        log(f"likelihood {name}: ODE function at t={t} {part}: max_abs_diff "
+            f"{err} max|cpu| {scale}")
+        if not (torch.isfinite(got[sl]).all()
+                and err <= FORWARD_REL_TOL * scale):
+          raise AssertionError(f"{name}: the ODE function's {part} at t={t}"
+                               f" disagrees with the CPU: {err} vs {scale}")
+  draws, cpu_draw = [], make_draw(gen, "cpu")
+
+  def record(kind, shape):
+    draws.append(cpu_draw(kind, shape))
+    return draws[-1]
+
+  replay = iter(draws)
+  elbo_fn = get_elbo_fn(config, sde, get_data_inverse_scaler(config))
+  batch = x.clamp(-1.0, 1.0) if config.data.centered else x.sigmoid()
+  want = elbo_fn(models["cpu"], batch, draw=record)
+  got = elbo_fn(models[DEVICE], batch.to(DEVICE),
+                draw=lambda kind, shape: next(replay).to(DEVICE))
+  for part, g, w in zip(("NELBO", "residual"), got, want):
+    err = (g.cpu() - w).abs().max().item()
+    scale = w.abs().max().item()
+    worst = max(worst, err / scale)
+    log(f"likelihood {name}: {part} bpd card {g.tolist()} cpu {w.tolist()}")
+    if not (torch.isfinite(g).all() and err <= FORWARD_REL_TOL * scale):
+      raise AssertionError(f"{name}: the {part} disagrees with the CPU: "
+                           f"{err} vs {scale}")
+  return worst
+
+
+def phase_likelihood(name, path, workdir, sites, fir_sites, config01,
+                     params):
+  """The fourth main path: ``soft_truncation_tpu_torch.main --mode eval``
+  on a published config in the train phase's workdir (its rolling
+  checkpoint's EMA weights), Synthetic test images, batch
+  LIKELIHOOD_BATCH, one NELBO and one exact-NLL batch at the published ODE
+  tolerances (rtol = atol = 1e-5, 'correct' mode with the residual). The
+  log's eval loss, NELBO and NLL bpd must be finite. Over the NLL batch
+  (the counts read before and after it) every fused site launches the
+  kernel for the primal and its tangent mode for the tangent once per
+  function evaluation, plus the residual's forward once; every FIR site
+  fir2 the same way. Then the card-vs-CPU check of the likelihood's
+  functions with phase 3's weights. Removes the workdir. Returns the
+  whole run's tangent launches per shape, the function evaluations (the
+  NLL's nfe plus the NELBO's one jvp) and a summary."""
+  import re
+  import shutil
+
+  import torch
+  from soft_truncation_tpu_torch import main as port_main
+  from soft_truncation_tpu_torch import run_lib
+
+  argv = ["--config", path, "--workdir", workdir, "--mode", "eval",
+          "--config.data.dataset", "Synthetic",
+          "--config.eval.enable_bpd=True", "--config.eval.nelbo_iter", "1",
+          "--config.eval.nll_iter", "1",
+          "--config.eval.batch_size", str(LIKELIHOOD_BATCH)]
+  if DEVICE == "cpu":  # a run on the host, without the card
+    argv.append("--cpu")
+  windows, get = [], run_lib.get_likelihood_fn
+
+  def counted(*args, **kwargs):
+    nll_fn = get(*args, **kwargs)
+
+    def run(*a, **k):
+      torch.cuda.synchronize()
+      before = _all_launch_counts()
+      out = nll_fn(*a, **k)
+      torch.cuda.synchronize()
+      windows.append((out[2], [after - b for after, b in
+                               zip(_all_launch_counts(), before)]))
+      return out
+
+    return run
+
+  run_lib.get_likelihood_fn = counted
+  try:
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    port_main.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gn_all, fir_all, gn_jvp_all, fir_jvp_all = _all_launch_counts()
+    with open(os.path.join(workdir, "evaluation_history.txt")) as f:
+      text = f.read()
+  finally:
+    run_lib.get_likelihood_fn = get
+    shutil.rmtree(workdir, ignore_errors=True)
+  loss = re.search(r"eval loss: mean (\S+) std (\S+) over (\d+)", text)
+  nelbo = re.search(r"nelbo batch 0: mean (\S+) std (\S+)", text)
+  nll = re.search(r"nll batch 0: mean (\S+) std (\S+) \(nfe (\d+), (\S+) "
+                  r"s, (\S+) ms per function evaluation\)", text)
+  if not (loss and nelbo and nll):
+    raise AssertionError(f"{name}: the evaluation log lacks the eval loss, "
+                         f"NELBO or NLL line:\n{text[-3000:]}")
+  values = [float(v) for v in loss.groups()[:2] + nelbo.groups()
+            + nll.groups()[:2]]
+  if not all(math.isfinite(v) for v in values):
+    raise AssertionError(f"{name}: a non-finite eval loss or bpd: {values}")
+  if len(windows) != 1:
+    raise AssertionError(f"{name}: {len(windows)} NLL batches, expected 1")
+  nfe, (gn, fir_fwd, gn_jvp, fir_jvp) = windows[0]
+  want = {s: k * (nfe + 1) for s, k in sites.items()}
+  want_jvp = {s: k * nfe for s, k in sites.items()}
+  want_fir = {s: k * (nfe + 1) for s, k in fir_sites.items()}
+  want_fir_jvp = {s: k * nfe for s, k in fir_sites.items()}
+  for what, got, expected in (("gn_silu_conv3x3", gn, want),
+                              ("gn_silu_conv3x3 tangent", gn_jvp, want_jvp),
+                              ("fir2", fir_fwd, want_fir),
+                              ("fir2 tangent", fir_jvp, want_fir_jvp)):
+    if dict(+got) != expected:
+      raise AssertionError(f"{name}: {what} launches per shape over the NLL "
+                           f"batch (nfe {nfe}) {dict(got)}, expected "
+                           f"{expected}: sites x function evaluations (+1 "
+                           f"for the residual's forward)")
+  worst = _ode_and_elbo_card_vs_cpu(name, config01, params)
+  nll_wall = float(nll.group(4))
+  summary = {"likelihood": name, "batch": LIKELIHOOD_BATCH, "nfe": nfe,
+             "nll_bpd_mean": values[4], "nll_bpd_std": values[5],
+             "nelbo_bpd_mean": values[2], "eval_loss_mean": values[0],
+             "nll_wall_s": nll_wall,
+             "ms_per_function_evaluation": float(nll.group(5)),
+             "cli_wall_s": wall,
+             "launches": {"gn_silu_conv3x3": sum(gn_all.values()),
+                          "gn_silu_conv3x3_jvp": sum(gn_jvp_all.values()),
+                          "fir2": sum(fir_all.values()),
+                          "fir2_jvp": sum(fir_jvp_all.values())},
+             "card_vs_cpu_worst_rel": worst}
+  emit(summary)
+  # the NELBO's jvp is one function evaluation more
+  return dict(gn_jvp_all), dict(fir_jvp_all), nfe + 1, summary
 
 
 def _held(name, shape, got, want, tol):
@@ -784,7 +1067,8 @@ def _held(name, shape, got, want, tol):
 
 def kernels_gn(launches_by_shape, evals):
   """gn_silu_conv3x3 vs plain vs library at every shape the serve phases
-  launched it at (and the listed flagship shapes), N=8."""
+  launched it at (and the listed flagship shapes), N=8. The caller runs it
+  under inference_mode, where the wrapper calls the kernel directly."""
   import torch
   import torch.nn.functional as F
   from soft_truncation_tpu_torch.ops import gn_conv
@@ -913,7 +1197,7 @@ def kernels_fir(fir_launched, units, batch, per_key):
       # host's pace drifts within a run, so issued times compare only in
       # turns
       def through_function():
-        return fir._Fir2.apply(x, FIR_KERNEL, 1.0, mode, wrapper, False,
+        return fir._Fir2.apply(x, FIR_KERNEL, 1.0, mode, wrapper, "forward",
                                None)
 
       ab = [time_ms(f) for f in (lambda: wrapper(x, FIR_KERNEL),
@@ -1004,6 +1288,135 @@ def kernels_fir_backward(bwd_launched, steps):
   return rows
 
 
+def gn_jvp_bound(n, h, w, c, o, groups):
+  """The tangent's bound: the primal's flops once at the dense TF32 rate,
+  or its bytes (x and dx, the stats and their tangents, gamma, beta, w in,
+  the tangent out), whichever is longer."""
+  flops = 2 * n * h * w * c * o * 9
+  bytes_ = 4 * (n * h * w * (2 * c + o) + 9 * c * o + 2 * c + 4 * n * groups)
+  return _bound(flops, bytes_, PEAK_TF32_FLOPS)
+
+
+def kernels_gn_jvp(jvp_launched, evals):
+  """gn_silu_conv3x3's tangent kernel at every shape the likelihood phases
+  launched it at, batch LIKELIHOOD_BATCH: against gn_silu_conv3x3_jvp_plain,
+  which is held against torch.func.jvp of the plain chain; timed beside
+  that plain version and one library call, torch.func.jvp of GroupNorm ->
+  SiLU -> cuDNN conv (TF32 off; it computes the primal too), kernel and
+  library interleaved A B A B, issued and on the device."""
+  import torch
+  import torch.nn.functional as F
+  from soft_truncation_tpu_torch.ops import gn_conv
+
+  gen = torch.Generator(DEVICE).manual_seed(3)
+  rows = []
+  for (h, w, c, o) in sorted(jvp_launched, reverse=True):
+    n, groups = LIKELIHOOD_BATCH, min(c // 4, 32)
+    x, dx = (torch.randn(n, h, w, c, generator=gen, device=DEVICE)
+             for _ in range(2))
+    gamma, beta = (torch.randn(c, generator=gen, device=DEVICE)
+                   for _ in range(2))
+    wgt = torch.randn(3, 3, c, o, generator=gen, device=DEVICE)
+    b = torch.randn(o, generator=gen, device=DEVICE)
+    (mean, rsqrt), (dmean, drsqrt) = torch.func.jvp(
+        lambda v: gn_conv.gn_stats(v, groups), (x,), (dx,))
+    args = (x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, wgt, groups)
+    split = gn_conv.weight_operand(wgt)
+    plain = gn_conv.gn_silu_conv3x3_jvp_plain(*args)
+    shape = (n, h, w, c, o)
+    _, chain = torch.func.jvp(
+        lambda v: gn_conv.gn_silu_conv3x3_plain(
+            v, *gn_conv.gn_stats(v, groups), gamma, beta, wgt, b, groups),
+        (x,), (dx,))
+    _held("gn_silu_conv3x3_jvp_plain vs torch.func.jvp of the plain chain",
+          shape, plain, chain, KERNEL_REL_TOL)
+    err, scale = _held("gn_silu_conv3x3 tangent", shape,
+                       gn_conv.gn_silu_conv3x3_jvp(*args, w_split=split),
+                       plain, KERNEL_REL_TOL)
+    w_oihw = wgt.permute(3, 2, 0, 1).contiguous()
+    xc, dxc = (t.permute(0, 3, 1, 2).contiguous() for t in (x, dx))
+
+    def library():
+      return torch.func.jvp(
+          lambda v: F.conv2d(F.silu(F.group_norm(v, groups, gamma, beta,
+                                                 1e-6)), w_oihw, b,
+                             padding=1), (xc,), (dxc,))
+
+    _held("the library jvp", shape, library()[1].permute(0, 2, 3, 1),
+          plain, KERNEL_REL_TOL)
+
+    def kernel():
+      return gn_conv.gn_silu_conv3x3_jvp(*args, w_split=split)
+
+    bound, bound_by = gn_jvp_bound(n, h, w, c, o, groups)
+    plan = gn_conv.launch_plan(n, h, w, c, o, groups, gn_conv._sms(x.device),
+                               tangent=True)
+    ab = [time_ms(f) for f in (kernel, library) * 2]
+    ab_dev = [graph_ms(f) for f in (kernel, library) * 2]
+    launches = jvp_launched[(h, w, c, o)]
+    row = {"kernel": "gn_silu_conv3x3_jvp", "shape_nhwc_o": list(shape),
+           "groups": groups, "grid": list(plan.grid), "splits": plan.splits,
+           "smem": plan.smem, "max_abs_err": err, "max_abs_plain": scale,
+           "kernel_ms": (ab[0] + ab[2]) / 2,
+           "device_ms": (ab_dev[0] + ab_dev[2]) / 2,
+           "plain_ms": time_ms(
+               lambda: gn_conv.gn_silu_conv3x3_jvp_plain(*args)),
+           "library_ms": (ab[1] + ab[3]) / 2,
+           "library_device_ms": (ab_dev[1] + ab_dev[3]) / 2,
+           "ab_kernel_device_ms": [ab_dev[0], ab_dev[2]],
+           "ab_library_device_ms": [ab_dev[1], ab_dev[3]],
+           "bound_ms": bound, "bound_by": bound_by, "launches": launches,
+           "launches_per_evaluation": launches / evals}
+    emit(row)
+    rows.append(row)
+  return rows
+
+
+def kernels_fir_jvp(jvp_launched, evals):
+  """fir2's tangent (its jvp rule: the same resample of the tangent, one
+  more launch) at every shape the UNCSN++ likelihood phase launched it at,
+  batch LIKELIHOOD_BATCH: the launch the rule makes, held against
+  torch.func.jvp of the plain version and timed beside it and the library
+  call on the tangent."""
+  import torch
+  from soft_truncation_tpu_torch.ops import fir
+
+  gen = torch.Generator(DEVICE).manual_seed(4)
+  rows = []
+  for (mode, h, w, c) in sorted(jvp_launched):
+    x, dx = (torch.randn(LIKELIHOOD_BATCH, h, w, c, generator=gen,
+                         device=DEVICE) for _ in range(2))
+    wrapper, plain = ((fir.fir_upsample2, fir.fir_upsample2_plain)
+                      if mode == "up" else
+                      (fir.fir_downsample2, fir.fir_downsample2_plain))
+    shape = (mode, LIKELIHOOD_BATCH, h, w, c)
+    _, want = torch.func.jvp(lambda v: plain(v, FIR_KERNEL), (x,), (dx,))
+    _, got = torch.func.jvp(lambda v: wrapper(v, FIR_KERNEL), (x,), (dx,))
+    err, scale = _held(f"fir_{mode}sample2 tangent", shape, got, want,
+                       FIR_REL_TOL)
+
+    def kernel():  # the launch the jvp rule makes
+      return fir._resample(dx, FIR_KERNEL, 1.0, mode, wrapper, "jvp")
+
+    library = _fir_library(mode, dx, FIR_KERNEL)
+    bound, bound_by = fir_bound(mode, LIKELIHOOD_BATCH, h, w, c,
+                                len(FIR_KERNEL))
+    ab = [time_ms(f) for f in (kernel, library) * 2]
+    launches = jvp_launched[(mode, h, w, c)]
+    row = {"kernel": f"fir_{mode}sample2_jvp",
+           "shape_nhwc": [LIKELIHOOD_BATCH, h, w, c], "taps": len(FIR_KERNEL),
+           "max_abs_err": err, "max_abs_plain": scale,
+           "kernel_ms": (ab[0] + ab[2]) / 2, "device_ms": graph_ms(kernel),
+           "plain_ms": time_ms(lambda: plain(dx, FIR_KERNEL)),
+           "library_ms": (ab[1] + ab[3]) / 2,
+           "library_device_ms": graph_ms(library), "bound_ms": bound,
+           "bound_by": bound_by, "launches": launches,
+           "launches_per_evaluation": launches / evals}
+    emit(row)
+    rows.append(row)
+  return rows
+
+
 def _kernel_entry(name, source, replaces, rows, per, per_key):
   """One entry of the ``kernels`` line: launches of its main path, times
   summed over the shapes weighted by their launches per forward or step."""
@@ -1067,10 +1480,16 @@ def main() -> int:
   u_sites, u_fir_sites, u_params = phase(
       "forward uncsnpp", phase_forward, "uncsnpp",
       load_config(UNCSNPP, init_scale=0.1), [0.01, 50.0], UNCSNPP_FIR_SITES)
-  launched, evals = phase("serve flagship", phase_serve_flagship, sites,
-                          flag_params)
-  u_launched, fir_launched, u_evals = phase(
-      "serve uncsnpp", phase_serve_uncsnpp, u_sites, u_fir_sites, u_params)
+  with _FunctionApplies() as applies:
+    launched, evals = phase("serve flagship", phase_serve_flagship, sites,
+                            flag_params)
+    u_launched, fir_launched, u_evals = phase(
+        "serve uncsnpp", phase_serve_uncsnpp, u_sites, u_fir_sites, u_params)
+  log(f"serve: {applies.count} autograd.Function applications")
+  if applies.count:
+    raise AssertionError("serving went through the kernels' autograd."
+                         "Function: under inference_mode the wrappers must "
+                         "call the kernels directly")
 
   phase("trace flagship", phase_trace, "flagship",
         load_config(FLAGSHIP, init_scale=0.1), flag_params, 0.6 * 999.0)
@@ -1081,27 +1500,40 @@ def main() -> int:
   phase("train step uncsnpp", phase_train_step, "uncsnpp",
         load_config(UNCSNPP, init_scale=0.1), UNCSNPP_FIR_SITES,
         UNCSNPP_FIR_BWD_SITES)
-  phase("train flagship", phase_train, "flagship", FLAGSHIP, {}, {})
-  t_steps, t_fwd, t_bwd = phase("train uncsnpp", phase_train, "uncsnpp",
-                                UNCSNPP, UNCSNPP_FIR_SITES,
-                                UNCSNPP_FIR_BWD_SITES)
+  f_workdir = phase("train flagship", phase_train, "flagship", FLAGSHIP, {},
+                    {})[3]
+  t_steps, t_fwd, t_bwd, u_workdir = phase(
+      "train uncsnpp", phase_train, "uncsnpp", UNCSNPP, UNCSNPP_FIR_SITES,
+      UNCSNPP_FIR_BWD_SITES)
+  f_jvp, _, f_lik_evals, _ = phase(
+      "likelihood flagship", phase_likelihood, "flagship", FLAGSHIP,
+      f_workdir, sites, {}, load_config(FLAGSHIP, init_scale=0.1),
+      flag_params)
+  u_jvp, u_fir_jvp, u_lik_evals, _ = phase(
+      "likelihood uncsnpp", phase_likelihood, "uncsnpp", UNCSNPP, u_workdir,
+      u_sites, u_fir_sites, load_config(UNCSNPP, init_scale=0.1), u_params)
 
   gn_launched = collections.Counter(launched) + collections.Counter(
       u_launched)
   t0 = time.perf_counter()
-  gn_rows = kernels_gn(gn_launched, evals + u_evals)
+  with torch.inference_mode():  # the direct route, as serving calls it
+    gn_rows = kernels_gn(gn_launched, evals + u_evals)
   fir_rows = kernels_fir(fir_launched, u_evals, SERVE_BATCH,
                          "launches_per_forward")
   train_rows = kernels_fir(t_fwd, t_steps, TRAIN_BATCH, "launches_per_step")
   bwd_rows = kernels_fir_backward(t_bwd, t_steps)
+  gn_jvp_rows = kernels_gn_jvp(
+      collections.Counter(f_jvp) + collections.Counter(u_jvp),
+      f_lik_evals + u_lik_evals)
+  fir_jvp_rows = kernels_fir_jvp(u_fir_jvp, u_lik_evals)
   log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 
   fir_src = "soft_truncation_tpu_torch/csrc/fir2.cu"
   fir_fwd = "soft_truncation_tpu/ops/pallas/fir.py:137"
+  gn_src = "soft_truncation_tpu_torch/csrc/gn_silu_conv3x3.cu"
   step = f"one UNCSN++ train step at batch {TRAIN_BATCH}"
   entries = [
-      _kernel_entry("gn_silu_conv3x3",
-                    "soft_truncation_tpu_torch/csrc/gn_silu_conv3x3.cu",
+      _kernel_entry("gn_silu_conv3x3", gn_src,
                     "soft_truncation_tpu/ops/pallas/gn_conv.py:74", gn_rows,
                     f"one flagship or UNCSN++ eval forward at batch "
                     f"{SERVE_BATCH}", "launches_per_forward"),
@@ -1118,7 +1550,19 @@ def main() -> int:
         for mode in ("up", "down")),
       _kernel_entry("fir2_backward", fir_src,
                     "soft_truncation_tpu/ops/pallas/fir.py:212", bwd_rows,
-                    step, "launches_per_step")]
+                    step, "launches_per_step"),
+      _kernel_entry("gn_silu_conv3x3_jvp", gn_src,
+                    "soft_truncation_tpu/ops/pallas/gn_conv.py:74",
+                    gn_jvp_rows, f"one function evaluation of the NLL or "
+                    f"NELBO at batch {LIKELIHOOD_BATCH}",
+                    "launches_per_evaluation"),
+      *(_kernel_entry(f"fir_{mode}sample2_jvp", fir_src, fir_fwd,
+                      [r for r in fir_jvp_rows
+                       if r["kernel"] == f"fir_{mode}sample2_jvp"],
+                      f"one UNCSN++ function evaluation of the NLL or NELBO "
+                      f"at batch {LIKELIHOOD_BATCH}",
+                      "launches_per_evaluation")
+        for mode in ("up", "down"))]
   emit({"kernels": entries})
   for entry in entries:
     log(f"{entry['name']} ({entry['per']}): issued {entry['ms']:.4f} ms vs "

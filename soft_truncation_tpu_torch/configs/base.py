@@ -1,8 +1,8 @@
 """Config schema for the PyTorch port: a small attribute dict + defaults.
 
 Mirrors ``soft_truncation_tpu/configs/base.py`` without ``ml_collections``:
-the same section/key names and values, limited to the keys the serving
-and training slices read. Config files under ``configs/`` are copies of the JAX
+the same section/key names and values, limited to the keys the serving,
+training and likelihood slices read. Config files under ``configs/`` are copies of the JAX
 package's files, importing this module instead of the JAX one.
 """
 
@@ -39,7 +39,7 @@ class Config(dict):
 
 
 # The values of soft_truncation_tpu/configs/base.py::_CIFAR10 for every key
-# the serving and training slices read.
+# the serving, training and likelihood slices read.
 _CIFAR10 = dict(
     training=dict(
         batch_size=128, n_iters=13000001, snapshot_freq=100000, log_freq=100,
@@ -53,7 +53,11 @@ _CIFAR10 = dict(
     sampling=dict(
         n_steps_each=1, noise_removal=True, probability_flow=False,
         snr=0.16, batch_size=1024, truncation_time=1e-5, dpm_steps=50),
-    eval=dict(enable_sampling=False, enable_bpd=False),
+    eval=dict(
+        batch_size=200, enable_sampling=False, enable_loss=True,
+        enable_bpd=False, bpd_dataset="test", num_test_data=10000,
+        residual=True, lambda_=0.0, probability_flow=True, nelbo_iter=0,
+        nll_iter=0),
     data=dict(dataset="CIFAR10", image_size=32, random_flip=True,
               centered=False, dequantization="none", num_channels=3),
     model=dict(

@@ -1,5 +1,6 @@
 // Fused GroupNorm-apply -> SiLU -> 3x3 SAME conv, NHWC, float32, forward,
-// as an implicit GEMM on the tensor cores in 3xTF32.
+// as an implicit GEMM on the tensor cores in 3xTF32, and its tangent
+// (forward-mode derivative) from the same source.
 //
 // Replaces the TPU kernel soft_truncation_tpu/ops/pallas/gn_conv.py::
 // gn_silu_conv3x3:  out = conv3x3(SiLU(x * scale + shift), zero pad) + b,
@@ -51,6 +52,18 @@
 //     workspace; a second small kernel sums the splits in a fixed order and
 //     adds the bias. No atomics, so the result is the same bits run after
 //     run.
+//   * Tangent mode (the second entry point, the template's kTangent): for
+//     tangents dx, dmean, drsqrt of x and the stats (gamma, beta, w, b held
+//     constant, as the likelihood holds them), the output's tangent is
+//     conv3x3(SiLU'(a) * da, zero pad), no bias, where a = x*scale + shift,
+//     da = dx*scale + x*dscale + dshift, dscale = drsqrt_g * gamma and
+//     dshift = -(dmean_g*scale + mean_g*dscale), and SiLU'(a) = s(1 + a(1 -
+//     s)) with s = sigmoid(a). Only the A tile's prologue differs: cp.async
+//     brings the halo rows of x and of dx (a second ring of the same shape,
+//     which doubles the raw A-side shared memory: one block per SM at most
+//     sites, two at the smaller halo tiles), and the activation writes SiLU'(a) * da. The GEMM, its split-K
+//     and the zero halo are the primal's. Its bound is the primal's flops,
+//     or its bytes with dx read as well.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,16 +87,19 @@ constexpr int kBFloats = kBK * kBStride;  // B tile, per stage, hi or lo
 constexpr int kMaxSmem = 232448;       // an H100 block's dynamic maximum
 
 struct Params {
-  const float* x;      // [N, H, W, C]
-  const float* mean;   // [N, G]
-  const float* rsqrt;  // [N, G]
-  const float* gamma;  // [C]
-  const float* beta;   // [C]
-  const float* w_hi;   // [9 * Cp, Op], tf32 values
+  const float* x;       // [N, H, W, C]
+  const float* dx;      // [N, H, W, C], tangent mode only
+  const float* mean;    // [N, G]
+  const float* rsqrt;   // [N, G]
+  const float* dmean;   // [N, G], tangent mode only
+  const float* drsqrt;  // [N, G], tangent mode only
+  const float* gamma;   // [C]
+  const float* beta;    // [C]
+  const float* w_hi;    // [9 * Cp, Op], tf32 values
   const float* w_lo;
-  const float* bias;   // [O]
-  float* out;          // [N, H, W, O]
-  float* ws;           // [splits, M, O] when splits > 1
+  const float* bias;    // [O]; null in tangent mode
+  float* out;           // [N, H, W, O]
+  float* ws;            // [splits, M, O] when splits > 1
   int N, H, W, C, O, G, Cp, Op, M, rows, chunks, splits, slots;
 };
 
@@ -124,34 +140,47 @@ __device__ __forceinline__ float silu(float u) {
   return u * __frcp_rn(1.f + __expf(-u));
 }
 
-// Shared memory, in floats: the raw halo tile ring [2][hp][kBK], the
-// activated tile [hi, lo][hp + 1][kAStride] (row hp stays zero), the B ring
-// [2][hi, lo][kBK][kBStride], gamma and beta [Cp], mean and rsqrt
-// [slots][G] and, as ints, each GEMM row's base offset per dy [3][kBM].
+// d/du SiLU(u) = s (1 + u (1 - s)), s = sigmoid(u)
+__device__ __forceinline__ float silu_grad(float u) {
+  const float s = __frcp_rn(1.f + __expf(-u));
+  return s * fmaf(u, 1.f - s, 1.f);
+}
+
+// Shared memory, in floats: the raw halo tile ring [2][hp][kBK] (of x, and
+// in tangent mode a second one of dx: ``streams`` rings), the activated
+// tile [hi, lo][hp + 1][kAStride] (row hp stays zero), the B ring
+// [2][hi, lo][kBK][kBStride], gamma and beta [Cp], the stats [2 * streams]
+// [slots][G] (mean, rsqrt, then dmean, drsqrt) and, as ints, each GEMM
+// row's base offset per dy [3][kBM].
 __host__ __device__ inline int act_floats(int hp) {
   return (hp + 1) * kAStride;
 }
 
-__host__ __device__ inline int smem_floats(int hp, int Cp, int slots,
-                                           int G) {
-  return 2 * hp * kBK + 2 * act_floats(hp) + 2 * 2 * kBFloats + 2 * Cp +
-         2 * slots * G + 3 * kBM;
+__host__ __device__ inline int smem_floats(int hp, int Cp, int slots, int G,
+                                           int streams) {
+  return 2 * streams * hp * kBK + 2 * act_floats(hp) + 2 * 2 * kBFloats +
+         2 * Cp + 2 * streams * slots * G + 3 * kBM;
 }
 
+template <bool kTangent>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 gn_silu_conv3x3_tf32x3_kernel(const Params p) {
+  constexpr int kStreams = kTangent ? 2 : 1;
   extern __shared__ __align__(16) float smem[];
   const int W2 = p.W + 2;
   const int hp = (p.rows + 2) * W2;  // halo pixels
   const int act = act_floats(hp);
-  float* raw = smem;                         // [2][hp][kBK]
-  float* ahi = raw + 2 * hp * kBK;           // [hp + 1][kAStride], then lo
+  float* raw = smem;                         // [streams][2][hp][kBK]
+  float* ahi = raw + kStreams * 2 * hp * kBK;  // [hp + 1][kAStride], then lo
   float* bsm = ahi + 2 * act;                // [2][2][kBK][kBStride]
   float* sgamma = bsm + 2 * 2 * kBFloats;    // [Cp]
   float* sbeta = sgamma + p.Cp;
   float* smean = sbeta + p.Cp;               // [slots][G]
   float* srsqrt = smean + p.slots * p.G;
-  int* rowoff = reinterpret_cast<int*>(srsqrt + p.slots * p.G);  // [3][kBM]
+  float* sdmean = srsqrt + p.slots * p.G;    // tangent mode
+  float* sdrsqrt = sdmean + p.slots * p.G;
+  int* rowoff = reinterpret_cast<int*>(smean + 2 * kStreams * p.slots * p.G);
+  // [3][kBM]
 
   const int tid = threadIdx.x;
   const int o0 = blockIdx.x * kBN;
@@ -172,6 +201,10 @@ gn_silu_conv3x3_tf32x3_kernel(const Params p) {
     const int src = n * p.G + i % p.G;
     smean[i] = n < p.N ? p.mean[src] : 0.f;
     srsqrt[i] = n < p.N ? p.rsqrt[src] : 0.f;
+    if (kTangent) {
+      sdmean[i] = n < p.N ? p.dmean[src] : 0.f;
+      sdrsqrt[i] = n < p.N ? p.drsqrt[src] : 0.f;
+    }
   }
   for (int m = tid; m < kBM; m += kThreads) {
     const int r = m / p.W;
@@ -188,7 +221,8 @@ gn_silu_conv3x3_tf32x3_kernel(const Params p) {
   }
 
   const int cg = p.C / p.G;
-  // copy chunk ch's raw halo tile into ring slot s (zero where no pixel)
+  // copy chunk ch's raw halo tile (and dx's) into ring slot s (zero where no
+  // pixel)
   auto load_a = [&](int ch, int s) {
     float* dst = raw + s * hp * kBK;
     const int c0 = ch * kBK;
@@ -199,13 +233,19 @@ gn_silu_conv3x3_tf32x3_kernel(const Params p) {
       const int sx = pix - sr * W2 - 1;
       const int row = r0 - 1 + sr;
       const bool ok = row >= 0 && row < NH && sx >= 0 && sx < p.W && c < p.C;
-      const float* src = ok ? p.x + ((size_t)row * p.W + sx) * p.C + c : p.x;
-      cp_async16(smem_u32(dst + pix * kBK + (c - c0)), src, ok ? 16 : 0);
+      const size_t off = ok ? ((size_t)row * p.W + sx) * p.C + c : 0;
+      cp_async16(smem_u32(dst + pix * kBK + (c - c0)), p.x + off,
+                 ok ? 16 : 0);
+      if (kTangent)
+        cp_async16(smem_u32(dst + 2 * hp * kBK + pix * kBK + (c - c0)),
+                   p.dx + off, ok ? 16 : 0);
     }
   };
-  // fold, SiLU and split ring slot s into the activated tile
+  // fold, SiLU (or, in tangent mode, SiLU' times the folded tangent) and
+  // split ring slot s into the activated tile
   auto activate = [&](int ch, int s) {
     const float* src = raw + s * hp * kBK;
+    const float* dsrc = src + 2 * hp * kBK;  // tangent mode
     const int c0 = ch * kBK;
     for (int i = tid; i < hp * kCPP; i += kThreads) {
       const int pix = i / kCPP;
@@ -217,6 +257,15 @@ gn_silu_conv3x3_tf32x3_kernel(const Params p) {
       if (row >= 0 && row < NH && sx >= 0 && sx < p.W && c0 + cc < p.C) {
         const float4 v = *reinterpret_cast<const float4*>(src + pix * kBK + cc);
         const float vv[4] = {v.x, v.y, v.z, v.w};
+        float dv[4] = {0.f, 0.f, 0.f, 0.f};
+        if (kTangent) {
+          const float4 d =
+              *reinterpret_cast<const float4*>(dsrc + pix * kBK + cc);
+          dv[0] = d.x;
+          dv[1] = d.y;
+          dv[2] = d.z;
+          dv[3] = d.w;
+        }
         const int slot = row / p.H - n_first;
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -224,7 +273,14 @@ gn_silu_conv3x3_tf32x3_kernel(const Params p) {
           const int g = slot * p.G + c / cg;
           const float sc = __fmul_rn(srsqrt[g], sgamma[c]);
           const float sh = __fsub_rn(sbeta[c], __fmul_rn(smean[g], sc));
-          a[e] = silu(fmaf(vv[e], sc, sh));
+          const float u = fmaf(vv[e], sc, sh);
+          if (kTangent) {
+            const float dsc = __fmul_rn(sdrsqrt[g], sgamma[c]);
+            const float dsh = -fmaf(sdmean[g], sc, __fmul_rn(smean[g], dsc));
+            a[e] = silu_grad(u) * fmaf(dv[e], sc, fmaf(vv[e], dsc, dsh));
+          } else {
+            a[e] = silu(u);
+          }
         }
       }
       uint4 hi, lo;
@@ -366,70 +422,131 @@ gn_silu_conv3x3_tf32x3_kernel(const Params p) {
         const int o = o0 + wn + nf * 8 + 2 * t + (e & 1);
         if (m < used && o < p.O)
           dst[(size_t)(pix0 + m) * p.O + o] =
-              direct ? acc[mf][nf][e] + p.bias[o] : acc[mf][nf][e];
+              direct && !kTangent ? acc[mf][nf][e] + p.bias[o]
+                                  : acc[mf][nf][e];
       }
 }
 
-// out = bias + the splits' partial sums, in split order.
+// out = bias (0 where null) + the splits' partial sums, in split order.
 __global__ void __launch_bounds__(256)
 splitk_reduce_kernel(const float* __restrict__ ws,
                      const float* __restrict__ bias, float* __restrict__ out,
                      int MO, int O, int splits) {
   const int i = blockIdx.x * 256 + threadIdx.x;
   if (i >= MO) return;
-  float s = bias[i % O];
+  float s = bias != nullptr ? bias[i % O] : 0.f;
   for (int k = 0; k < splits; ++k) s += ws[(size_t)k * MO + i];
   out[i] = s;
 }
 
+// Checks the arguments and launches the conv (and, with splits > 1, the
+// reduce) on ``stream``; in tangent mode bias is null.
+template <bool kTangent>
+int run(Params p, int rows, int splits, int slots, void* stream) {
+  const long long M = (long long)p.N * p.H * p.W;
+  const int chunks = p.Cp / kBK;
+  const long long smem = 4LL * smem_floats((rows + 2) * (p.W + 2), p.Cp,
+                                           slots, p.G, kTangent ? 2 : 1);
+  if (p.N < 1 || p.H < 1 || p.W < 1 || p.W > kBM || p.C < 4 || p.C % 4 ||
+      p.O < 1 || p.G < 1 || p.C % p.G || p.Cp % kBK || p.Cp < p.C ||
+      p.Op % kBN || p.Op < p.O || rows < 1 || rows * p.W > kBM ||
+      splits < 1 || splits > chunks || splits > 65535 || slots < 1 ||
+      smem > kMaxSmem || M * p.C >= (1LL << 31) ||
+      M * p.O * splits >= (1LL << 31) ||
+      ((long long)p.N * p.H + rows - 1) / rows > 65535 ||
+      (kTangent && (p.dx == nullptr || p.dmean == nullptr ||
+                    p.drsqrt == nullptr)) ||
+      (!kTangent && p.bias == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static bool configured = false;  // one per mode
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gn_silu_conv3x3_tf32x3_kernel<kTangent>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  p.M = (int)M;
+  p.rows = rows;
+  p.chunks = chunks;
+  p.splits = splits;
+  p.slots = slots;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(p.Op / kBN,
+                  (unsigned)(((long long)p.N * p.H + rows - 1) / rows),
+                  splits);
+  gn_silu_conv3x3_tf32x3_kernel<kTangent>
+      <<<grid, kThreads, (size_t)smem, s>>>(p);
+  if (splits > 1) {
+    const int MO = (int)M * p.O;
+    splitk_reduce_kernel<<<(MO + 255) / 256, 256, 0, s>>>(p.ws, p.bias, p.out,
+                                                          MO, p.O, splits);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+Params make_params(const float* x, const float* mean, const float* rsqrt,
+                   const float* gamma, const float* beta, const float* w_hi,
+                   const float* w_lo, float* out, float* ws, int N, int H,
+                   int W, int C, int O, int G, int Cp, int Op) {
+  Params p = {};
+  p.x = x;
+  p.mean = mean;
+  p.rsqrt = rsqrt;
+  p.gamma = gamma;
+  p.beta = beta;
+  p.w_hi = w_hi;
+  p.w_lo = w_lo;
+  p.out = out;
+  p.ws = ws;
+  p.N = N;
+  p.H = H;
+  p.W = W;
+  p.C = C;
+  p.O = O;
+  p.G = G;
+  p.Cp = Cp;
+  p.Op = Op;
+  return p;
+}
+
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). All tensors are contiguous f32
-// on the current device: x [N,H,W,C], mean/rsqrt [N,G], gamma/beta [C],
-// w_hi/w_lo [9*Cp, Op] (tap-major rows of Cp channels, tf32 values, zero
-// padding), bias [O], out [N,H,W,O], ws [splits,N*H*W,O] (unused when
-// splits == 1). C % 4 == 0, W <= 128, Cp a multiple of 16 >= C, Op a
-// multiple of 128 >= O; ``rows`` (pixel rows per block) <= 128 / W;
-// ``splits`` <= Cp / 16; ``slots`` >= the images rows + 2 consecutive
-// pixel rows touch. Returns cudaGetLastError() after the launches, or
-// cudaErrorInvalidValue for arguments it does not take.
+// Plain C entry points (loaded with ctypes). All tensors are contiguous f32
+// on the current device: x and dx [N,H,W,C], mean/rsqrt and dmean/drsqrt
+// [N,G], gamma/beta [C], w_hi/w_lo [9*Cp, Op] (tap-major rows of Cp
+// channels, tf32 values, zero padding), bias [O], out [N,H,W,O], ws
+// [splits,N*H*W,O] (unused when splits == 1). C % 4 == 0, W <= 128, Cp a
+// multiple of 16 >= C, Op a multiple of 128 >= O; ``rows`` (pixel rows per
+// block) <= 128 / W; ``splits`` <= Cp / 16; ``slots`` >= the images rows + 2
+// consecutive pixel rows touch. Each returns cudaGetLastError() after the
+// launches, or cudaErrorInvalidValue for arguments it does not take.
+
+// out = conv3x3(SiLU(x * scale + shift), zero pad) + bias
 extern "C" int gn_silu_conv3x3_tf32x3(
     const float* x, const float* mean, const float* rsqrt, const float* gamma,
     const float* beta, const float* w_hi, const float* w_lo,
     const float* bias, float* out, float* ws, int N, int H, int W, int C,
     int O, int G, int Cp, int Op, int rows, int splits, int slots,
     void* stream) {
-  const long long M = (long long)N * H * W;
-  const int chunks = Cp / kBK;
-  const long long smem =
-      4LL * smem_floats((rows + 2) * (W + 2), Cp, slots, G);
-  if (N < 1 || H < 1 || W < 1 || W > kBM || C < 4 || C % 4 || O < 1 ||
-      G < 1 || C % G || Cp % kBK || Cp < C || Op % kBN || Op < O ||
-      rows < 1 || rows * W > kBM || splits < 1 || splits > chunks ||
-      splits > 65535 || slots < 1 || smem > kMaxSmem ||
-      M * C >= (1LL << 31) || M * O * splits >= (1LL << 31) ||
-      ((long long)N * H + rows - 1) / rows > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gn_silu_conv3x3_tf32x3_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
-  const Params p = {x,  mean, rsqrt, gamma, beta,   w_hi,   w_lo,  bias,
-                    out, ws,  N,     H,     W,      C,      O,     G,
-                    Cp, Op,   (int)M, rows, chunks, splits, slots};
-  const auto s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(Op / kBN, (unsigned)(((long long)N * H + rows - 1) / rows),
-                  splits);
-  gn_silu_conv3x3_tf32x3_kernel<<<grid, kThreads, (size_t)smem, s>>>(p);
-  if (splits > 1) {
-    const int MO = (int)M * O;
-    splitk_reduce_kernel<<<(MO + 255) / 256, 256, 0, s>>>(ws, bias, out, MO,
-                                                          O, splits);
-  }
-  return static_cast<int>(cudaGetLastError());
+  Params p = make_params(x, mean, rsqrt, gamma, beta, w_hi, w_lo, out, ws, N,
+                         H, W, C, O, G, Cp, Op);
+  p.bias = bias;
+  return run<false>(p, rows, splits, slots, stream);
+}
+
+// out = the tangent of the above for tangents dx, dmean, drsqrt (header)
+extern "C" int gn_silu_conv3x3_jvp_tf32x3(
+    const float* x, const float* dx, const float* mean, const float* dmean,
+    const float* rsqrt, const float* drsqrt, const float* gamma,
+    const float* beta, const float* w_hi, const float* w_lo, float* out,
+    float* ws, int N, int H, int W, int C, int O, int G, int Cp, int Op,
+    int rows, int splits, int slots, void* stream) {
+  Params p = make_params(x, mean, rsqrt, gamma, beta, w_hi, w_lo, out, ws, N,
+                         H, W, C, O, G, Cp, Op);
+  p.dx = dx;
+  p.dmean = dmean;
+  p.drsqrt = drsqrt;
+  return run<true>(p, rows, splits, slots, stream);
 }

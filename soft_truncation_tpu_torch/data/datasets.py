@@ -1,16 +1,21 @@
-"""Training data: sources, the host batch iterator and the device-side
-preprocessing.
+"""Training and evaluation data: sources, the host batch iterators and the
+device-side preprocessing.
 
-Counterpart of ``soft_truncation_tpu/data/datasets.py`` for the training
-slice. Sources, as the JAX package resolves them for a resident-array
-pipeline:
+Counterpart of ``soft_truncation_tpu/data/datasets.py`` for the training and
+likelihood slices. Sources, as the JAX package resolves them for a
+resident-array pipeline:
 
-  1. ``<dataset>_train.npz`` (an ``images`` uint8 NHWC array at the final
+  1. ``<dataset>_<split>.npz`` (an ``images`` uint8 NHWC array at the final
      size) under ``config.data.data_dir`` or ``$SOFT_TRUNCATION_DATA_DIR``
      (``tools/make_dataset_npz.py`` writes them);
   2. else the deterministic Synthetic images (low-frequency 4x4 noise
      upsampled bilinearly, plus N(0, 8) noise), with a warning; the same
-     array as the JAX package's.
+     arrays as the JAX package's.
+
+Evaluation (:func:`get_eval_iterator`) reads the ``eval.bpd_dataset`` split
+('test'), its first ``eval.num_test_data`` images, once, in an order
+shuffled from a seed, at ``eval.batch_size`` (the last batch may be
+short), without flips.
 
 Batches are uint8 on the host, [B, H, W, C], drawn by :class:`BatchIterator`
 (a fresh permutation per epoch and a random left-right flip, from a seeded
@@ -47,12 +52,13 @@ def get_data_inverse_scaler(config):
   return lambda x: x
 
 
-def make_preprocess_fn(config):
+def make_preprocess_fn(config, dequantize: bool = True):
   """``preprocess(batch, generator)``: a uint8 batch on the device ->
-  scaled float32 model input; the dequantization noise comes from
-  ``generator``."""
+  scaled float32 model input; the dequantization noise (``data.
+  dequantization`` 'uniform', unless ``dequantize`` is False, as for the
+  eval loss) comes from ``generator``."""
   scaler = get_data_scaler(config)
-  dequant = config.data.dequantization == "uniform"
+  dequant = dequantize and config.data.dequantization == "uniform"
 
   def preprocess(batch: torch.Tensor,
                  generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -167,3 +173,23 @@ def get_train_iterator(config, seed) -> BatchIterator:
                      f"beforehand), got {images.shape[1:]}")
   return BatchIterator(images, config.training.batch_size,
                        config.data.random_flip, seed)
+
+
+def get_eval_iterator(config) -> Iterator[np.ndarray]:
+  """One pass over the evaluation images (module docstring) as uint8
+  batches [B, H, W, C]; the order is shuffled from ``config.seed``, so
+  every call yields the same batches."""
+  split = config.eval.bpd_dataset
+  images = load_npz_array(config, split)
+  if images is None:
+    images = synthetic_array(config, split)
+  images = images[:config.eval.num_test_data]
+  want = (config.data.image_size, config.data.image_size,
+          config.data.num_channels)
+  if images.shape[1:] != want:
+    raise ValueError(f"evaluation images must be {want}, got "
+                     f"{images.shape[1:]}")
+  order = np.random.default_rng(config.seed).permutation(len(images))
+  size = config.eval.batch_size
+  for start in range(0, len(images), size):
+    yield images[order[start:start + size]]

@@ -1,1 +1,1 @@
-"""Sample I/O of the PyTorch port."""
+"""Evaluation of the PyTorch port: the likelihood loops and sample I/O."""

@@ -17,8 +17,8 @@ Counterpart of ``soft_truncation_tpu/losses/losses.py``:
   reconstruction term with both decoders; per-example losses [B].
 - The discrete SMLD / DDPM losses arrive with ROADMAP.md slice 6.
 
-Random draws go through ``draw(kind, shape)`` (kind 'uniform' or 'normal'),
-in the order JAX's keys make them: t's uniforms, z, then the
+Random draws go through ``draw(kind, shape)`` (kind 'uniform', 'normal' or
+'rademacher'), in the order JAX's keys make them: t's uniforms, z, then the
 reconstruction's z. :func:`make_draw` makes one from a ``torch.Generator``;
 tests hand in the numbers JAX draws.
 """
@@ -37,14 +37,17 @@ Draw = Callable[[str, tuple], torch.Tensor]
 
 
 def make_draw(generator: torch.Generator, device) -> Draw:
-  """``draw(kind, shape)``: uniforms or standard normals from ``generator``
-  on ``device``."""
+  """``draw(kind, shape)``: uniforms, standard normals or Rademacher signs
+  (+-1 in f32) from ``generator`` on ``device``."""
 
   def draw(kind: str, shape) -> torch.Tensor:
     if kind == "uniform":
       return torch.rand(shape, generator=generator, device=device)
     if kind == "normal":
       return torch.randn(shape, generator=generator, device=device)
+    if kind == "rademacher":
+      bits = torch.randint(0, 2, shape, generator=generator, device=device)
+      return bits.float() * 2.0 - 1.0
     raise ValueError(f"unknown draw {kind!r}")
 
   return draw

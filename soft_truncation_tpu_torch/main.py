@@ -8,8 +8,14 @@ The flags of ``soft_truncation_tpu/main.py``, parsed with argparse. Config
 overrides name an existing key, as ``--config.training.n_iters 3`` or
 ``--config.eval.enable_bpd=False``; the value is read as a Python literal
 (``3``, ``1e-3``, ``(1,2)``, ``False``) and kept as text when it is none or
-the key holds text. ``--mode eval`` arrives with ROADMAP.md slice 5. The
-trainer runs on the card unless ``--cpu`` is given.
+the key holds text. ``--mode train`` trains (``run_lib.train``, log in
+``workdir/stdout.txt``); ``--mode eval`` evaluates the EMA weights of the
+workdir's rolling checkpoint: the eval loss and, with
+``eval.enable_bpd``, the NELBO and exact-NLL bpd (``run_lib.evaluate``,
+log in ``workdir/evaluation_history.txt``, report in
+``workdir/<eval_folder>``). Sampling (``eval.enable_sampling``,
+``training.snapshot_sampling``) arrives with ROADMAP.md slice 5. Both
+modes run on the card unless ``--cpu`` is given.
 """
 
 from __future__ import annotations
@@ -99,19 +105,22 @@ def main(argv=None) -> None:
                       help="run on the host instead of the card")
   args, rest = parser.parse_known_args(argv)
   config = apply_overrides(load_config(args.config), rest)
-  if args.mode == "eval":
-    raise NotImplementedError("--mode eval arrives with ROADMAP.md slice 5")
   from . import run_lib
   os.makedirs(args.workdir, exist_ok=True)
   _dump_config(config, args.workdir)
   logger = logging.getLogger()
   logger.setLevel("INFO")
-  handlers = _log_handlers(args.workdir, "stdout.txt")
+  handlers = _log_handlers(args.workdir, "stdout.txt" if args.mode == "train"
+                           else "evaluation_history.txt")
   for handler in handlers:
     logger.addHandler(handler)
+  device = "cpu" if args.cpu else "cuda"
   try:
-    run_lib.train(config, args.workdir, args.assetdir,
-                  device="cpu" if args.cpu else "cuda")
+    if args.mode == "train":
+      run_lib.train(config, args.workdir, args.assetdir, device=device)
+    else:
+      run_lib.evaluate(config, args.workdir, args.assetdir, args.eval_folder,
+                       device=device)
   finally:
     for handler in handlers:
       logger.removeHandler(handler)

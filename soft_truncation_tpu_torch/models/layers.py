@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops._autodiff import below_transforms
 from ..ops.gn_conv import weight_operand
 
 
@@ -72,12 +73,15 @@ class DDPMConv(nn.Module):
 
   def _once_per_weight(self, name: str, make):
     """``make()`` once per weight value (a load, an in-place update or a
-    move to another device makes a new one), not once per forward."""
+    move to another device makes a new one), not once per forward. It runs
+    below any ``torch.func`` transform, so that a first forward under
+    ``torch.func.jvp`` caches plain tensors, which a kernel can read."""
     key = (self.weight.device, self.weight.data_ptr(), self.weight._version)
     if self._derived_key != key:
       self._derived, self._derived_key = {}, key
     if name not in self._derived:
-      self._derived[name] = make()
+      with below_transforms():
+        self._derived[name] = make()
     return self._derived[name]
 
   def weight_hwio(self) -> torch.Tensor:

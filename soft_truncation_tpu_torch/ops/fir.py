@@ -28,14 +28,21 @@ statically as the JAX package's ``_fir2_bwd`` chooses it:
   through its depthwise conv), as JAX takes ``jax.linear_transpose`` of
   ``_lax_equivalent``.
 
-Where autograd records nothing (no gradient asked for, or under
-``torch.no_grad`` / ``inference_mode``, as when serving), the wrappers
-call the resample directly, without the Function.
+The resample is linear, so the Function's forward-mode rule (``jvp``, as
+``torch.func.jvp`` takes it for the likelihood's divergence) is the same
+resample of the tangent: on the card one more ``fir2`` launch.
+
+Where no derivative can be asked of the call (under ``torch.no_grad`` /
+``inference_mode`` with no forward-mode level open, as when serving), the
+wrappers call the resample directly, without the Function
+(``ops/_autodiff.py``).
 
 Each wrapper counts its forward launches in ``.launches`` and, per input
 ``(H, W, C)``, in ``.launches_by_shape``; the launches its backward makes
 (in the other mode) in ``.backward_launches`` and, per cotangent
-``(H, W, C)``, in ``.backward_launches_by_shape``.
+``(H, W, C)``, in ``.backward_launches_by_shape``; its tangents'
+launches in ``.jvp_launches`` and, per tangent ``(H, W, C)``, in
+``.jvp_launches_by_shape``.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from typing import List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from ._autodiff import below_transforms, plain, records_derivatives
 from ._build import launch, load_library
 
 _KERNEL = "fir2"
@@ -267,23 +275,25 @@ def _count(counts: dict, key) -> None:
   counts[key] = counts.get(key, 0) + 1
 
 
-def _resample(x, k, gain: float, mode: str, wrapper, backward: bool,
+_TALLIES = {"forward": ("launches", "launches_by_shape"),
+            "backward": ("backward_launches", "backward_launches_by_shape"),
+            "jvp": ("jvp_launches", "jvp_launches_by_shape")}
+
+
+def _resample(x, k, gain: float, mode: str, wrapper, tally: str,
               out_hw=None):
   """The plain version for a CPU tensor, the kernel for a CUDA tensor,
-  counted on ``wrapper`` as a forward or a backward launch."""
+  counted on ``wrapper`` as a ``tally`` ('forward', 'backward' or 'jvp')
+  launch."""
   device = x.device
   if device.type == "cpu":
     return _fir2_plain(x, k, gain, mode, out_hw)
   if device.type != "cuda":
     raise ValueError(f"fir_{mode}sample2 runs on cuda or cpu, not {device}")
   out = _launch(x, k, gain, mode, out_hw, device)
-  shape = tuple(x.shape[1:])
-  if backward:
-    wrapper.backward_launches += 1
-    _count(wrapper.backward_launches_by_shape, shape)
-  else:
-    wrapper.launches += 1
-    _count(wrapper.launches_by_shape, shape)
+  total, by_shape = _TALLIES[tally]
+  setattr(wrapper, total, getattr(wrapper, total) + 1)
+  _count(getattr(wrapper, by_shape), tuple(x.shape[1:]))
   return out
 
 
@@ -310,24 +320,36 @@ def _transpose(ybar, k, gain: float, mode: str, in_shape):
 
 
 class _Fir2(torch.autograd.Function):
-  """A 2x FIR resample whose backward is its adjoint (module docstring)."""
+  """A 2x FIR resample whose backward is its adjoint and whose forward-mode
+  rule is itself (module docstring)."""
 
   @staticmethod
-  def forward(ctx, x, k, gain, mode, wrapper, backward, out_hw):
+  def forward(x, k, gain, mode, wrapper, tally, out_hw):
+    return _resample(x, k, gain, mode, wrapper, tally, out_hw)
+
+  @staticmethod
+  def setup_context(ctx, inputs, output):
+    x, k, gain, mode, wrapper, _, out_hw = inputs
     ctx.args = (k, gain, mode, tuple(x.shape))
-    return _resample(x, k, gain, mode, wrapper, backward, out_hw)
+    ctx.jvp_args = (k, gain, mode, wrapper, "jvp", out_hw)
 
   @staticmethod
   def backward(ctx, ybar):
     return (fir2_backward(ybar, *ctx.args),) + (None,) * 6
 
+  @staticmethod
+  def jvp(ctx, dx, *_):
+    dx = plain(dx)
+    with below_transforms():
+      return _resample(dx.contiguous(), *ctx.jvp_args)
 
-def _apply(x, k, gain: float, mode: str, wrapper, backward: bool,
-           out_hw=None):
-  """The resample, through the Function only where autograd records it."""
-  if torch.is_grad_enabled() and x.requires_grad:
-    return _Fir2.apply(x, k, gain, mode, wrapper, backward, out_hw)
-  return _resample(x, k, gain, mode, wrapper, backward, out_hw)
+
+def _apply(x, k, gain: float, mode: str, wrapper, tally: str, out_hw=None):
+  """The resample, through the Function wherever a derivative can be
+  asked of it."""
+  if records_derivatives():
+    return _Fir2.apply(x, k, gain, mode, wrapper, tally, out_hw)
+  return _resample(x, k, gain, mode, wrapper, tally, out_hw)
 
 
 def fir2_backward(ybar, k, gain: float, mode: str, x_shape):
@@ -341,7 +363,7 @@ def fir2_backward(ybar, k, gain: float, mode: str, x_shape):
     other, g = ("down", 4.0 * gain) if mode == "up" else ("up", gain / 4.0)
     wrapper = fir_upsample2 if mode == "up" else fir_downsample2
     return _apply(ybar.contiguous(), tuple(reversed(k)), g, other, wrapper,
-                  True, tuple(x_shape[1:3]))
+                  "backward", tuple(x_shape[1:3]))
   return _transpose(ybar, k, gain, mode, x_shape)
 
 
@@ -350,14 +372,15 @@ def _fir2(x, k, gain: float, mode: str, wrapper):
     k = _taps_key(k)
   gain = float(gain)
   _plan(k, gain, mode)  # a 1-D kernel of 1..MAX_TAPS taps, or raise
-  return _apply(x, k, gain, mode, wrapper, False)
+  return _apply(x, k, gain, mode, wrapper, "forward")
 
 
 def fir_upsample2(x, k: Sequence[float], gain: float = 1.0):
   """2x FIR upsample of NHWC float32 ``x`` with the separable kernel ``k``
   (1-D, <= 8 taps): [N, H, W, C] -> [N, 2H, 2W, C]. A CUDA tensor launches
   the kernel; a CPU tensor takes :func:`fir_upsample2_plain`.
-  Differentiable: the backward is the exact adjoint."""
+  Differentiable in both modes: the backward is the exact adjoint, the
+  forward-mode rule the same resample of the tangent."""
   return _fir2(x, k, gain, "up", fir_upsample2)
 
 
@@ -365,19 +388,18 @@ def fir_downsample2(x, k: Sequence[float], gain: float = 1.0):
   """2x FIR downsample of NHWC float32 ``x`` with the separable kernel
   ``k`` (1-D, <= 8 taps): [N, H, W, C] -> [N, H/2, W/2, C] for even sizes.
   A CUDA tensor launches the kernel; a CPU tensor takes
-  :func:`fir_downsample2_plain`. Differentiable: the backward is the exact
-  adjoint."""
+  :func:`fir_downsample2_plain`. Differentiable in both modes, as
+  :func:`fir_upsample2`."""
   return _fir2(x, k, gain, "down", fir_downsample2)
 
 
 def reset_launch_counts() -> None:
-  """Set both wrappers' launch counts (forward and backward, total and per
-  shape) to zero."""
+  """Set both wrappers' launch counts (forward, backward and tangent, total
+  and per shape) to zero."""
   for wrapper in (fir_upsample2, fir_downsample2):
-    wrapper.launches = 0
-    wrapper.launches_by_shape = {}
-    wrapper.backward_launches = 0
-    wrapper.backward_launches_by_shape = {}
+    for total, by_shape in _TALLIES.values():
+      setattr(wrapper, total, 0)
+      setattr(wrapper, by_shape, {})
 
 
 reset_launch_counts()

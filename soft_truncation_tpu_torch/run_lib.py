@@ -1,29 +1,35 @@
-"""The training pipeline.
+"""The training and evaluation pipelines.
 
-Counterpart of ``soft_truncation_tpu/run_lib.py::train``: build the SDE, the
-model (weights from ``config.seed``), the train state and the checkpoints;
-resume from the rolling checkpoint when there is one; then train steps
-``initial_step .. training.n_iters`` (both ends included), logging the
-per-example losses' mean and std every ``log_freq`` steps, saving the
-rolling checkpoint every ``snapshot_freq_for_preemption`` and a numbered
-snapshot every ``snapshot_freq`` and at the last step. The in-training bpd
-(``eval.enable_bpd``) and sampling (``training.snapshot_sampling``) raise:
-they arrive with ROADMAP.md slices 4 and 5. Evaluation (``run_lib.evaluate``)
-arrives with slice 5.
+Counterpart of ``soft_truncation_tpu/run_lib.py``. :func:`train`: build the
+SDE, the model (weights from ``config.seed``), the train state and the
+checkpoints; resume from the rolling checkpoint when there is one; then
+train steps ``initial_step .. training.n_iters`` (both ends included),
+logging the per-example losses' mean and std every ``log_freq`` steps,
+saving the rolling checkpoint every ``snapshot_freq_for_preemption`` and a
+numbered snapshot every ``snapshot_freq`` and at the last step, and at each
+snapshot (with ``eval.enable_bpd``) the bpd of the EMA weights into
+``workdir/bpd``. :func:`evaluate`: the eval loss and the bpd of the EMA
+weights of the rolling checkpoint (or of the seed's weights without one).
+Sampling (``training.snapshot_sampling``, ``eval.enable_sampling``) raises:
+it arrives with ROADMAP.md slice 5.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 
 import numpy as np
 import torch
 
 from . import data as datasets
+from .eval import evaluation
+from .likelihood import get_elbo_fn, get_likelihood_fn
 from .models import create_model
 from .sde import get_sde
-from .train import CheckpointManager, init_train_state, make_train_step
+from .train import (CheckpointManager, init_train_state, make_eval_loss_step,
+                    make_train_step)
 from .train.state import param_count
 from .utils.device import resolve_device
 
@@ -60,9 +66,6 @@ def train(config, workdir: str, assetdir=None, device="cuda"):
   ``device`` is 'cuda' unless the caller asks for 'cpu'; without a card
   'cuda' raises. ``assetdir`` is read by no part of this slice."""
   del assetdir
-  if config.eval.enable_bpd:
-    raise NotImplementedError("the in-training bpd (eval.enable_bpd) "
-                              "arrives with ROADMAP.md slice 4")
   if config.training.snapshot_sampling:
     raise NotImplementedError("snapshot sampling (training.snapshot_"
                               "sampling) arrives with ROADMAP.md slice 5")
@@ -84,6 +87,10 @@ def train(config, workdir: str, assetdir=None, device="cuda"):
   generator = torch.Generator(device).manual_seed(
       int(seed.generate_state(1)[0]))
   timer = StepTimer(config.training.batch_size)
+  inverse_scaler = datasets.get_data_inverse_scaler(config)
+  nll_fn = get_likelihood_fn(config, sde, inverse_scaler)
+  nelbo_fn = get_elbo_fn(config, sde, inverse_scaler)
+  eval_model = None
   n_iters = config.training.n_iters
   log.info("Starting training loop at step %d.", initial_step)
   for step in range(initial_step, n_iters + 1):
@@ -102,6 +109,71 @@ def train(config, workdir: str, assetdir=None, device="cuda"):
     if _crossed(step, config.training.snapshot_freq_for_preemption):
       ckpt.save_meta(state)
 
-    if _crossed(step, config.training.snapshot_freq) or step == n_iters:
+    snapshot = _crossed(step, config.training.snapshot_freq)
+    if snapshot or step == n_iters:
       ckpt.save_snapshot(state, step // config.training.snapshot_freq)
+
+    if snapshot and config.eval.enable_bpd:
+      # the bpd of the EMA weights, in an eval copy made at the first one
+      if eval_model is None:
+        eval_model = _eval_model(config, device)
+      eval_model.load_state_dict(state.ema)
+      evaluation.compute_bpd(config, nelbo_fn, nll_fn, eval_model, step=step,
+                             report_dir=os.path.join(workdir, "bpd"),
+                             device=device)
   return state
+
+
+def _eval_model(config, device) -> torch.nn.Module:
+  """A model for evaluation: its parameters take no gradient."""
+  return create_model(config, device).requires_grad_(False)
+
+
+def evaluate(config, workdir: str, assetdir=None, eval_folder: str = "eval",
+             device="cuda") -> dict:
+  """The eval loss (``eval.enable_loss``, ``eval.loss_iter`` batches) and
+  the bpd (``eval.enable_bpd``, report in ``workdir/eval_folder``) of the
+  EMA weights of ``workdir``'s rolling checkpoint, or of the seed's
+  weights when there is none; returns the results. ``device`` as for
+  :func:`train`; ``assetdir`` is read by no part of this slice."""
+  del assetdir
+  if config.eval.enable_sampling:
+    raise NotImplementedError("sampling (eval.enable_sampling) arrives with "
+                              "ROADMAP.md slice 5")
+  eval_dir = os.path.join(workdir, eval_folder)
+  os.makedirs(eval_dir, exist_ok=True)
+  device = resolve_device(device)
+  sde = get_sde(config)
+  state = init_train_state(config, create_model(config, device,
+                                                seed=config.seed))
+  CheckpointManager(workdir).restore_meta(state)
+  step = state.step
+  log.info("score model step: %d", step)
+  model = _eval_model(config, device)
+  model.load_state_dict(state.ema)  # evaluation uses the EMA weights
+  del state
+
+  results = {}
+  if config.eval.enable_loss and config.training.continuous:
+    eval_step = make_eval_loss_step(config, sde)
+    preprocess = datasets.make_preprocess_fn(config, dequantize=False)
+    generator = torch.Generator(device).manual_seed(config.seed + 2)
+    vals = []
+    for _, batch in zip(range(config.eval.get("loss_iter", 10)),
+                        datasets.get_eval_iterator(config)):
+      batch = preprocess(torch.from_numpy(batch).to(device), None)
+      vals.append(eval_step(model, batch, generator).cpu().numpy())
+    if vals:
+      vals = np.concatenate(vals)
+      results["eval_loss_mean"] = float(vals.mean())
+      results["eval_loss_std"] = float(vals.std())
+      log.info("eval loss: mean %.5e std %.5e over %d examples", vals.mean(),
+               vals.std(), vals.size)
+
+  if config.eval.enable_bpd:
+    inverse_scaler = datasets.get_data_inverse_scaler(config)
+    results.update(evaluation.compute_bpd(
+        config, get_elbo_fn(config, sde, inverse_scaler),
+        get_likelihood_fn(config, sde, inverse_scaler), model,
+        step=step, report_dir=eval_dir, device=device))
+  return results

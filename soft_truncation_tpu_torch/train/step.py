@@ -12,6 +12,7 @@ micro-batch with importance sampling and the second without, combined as
 when balanced). ``make_multi_train_step`` (K steps per dispatch) has no
 meaning without a dispatch cost to amortise: the port has none, and reads
 neither ``config.tpu.steps_per_dispatch`` nor ``donate_state``.
+:func:`make_eval_loss_step` is the per-example eval loss.
 """
 
 from __future__ import annotations
@@ -82,3 +83,24 @@ def make_train_step(config, sde: SDE) -> Callable:
     return torch.cat(losses)
 
   return train_step
+
+
+def make_eval_loss_step(config, sde: SDE) -> Callable:
+  """Returns ``eval_step(model, batch, generator, draw=None)`` -> the
+  per-example losses of ``get_sde_loss_fn(train=False)`` at t_min =
+  ``training.truncation_time``, under ``torch.no_grad()`` (the network's
+  fused sites launch their kernels directly). Counterpart of the JAX
+  package's ``make_eval_loss_step``; the draws as in :func:`make_train_step`
+  without ``t_min``'s."""
+  loss_fn = get_sde_loss_fn(config, sde, train=False)
+  importance_sampling = config.training.importance_sampling
+  trunc = config.training.truncation_time
+
+  @torch.no_grad()
+  def eval_step(model, batch: torch.Tensor, generator: torch.Generator,
+                draw: Optional[Draw] = None) -> torch.Tensor:
+    draw = draw or make_draw(generator, batch.device)
+    t_min = torch.tensor(trunc, dtype=torch.float32, device=batch.device)
+    return loss_fn(model, batch, t_min, importance_sampling, draw)
+
+  return eval_step

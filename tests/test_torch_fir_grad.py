@@ -14,6 +14,11 @@ products, summed in another order. ``gradcheck`` / ``gradgradcheck`` run in
 float64 at 2x4x4x3 at their default tolerances. On the card the backward
 launches the fir2 kernel: ``test_backward_on_card_matches_autograd_of_plain``
 (marked ``gpu``) and chip_smoke.py hold it there.
+
+Forward mode: the Function's jvp is the same resample of the tangent, held
+under torch.func.jvp and forward_ad against the plain version and jax.jvp
+of the JAX lax path; on the card it is one more fir2 launch, counted as a
+tangent launch (``test_tangent_on_card_matches_plain``, marked ``gpu``).
 """
 
 import jax
@@ -162,9 +167,10 @@ def test_cpu_backward_counts_no_launch():
 
 
 def test_function_only_where_autograd_records(monkeypatch):
-  """Serving (inference_mode, no_grad, or an input that needs no gradient)
-  calls the resample directly; a recorded forward goes through the
-  Function."""
+  """Serving (inference_mode, or no_grad with no forward-mode level open)
+  calls the resample directly; with grad mode on, whether or not the input
+  needs a gradient, and under torch.func.jvp even inside no_grad, the call
+  goes through the Function, whose jvp is the same resample."""
   applied = []
   orig = fir._Fir2.apply
   monkeypatch.setattr(fir._Fir2, "apply",
@@ -177,10 +183,53 @@ def test_function_only_where_autograd_records(monkeypatch):
     fir.fir_upsample2(x.requires_grad_(True), [1, 3, 3, 1])
   assert applied == []
   fir.fir_upsample2(x.detach(), [1, 3, 3, 1])
-  assert applied == []
+  assert applied == ["up"]
   fir.fir_upsample2(x, [1, 3, 3, 1]).sum().backward()
-  assert applied == ["up"]  # the backward's cotangent needs no gradient
+  assert applied == ["up"] * 2  # the backward's cotangent: grad mode off
+  with torch.no_grad():
+    _, tangent = torch.func.jvp(lambda v: fir.fir_downsample2(v, [1, 3, 3, 1]),
+                                (x.detach(),), (x.detach(),))
+  # (torch.func.jvp re-enters apply one level down)
+  assert applied[:2] == ["up", "up"] and set(applied[2:]) == {"down"}
   assert torch.equal(got_inference, want)
+  assert torch.equal(tangent, fir.fir_downsample2_plain(x.detach(),
+                                                        [1, 3, 3, 1]))
+
+
+@pytest.mark.parametrize("k", sorted(KERNELS))
+@pytest.mark.parametrize("mode", ["up", "down"])
+def test_jvp_matches_plain_and_jax(k, mode, monkeypatch):
+  """torch.func.jvp through the wrapper: primal and tangent against the
+  plain version (the resample is linear, so its tangent is the resample of
+  the tangent, the same bits) and against jax.jvp of the lax path. The
+  resample gets tensors with storage, as the kernel's launch reads them."""
+  import torch.autograd.forward_ad as fwd
+  resample_ = fir._resample
+
+  def with_storage(x, *args):
+    x.data_ptr()  # raises for a tensor that torch.func.jvp wrapped
+    return resample_(x, *args)
+
+  monkeypatch.setattr(fir, "_resample", with_storage)
+  x, dx = _x((2, 6, 8, 3)), _x((2, 6, 8, 3), seed=1)
+  plain = (fir.fir_upsample2_plain if mode == "up"
+           else fir.fir_downsample2_plain)
+  fir.reset_launch_counts()
+  primal, tangent = torch.func.jvp(lambda v: _wrapper(mode)(v, KERNELS[k], 2.0),
+                                   (torch.from_numpy(x),),
+                                   (torch.from_numpy(dx),))
+  assert torch.equal(primal, plain(torch.from_numpy(x), KERNELS[k], 2.0))
+  assert torch.equal(tangent, plain(torch.from_numpy(dx), KERNELS[k], 2.0))
+  fn = jax_resample.upsample_2d if mode == "up" else jax_resample.downsample_2d
+  _, want = jax.jvp(lambda v: fn(v, KERNELS[k], factor=2, gain=2.0),
+                    (jnp.asarray(x),), (jnp.asarray(dx),))
+  np.testing.assert_allclose(tangent.numpy(), np.asarray(want), **TOL)
+  with fwd.dual_level():
+    dual = _wrapper(mode)(fwd.make_dual(torch.from_numpy(x),
+                                        torch.from_numpy(dx)), KERNELS[k],
+                          2.0)
+    assert torch.equal(fwd.unpack_dual(dual).tangent, tangent)
+  assert _wrapper(mode).jvp_launches == 0  # the CPU counts no launch
 
 
 @pytest.mark.gpu
@@ -215,3 +264,29 @@ def test_backward_on_card_matches_autograd_of_plain():
   assert fir.fir_upsample2.backward_launches == 3
   assert fir.fir_downsample2.backward_launches == 4
   assert fir.fir_downsample2.backward_launches_by_shape[(16, 15, 8)] == 1
+
+
+@pytest.mark.gpu
+def test_tangent_on_card_matches_plain():
+  """Under torch.func.jvp on the card each wrapper launches fir2 for the
+  primal and again for the tangent, per shape, each against the plain
+  version (1e-5)."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card: the fir2 kernel has no CPU mode")
+  fir.reset_launch_counts()
+  gen = torch.Generator("cuda").manual_seed(2)
+  k = [1., 3., 3., 1.]
+  for (h, c) in ((32, 128), (8, 256)):
+    for mode in ("up", "down"):
+      x = torch.randn(4, h, h, c, generator=gen, device="cuda")
+      dx = torch.randn(4, h, h, c, generator=gen, device="cuda")
+      plain = (fir.fir_upsample2_plain if mode == "up"
+               else fir.fir_downsample2_plain)
+      _, got = torch.func.jvp(lambda v: _wrapper(mode)(v, k), (x,), (dx,))
+      want = plain(dx, k)
+      torch.cuda.synchronize()
+      assert (got - want).abs().max() <= 1e-5 * want.abs().max(), (h, mode)
+  for wrapper in (fir.fir_upsample2, fir.fir_downsample2):
+    assert wrapper.launches == wrapper.jvp_launches == 2
+    assert wrapper.jvp_launches_by_shape == {(32, 32, 128): 1,
+                                             (8, 8, 256): 1}

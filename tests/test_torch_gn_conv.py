@@ -10,12 +10,20 @@ the same f32 arithmetic summed in another order over K <= 9*128 terms.
 A numpy replay of the kernel's arithmetic (its tiles, A-tile rows, K order,
 split-K partition and 3xTF32 products) is held to the same reference and
 bar, which a 1xTF32 replay fails.
+
+Forward mode: gn_silu_conv3x3_jvp_plain (the tangent, written out) is held
+against torch.func.jvp of the plain chain and jax.jvp of the JAX reference
+at the same bar, and the wrapper's Function (torch.func.jvp, forward_ad
+dual tensors) against it. On the card the tangent kernel is held against
+it by test_tangent_kernel_matches_plain_on_card (marked ``gpu``) and by
+chip_smoke.py.
 """
 
 import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -213,7 +221,9 @@ def test_wrapper_refuses_what_it_does_not_take(fault):
   else:
     wgt.requires_grad_(True)
   with pytest.raises((ValueError, RuntimeError)):
-    gn_conv.gn_silu_conv3x3(x, mean, rsqrt, gamma, beta, wgt, b, groups)
+    # forward-only: a gradient is refused from the Function's backward
+    gn_conv.gn_silu_conv3x3(x, mean, rsqrt, gamma, beta, wgt, b,
+                            groups).sum().backward()
 
 
 def test_package_imports_without_nvcc_or_card():
@@ -256,3 +266,161 @@ def test_kernel_matches_plain_on_card():
     assert torch.equal(gn_conv.gn_silu_conv3x3(
         *args, w_split=gn_conv.weight_operand(wgt)), got)
   assert gn_conv.gn_silu_conv3x3.launches == 2 * len(cases)
+
+
+def _tangent_args(n, h, w, c, o, groups, seed=5):
+  """Primal and tangent inputs: x, dx and the stats with their tangents
+  (forward mode through the plain gn_stats), gamma, beta, w."""
+  x, gamma, beta, wgt, _ = (torch.from_numpy(a)
+                            for a in _inputs(n, h, w, c, o, seed=seed))
+  dx = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+      (n, h, w, c)).astype(np.float32))
+  (mean, rsqrt), (dmean, drsqrt) = torch.func.jvp(
+      lambda v: gn_conv.gn_stats(v, groups), (x,), (dx,))
+  return x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, wgt
+
+
+@pytest.mark.parametrize("n,h,w,c,o,groups", CASES)
+def test_jvp_plain_matches_func_jvp_and_jax_jvp(n, h, w, c, o, groups):
+  """The tangent written out (SiLU'(a) * da through the conv, no bias)
+  against torch.func.jvp of the plain chain and jax.jvp of the JAX
+  reference, whose stats move with x."""
+  x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, wgt = _tangent_args(
+      n, h, w, c, o, groups)
+  b = torch.ones(o)
+  got = gn_conv.gn_silu_conv3x3_jvp_plain(x, dx, mean, dmean, rsqrt, drsqrt,
+                                          gamma, beta, wgt, groups)
+  _, want = torch.func.jvp(
+      lambda v: gn_conv.gn_silu_conv3x3_plain(
+          v, *gn_conv.gn_stats(v, groups), gamma, beta, wgt, b, groups),
+      (x,), (dx,))
+  np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+  _, jax_want = jax.jvp(
+      lambda v: jax_gn_conv.gn_silu_conv3x3_reference(
+          v, jnp.asarray(gamma.numpy()), jnp.asarray(beta.numpy()),
+          jnp.asarray(wgt.numpy()), jnp.asarray(b.numpy()), groups),
+      (jnp.asarray(x.numpy()),), (jnp.asarray(dx.numpy()),))
+  np.testing.assert_allclose(got.numpy(), np.asarray(jax_want), rtol=1e-5,
+                             atol=1e-5)
+
+
+def _with_storage(fn):
+  """``fn`` that first checks that every tensor it gets has storage, as a
+  kernel launch reads ``data_ptr()`` (a tensor that torch.func.jvp wraps
+  has none)."""
+
+  def checked(*args, **kwargs):
+    for t in args:
+      if isinstance(t, torch.Tensor):
+        t.data_ptr()  # raises for a tensor without storage
+    return fn(*args, **kwargs)
+
+  return checked
+
+
+def test_wrapper_jvp_takes_the_tangent_rule(monkeypatch):
+  """Under torch.func.jvp (inside no_grad too) and with forward_ad dual
+  tensors the wrapper's Function gives jvp_plain's tangent and its own
+  primal, handing the tangent's computation tensors with storage (as the
+  kernel needs them); a tangent of the weights is refused; no launch is
+  counted on the CPU."""
+  import torch.autograd.forward_ad as fwd
+  monkeypatch.setattr(gn_conv, "gn_silu_conv3x3_jvp",
+                      _with_storage(gn_conv.gn_silu_conv3x3_jvp))
+  monkeypatch.setattr(gn_conv, "_primal", _with_storage(gn_conv._primal))
+  n, h, w, c, o, groups = 2, 5, 7, 16, 8, 4
+  x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, wgt = _tangent_args(
+      n, h, w, c, o, groups)
+  b = torch.randn(o)
+  want = gn_conv.gn_silu_conv3x3_jvp_plain(x, dx, mean, dmean, rsqrt,
+                                           drsqrt, gamma, beta, wgt, groups)
+
+  def f(v):
+    return gn_conv.gn_silu_conv3x3(v, *gn_conv.gn_stats(v, groups), gamma,
+                                   beta, wgt, b, groups)
+
+  gn_conv.reset_launch_counts()
+  primal, tangent = torch.func.jvp(f, (x,), (dx,))
+  assert torch.equal(primal, f(x)) and torch.equal(tangent, want)
+  with torch.no_grad():
+    assert torch.equal(torch.func.jvp(f, (x,), (dx,))[1], want)
+  with fwd.dual_level():
+    assert torch.equal(fwd.unpack_dual(f(fwd.make_dual(x, dx))).tangent,
+                       want)
+  with pytest.raises(NotImplementedError, match="constant"):
+    torch.func.jvp(lambda v: gn_conv.gn_silu_conv3x3(
+        x, mean, rsqrt, gamma, beta, v, b, groups), (wgt,), (wgt,))
+  assert gn_conv.gn_silu_conv3x3.jvp_launches == 0
+  assert gn_conv.gn_silu_conv3x3.launches == 0
+
+
+def test_weight_operands_are_cached_plain_under_jvp():
+  """DDPMConv's cached HWIO weights and TF32 split, made in a forward under
+  torch.func.jvp, are plain tensors with storage (the kernels read them)."""
+  from torch._C import _functorch
+  from soft_truncation_tpu_torch.models.layers import DDPMConv
+  conv = DDPMConv(16, 8)
+  conv.reset_parameters(torch.Generator().manual_seed(0))
+  made = []
+
+  def f(v):
+    made.extend([conv.weight_hwio(), *conv.weight_tf32_split()])
+    return v * 2.0
+
+  torch.func.jvp(f, (torch.ones(2),), (torch.ones(2),))
+  for t in made + [conv.weight_hwio(), *conv.weight_tf32_split()]:
+    assert not _functorch.is_functorch_wrapped_tensor(t)
+    t.data_ptr()
+  assert conv.weight_tf32_split()[0] is made[1]  # cached once
+
+
+def test_tangent_launch_plan_fits_every_site():
+  """The tangent mode stages x's and dx's halo rows and the stats'
+  tangents beside the primal's tiles: its shared memory still fits a block
+  at every site of the two models (batch 8)."""
+  sites = [(32, 32, 128, 128), (32, 32, 384, 128), (32, 32, 256, 256),
+           (32, 32, 256, 128), (16, 16, 512, 256), (16, 16, 384, 256),
+           (16, 16, 256, 256), (16, 16, 128, 256), (16, 16, 128, 128),
+           (8, 8, 512, 256), (8, 8, 256, 256), (4, 4, 512, 256),
+           (4, 4, 256, 256)]
+  for h, w, c, o in sites:
+    primal = gn_conv.launch_plan(8, h, w, c, o, min(c // 4, 32))
+    plan = gn_conv.launch_plan(8, h, w, c, o, min(c // 4, 32), tangent=True)
+    assert plan.smem <= gn_conv._MAX_SMEM, (h, w, c, o)
+    raw = 2 * (plan.rows + 2) * (w + 2) * gn_conv.BK * 4
+    stats = 2 * plan.slots * min(c // 4, 32) * 4
+    assert plan.smem - primal.smem == raw + stats
+    assert 1 <= plan.splits <= plan.chunks
+
+
+@pytest.mark.gpu
+def test_tangent_kernel_matches_plain_on_card():
+  """The tangent kernel on the card against gn_silu_conv3x3_jvp_plain
+  (1e-4 of max |plain|, as the primal), counted as tangent launches, and
+  the wrapper under torch.func.jvp launching both kernels."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card: the gn_silu_conv3x3 kernel has no CPU "
+                "mode")
+  gn_conv.reset_launch_counts()
+  cases = [(8, 8, 8, 256, 256, 32), (8, 4, 4, 512, 256, 32),
+           (3, 5, 7, 36, 20, 12), (2, 32, 32, 128, 128, 32)]
+  for n, h, w, c, o, groups in cases:
+    args = [t.cuda() for t in _tangent_args(n, h, w, c, o, groups)]
+    got = gn_conv.gn_silu_conv3x3_jvp(*args, groups)
+    want = gn_conv.gn_silu_conv3x3_jvp_plain(*args, groups)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max(), (n, h, w)
+  x, dx, *_, gamma, beta, wgt = args
+  b = torch.ones(wgt.shape[-1], device="cuda")
+  _, tangent = torch.func.jvp(
+      lambda v: gn_conv.gn_silu_conv3x3(v, *gn_conv.gn_stats(v, groups),
+                                        gamma, beta, wgt, b, groups),
+      (x,), (dx,))
+  _, want = torch.func.jvp(
+      lambda v: gn_conv.gn_silu_conv3x3_plain(
+          v, *gn_conv.gn_stats(v, groups), gamma, beta, wgt, b, groups),
+      (x,), (dx,))
+  torch.cuda.synchronize()
+  assert (tangent - want).abs().max() <= 1e-4 * want.abs().max()
+  assert gn_conv.gn_silu_conv3x3.jvp_launches == len(cases) + 1
+  assert gn_conv.gn_silu_conv3x3.launches == 1

@@ -46,6 +46,13 @@ TINY = {
                   attn_resolutions=(8,), init_scale=0.1),
 }
 SHAPE = (2, 16, 16, 3)  # NHWC sample batch of the tiny model
+# smaller still, for the likelihood's tests: JAX compiles the network's jvp
+# up to 8 times in one dopri5 program
+SMALL = {
+    "data": dict(image_size=8),
+    "model": dict(nf=8, ch_mult=(1, 2), num_res_blocks=1,
+                  attn_resolutions=(4,), init_scale=0.1),
+}
 # full width, with signal in every conv (the flagship's 0.0 makes each
 # conv1 and out_conv about 1e-10)
 FULL = {"model": dict(init_scale=0.1)}
