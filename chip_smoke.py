@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card (an H100): the quickest
 proof that the port still builds, agrees with its plain versions, serves,
-trains and evaluates the likelihood.
+trains, evaluates the likelihood and computes FID, KID and IS.
 
     python3 chip_smoke.py
 
@@ -52,10 +52,28 @@ Phases; any failure exits non-zero before the last line is printed:
      step (CUDA events around each step, the steps after the first two),
      imgs/s and peak device memory; UNCSN++'s fir2 launches per shape equal
      12 forward and 12 backward per step, the flagship's none;
+  7c. FID (the fifth main path), counted the same way, in phase 7's
+     flagship workdir: scipy's and Pillow's versions; random Inception
+     weights (``eval.inception_v3.random_params``) and the pool_3 features
+     of the Synthetic test split's first FID_SAMPLES images, written to an
+     assetdir; then ``soft_truncation_tpu_torch.main --mode eval`` with
+     ``eval.enable_sampling`` (dpm_solver, FID_DPM_STEPS steps, shards of
+     FID_SHARD, FID_SAMPLES samples, the 'device' resize), entered with
+     TF32 on, which the CLI must turn off: finite FID, KID
+     and IS in the log and in report_metrics.npz, every shard, grid and
+     feature cache written, the fused sites' launches per shape equal to
+     the sites x the sampler's evaluations, no autograd.Function; the same
+     run again must load everything, launch no kernel and report the same
+     numbers bit for bit; the card's resize and Inception features against
+     the CPU's (KERNEL_REL_TOL of the largest); sampling and featurising
+     images/s, the Inception forward's ms per batch apart from the resize,
+     the host's seconds of sqrtm and of KID, a trace of the flagship's eval
+     forward at batch FID_SHARD (as in phase 5b), the phase's wall;
   7b. likelihood (the fourth main path), counted the same way: the CLI
      evaluation (``soft_truncation_tpu_torch.main --mode eval``) of each
      config as published, in phase 7's workdir (its rolling checkpoint's
-     EMA weights; the workdir is removed after), Synthetic test images,
+     EMA weights; the workdir is removed after), the Synthetic images (the
+     split the JAX package reads for a dataset it does not list, 'train'),
      batch LIKELIHOOD_BATCH, the eval loss, one NELBO and one exact-NLL
      batch at the published ODE tolerances (rtol = atol = 1e-5, 'correct'
      mode): finite eval loss, NELBO and NLL bpd, the nfe, the NLL batch's
@@ -67,7 +85,9 @@ Phases; any failure exits non-zero before the last line is printed:
      LIKELIHOOD_TIMES (drift and Hutchinson term) and the per-example NELBO
      and residual, card vs CPU from the same draws;
   8. kernels: each kernel against its plain PyTorch version (TF32 off) at
-     every shape the serve phases launched it at (N=8) and, for fir2, at
+     every shape the serve phases launched it at (N=8), gn_silu_conv3x3 also
+     at every shape the FID phase's sampler launched it at (N=FID_SHARD,
+     its own row in the `kernels` line) and, for fir2, at
      every shape the train phase launched it at (N=128), forward and
      backward (the backward held against torch.autograd.grad of the plain
      forward), and both tangents at every shape phase 7b launched them at
@@ -84,9 +104,10 @@ Phases; any failure exits non-zero before the last line is printed:
      bound (gn_silu_conv3x3: its flops once at the dense TF32 rate, with
      the kernel's 3xTF32 figure and the FP32-pipe figure of its earlier
      FMA form beside it) and the launches per forward, step or function
-     evaluation measured in phases 4, 5, 7 and 7b; gn_silu_conv3x3's split-K grid per
-     shape, and its agreement at shapes no model reaches (ragged tiles, C
-     and O off the tile widths); one JSON line per shape, then the
+     evaluation measured in phases 4, 5, 7, 7c and 7b; gn_silu_conv3x3's
+     split-K grid per shape, and its agreement at shapes no model reaches
+     (ragged tiles, C and O off the tile widths); one JSON line per shape,
+     then the
      `kernels` line and each kernel's time beside its library call's.
 Imports torch and the port only, never jax or the JAX package.
 """
@@ -139,6 +160,11 @@ UNCSNPP_FIR_BWD_SITES = {("up", 16, 16, 128): 2, ("up", 8, 8, 256): 2,
 LIKELIHOOD_BATCH = 8     # phase 7b: eval.batch_size of the CLI evaluation
 LIKELIHOOD_CHECK_BATCH = 2  # phase 7b: card vs CPU
 LIKELIHOOD_TIMES = (1e-5, 0.5, 1.0)  # phase 7b: the ODE function's t
+FID_SAMPLES = 512        # phase 7c: eval.num_samples, 4 shards
+FID_SHARD = 128          # phase 7c: sampling.batch_size
+FID_DPM_STEPS = 20       # phase 7c: sampling.dpm_steps
+FID_CHECK_IMAGES = 8     # phase 7c: card vs CPU, resize and Inception
+INCEPTION_BATCH = 128    # the extractor's batch
 KERNEL_REL_TOL = 1e-4   # gn_silu_conv3x3: reordered f32 sums, K <= 9*512
 FIR_REL_TOL = 1e-5      # fir2: <= 16 f32 products, summed in another order
 FORWARD_REL_TOL = 1e-3  # card vs CPU, the whole network or sampler
@@ -584,7 +610,7 @@ def phase_serve_uncsnpp(sites, fir_sites, params):
   return launched, fir_launched, evals
 
 
-def _traced(name, fn):
+def _traced(name, fn, batch=SERVE_BATCH):
   """``fn``'s wall per call without a profiler (host clock, synchronised),
   then a torch.profiler trace of TRACE_FORWARDS calls: the device's busy
   time (the kernels' self time, summed) against the traced wall, the
@@ -623,7 +649,7 @@ def _traced(name, fn):
   top_device = sorted(kernels, key=device_us, reverse=True)[:8]
   top_host = sorted(events, key=lambda e: e.self_cpu_time_total,
                     reverse=True)[:8]
-  row = {"trace": name, "batch": SERVE_BATCH, "calls": TRACE_FORWARDS,
+  row = {"trace": name, "batch": batch, "calls": TRACE_FORWARDS,
          "wall_ms_per_call": wall_ms, "traced_wall_ms_per_call": traced_ms,
          "device_busy_ms_per_call": busy_ms if kernels else None,
          "device_busy_share": busy_ms / traced_ms if kernels else None,
@@ -955,7 +981,7 @@ def phase_likelihood(name, path, workdir, sites, fir_sites, config01,
                      params):
   """The fourth main path: ``soft_truncation_tpu_torch.main --mode eval``
   on a published config in the train phase's workdir (its rolling
-  checkpoint's EMA weights), Synthetic test images, batch
+  checkpoint's EMA weights), the Synthetic images, batch
   LIKELIHOOD_BATCH, one NELBO and one exact-NLL batch at the published ODE
   tolerances (rtol = atol = 1e-5, 'correct' mode with the residual). The
   log's eval loss, NELBO and NLL bpd must be finite. Over the NLL batch
@@ -1054,6 +1080,230 @@ def phase_likelihood(name, path, workdir, sites, fir_sites, config01,
   return dict(gn_jvp_all), dict(fir_jvp_all), nfe + 1, summary
 
 
+def _fid_log_metrics(text):
+  """The metrics of the evaluation log's last ``ckpt-<step> metrics`` line."""
+  import ast
+  import re
+  found = re.findall(r"ckpt-\d+ metrics: (\{.*\})", text)
+  if not found:
+    raise AssertionError(f"the evaluation log has no metrics line:\n"
+                         f"{text[-3000:]}")
+  return ast.literal_eval(found[-1])
+
+
+def phase_fid(workdir, sites):
+  """The fifth main path: FID, KID and IS of the flagship's EMA weights in
+  phase 7's workdir through ``soft_truncation_tpu_torch.main --mode eval``
+  (``eval.enable_sampling``, dpm_solver with FID_DPM_STEPS steps, shards of
+  FID_SHARD, FID_SAMPLES samples, the Inception on the card with the
+  'device' resize), against an assetdir written here: random Inception
+  weights (``random_params``) and the pool_3 of the Synthetic test split's
+  first FID_SAMPLES images. Checks finite metrics in the log and the
+  report, the shards, caches and grids, the fused sites' launches per
+  shape (sites x the sampler's evaluations) and no autograd.Function; a
+  second run in the same directory loads everything, launches no kernel
+  and reports the same metrics bit for bit; then the card's resize and
+  Inception against the CPU's on FID_CHECK_IMAGES samples. Returns the
+  kernel's launches per shape, the sampler's evaluations and a summary."""
+  import glob
+  import importlib
+
+  import numpy as np
+  import scipy
+  import torch
+  from soft_truncation_tpu_torch import main as port_main
+  from soft_truncation_tpu_torch import run_lib
+  from soft_truncation_tpu_torch.data import datasets
+  from soft_truncation_tpu_torch.eval import evaluation, inception, inception_v3
+
+  t_phase = time.perf_counter()
+  try:
+    pil = importlib.import_module("PIL").__version__
+  except ImportError:
+    pil = "not installed (PNG grids and the 'host' resize need it)"
+  log(f"fid: scipy {scipy.__version__}, Pillow {pil}")
+  assetdir = os.path.join(workdir, "fid_assets")
+  os.makedirs(assetdir, exist_ok=True)
+  weights = os.path.join(assetdir, inception.WEIGHTS_FILE)
+  inception_v3.save_params_npz(inception_v3.random_params(seed=0), weights)
+  config = load_config(FLAGSHIP)
+  real = datasets.synthetic_array(config, "test")[:FID_SAMPLES]
+  extractor = inception.InceptionExtractor(weights, INCEPTION_BATCH,
+                                           resize_mode="device",
+                                           device=DEVICE)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  real_feats, _ = extractor(real)
+  featurise_s = time.perf_counter() - t0
+  np.savez(os.path.join(assetdir, "cifar10_stats.npz"), pool_3=real_feats)
+
+  argv = ["--config", FLAGSHIP, "--workdir", workdir, "--mode", "eval",
+          "--assetdir", assetdir, "--eval_folder", "fid",
+          "--config.eval.enable_sampling=True",
+          "--config.eval.enable_bpd=False", "--config.eval.enable_loss=False",
+          "--config.sampling.method", "dpm_solver",
+          "--config.sampling.dpm_steps", str(FID_DPM_STEPS),
+          "--config.sampling.batch_size", str(FID_SHARD),
+          "--config.eval.num_samples", str(FID_SAMPLES),
+          "--config.tpu.fid_resize", "device"]
+  if DEVICE == "cpu":  # a run on the host, without the card
+    argv.append("--cpu")
+  shards, host_s = [], {}
+  get_sampling_fn = run_lib.get_sampling_fn
+
+  def counted(*args, **kwargs):
+    sampler = get_sampling_fn(*args, **kwargs)
+
+    def run(*a, **k):  # CUDA events around each shard's sampling
+      start = torch.cuda.Event(enable_timing=True)
+      end = torch.cuda.Event(enable_timing=True)
+      start.record()
+      out = sampler(*a, **k)
+      end.record()
+      shards.append((out[1], start, end))
+      return out
+
+    return run
+
+  def host_timed(name, fn):
+    def run(*a, **k):
+      t0 = time.perf_counter()
+      out = fn(*a, **k)
+      host_s[name] = host_s.get(name, 0.0) + time.perf_counter() - t0
+      return out
+    return run
+
+  patched = {"frechet_distance": evaluation.frechet_distance,
+             "kernel_distance": evaluation.kernel_distance}
+  history = os.path.join(workdir, "evaluation_history.txt")
+  reports = []
+  try:
+    run_lib.get_sampling_fn = counted
+    for name, fn in patched.items():
+      setattr(evaluation, name, host_timed(name, fn))
+    walls = []
+    for attempt in range(2):
+      # TF32 on, not this script's setting: the CLI must set its own
+      torch.backends.cudnn.allow_tf32 = True
+      torch.backends.cuda.matmul.allow_tf32 = True
+      _reset_launch_counts()
+      with _FunctionApplies() as applies:
+        t0 = time.perf_counter()
+        port_main.main(argv)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+      if (torch.backends.cudnn.allow_tf32
+          or torch.backends.cuda.matmul.allow_tf32):
+        raise AssertionError("the eval CLI left TF32 on: its Inception and "
+                             "convolutions must run in float32")
+      launched, fir_launched = _launch_counts()
+      with open(history) as f:
+        logged = _fid_log_metrics(f.read())
+      (shard_dir,) = glob.glob(os.path.join(workdir, "fid", "ckpt_*"))
+      with np.load(os.path.join(shard_dir, "report_metrics.npz")) as f:
+        reports.append({k: float(f[k]) for k in f.files})
+      if attempt == 0:
+        first = (dict(launched), fir_launched, applies.count, dict(host_s))
+  finally:
+    run_lib.get_sampling_fn = get_sampling_fn
+    for name, fn in patched.items():
+      setattr(evaluation, name, fn)
+
+  launched, fir_launched, applies, host_s = first
+  rounds = -(-FID_SAMPLES // FID_SHARD)
+  evals = sum(nfe for nfe, _, _ in shards)
+  files = sorted(os.listdir(shard_dir))
+  want_files = sorted([f"samples_{r}.npz" for r in range(rounds)]
+                      + [f"samples_{r}.png" for r in range(rounds)]
+                      + [f"statistics_{r}.npz" for r in range(rounds)]
+                      + ["report_metrics.npz"])
+  log(f"fid: {shard_dir}: {files}; first run {reports[0]}, second run "
+      f"{reports[1]}, log {logged}")
+  if set(reports[0]) != {"fid", "kid", "inception_score"} or not all(
+      math.isfinite(v) for v in reports[0].values()):
+    raise AssertionError(f"FID, KID and IS must all be finite: "
+                         f"{reports[0]}")
+  if logged != reports[1] or reports[1] != reports[0]:
+    raise AssertionError(f"the resumed run's metrics {reports[1]} (log "
+                         f"{logged}) differ from the first run's "
+                         f"{reports[0]}")
+  if files != want_files:
+    raise AssertionError(f"shard directory holds {files}, expected "
+                         f"{want_files}")
+  if len(shards) != rounds or evals != rounds * (FID_DPM_STEPS + 1):
+    raise AssertionError(f"{len(shards)} shards sampled with {evals} "
+                         f"evaluations, expected {rounds} x "
+                         f"{FID_DPM_STEPS + 1}")
+  want = {s: k * evals for s, k in sites.items()}
+  if launched != want or fir_launched or applies:
+    raise AssertionError(f"gn_silu_conv3x3 launches per shape {launched}, "
+                         f"expected {want} (sites x {evals} evaluations); "
+                         f"fir2 {fir_launched}; {applies} autograd.Function "
+                         f"applications")
+  second, second_fir = _launch_counts()
+  if second or second_fir:
+    raise AssertionError(f"the resumed run launched {second} {second_fir}")
+
+  # card vs CPU on the first shard's images: the resize, then the network
+  with np.load(os.path.join(shard_dir, "samples_0.npz")) as f:
+    images = torch.from_numpy(f["samples"][:FID_CHECK_IMAGES])
+  size = inception.INCEPTION_DEFAULT_IMAGE_SIZE
+  x = images.permute(0, 3, 1, 2).float()
+  cpu_x = inception.resize(x, size, size, "cubic")
+  card_x = inception.resize(x.to(DEVICE), size, size, "cubic")
+  resize_err, resize_scale = _held("the cubic resize", tuple(x.shape),
+                                   card_x.cpu(), cpu_x, KERNEL_REL_TOL)
+  cpu_model = inception_v3.load_params_npz(weights)
+  worst = {}
+  with torch.inference_mode():
+    for part, got, want_ in zip(("pool3", "probs"), extractor.model(
+        cpu_x.to(DEVICE)), cpu_model(cpu_x)):
+      err, scale = _held(f"the Inception's {part}", tuple(cpu_x.shape),
+                         got.cpu(), want_, KERNEL_REL_TOL)
+      worst[part] = err / scale
+
+    # throughput: the forward at INCEPTION_BATCH apart from the resize
+    u8 = torch.randint(0, 256, (INCEPTION_BATCH, 3, 32, 32),
+                       dtype=torch.uint8, device=DEVICE)
+    x299 = inception.resize(u8.float(), size, size, "cubic")
+    forward_ms = time_ms(lambda: extractor.model(x299), iters=5, warmup=2)
+    resize_ms = time_ms(lambda: inception.resize(u8.float(), size, size,
+                                                 "cubic"), iters=5, warmup=2)
+  sample_ms = [a.elapsed_time(b) for _, a, b in shards]
+  # where one of the sampler's evaluations spends its time at the shard's
+  # batch: the score network's eval forward, traced
+  from soft_truncation_tpu_torch.models import create_model
+  model = create_model(load_config(FLAGSHIP, init_scale=0.1), DEVICE, seed=0)
+  xs = torch.randn(FID_SHARD, 32, 32, 3, device=DEVICE)
+  labels = torch.full((FID_SHARD,), 0.5 * 999.0, device=DEVICE)
+  with torch.inference_mode():
+    trace = _traced(f"flagship eval forward at batch {FID_SHARD}",
+                    lambda: model(xs, labels), FID_SHARD)
+  del model
+  summary = {"fid_eval": "flagship", "samples": FID_SAMPLES,
+             "shard": FID_SHARD, "dpm_steps": FID_DPM_STEPS,
+             "evaluations": evals, "metrics": reports[0],
+             "sampling_ms_per_shard": sample_ms,
+             "sampling_imgs_per_s": FID_SAMPLES / sum(sample_ms) * 1e3,
+             "sampling_ms_per_evaluation": sum(sample_ms) / evals,
+             "traced_forward_wall_ms": trace["wall_ms_per_call"],
+             "traced_forward_device_busy_share":
+                 trace["device_busy_share"],
+             "featurise_imgs_per_s": FID_SAMPLES / featurise_s,
+             "inception_forward_ms_per_batch": forward_ms,
+             "resize_ms_per_batch": resize_ms,
+             "inception_batch": INCEPTION_BATCH,
+             "sqrtm_fid_host_s": host_s.get("frechet_distance"),
+             "kid_host_s": host_s.get("kernel_distance"),
+             "cli_wall_s": walls, "phase_wall_s": time.perf_counter()
+             - t_phase, "card_vs_cpu_rel": dict(worst, resize=resize_err
+                                                / resize_scale),
+             "launches": {"gn_silu_conv3x3": sum(launched.values())}}
+  emit(summary)
+  log(f"fid: {device_line()}")
+  return launched, evals, summary
+
+
 def _held(name, shape, got, want, tol):
   import torch
   torch.cuda.synchronize()
@@ -1065,19 +1315,21 @@ def _held(name, shape, got, want, tol):
   return err, scale
 
 
-def kernels_gn(launches_by_shape, evals):
-  """gn_silu_conv3x3 vs plain vs library at every shape the serve phases
-  launched it at (and the listed flagship shapes), N=8. The caller runs it
-  under inference_mode, where the wrapper calls the kernel directly."""
+def kernels_gn(launches_by_shape, evals, n, listed=()):
+  """gn_silu_conv3x3 vs plain vs library at every shape a main path
+  launched it at (and the ``listed`` shapes), at that path's batch ``n``:
+  N=8 for the serve phases, N=128 for the FID phase's sampler. The caller
+  runs it under inference_mode, where the wrapper calls the kernel
+  directly."""
   import torch
   import torch.nn.functional as F
   from soft_truncation_tpu_torch.ops import gn_conv
 
-  shapes = sorted(set(launches_by_shape) | set(LISTED_SHAPES), reverse=True)
+  shapes = sorted(set(launches_by_shape) | set(listed), reverse=True)
   gen = torch.Generator(DEVICE).manual_seed(0)
   rows = []
   for (h, w, c, o) in shapes:
-    n, groups = SERVE_BATCH, min(c // 4, 32)
+    groups = min(c // 4, 32)
     x = torch.randn(n, h, w, c, generator=gen, device=DEVICE)
     gamma = torch.randn(c, generator=gen, device=DEVICE)
     beta = torch.randn(c, generator=gen, device=DEVICE)
@@ -1126,8 +1378,17 @@ def kernels_gn(launches_by_shape, evals):
         f"tiles, split-K {plan.splits}), {plan.smem} B shared memory")
     emit(row)
     rows.append(row)
-  # no model reaches these: ragged tiles, images straddling a tile, C and O
-  # off the tile widths, groups of 3 and 4 channels
+  return rows
+
+
+def kernels_gn_ragged():
+  """gn_silu_conv3x3 vs plain at shapes no model reaches: ragged tiles,
+  images straddling a tile, C and O off the tile widths, groups of 3 and 4
+  channels."""
+  import torch
+  from soft_truncation_tpu_torch.ops import gn_conv
+
+  gen = torch.Generator(DEVICE).manual_seed(1)
   for (n, h, w, c, o, groups) in ((3, 5, 7, 36, 20, 12), (2, 4, 4, 16, 16, 4),
                                   (1, 32, 32, 128, 128, 32)):
     x = torch.randn(n, h, w, c, generator=gen, device=DEVICE)
@@ -1139,7 +1400,6 @@ def kernels_gn(launches_by_shape, evals):
                        gn_conv.gn_silu_conv3x3_plain(*args), KERNEL_REL_TOL)
     log(f"gn_silu_conv3x3 {(n, h, w, c, o)} groups {groups}: max_abs_err "
         f"{err} max|plain| {scale}")
-  return rows
 
 
 def _fir_library(mode, x, k, gain=1.0):
@@ -1505,6 +1765,8 @@ def main() -> int:
   t_steps, t_fwd, t_bwd, u_workdir = phase(
       "train uncsnpp", phase_train, "uncsnpp", UNCSNPP, UNCSNPP_FIR_SITES,
       UNCSNPP_FIR_BWD_SITES)
+  fid_launched, fid_evals, _ = phase("fid flagship", phase_fid, f_workdir,
+                                     sites)
   f_jvp, _, f_lik_evals, _ = phase(
       "likelihood flagship", phase_likelihood, "flagship", FLAGSHIP,
       f_workdir, sites, {}, load_config(FLAGSHIP, init_scale=0.1),
@@ -1517,7 +1779,10 @@ def main() -> int:
       u_launched)
   t0 = time.perf_counter()
   with torch.inference_mode():  # the direct route, as serving calls it
-    gn_rows = kernels_gn(gn_launched, evals + u_evals)
+    gn_rows = kernels_gn(gn_launched, evals + u_evals, SERVE_BATCH,
+                         LISTED_SHAPES)
+    fid_gn_rows = kernels_gn(fid_launched, fid_evals, FID_SHARD)
+    kernels_gn_ragged()
   fir_rows = kernels_fir(fir_launched, u_evals, SERVE_BATCH,
                          "launches_per_forward")
   train_rows = kernels_fir(t_fwd, t_steps, TRAIN_BATCH, "launches_per_step")
@@ -1537,6 +1802,10 @@ def main() -> int:
                     "soft_truncation_tpu/ops/pallas/gn_conv.py:74", gn_rows,
                     f"one flagship or UNCSN++ eval forward at batch "
                     f"{SERVE_BATCH}", "launches_per_forward"),
+      _kernel_entry("gn_silu_conv3x3_fid", gn_src,
+                    "soft_truncation_tpu/ops/pallas/gn_conv.py:74",
+                    fid_gn_rows, f"one flagship sampler evaluation at batch "
+                    f"{FID_SHARD} (FID)", "launches_per_forward"),
       *(_kernel_entry(f"fir_{mode}sample2", fir_src, fir_fwd,
                       [r for r in fir_rows
                        if r["kernel"] == f"fir_{mode}sample2"],

@@ -2,7 +2,7 @@
 
 Mirrors ``soft_truncation_tpu/configs/base.py`` without ``ml_collections``:
 the same section/key names and values, limited to the keys the serving,
-training and likelihood slices read. Config files under ``configs/`` are copies of the JAX
+training, likelihood and sample-quality slices read. Config files under ``configs/`` are copies of the JAX
 package's files, importing this module instead of the JAX one.
 """
 
@@ -39,7 +39,9 @@ class Config(dict):
 
 
 # The values of soft_truncation_tpu/configs/base.py::_CIFAR10 for every key
-# the serving, training and likelihood slices read.
+# the serving, training, likelihood and sample-quality slices read; of the
+# JAX package's ``tpu`` section only ``fid_resize``, which the extractor of
+# eval/inception.py reads.
 _CIFAR10 = dict(
     training=dict(
         batch_size=128, n_iters=13000001, snapshot_freq=100000, log_freq=100,
@@ -57,7 +59,7 @@ _CIFAR10 = dict(
         batch_size=200, enable_sampling=False, enable_loss=True,
         enable_bpd=False, bpd_dataset="test", num_test_data=10000,
         residual=True, lambda_=0.0, probability_flow=True, nelbo_iter=0,
-        nll_iter=0),
+        nll_iter=0, num_samples=50000),
     data=dict(dataset="CIFAR10", image_size=32, random_flip=True,
               centered=False, dequantization="none", num_channels=3),
     model=dict(
@@ -68,6 +70,7 @@ _CIFAR10 = dict(
     optim=dict(
         weight_decay=0.0, optimizer="Adam", lr=2e-4, beta1=0.9, eps=1e-8,
         warmup=5000, grad_clip=1.0, num_micro_batch=1, amsgrad=False),
+    tpu=dict(fid_resize="host"),
 )
 
 _DEFAULTS = {"cifar10": _CIFAR10}

@@ -1,8 +1,10 @@
 """Data of the PyTorch port: scalers, sources and batches."""
 
-from .datasets import (BatchIterator, get_data_inverse_scaler,
-                       get_data_scaler, get_eval_iterator, get_train_iterator,
+from .datasets import (BatchIterator, eval_batches, eval_split,
+                       get_data_inverse_scaler, get_data_scaler,
+                       get_eval_iterator, get_train_iterator,
                        make_preprocess_fn)
 
-__all__ = ["BatchIterator", "get_data_inverse_scaler", "get_data_scaler",
-           "get_eval_iterator", "get_train_iterator", "make_preprocess_fn"]
+__all__ = ["BatchIterator", "eval_batches", "eval_split",
+           "get_data_inverse_scaler", "get_data_scaler", "get_eval_iterator",
+           "get_train_iterator", "make_preprocess_fn"]

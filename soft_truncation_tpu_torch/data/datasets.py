@@ -12,10 +12,13 @@ resident-array pipeline:
      upsampled bilinearly, plus N(0, 8) noise), with a warning; the same
      arrays as the JAX package's.
 
-Evaluation (:func:`get_eval_iterator`) reads the ``eval.bpd_dataset`` split
-('test'), its first ``eval.num_test_data`` images, once, in an order
-shuffled from a seed, at ``eval.batch_size`` (the last batch may be
-short), without flips.
+Evaluation (:func:`get_eval_iterator`) reads the whole evaluation split of
+the dataset, as the JAX package names it (:func:`eval_split`: 'test' for
+CIFAR-10, 10,000 images; 'validation' for LSUN and IMAGENET32; 'train' for
+a dataset it does not list, such as Synthetic), once, in an order shuffled
+from a seed, at ``eval.batch_size`` (the last batch may be short), without
+flips. The eval-loss, NELBO and NLL loops take :func:`eval_batches`, which
+starts a new pass when one ends, as the JAX package's ``get_batch`` does.
 
 Batches are uint8 on the host, [B, H, W, C], drawn by :class:`BatchIterator`
 (a fresh permutation per epoch and a random left-right flip, from a seeded
@@ -175,15 +178,32 @@ def get_train_iterator(config, seed) -> BatchIterator:
                        config.data.random_flip, seed)
 
 
+# (train, eval) split of each dataset: soft_truncation_tpu/data/datasets.py
+_SPLITS = {
+    "CIFAR10": ("train", "test"),
+    "CIFAR100": ("train", "test"),
+    "SVHN": ("train", "test"),
+    "CELEBA": ("train", "test"),
+    "STL10": ("train", "test"),
+    "LSUN": ("train", "validation"),
+    "IMAGENET32": ("train", "validation"),
+}
+
+
+def eval_split(config) -> str:
+  """The split evaluation reads: the JAX package's, 'train' where it lists
+  none."""
+  return _SPLITS.get(config.data.dataset, ("train", "train"))[1]
+
+
 def get_eval_iterator(config) -> Iterator[np.ndarray]:
   """One pass over the evaluation images (module docstring) as uint8
   batches [B, H, W, C]; the order is shuffled from ``config.seed``, so
   every call yields the same batches."""
-  split = config.eval.bpd_dataset
+  split = eval_split(config)
   images = load_npz_array(config, split)
   if images is None:
     images = synthetic_array(config, split)
-  images = images[:config.eval.num_test_data]
   want = (config.data.image_size, config.data.image_size,
           config.data.num_channels)
   if images.shape[1:] != want:
@@ -193,3 +213,10 @@ def get_eval_iterator(config) -> Iterator[np.ndarray]:
   size = config.eval.batch_size
   for start in range(0, len(images), size):
     yield images[order[start:start + size]]
+
+
+def eval_batches(config) -> Iterator[np.ndarray]:
+  """The batches of :func:`get_eval_iterator`, pass after pass, without
+  end."""
+  while True:
+    yield from get_eval_iterator(config)

@@ -9,13 +9,17 @@ overrides name an existing key, as ``--config.training.n_iters 3`` or
 ``--config.eval.enable_bpd=False``; the value is read as a Python literal
 (``3``, ``1e-3``, ``(1,2)``, ``False``) and kept as text when it is none or
 the key holds text. ``--mode train`` trains (``run_lib.train``, log in
-``workdir/stdout.txt``); ``--mode eval`` evaluates the EMA weights of the
-workdir's rolling checkpoint: the eval loss and, with
-``eval.enable_bpd``, the NELBO and exact-NLL bpd (``run_lib.evaluate``,
-log in ``workdir/evaluation_history.txt``, report in
-``workdir/<eval_folder>``). Sampling (``eval.enable_sampling``,
-``training.snapshot_sampling``) arrives with ROADMAP.md slice 5. Both
-modes run on the card unless ``--cpu`` is given.
+``workdir/stdout.txt``; with ``training.snapshot_sampling``, FID, KID and
+IS of each snapshot's samples in ``workdir/samples``); ``--mode eval``
+evaluates the EMA weights of the workdir's rolling checkpoint: the eval
+loss, with ``eval.enable_bpd`` the NELBO and exact-NLL bpd, and with
+``eval.enable_sampling`` FID, KID and IS over ``eval.num_samples``
+samples (``run_lib.evaluate``, log in ``workdir/evaluation_history.txt``,
+reports in ``workdir/<eval_folder>``). ``--assetdir`` holds
+``inception_v3_weights.npz`` and the real images' statistics; without the
+weights FID runs on a dummy feature extractor and says so. Both modes run
+on the card unless ``--cpu`` is given, in float32: TF32 is turned off for
+cuDNN's convolutions and for matrix products.
 """
 
 from __future__ import annotations
@@ -105,7 +109,12 @@ def main(argv=None) -> None:
                       help="run on the host instead of the card")
   args, rest = parser.parse_known_args(argv)
   config = apply_overrides(load_config(args.config), rest)
+  import torch
+
   from . import run_lib
+  # f32 model and Inception: no TF32 in the convolutions or the products
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
   os.makedirs(args.workdir, exist_ok=True)
   _dump_config(config, args.workdir)
   logger = logging.getLogger()

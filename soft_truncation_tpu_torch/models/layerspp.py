@@ -33,19 +33,30 @@ import torch.nn.functional as F
 from ..ops import (conv_downsample_2d, downsample_2d, gn_silu_conv3x3,
                    gn_stats, naive_downsample_2d, naive_upsample_2d,
                    upsample_2d, upsample_conv_2d)
+from ..ops.gn_conv import fits as gn_conv_fits
 from .dropout import Dropout
 from .layers import (NIN, DDPMConv, Dense, GroupNorm, default_init,
                      spatial_attention)
+
+
+# the JAX package's bound on a fused site's H * W * max(C, O)
+_GN_CONV_MAX_HWC = 32 * 32 * 512
 
 
 def _groups(ch: int) -> int:
   return min(ch // 4, 32)
 
 
-def _gn_conv_eligible(block, h: torch.Tensor, train: bool) -> bool:
-  c = h.shape[-1]
+def _gn_conv_eligible(block, h: torch.Tensor, out_ch: int,
+                      train: bool) -> bool:
+  """JAX's static guard (``soft_truncation_tpu/models/layerspp.py``), and a
+  launch plan of the kernel that fits, for the primal and the tangent: a
+  site that fails either runs the plain chain."""
+  n, hh, ww, c = h.shape
   return (not train and block.act is F.silu
-          and c % 4 == 0 and c % _groups(c) == 0)
+          and c % 4 == 0 and c % _groups(c) == 0
+          and hh * ww * max(c, out_ch) <= _GN_CONV_MAX_HWC
+          and gn_conv_fits(n, hh, ww, c, out_ch, _groups(c)))
 
 
 def _fused_gn_silu_conv(block, h: torch.Tensor, norm: GroupNorm,
@@ -218,8 +229,8 @@ class ResnetBlockBigGANpp(nn.Module):
     self.last_fused_sites = []
     self.last_fir_sites = []
     # fused norm0->SiLU->conv0 only when no resampling sits between them
-    fuse0 = (not self.up and not self.down
-             and _gn_conv_eligible(self, x, train))
+    fuse0 = (not self.up and not self.down and _gn_conv_eligible(
+        self, x, self.conv0.weight.shape[0], train))
     if fuse0:
       h = _fused_gn_silu_conv(self, x, self.norm0, self.conv0)
     else:
@@ -241,7 +252,7 @@ class ResnetBlockBigGANpp(nn.Module):
     if self.temb_proj is not None:
       h = h + self.temb_proj(self.act(temb))[:, None, None, :]
     # dropout is the identity at eval, so norm1->SiLU->conv1 is contiguous
-    if _gn_conv_eligible(self, h, train):
+    if _gn_conv_eligible(self, h, self.conv1.weight.shape[0], train):
       h = _fused_gn_silu_conv(self, h, self.norm1, self.conv1)
     else:
       h = self.act(self.norm1(h))

@@ -190,6 +190,15 @@ def launch_plan(n: int, h: int, w: int, c: int, o: int, groups: int,
                     slots, smem)
 
 
+def fits(n: int, h: int, w: int, c: int, o: int, groups: int) -> bool:
+  """Whether the kernel takes this shape in both modes: rows of at most BM
+  pixels, and each mode's tile within a block's shared memory. The
+  models route any other site to the plain chain, decided per shape."""
+  return w <= BM and all(
+      launch_plan(n, h, w, c, o, groups, tangent=tangent).smem <= _MAX_SMEM
+      for tangent in (False, True))
+
+
 def tf32_round(t: torch.Tensor) -> torch.Tensor:
   """f32 to the nearest TF32 (10-bit mantissa), ties away from zero: PTX's
   ``cvt.rna.tf32.f32``, done on the bits."""

@@ -6,12 +6,17 @@ checkpoints; resume from the rolling checkpoint when there is one; then
 train steps ``initial_step .. training.n_iters`` (both ends included),
 logging the per-example losses' mean and std every ``log_freq`` steps,
 saving the rolling checkpoint every ``snapshot_freq_for_preemption`` and a
-numbered snapshot every ``snapshot_freq`` and at the last step, and at each
+numbered snapshot every ``snapshot_freq`` and at the last step; at each
 snapshot (with ``eval.enable_bpd``) the bpd of the EMA weights into
-``workdir/bpd``. :func:`evaluate`: the eval loss and the bpd of the EMA
-weights of the rolling checkpoint (or of the seed's weights without one).
-Sampling (``training.snapshot_sampling``, ``eval.enable_sampling``) raises:
-it arrives with ROADMAP.md slice 5.
+``workdir/bpd``, and at each snapshot and the last step (with
+``training.snapshot_sampling``) FID, KID and IS of the EMA weights'
+samples into ``workdir/samples``. :func:`evaluate`: the eval loss, the bpd
+and (with ``eval.enable_sampling``) FID, KID and IS of the EMA weights of
+the rolling checkpoint (or of the seed's weights without one), into
+``workdir/<eval_folder>``. Sampling for FID uses ``sampling.method`` at
+``sampling.batch_size`` per shard, ``eval.num_samples`` images; the
+Inception weights and the real images' statistics come from ``assetdir``
+(eval/evaluation.py).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from . import data as datasets
 from .eval import evaluation
 from .likelihood import get_elbo_fn, get_likelihood_fn
 from .models import create_model
+from .sample import get_sampling_fn
 from .sde import get_sde
 from .train import (CheckpointManager, init_train_state, make_eval_loss_step,
                     make_train_step)
@@ -60,15 +66,21 @@ class StepTimer:
     return sps, sps * self.batch_size
 
 
+def _sampling_fn(config, sde):
+  """The sampler of ``config.sampling`` for one shard of FID samples."""
+  shape = (config.sampling.batch_size, config.data.image_size,
+           config.data.image_size, config.data.num_channels)
+  return get_sampling_fn(config, sde, shape,
+                         datasets.get_data_inverse_scaler(config),
+                         config.sampling.truncation_time)
+
+
 def train(config, workdir: str, assetdir=None, device="cuda"):
   """Train under ``config`` in ``workdir``; returns the final state.
 
   ``device`` is 'cuda' unless the caller asks for 'cpu'; without a card
-  'cuda' raises. ``assetdir`` is read by no part of this slice."""
-  del assetdir
-  if config.training.snapshot_sampling:
-    raise NotImplementedError("snapshot sampling (training.snapshot_"
-                              "sampling) arrives with ROADMAP.md slice 5")
+  'cuda' raises. ``assetdir`` holds the Inception weights and the real
+  images' statistics of snapshot sampling."""
   device = resolve_device(device)
   sde = get_sde(config)
   model = create_model(config, device, seed=config.seed)
@@ -113,14 +125,25 @@ def train(config, workdir: str, assetdir=None, device="cuda"):
     if snapshot or step == n_iters:
       ckpt.save_snapshot(state, step // config.training.snapshot_freq)
 
-    if snapshot and config.eval.enable_bpd:
-      # the bpd of the EMA weights, in an eval copy made at the first one
+    bpd = snapshot and config.eval.enable_bpd
+    sampling = ((snapshot or step == n_iters)
+                and config.training.snapshot_sampling)
+    if bpd or sampling:
+      # the EMA weights, in an eval copy made at the first use
       if eval_model is None:
         eval_model = _eval_model(config, device)
       eval_model.load_state_dict(state.ema)
+    if bpd:
       evaluation.compute_bpd(config, nelbo_fn, nll_fn, eval_model, step=step,
                              report_dir=os.path.join(workdir, "bpd"),
                              device=device)
+    if sampling:
+      log.info("sampling start ...")
+      evaluation.compute_fid_and_is(
+          config, eval_model, _sampling_fn(config, sde), step,
+          os.path.join(workdir, "samples"), assetdir,
+          config.eval.num_samples,
+          eval_ds=datasets.get_eval_iterator(config), device=device)
   return state
 
 
@@ -131,15 +154,11 @@ def _eval_model(config, device) -> torch.nn.Module:
 
 def evaluate(config, workdir: str, assetdir=None, eval_folder: str = "eval",
              device="cuda") -> dict:
-  """The eval loss (``eval.enable_loss``, ``eval.loss_iter`` batches) and
-  the bpd (``eval.enable_bpd``, report in ``workdir/eval_folder``) of the
-  EMA weights of ``workdir``'s rolling checkpoint, or of the seed's
-  weights when there is none; returns the results. ``device`` as for
-  :func:`train`; ``assetdir`` is read by no part of this slice."""
-  del assetdir
-  if config.eval.enable_sampling:
-    raise NotImplementedError("sampling (eval.enable_sampling) arrives with "
-                              "ROADMAP.md slice 5")
+  """The eval loss (``eval.enable_loss``, ``eval.loss_iter`` batches), the
+  bpd (``eval.enable_bpd``) and FID, KID and IS (``eval.enable_sampling``)
+  of the EMA weights of ``workdir``'s rolling checkpoint, or of the seed's
+  weights when there is none, reported in ``workdir/eval_folder``; returns
+  the results. ``device`` and ``assetdir`` as for :func:`train`."""
   eval_dir = os.path.join(workdir, eval_folder)
   os.makedirs(eval_dir, exist_ok=True)
   device = resolve_device(device)
@@ -160,7 +179,7 @@ def evaluate(config, workdir: str, assetdir=None, eval_folder: str = "eval",
     generator = torch.Generator(device).manual_seed(config.seed + 2)
     vals = []
     for _, batch in zip(range(config.eval.get("loss_iter", 10)),
-                        datasets.get_eval_iterator(config)):
+                        datasets.eval_batches(config)):
       batch = preprocess(torch.from_numpy(batch).to(device), None)
       vals.append(eval_step(model, batch, generator).cpu().numpy())
     if vals:
@@ -176,4 +195,11 @@ def evaluate(config, workdir: str, assetdir=None, eval_folder: str = "eval",
         config, get_elbo_fn(config, sde, inverse_scaler),
         get_likelihood_fn(config, sde, inverse_scaler), model,
         step=step, report_dir=eval_dir, device=device))
+
+  if config.eval.enable_sampling:
+    log.info("sampling start ...")
+    results.update(evaluation.compute_fid_and_is(
+        config, model, _sampling_fn(config, sde), step, eval_dir, assetdir,
+        config.eval.num_samples, eval_ds=datasets.get_eval_iterator(config),
+        device=device))
   return results

@@ -15,7 +15,9 @@
 - ``python -m soft_truncation_tpu_torch.main --mode eval --cpu`` on a tiny
   trained workdir: the eval loss and bpd of the EMA weights, the log lines
   and the ``bpd_<step>.npz`` report; the in-training bpd at a snapshot;
-  sampling refused.
+  FID and IS of the EMA weights' samples (``dpm_solver``, 2 shards, the
+  dummy extractor), in training and in the evaluation, which a second run
+  resumes from its shards and caches.
 """
 
 import os
@@ -96,7 +98,11 @@ TINY_CLI = ["--config.data.dataset", "Synthetic",
             "--config.model.num_res_blocks", "1",
             "--config.model.attn_resolutions", "(4,)",
             "--config.eval.batch_size", "2",
-            "--config.eval.nelbo_iter", "1"]
+            "--config.eval.nelbo_iter", "1",
+            "--config.sampling.method", "dpm_solver",
+            "--config.sampling.dpm_steps", "2",
+            "--config.sampling.batch_size", "2",
+            "--config.eval.num_samples", "4"]
 
 
 def _cli(workdir, mode, *extra):
@@ -107,14 +113,16 @@ def _cli(workdir, mode, *extra):
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
   """A tiny flagship trained 4 steps (lr 2e-4, no warmup: the EMA weights
-  differ from the model's), with the in-training NELBO at step 2."""
+  differ from the model's), with the in-training NELBO at step 2 and
+  snapshot sampling at steps 2 and 3."""
   workdir = tmp_path_factory.mktemp("eval_cli")
   _cli(workdir, "train", "--config.training.n_iters", "3",
        "--config.training.batch_size", "4",
        "--config.training.snapshot_freq", "2",
        "--config.training.snapshot_freq_for_preemption", "3",
        "--config.optim.warmup", "0", "--config.optim.lr", "2e-4",
-       "--config.eval.enable_bpd=True", "--config.eval.nll_iter", "0")
+       "--config.eval.enable_bpd=True", "--config.eval.nll_iter", "0",
+       "--config.training.snapshot_sampling=True")
   return workdir
 
 
@@ -164,7 +172,51 @@ def test_eval_cli_reports_loss_and_bpd_of_the_ema_weights(trained):
              - loss_mean(state.model.state_dict())) > 1e-3
 
 
-def test_eval_cli_refuses_sampling(tmp_path):
-  with pytest.raises(NotImplementedError, match="ROADMAP.md slice 5"):
-    _cli(tmp_path, "eval", "--config.eval.enable_sampling=True")
-  assert not os.path.exists(tmp_path / "eval" / "bpd_0.npz")
+def _report(directory):
+  with np.load(directory / "report_metrics.npz") as f:
+    return {k: float(f[k]) for k in f.files}
+
+
+def test_train_cli_samples_at_snapshots(trained):
+  for step in (2, 3):
+    d = trained / "samples" / f"ckpt_{step}_dpm_solver_trunc1e-05"
+    metrics = _report(d)
+    assert set(metrics) == {"fid", "inception_score"}
+    assert all(np.isfinite(v) for v in metrics.values())
+    assert {f"samples_{r}.{e}" for r in (0, 1) for e in ("npz", "png")} <= set(
+        os.listdir(d))
+  assert "ckpt-3 metrics" in (trained / "stdout.txt").read_text()
+
+
+def test_eval_cli_refuses_sampling(trained, tmp_path):
+  """Sampling is no longer refused: the evaluation writes two shards, their
+  PNG grids and feature caches and the report, with finite FID and IS,
+  and a second run resumes from them with the same numbers. The CLI runs
+  in float32: it turns TF32 off whatever it was."""
+  args = ["--config.eval.enable_sampling=True",
+          "--config.eval.enable_loss=False", "--eval_folder", "fid",
+          "--assetdir", str(tmp_path / "no_assets")]
+  torch.backends.cudnn.allow_tf32 = True
+  _cli(trained, "eval", *args)
+  assert not torch.backends.cudnn.allow_tf32
+  assert not torch.backends.cuda.matmul.allow_tf32
+  d = trained / "fid" / "ckpt_4_dpm_solver_trunc1e-05"
+  want = {f"{kind}_{r}.{e}" for r in (0, 1)
+          for kind, e in (("samples", "npz"), ("samples", "png"),
+                          ("statistics", "npz"))} | {"report_metrics.npz"}
+  assert set(os.listdir(d)) == want
+  metrics = _report(d)
+  assert set(metrics) == {"fid", "inception_score"}
+  assert all(np.isfinite(v) for v in metrics.values())
+  with np.load(d / "samples_1.npz") as f:
+    assert f["samples"].shape == (2, 8, 8, 3)
+    assert f["samples"].dtype == np.uint8
+  log = (trained / "evaluation_history.txt").read_text()
+  assert "DummyFeatureExtractor in use" in log and "ckpt-4 metrics" in log
+  stamps = {p: os.stat(d / p).st_mtime_ns for p in want}
+  _cli(trained, "eval", *args)
+  assert _report(d) == metrics
+  assert {p: os.stat(d / p).st_mtime_ns for p in want if p.startswith(
+      ("samples", "statistics"))} == {p: t for p, t in stamps.items()
+                                      if p.startswith(("samples",
+                                                       "statistics"))}

@@ -58,7 +58,8 @@ def test_port_flagship_config_equals_jax_config():
   _assert_same_values(*torch_tiny.configs(changes={}))
 
 
-# the base keys the training and likelihood slices read (every optim key)
+# the base keys the training, likelihood and sample-quality slices read
+# (every optim key)
 TRAIN_KEYS = {
     "training": {"batch_size", "n_iters", "snapshot_freq", "log_freq",
                  "snapshot_freq_for_preemption", "snapshot_sampling",
@@ -67,13 +68,15 @@ TRAIN_KEYS = {
                  "ddpm_weight", "balanced", "num_train_data"},
     "eval": {"enable_bpd", "enable_sampling", "batch_size", "enable_loss",
              "bpd_dataset", "num_test_data", "residual", "lambda_",
-             "probability_flow", "nelbo_iter", "nll_iter"},
+             "probability_flow", "nelbo_iter", "nll_iter", "num_samples"},
     "data": {"random_flip", "dequantization"},
+    "tpu": {"fid_resize"},
 }
 
 
 def test_port_base_holds_the_training_keys_with_jax_values():
-  """The training keys and the eval keys of the likelihood slice."""
+  """The training keys, the eval keys of the likelihood and sample-quality
+  slices, and ``tpu.fid_resize``."""
   from soft_truncation_tpu.configs.base import default_config as jax_default
   from soft_truncation_tpu_torch.configs.base import default_config
   jc, pc = jax_default("cifar10"), default_config("cifar10")
