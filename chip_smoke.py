@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card (an H100): the quickest
 proof that the port still builds, agrees with its plain versions, serves,
-trains, evaluates the likelihood and computes FID, KID and IS.
+trains, evaluates the likelihood and computes FID, KID and IS, on the two
+CIFAR-10 models and on the published layouts beyond them.
 
     python3 chip_smoke.py
 
@@ -14,6 +15,16 @@ Phases; any failure exits non-zero before the last line is printed:
      labels 0.01 and 50) on the card and on a CPU copy with the same
      weights: agreement per sample, and each kernel's launches per shape
      equal to the CPU model's sites (82 fused, and for UNCSN++ 12 FIR);
+  3b. published layouts: each of PUBLISHED_LAYOUTS at full width, init_scale
+     0.1 (the deepest CIFAR-10 model, nf 512 with ``lsgm``; CelebA 64^2;
+     CelebA-HQ 256^2; FFHQ 1024^2 at batch 1; the flagship with DDPM blocks
+     and the fixed Fourier features; the flagship without auxiliary
+     blocks), on the card and on a CPU copy with the same weights:
+     agreement per sample within FORWARD_REL_TOL, the counts of fused sites,
+     chain sites and FIR sites printed, every site's choice of kernel or
+     chain held to JAX's guard (H * W * max(C, O) <= 32 * 32 * 512) with the
+     kernel's plan (``ops/gn_conv.py::fits``), and each kernel's launches
+     per shape equal to the sites;
   4. serve the flagship (a main path), with the launch counts set to 0 just
      before it and read just after: the port's HTTP server at batch 8
      answers /healthz and, with the flagship config as it is (init_scale
@@ -30,6 +41,18 @@ Phases; any failure exits non-zero before the last line is printed:
      the phase-3 weights 'pc' at N = 3, whose batch is held against a CPU
      SamplingService given the same prior and the same noise. Both kernels'
      launches per shape equal their sites x the evaluations;
+  5c. serve the deepest model, counted the same way: its own 'pc'
+     (Euler-Maruyama, no corrector) at N = DEEPEST_SERVE_STEPS, batch 8,
+     twice, as published: the request's wall and ms per evaluation; then
+     with the phase-3b weights 'pc' at N = 2, batch 2, against a CPU
+     SamplingService from the same prior and noise (the SDE's scalars in
+     float64 on both sides, as in phase 7b);
+  5d. serve CelebA-HQ 256^2, counted the same way: its own 'pc' (reverse
+     diffusion and Langevin) at sampling.batch_size 16, N = HQ_SERVE_STEPS,
+     twice: uint8 [16, 256, 256, 3], the same bytes per seed, ms per
+     evaluation, and the published N = 2,000 (4,001 evaluations)
+     extrapolated from it and marked so; a trace of one eval forward at
+     batch 16 (as in phase 5b);
   5b. trace: one eval forward and one likelihood ODE function evaluation
      (a torch.func.jvp of the drift) of each model at batch 8 with the
      phase-3 weights, each one's wall without a profiler and a
@@ -43,6 +66,8 @@ Phases; any failure exits non-zero before the last line is printed:
      per-tensor gradients (Adam's first moment) and each parameter's move
      in the update (within 0.05 lr, where the gradient is above its bar). For UNCSN++ the fir2 forward tally equals the CPU model's
      12 sites and the backward tally the 12 adjoint launches, per shape;
+  6b. the same for the deepest model with its mixed loss (two forwards per
+     step, one per half): 16 fir2 launches forward and 16 adjoint;
   7. train (the third main path), counted the same way: the CLI trainer
      (``soft_truncation_tpu_torch.main --mode train``) for each config as
      published, batch 128, Synthetic data, in build/chip_smoke_train/
@@ -52,6 +77,11 @@ Phases; any failure exits non-zero before the last line is printed:
      step (CUDA events around each step, the steps after the first two),
      imgs/s and peak device memory; UNCSN++'s fir2 launches per shape equal
      12 forward and 12 backward per step, the flagship's none;
+  7d. train the deepest model, counted the same way: the CLI trainer as
+     published (batch 128 in one micro-batch, the mixed loss), steps
+     0..DEEPEST_TRAIN_ITERS, no resume: finite losses, ms per step,
+     imgs/s, peak memory, 16 fir2 launches forward and 16 adjoint per step,
+     every one at N=64 (the network runs once per half of the batch);
   7c. FID (the fifth main path), counted the same way, in phase 7's
      flagship workdir: scipy's and Pillow's versions; random Inception
      weights (``eval.inception_v3.random_params``) and the pool_3 features
@@ -88,7 +118,8 @@ Phases; any failure exits non-zero before the last line is printed:
      every shape the serve phases launched it at (N=8), gn_silu_conv3x3 also
      at every shape the FID phase's sampler launched it at (N=FID_SHARD,
      its own row in the `kernels` line) and, for fir2, at
-     every shape the train phase launched it at (N=128), forward and
+     every shape the train phase launched it at (at the batch phase 7
+     recorded for every launch, N=128), forward and
      backward (the backward held against torch.autograd.grad of the plain
      forward), and both tangents at every shape phase 7b launched them at
      (N=8; gn_silu_conv3x3's against gn_silu_conv3x3_jvp_plain, which is
@@ -104,7 +135,11 @@ Phases; any failure exits non-zero before the last line is printed:
      bound (gn_silu_conv3x3: its flops once at the dense TF32 rate, with
      the kernel's 3xTF32 figure and the FP32-pipe figure of its earlier
      FMA form beside it) and the launches per forward, step or function
-     evaluation measured in phases 4, 5, 7, 7c and 7b; gn_silu_conv3x3's
+     evaluation measured in phases 4, 5, 7, 7c and 7b; for the published
+     layouts, gn_silu_conv3x3 at every shape phases 5c (N=8), 5d (N=16)
+     and 3b (N=2, FFHQ's N=1) launched it at and no other row holds, fir2
+     at phase 5d's and FFHQ's shapes (``fir2_hires``) and at phase 7d's,
+     forward and backward (N=64, as recorded); gn_silu_conv3x3's
      split-K grid per shape, and its agreement at shapes no model reaches
      (ragged tiles, C and O off the tile widths); one JSON line per shape,
      then the
@@ -116,10 +151,12 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import gc
 import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -168,6 +205,31 @@ INCEPTION_BATCH = 128    # the extractor's batch
 KERNEL_REL_TOL = 1e-4   # gn_silu_conv3x3: reordered f32 sums, K <= 9*512
 FIR_REL_TOL = 1e-5      # fir2: <= 16 f32 products, summed in another order
 FORWARD_REL_TOL = 1e-3  # card vs CPU, the whole network or sampler
+# the published layouts (phases 3b, 5c, 5d, 6b, 7d)
+DEEPEST = os.path.join(CONFIGS, "vp", "CIFAR10", "ddpmpp_fid_st_deepest.py")
+CELEBA64 = os.path.join(CONFIGS, "vp", "CELEBA", "uddpmpp_nll_st.py")
+CELEBAHQ = os.path.join(CONFIGS, "ve", "celebahq_256_uncsn.py")
+FFHQ1024 = os.path.join(CONFIGS, "ve", "ffhq_1024_uncsn.py")
+GN_CONV_MAX_HWC = 32 * 32 * 512  # JAX's bound on a fused site's H*W*max(C,O)
+CHECK_BATCH = 2             # card vs CPU at full width
+DEEPEST_SERVE_STEPS = 50    # phase 5c: 'pc' N
+HQ_SERVE_STEPS = 5          # phase 5d: 'pc' N
+HQ_PUBLISHED_STEPS = 2000   # model.num_scales of ve/celebahq_256_uncsn.py
+# phase 3b: (name, config, model overrides, labels): VP labels t * 999,
+# CelebA 64^2's unbounded ones as they come, VE / RVE labels sigmas
+PUBLISHED_LAYOUTS = (
+    ("deepest", DEEPEST, {}, [0.01 * 999.0, 0.6 * 999.0]),
+    ("celeba_64", CELEBA64, {}, [3.0, 700.0]),
+    ("celebahq_256", CELEBAHQ, {}, [0.01, 300.0]),
+    ("ffhq_1024", FFHQ1024, {}, [50.0]),
+    ("ddpm_blocks", FLAGSHIP, {"resblock_type": "ddpm",
+                               "fourier_feature": True},
+     [0.01 * 999.0, 0.6 * 999.0]),
+    ("no_auxiliary", FLAGSHIP, {"auxiliary_resblock": False},
+     [0.01 * 999.0, 0.6 * 999.0]))
+DEEPEST_TRAIN_ITERS = 3     # phase 7d: steps 0..3
+# phase 7d: batch 128 in one micro-batch, as published, fits the card's
+# 80 GB with little to spare (PERF.md): the phase frees the cache first
 PARAM_MOVE_TOL = 0.05   # card vs CPU, a parameter's move in one step, x lr
 # served uint8 vs the CPU run: a float difference within FORWARD_REL_TOL
 # moves a pixel across at most one quantisation step, and few of them
@@ -402,11 +464,13 @@ def _post(url, body):
     return r.read()
 
 
-def _serve_requests(url, requests, config, repeat=2):
-  """POST each request ``repeat`` times; check shape, dtype and
-  determinism. Returns the network evaluations run, the first answer of
-  each request and each request's walls."""
+def _serve_requests(url, requests, config, repeat=2, batch=SERVE_BATCH):
+  """POST each request ``repeat`` times; check shape ([batch, size, size,
+  3] at the config's image size), dtype and determinism. Returns the
+  network evaluations run, the first answer of each request and each
+  request's walls."""
   import numpy as np
+  size = config.data.image_size
   evals, answers, walls = 0, [], []
   for req in requests:
     method = req.get("method", config.sampling.method)
@@ -418,14 +482,19 @@ def _serve_requests(url, requests, config, repeat=2):
       with np.load(io.BytesIO(bodies[-1])) as f:
         samples, nfe = f["samples"], int(f["nfe"])
       # the ode and pc samplers' nfe, as in the JAX package, leave out
-      # their final denoising evaluation
-      evals += nfe + (1 if method == "pc" or (
+      # their final denoising evaluation, and pc's counts a corrector
+      # evaluation per step even where the corrector is 'none'
+      if method == "pc" and config.sampling.corrector == "none":
+        nfe_run = nfe // (config.sampling.n_steps_each + 1)
+      else:
+        nfe_run = nfe
+      evals += nfe_run + (1 if method == "pc" or (
           method == "ode" and config.sampling.noise_removal) else 0)
       inside = float(((samples > 0) & (samples < 255)).mean())
       log(f"serve: {json.dumps(req)} nfe {nfe} wall_s {times[-1]:.3f} "
           f"mean {samples.mean():.3f} std {samples.std():.3f} "
           f"unsaturated {inside:.4f}")
-      if (samples.shape != (SERVE_BATCH, 32, 32, 3)
+      if (samples.shape != (batch, size, size, 3)
           or samples.dtype != np.uint8):
         raise AssertionError(f"bad samples {samples.shape} {samples.dtype}")
       if samples.std() == 0:
@@ -461,7 +530,8 @@ def _healthz(url):
   return health["meta"]
 
 
-def _check_against_cpu(service, params, served, seed, method, steps):
+def _check_against_cpu(service, params, served, seed, method, steps,
+                       batch=SERVE_BATCH, sde_wrap=None):
   """Hold one served batch against a CPU SamplingService on the same
   weights, run from the same prior (round 0 of ``seed``); a 'pc' run also
   gets the card's noise, drawn once from the round's noise generator as
@@ -486,8 +556,10 @@ def _check_against_cpu(service, params, served, seed, method, steps):
     card_kw = dict(draw=record)
     ref_kw = dict(draw=lambda like: next(replay).to(like.device))
   card, _ = service.sampler(method, steps)(service.model, x=prior, **card_kw)
-  ref_service = SamplingService(service.config, params, batch=SERVE_BATCH,
+  ref_service = SamplingService(service.config, params, batch=batch,
                                 device="cpu")
+  if sde_wrap is not None:  # as the card's service was given
+    ref_service.sde = sde_wrap(ref_service.sde)
   ref, _ = ref_service.sampler(method, steps)(ref_service.model,
                                               x=prior.cpu(), **ref_kw)
   err = (card.cpu() - ref).abs().max().item()
@@ -692,10 +764,13 @@ def phase_trace(name, config, params, label):
     _traced(f"{name} ODE function evaluation", lambda: ode_fn(0.5, flat))
 
 
-def phase_train_step(name, config, want_fir, want_bwd):
+def phase_train_step(name, config, want_fir, want_bwd, forwards=1):
   """One train step at full width and batch 2 on the card and on a CPU copy
   with the same weights and draws. ``want_fir`` / ``want_bwd``: fir2's
-  forward and adjoint launches per shape in one step (UNCSN++) or {}."""
+  forward and adjoint launches per shape in one step (UNCSN++, the
+  deepest model) or {}; ``forwards``: the network's forwards per step (2
+  for the mixed loss, one per half), each with the last one's FIR
+  sites."""
   import torch
   from soft_truncation_tpu_torch.data import get_data_scaler
   from soft_truncation_tpu_torch.models import create_model
@@ -705,8 +780,9 @@ def phase_train_step(name, config, want_fir, want_bwd):
   config.model.dropout, config.optim.warmup = 0.0, 0
   step = make_train_step(config, get_sde(config))
   gen = torch.Generator().manual_seed(2)
-  batch = get_data_scaler(config)(torch.rand(TRAIN_CHECK_BATCH, 32, 32, 3,
-                                             generator=gen))
+  size = config.data.image_size
+  batch = get_data_scaler(config)(torch.rand(TRAIN_CHECK_BATCH, size, size,
+                                             3, generator=gen))
   draws = []
 
   def record(kind, shape):
@@ -729,7 +805,8 @@ def phase_train_step(name, config, want_fir, want_bwd):
   gpu_state = init_train_state(config, create_model(config, DEVICE, seed=0))
   start = [p.detach().clone() for p in cpu_state.optimizer.params]
   want = step(cpu_state, batch, torch.Generator(), record)
-  fir_sites = collections.Counter(cpu_model.fir_sites())
+  fir_sites = {s: k * forwards for s, k in
+               collections.Counter(cpu_model.fir_sites()).items()}
   _reset_launch_counts()
   got = step(gpu_state, batch.to(DEVICE), torch.Generator(DEVICE), replayed)
   torch.cuda.synchronize()
@@ -806,17 +883,21 @@ def _timed_steps(make_train_step, events):
   return make
 
 
-def phase_train(name, path, fir_per_step, fir_bwd_per_step):
+def phase_train(name, path, fir_per_step, fir_bwd_per_step,
+                iters=TRAIN_ITERS, resume=True, flags=()):
   """The third main path: the CLI trainer on a published config, batch 128,
-  Synthetic data, then a resume. Returns the steps run, the fir2 launches
-  per shape (forward and backward) and the workdir, which the likelihood
-  phase evaluates and then removes."""
+  Synthetic data, steps 0..``iters``, then (``resume``) a resume. ``flags``:
+  more ``--config.*`` arguments. Returns the steps run, the fir2 launches
+  per shape (forward and backward), the batch every one of them ran at
+  (the mixed loss runs the network once per half of a micro-batch) and
+  the workdir, which the likelihood phase evaluates and then removes."""
   import re
   import shutil
 
   import torch
   from soft_truncation_tpu_torch import main as port_main
   from soft_truncation_tpu_torch import run_lib
+  from soft_truncation_tpu_torch.ops import fir
 
   line = re.compile(r"step: (\d+), training loss mean: (\S+), training "
                     r"loss std: (\S+) \((\S+) steps/s, (\S+) imgs/s\)")
@@ -826,18 +907,26 @@ def phase_train(name, path, fir_per_step, fir_bwd_per_step):
           "--config.data.dataset", "Synthetic",
           "--config.training.log_freq", "1",
           "--config.training.snapshot_freq_for_preemption", "2",
-          "--config.training.snapshot_freq", "1000000"]
+          "--config.training.snapshot_freq", "1000000", *flags]
   if DEVICE == "cpu":  # a run on the host, without the card
     argv.append("--cpu")
   events, make = [], run_lib.make_train_step
   run_lib.make_train_step = _timed_steps(make, events)
+  # the batch of every resample the wrappers launch (and count)
+  batches, resample = collections.Counter(), fir._resample
+
+  def batch_counted(x, *args, **kwargs):
+    batches[x.shape[0]] += 1
+    return resample(x, *args, **kwargs)
+
+  fir._resample = batch_counted
   try:
     torch.cuda.reset_peak_memory_stats()
     _reset_launch_counts()
-    port_main.main(argv + ["--config.training.n_iters", str(TRAIN_ITERS)])
+    port_main.main(argv + ["--config.training.n_iters", str(iters)])
     first_run = len(events)
-    port_main.main(argv + ["--config.training.n_iters",
-                           str(TRAIN_ITERS + 2)])
+    if resume:
+      port_main.main(argv + ["--config.training.n_iters", str(iters + 2)])
     torch.cuda.synchronize()
     launched, fir_fwd = _launch_counts()
     fir_bwd = _backward_launch_counts()
@@ -846,6 +935,7 @@ def phase_train(name, path, fir_per_step, fir_bwd_per_step):
       logged = [m.groups() for m in map(line.search, f) if m]
   finally:
     run_lib.make_train_step = make
+    fir._resample = resample
   steps = len(events)
   ms = [a.elapsed_time(b) for a, b in events]
   timed = ms[2:first_run]
@@ -853,16 +943,18 @@ def phase_train(name, path, fir_per_step, fir_bwd_per_step):
   for groups in logged:
     log(f"train {name}: step {groups[0]} loss mean {groups[1]} std "
         f"{groups[2]} ({groups[3]} steps/s, {groups[4]} imgs/s)")
-  summary = {"train": name, "batch": TRAIN_BATCH, "steps": steps,
+  summary = {"train": name, "batch": TRAIN_BATCH, "flags": list(flags),
+             "steps": steps,
              "ms_per_step": ms_step, "imgs_per_s": TRAIN_BATCH / ms_step * 1e3,
              "ms_each_step": ms, "peak_memory_bytes": peak,
              "fir2_forward_launches": sum(fir_fwd.values()),
-             "fir2_backward_launches": sum(fir_bwd.values())}
+             "fir2_backward_launches": sum(fir_bwd.values()),
+             "fir2_launches_by_batch": dict(batches)}
   emit(summary)
   labels = [int(g[0]) for g in logged]
   # the rolling checkpoint of step label 4 holds 5 steps: resume at 5
-  want_labels = list(range(TRAIN_ITERS + 1)) + list(
-      range(TRAIN_ITERS, TRAIN_ITERS + 3))
+  want_labels = list(range(iters + 1)) + (
+      list(range(iters, iters + 3)) if resume else [])
   if labels != want_labels or steps != len(want_labels):
     raise AssertionError(f"{name}: logged steps {labels}, expected "
                          f"{want_labels} (a resume at the saved step)")
@@ -876,7 +968,207 @@ def phase_train(name, path, fir_per_step, fir_bwd_per_step):
                          f" and backward {fir_bwd}, expected {want_fwd} and "
                          f"{want_bwd} ({steps} steps); gn_silu_conv3x3 "
                          f"{launched}, expected none")
-  return steps, fir_fwd, fir_bwd, workdir
+  if len(batches) > 1 or sum(batches.values()) != sum(
+      fir_fwd.values()) + sum(fir_bwd.values()):
+    raise AssertionError(f"{name}: fir2 launches by batch {dict(batches)}: "
+                         "expected every launch of the tally at one batch")
+  return steps, fir_fwd, fir_bwd, next(iter(batches), None), workdir
+
+# --- the published layouts (phases 3b, 5c, 5d, 6b, 7d) ----------------------
+
+
+def _jax_guard_fused(n, h, w, c, o):
+  """Whether a norm -> SiLU -> conv site fuses: JAX's guard
+  (``soft_truncation_tpu/models/layerspp.py::_gn_conv_eligible``: C a
+  multiple of 4 and of its groups, H * W * max(C, O) <= 32 * 32 * 512)
+  and the kernel's plan (``ops/gn_conv.py::fits``)."""
+  from soft_truncation_tpu_torch.ops import gn_conv
+  g = min(c // 4, 32)
+  return (c % 4 == 0 and c % g == 0 and h * w * max(c, o) <= GN_CONV_MAX_HWC
+          and gn_conv.fits(n, h, w, c, o, g))
+
+
+def phase_published_forward(name, config, labels):
+  """A published layout at full width, init_scale 0.1, on the card and on a
+  CPU copy with the same weights: agreement per sample, every site's
+  choice of kernel or chain held to JAX's guard, each kernel's launches
+  per shape equal to the CPU model's fused and FIR sites. Returns the
+  fused sites, the FIR sites and the CPU model's weights."""
+  import torch
+  from soft_truncation_tpu_torch.models import create_model, layerspp
+
+  size = config.data.image_size
+  cpu_model = create_model(config, "cpu", seed=0)
+  gen = torch.Generator("cpu").manual_seed(1)
+  x = torch.randn(len(labels), size, size, 3, generator=gen)
+  labels = torch.tensor(labels, dtype=torch.float32)
+  decisions = []
+  eligible = layerspp._gn_conv_eligible
+
+  def record(block, h, out_ch, train):
+    ok = eligible(block, h, out_ch, train)
+    decisions.append((tuple(h.shape), out_ch, ok))
+    return ok
+
+  layerspp._gn_conv_eligible = record
+  try:
+    with torch.inference_mode():
+      want = cpu_model(x, labels)
+  finally:
+    layerspp._gn_conv_eligible = eligible
+  sites = collections.Counter(cpu_model.fused_sites())
+  fir_sites = collections.Counter(cpu_model.fir_sites())
+  gpu_model = create_model(config, DEVICE, seed=0)
+  with torch.inference_mode():
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    got = gpu_model(x.to(DEVICE), labels.to(DEVICE))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched, fir_launched = _launch_counts()
+  del gpu_model
+  err = (got.cpu() - want).abs().flatten(1).amax(1)
+  scale = want.abs().flatten(1).amax(1)
+  chain = [(s[1:], o) for s, o, ok in decisions if not ok]
+  wrong = [(s, o, ok) for s, o, ok in decisions
+           if ok != _jax_guard_fused(*s, o)]
+  params = sum(p.numel() for p in cpu_model.parameters())
+  row = {"published_forward": name, "batch": len(labels), "size": size,
+         "parameters": params, "fused_sites": sum(sites.values()),
+         "chain_sites": len(chain), "fir_sites": sum(fir_sites.values()),
+         "max_abs_diff": err.tolist(), "max_abs_out": scale.tolist(),
+         "first_call_wall_s": wall,
+         "chain_shapes": sorted(set(map(str, chain)))}
+  emit(row)
+  log(f"forward {name}: {params} parameters, {row['fused_sites']} fused "
+      f"sites, {len(chain)} on the chain, {row['fir_sites']} FIR sites; "
+      f"per sample max_abs_diff {err.tolist()} max|out| {scale.tolist()}")
+  if not (torch.isfinite(got).all() and (err <= FORWARD_REL_TOL
+                                         * scale).all()):
+    raise AssertionError(f"{name}: card forward disagrees with CPU: "
+                         f"{err.tolist()} vs {scale.tolist()}")
+  if wrong or sum(sites.values()) + len(chain) != len(decisions):
+    raise AssertionError(f"{name}: sites whose kernel-or-chain choice is "
+                         f"not JAX's guard and the kernel's plan: {wrong}")
+  if launched != dict(sites) or fir_launched != dict(fir_sites):
+    raise AssertionError(f"{name}: launches per shape {launched} / "
+                         f"{fir_launched} are not the sites {dict(sites)} / "
+                         f"{dict(fir_sites)}")
+  return dict(sites), dict(fir_sites), cpu_model.state_dict()
+
+
+def _serve_published(name, path, steps, batch, want_pair, sites, fir_sites,
+                     published_steps=None):
+  """A published config behind the HTTP server at ``batch``, as published
+  (init_scale 0), its own 'pc' at N = ``steps`` (``want_pair``: the
+  predictor and corrector /healthz must name), the same request twice:
+  uint8 samples, the same bytes per seed, both kernels' launches per shape
+  equal to the sites x the evaluations; ms per evaluation and, with
+  ``published_steps``, the published request extrapolated from it.
+  Returns the service, the launches per shape and the evaluations."""
+  from soft_truncation_tpu_torch.models import create_model
+  from soft_truncation_tpu_torch.serve.server import SamplingService
+
+  config = load_config(path, num_scales=steps)
+  service = SamplingService(
+      config, create_model(config, "cpu", seed=1).state_dict(), batch=batch,
+      device=DEVICE)
+  walls = []
+
+  def as_published(url):
+    meta = _healthz(url)
+    if (meta["predictor"], meta["corrector"]) != want_pair:
+      raise AssertionError(f"/healthz names {meta}")
+    evals, _, (times,) = _serve_requests(
+        url, [{"num": batch, "seed": 0}], config, batch=batch)
+    walls.extend(times)
+    return evals
+
+  _reset_launch_counts()
+  evals = _serving(service, as_published)
+  launched, fir_launched = _launch_counts()
+  _check_tallies(name, evals, launched, sites, fir_launched, fir_sites)
+  per_request = evals // 2
+  ms_eval = min(walls) / per_request * 1e3
+  row = {"serve": name, "batch": batch, "method": "pc", "steps": steps,
+         "evaluations_per_request": per_request, "request_walls_s": walls,
+         "ms_per_evaluation": ms_eval}
+  msg = (f"serve {name}: pc N={steps} at batch {batch}: {per_request} "
+         f"evaluations in {min(walls):.3f} s, {ms_eval:.3f} ms per "
+         "evaluation")
+  if published_steps:
+    # 'pc' with a corrector: a predictor and a corrector evaluation per
+    # step, and the final denoising one
+    published = 2 * published_steps + 1
+    row.update(extrapolated_published_request_s=published * ms_eval / 1e3,
+               extrapolated_from=f"{published} evaluations (N="
+                                 f"{published_steps}) x this ms per "
+                                 "evaluation; not run")
+    msg += (f"; the published N={published_steps} ({published} "
+            f"evaluations) would take about {published * ms_eval / 1e3:.1f}"
+            " s (an extrapolation, not run)")
+  emit(row)
+  log(msg)
+  return service, launched, fir_launched, evals
+
+
+def phase_serve_deepest(sites, fir_sites, params):
+  """The deepest model (nf 512, 373.9M parameters) served at batch 8 with
+  its own 'pc' (Euler-Maruyama, no corrector) at N = DEEPEST_SERVE_STEPS;
+  then with the phase-3b weights 'pc' at N = 2 at batch 2, the SDE's
+  scalars in float64, held against a CPU SamplingService from the same
+  prior and noise. Returns both kernels' launches per shape and the
+  evaluations (batch 8 only)."""
+  from soft_truncation_tpu_torch.serve.server import SamplingService
+
+  service, launched, fir_launched, evals = _serve_published(
+      "deepest", DEEPEST, DEEPEST_SERVE_STEPS, SERVE_BATCH,
+      ("euler_maruyama", "none"), sites, fir_sites)
+  del service
+  # the last step runs at t = 1e-5, where the f32 VP std differs by ~3 %
+  # between the card's exp and the CPU's (phase 7b): both services take
+  # the SDE's scalars in float64
+  config01 = load_config(DEEPEST, init_scale=0.1, num_scales=2)
+  service01 = SamplingService(config01, params, batch=CHECK_BATCH,
+                              device=DEVICE)
+  service01.sde = _scalars_in_float64(service01.sde)
+  req = {"num": CHECK_BATCH, "seed": 3}
+  _, (served01,), _ = _serving(service01, lambda url: _serve_requests(
+      url, [req], config01, batch=CHECK_BATCH))
+  _check_against_cpu(service01, params, served01, req["seed"], "pc", 2,
+                     batch=CHECK_BATCH, sde_wrap=_scalars_in_float64)
+  return launched, fir_launched, evals
+
+
+def phase_serve_hq(sites, fir_sites):
+  """CelebA-HQ 256^2 (UNCSN++, reciprocal VE) served at its own
+  sampling.batch_size with 'pc' as configured (reverse diffusion and
+  Langevin) at N = HQ_SERVE_STEPS, the published N = HQ_PUBLISHED_STEPS
+  extrapolated; then a trace of one eval forward at that batch (as in
+  phase 5b). Returns the launches per shape and the evaluations."""
+  import torch
+  batch = load_config(CELEBAHQ).sampling.batch_size
+  service, launched, fir_launched, evals = _serve_published(
+      "celebahq_256", CELEBAHQ, HQ_SERVE_STEPS, batch,
+      ("reverse_diffusion", "langevin"), sites, fir_sites,
+      HQ_PUBLISHED_STEPS)
+  # where an evaluation's time goes: 34 of its 86 sites take the chain
+  x = torch.randn(batch, 256, 256, 3, device=DEVICE)
+  labels = torch.full((batch,), 50.0, device=DEVICE)
+  with torch.inference_mode():
+    _traced("celebahq_256 eval forward", lambda: service.model(x, labels),
+            batch)
+  return launched, fir_launched, evals
+
+
+def adjoint_sites(fir_sites):
+  """fir2's adjoint launches for forward FIR sites: (launched mode, H, W,
+  C) of each cotangent -> count."""
+  out = collections.Counter()
+  for (mode, h, w, c), k in fir_sites.items():
+    out[("up", h // 2, w // 2, c) if mode == "down"
+        else ("down", 2 * h, 2 * w, c)] += k
+  return dict(out)
 
 
 def _scalars_in_float64(sde):
@@ -1483,9 +1775,10 @@ def kernels_fir(fir_launched, units, batch, per_key):
   return rows
 
 
-def kernels_fir_backward(bwd_launched, steps):
+def kernels_fir_backward(bwd_launched, steps, batch):
   """The adjoint (``fir2_backward``: fir2 in the other mode, taps reversed)
-  at every cotangent shape the train phase launched it at, N=128, held
+  at every cotangent shape the train phase launched it at, at the
+  ``batch`` it launched it at, held
   against torch.autograd.grad of the plain forward; its plain version is
   the plain resample in the launched mode, its library call the one
   PyTorch call of that resample."""
@@ -1498,15 +1791,15 @@ def kernels_fir_backward(bwd_launched, steps):
   for (mode, h, w, c) in sorted(bwd_launched):
     # the forward this adjoint belongs to, and its input's shape
     fwd, gain = ("down", 1.0 / 4.0) if mode == "up" else ("up", 4.0)
-    x_shape = ((TRAIN_BATCH, 2 * h, 2 * w, c) if mode == "up"
-               else (TRAIN_BATCH, h // 2, w // 2, c))
+    x_shape = ((batch, 2 * h, 2 * w, c) if mode == "up"
+               else (batch, h // 2, w // 2, c))
     fwd_plain = (fir.fir_upsample2_plain if fwd == "up"
                  else fir.fir_downsample2_plain)
     x = torch.randn(x_shape, generator=gen, device=DEVICE,
                     requires_grad=True)
-    ybar = torch.randn(TRAIN_BATCH, h, w, c, generator=gen, device=DEVICE)
+    ybar = torch.randn(batch, h, w, c, generator=gen, device=DEVICE)
     (want,) = torch.autograd.grad(fwd_plain(x, FIR_KERNEL), x, ybar)
-    shape = (mode, TRAIN_BATCH, h, w, c)
+    shape = (mode, batch, h, w, c)
     with torch.inference_mode():
       def kernel():
         return fir.fir2_backward(ybar, FIR_KERNEL, 1.0, fwd, x_shape)
@@ -1519,11 +1812,10 @@ def kernels_fir_backward(bwd_launched, steps):
       library = _fir_library(mode, ybar, k_rev, gain)
       _held(f"the library adjoint of {fwd}sample", shape,
             library().permute(0, 2, 3, 1), want, FIR_REL_TOL)
-      bound, bound_by = fir_bound(mode, TRAIN_BATCH, h, w, c,
-                                  len(FIR_KERNEL))
+      bound, bound_by = fir_bound(mode, batch, h, w, c, len(FIR_KERNEL))
       launches = bwd_launched[(mode, h, w, c)]
       row = {"kernel": "fir2_backward", "adjoint_of": f"fir_{fwd}sample2",
-             "launched_mode": mode, "shape_nhwc": [TRAIN_BATCH, h, w, c],
+             "launched_mode": mode, "shape_nhwc": [batch, h, w, c],
              "taps": len(FIR_KERNEL), "max_abs_err": err,
              "max_abs_plain": scale, "kernel_ms": time_ms(kernel),
              "device_ms": graph_ms(kernel), "plain_ms": time_ms(plain),
@@ -1679,7 +1971,10 @@ def kernels_fir_jvp(jvp_launched, evals):
 
 def _kernel_entry(name, source, replaces, rows, per, per_key):
   """One entry of the ``kernels`` line: launches of its main path, times
-  summed over the shapes weighted by their launches per forward or step."""
+  summed over the shapes weighted by their launches per forward or step.
+  A path that launched the kernel at no shape fails the run."""
+  if not rows:
+    raise AssertionError(f"{name}: its path launched the kernel at no shape")
 
   def per_unit(key):
     return sum(r[key] * r[per_key] for r in rows)
@@ -1740,11 +2035,21 @@ def main() -> int:
   u_sites, u_fir_sites, u_params = phase(
       "forward uncsnpp", phase_forward, "uncsnpp",
       load_config(UNCSNPP, init_scale=0.1), [0.01, 50.0], UNCSNPP_FIR_SITES)
+  # phase 3b: the published layouts
+  layouts = {}
+  for name, path, overrides, labels in PUBLISHED_LAYOUTS:
+    layouts[name] = phase(f"forward {name}", phase_published_forward, name,
+                          load_config(path, init_scale=0.1, **overrides),
+                          labels)
   with _FunctionApplies() as applies:
     launched, evals = phase("serve flagship", phase_serve_flagship, sites,
                             flag_params)
     u_launched, fir_launched, u_evals = phase(
         "serve uncsnpp", phase_serve_uncsnpp, u_sites, u_fir_sites, u_params)
+    d_launched, d_fir_launched, d_evals = phase(
+        "serve deepest", phase_serve_deepest, *layouts["deepest"])
+    hq_launched, hq_fir_launched, hq_evals = phase(
+        "serve celebahq 256", phase_serve_hq, *layouts["celebahq_256"][:2])
   log(f"serve: {applies.count} autograd.Function applications")
   if applies.count:
     raise AssertionError("serving went through the kernels' autograd."
@@ -1760,9 +2065,24 @@ def main() -> int:
   phase("train step uncsnpp", phase_train_step, "uncsnpp",
         load_config(UNCSNPP, init_scale=0.1), UNCSNPP_FIR_SITES,
         UNCSNPP_FIR_BWD_SITES)
+  # the mixed loss runs the network once per half of each micro-batch
+  d_fir = layouts["deepest"][1]
+
+  def times(sites, k):
+    return {s: n * k for s, n in sites.items()}
+
+  phase("train step deepest", phase_train_step, "deepest",
+        load_config(DEEPEST, init_scale=0.1), times(d_fir, 2),
+        times(adjoint_sites(d_fir), 2), 2)
+  gc.collect()
+  torch.cuda.empty_cache()
+  d_steps, d_fwd, d_bwd, d_batch, d_workdir = phase(
+      "train deepest", phase_train, "deepest", DEEPEST, times(d_fir, 2),
+      times(adjoint_sites(d_fir), 2), DEEPEST_TRAIN_ITERS, False)
+  shutil.rmtree(d_workdir, ignore_errors=True)
   f_workdir = phase("train flagship", phase_train, "flagship", FLAGSHIP, {},
-                    {})[3]
-  t_steps, t_fwd, t_bwd, u_workdir = phase(
+                    {})[-1]
+  t_steps, t_fwd, t_bwd, t_batch, u_workdir = phase(
       "train uncsnpp", phase_train, "uncsnpp", UNCSNPP, UNCSNPP_FIR_SITES,
       UNCSNPP_FIR_BWD_SITES)
   fid_launched, fid_evals, _ = phase("fid flagship", phase_fid, f_workdir,
@@ -1785,8 +2105,27 @@ def main() -> int:
     kernels_gn_ragged()
   fir_rows = kernels_fir(fir_launched, u_evals, SERVE_BATCH,
                          "launches_per_forward")
-  train_rows = kernels_fir(t_fwd, t_steps, TRAIN_BATCH, "launches_per_step")
-  bwd_rows = kernels_fir_backward(t_bwd, t_steps)
+  train_rows = kernels_fir(t_fwd, t_steps, t_batch, "launches_per_step")
+  bwd_rows = kernels_fir_backward(t_bwd, t_steps, t_batch)
+  with torch.inference_mode():
+    deepest_rows = kernels_gn(d_launched, d_evals, SERVE_BATCH)
+    hq_rows = kernels_gn(hq_launched, hq_evals, 16)
+    # the layouts only the forward phase ran, at its batch of 2 (FFHQ's 1)
+    seen = set(launched) | set(u_launched) | set(d_launched) | set(
+        hq_launched)
+    other = collections.Counter()
+    for name in ("celeba_64", "ddpm_blocks", "no_auxiliary"):
+      other.update(layouts[name][0])
+    other = {k: v for k, v in other.items() if k not in seen}
+    # one forward of each layout: the launches summed over the layouts
+    other_rows = kernels_gn(other, 1, CHECK_BATCH) + kernels_gn(
+        {k: v for k, v in layouts["ffhq_1024"][0].items()
+         if k not in seen and k not in other}, 1, 1)
+  hires_rows = kernels_fir(hq_fir_launched, hq_evals, 16,
+                           "launches_per_forward") + kernels_fir(
+      layouts["ffhq_1024"][1], 1, 1, "launches_per_forward")
+  d_train_rows = kernels_fir(d_fwd, d_steps, d_batch, "launches_per_step")
+  d_bwd_rows = kernels_fir_backward(d_bwd, d_steps, d_batch)
   gn_jvp_rows = kernels_gn_jvp(
       collections.Counter(f_jvp) + collections.Counter(u_jvp),
       f_lik_evals + u_lik_evals)
@@ -1796,7 +2135,10 @@ def main() -> int:
   fir_src = "soft_truncation_tpu_torch/csrc/fir2.cu"
   fir_fwd = "soft_truncation_tpu/ops/pallas/fir.py:137"
   gn_src = "soft_truncation_tpu_torch/csrc/gn_silu_conv3x3.cu"
-  step = f"one UNCSN++ train step at batch {TRAIN_BATCH}"
+  step = (f"one UNCSN++ train step at batch {TRAIN_BATCH} (every launch at "
+          f"N={t_batch})")
+  d_step = (f"one deepest-model train step at batch {TRAIN_BATCH} (the mixed"
+            f" loss: every launch at N={d_batch})")
   entries = [
       _kernel_entry("gn_silu_conv3x3", gn_src,
                     "soft_truncation_tpu/ops/pallas/gn_conv.py:74", gn_rows,
@@ -1831,7 +2173,33 @@ def main() -> int:
                       f"one UNCSN++ function evaluation of the NLL or NELBO "
                       f"at batch {LIKELIHOOD_BATCH}",
                       "launches_per_evaluation")
-        for mode in ("up", "down"))]
+        for mode in ("up", "down")),
+      _kernel_entry("gn_silu_conv3x3_deepest", gn_src,
+                    "soft_truncation_tpu/ops/pallas/gn_conv.py:74",
+                    deepest_rows, f"one deepest-model eval forward at batch "
+                    f"{SERVE_BATCH}", "launches_per_forward"),
+      _kernel_entry("gn_silu_conv3x3_hq", gn_src,
+                    "soft_truncation_tpu/ops/pallas/gn_conv.py:74", hq_rows,
+                    "one CelebA-HQ 256^2 eval forward at batch 16",
+                    "launches_per_forward"),
+      # empty only where every other row already holds these layouts'
+      # shapes
+      *([_kernel_entry("gn_silu_conv3x3_published", gn_src,
+                       "soft_truncation_tpu/ops/pallas/gn_conv.py:74",
+                       other_rows, f"one forward each of CelebA 64^2, FFHQ "
+                       f"1024^2 (batch 1), the DDPM-block and the "
+                       f"no-auxiliary-block flagship at batch {CHECK_BATCH}"
+                       ", the shapes no other row holds",
+                       "launches_per_forward")] if other_rows else []),
+      _kernel_entry("fir2_hires", fir_src, fir_fwd, hires_rows,
+                    "one CelebA-HQ 256^2 eval forward at batch 16 plus one "
+                    "FFHQ 1024^2 eval forward at batch 1",
+                    "launches_per_forward"),
+      _kernel_entry("fir2_deepest_train", fir_src, fir_fwd, d_train_rows,
+                    d_step, "launches_per_step"),
+      _kernel_entry("fir2_backward_deepest", fir_src,
+                    "soft_truncation_tpu/ops/pallas/fir.py:212", d_bwd_rows,
+                    d_step, "launches_per_step")]
   emit({"kernels": entries})
   for entry in entries:
     log(f"{entry['name']} ({entry['per']}): issued {entry['ms']:.4f} ms vs "

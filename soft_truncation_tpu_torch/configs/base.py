@@ -1,9 +1,26 @@
 """Config schema for the PyTorch port: a small attribute dict + defaults.
 
 Mirrors ``soft_truncation_tpu/configs/base.py`` without ``ml_collections``:
-the same section/key names and values, limited to the keys the serving,
-training, likelihood and sample-quality slices read. Config files under ``configs/`` are copies of the JAX
-package's files, importing this module instead of the JAX one.
+the same dataset families (``cifar10``, ``celeba``, ``lsun``, ``stl10``,
+derived from CIFAR-10's as JAX derives them), the same section/key names
+and values, limited to the keys the port reads. Keys a config file sets
+beyond these (``model.embedding_dim``, the ``uncsn`` section,
+``data.tfrecords_path``, ``data.category``) are read with JAX's defaults
+where a file leaves them out. Config files under ``configs/`` are copies
+of the JAX package's 33 files, importing this module instead of the JAX
+one.
+
+The JAX package's ``tpu`` section is not carried, apart from
+``fid_resize``; no config file sets any of its knobs, and the port reads
+them so:
+  * ``mesh_shape``, ``donate_state``, ``steps_per_dispatch``,
+    ``compilation_cache_dir``: no GPU meaning (one card, eager PyTorch);
+  * ``compute_dtype``, ``norm_dtype``, ``ema_dtype``, ``adam_mu_dtype``,
+    ``activation_dtype``: float32 only, their default;
+  * ``remat`` / ``remat_policy``: activation checkpointing is not ported
+    (ROADMAP.md, tooling item);
+  * ``rng_impl`` / ``dropout_bits``: torch's generator, masks with
+    ``bits=32`` semantics.
 """
 
 from __future__ import annotations
@@ -39,9 +56,8 @@ class Config(dict):
 
 
 # The values of soft_truncation_tpu/configs/base.py::_CIFAR10 for every key
-# the serving, training, likelihood and sample-quality slices read; of the
-# JAX package's ``tpu`` section only ``fid_resize``, which the extractor of
-# eval/inception.py reads.
+# the port reads; of the JAX package's ``tpu`` section only ``fid_resize``,
+# which the extractor of eval/inception.py reads.
 _CIFAR10 = dict(
     training=dict(
         batch_size=128, n_iters=13000001, snapshot_freq=100000, log_freq=100,
@@ -61,7 +77,8 @@ _CIFAR10 = dict(
         residual=True, lambda_=0.0, probability_flow=True, nelbo_iter=0,
         nll_iter=0, num_samples=50000),
     data=dict(dataset="CIFAR10", image_size=32, random_flip=True,
-              centered=False, dequantization="none", num_channels=3),
+              centered=False, dequantization="none", num_channels=3,
+              transport_dtype="auto"),
     model=dict(
         sigma_min=0.01, sigma_max=50.0, num_scales=1000, beta_min=0.1,
         beta_max=20.0, dropout=0.1, embedding_type="fourier",
@@ -73,11 +90,57 @@ _CIFAR10 = dict(
     tpu=dict(fid_resize="host"),
 )
 
-_DEFAULTS = {"cifar10": _CIFAR10}
+
+
+def _derive(base, changes, drop=None):
+  """``base`` with ``changes`` merged per section and the ``drop`` keys
+  removed: the JAX package's ``_derive``."""
+  out = {sec: dict(vals) for sec, vals in base.items()}
+  for sec, vals in changes.items():
+    out.setdefault(sec, {}).update(vals)
+  for sec, keys in (drop or {}).items():
+    for k in keys:
+      out[sec].pop(k, None)
+  return out
+
+
+_CELEBA = _derive(_CIFAR10, dict(
+    training=dict(n_iters=1300001, snapshot_freq=50000, log_freq=50,
+                  snapshot_sampling=True, likelihood_weighting=False,
+                  num_train_data=162770),
+    sampling=dict(snr=0.17, batch_size=512),
+    eval=dict(batch_size=1024, num_test_data=19962),
+    data=dict(dataset="CELEBA", image_size=64),
+    model=dict(sigma_max=90.0),
+))
+
+_LSUN = _derive(_CIFAR10, dict(
+    training=dict(batch_size=64, n_iters=24000001, snapshot_freq=200000,
+                  log_freq=1000, snapshot_freq_for_preemption=5000,
+                  snapshot_sampling=True, likelihood_weighting=False,
+                  importance_sampling=False, num_train_data=162770),
+    sampling=dict(snr=0.075, batch_size=16, truncation_time=1e-3),
+    eval=dict(batch_size=512, enable_sampling=True),
+    data=dict(dataset="LSUN", image_size=256),
+    model=dict(sigma_max=378.0, num_scales=2000, dropout=0.0),
+), drop=dict(eval=["num_test_data", "residual", "lambda_",
+                   "probability_flow", "nelbo_iter", "nll_iter"]))
+
+_STL10 = _derive(_CIFAR10, dict(
+    training=dict(batch_size=196, num_train_data=105000),
+    sampling=dict(snr=0.17),
+    eval=dict(batch_size=512, enable_sampling=True, enable_loss=False),
+    data=dict(dataset="STL10", image_size=48),
+    model=dict(sigma_max=150.0),
+))
+
+_DEFAULTS = {"cifar10": _CIFAR10, "celeba": _CELEBA, "lsun": _LSUN,
+             "stl10": _STL10}
 
 
 def default_config(dataset: str = "cifar10") -> Config:
-  """The default config of a dataset family (only 'cifar10' is ported)."""
+  """The default config of a dataset family: 'cifar10', 'celeba', 'lsun'
+  or 'stl10'."""
   config = Config(copy.deepcopy(_DEFAULTS[dataset.lower()]))
   config.seed = 42
   return config

@@ -1,16 +1,32 @@
-"""Training and evaluation data: sources, the host batch iterators and the
-device-side preprocessing.
+"""Training and evaluation data: sources, the dataset's resize, the host
+batch iterators and the device-side preprocessing.
 
-Counterpart of ``soft_truncation_tpu/data/datasets.py`` for the training and
-likelihood slices. Sources, as the JAX package resolves them for a
-resident-array pipeline:
+Counterpart of ``soft_truncation_tpu/data/datasets.py``. Sources, as the
+JAX package resolves them:
 
-  1. ``<dataset>_<split>.npz`` (an ``images`` uint8 NHWC array at the final
-     size) under ``config.data.data_dir`` or ``$SOFT_TRUNCATION_DATA_DIR``
+  1. for FFHQ and CelebAHQ, the score_sde TFRecord file at
+     ``config.data.tfrecords_path`` when it exists (``data/tfrecords.py``);
+  2. ``<dataset>_<split>.npz`` (an ``images`` uint8 NHWC array) under
+     ``config.data.data_dir`` or ``$SOFT_TRUNCATION_DATA_DIR``
      (``tools/make_dataset_npz.py`` writes them);
-  2. else the deterministic Synthetic images (low-frequency 4x4 noise
+  3. else the deterministic Synthetic images (low-frequency 4x4 noise
      upsampled bilinearly, plus N(0, 8) noise), with a warning; the same
      arrays as the JAX package's.
+
+Every source then goes through the dataset's resize, JAX's ``_resize_op``
+(:func:`resize_op`, the TF ops of ``data/resize.py`` in numpy): CELEBA is
+cropped to its central 140 x 140 and shrunk; LSUN is cropped to a square
+and resized bicubically (at 128 px: shrunk, then cropped); any other
+dataset is resized to the config's size (antialiased bilinear: nothing
+moves when it is already there). The result is float32 in [0, 1]. Where
+JAX's ``transport_uint8`` says its values lie on the k/255 grid (CIFAR-10,
+Synthetic and the others at their native size), the batch is carried as
+uint8 (``round(x * 255)``, exact there); elsewhere (CELEBA, LSUN, FFHQ,
+CelebA-HQ, a resized CIFAR-10) as float32. JAX carries its evaluation
+batches as float32 always; the port carries them as uint8 wherever the
+resize leaves them on the grid, which gives the model the same input
+(x * f32(1/255) either way; the uniform dequantization of a uint8 batch
+rounds once where JAX's float chain rounds twice, within an ulp).
 
 Evaluation (:func:`get_eval_iterator`) reads the whole evaluation split of
 the dataset, as the JAX package names it (:func:`eval_split`: 'test' for
@@ -20,23 +36,26 @@ from a seed, at ``eval.batch_size`` (the last batch may be short), without
 flips. The eval-loss, NELBO and NLL loops take :func:`eval_batches`, which
 starts a new pass when one ends, as the JAX package's ``get_batch`` does.
 
-Batches are uint8 on the host, [B, H, W, C], drawn by :class:`BatchIterator`
-(a fresh permutation per epoch and a random left-right flip, from a seeded
-numpy generator); the order cannot match tf.data's
-10k-element shuffle buffer, so the port and the JAX package see the same
-images in a different order. :func:`make_preprocess_fn` turns a batch into
-model input on the device: x 1/255 (or the uniform dequantization
-``(k + u) / 256``), then the scaler.
+Training batches are drawn by :class:`BatchIterator` (a fresh permutation
+per epoch, the resize, then a random left-right flip, from a seeded numpy
+generator); the order cannot match tf.data's 10k-element shuffle buffer,
+so the port and the JAX package see the same images in a different
+order. :func:`make_preprocess_fn` turns a batch into model input on the
+device: x 1/255 (or the uniform dequantization ``(k + u) / 256``) for
+uint8, ``(255 x + u) / 256`` for float32, then the scaler.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
+
+from . import resize
+from .tfrecords import TFRecordImages
 
 log = logging.getLogger(__name__)
 
@@ -56,31 +75,115 @@ def get_data_inverse_scaler(config):
 
 
 def make_preprocess_fn(config, dequantize: bool = True):
-  """``preprocess(batch, generator)``: a uint8 batch on the device ->
-  scaled float32 model input; the dequantization noise (``data.
-  dequantization`` 'uniform', unless ``dequantize`` is False, as for the
-  eval loss) comes from ``generator``."""
+  """``preprocess(batch, generator)``: a uint8 batch, or a float32 one in
+  [0, 1], on the device -> scaled float32 model input; the dequantization
+  noise (``data.dequantization`` 'uniform', unless ``dequantize`` is
+  False, as for the eval loss) comes from ``generator``."""
   scaler = get_data_scaler(config)
   dequant = dequantize and config.data.dequantization == "uniform"
 
   def preprocess(batch: torch.Tensor,
                  generator: Optional[torch.Generator]) -> torch.Tensor:
-    if batch.dtype != torch.uint8:
-      raise ValueError(f"batches are uint8, got {batch.dtype}")
+    if batch.dtype not in (torch.uint8, torch.float32):
+      raise ValueError(f"batches are uint8 or float32, got {batch.dtype}")
     x = batch.float()
-    if dequant:
-      u = torch.rand(x.shape, generator=generator, device=x.device)
-      x = (x + u) * np.float32(1.0 / 256.0)
-    else:
-      x = x * np.float32(1.0 / 255.0)
+    u = (torch.rand(x.shape, generator=generator, device=x.device)
+         if dequant else None)
+    if batch.dtype == torch.uint8:
+      x = (x + u) * np.float32(1.0 / 256.0) if dequant else (
+          x * np.float32(1.0 / 255.0))
+    elif dequant:
+      x = (255.0 * x + u) / 256.0
     return scaler(x)
 
   return preprocess
 
 
+def transport_uint8(config) -> bool:
+  """Whether training batches travel as uint8: the JAX package's
+  ``transport_uint8``. ``data.transport_dtype`` 'uint8' or 'float32'
+  decides; 'auto' says uint8 only where the dataset's values stay on the
+  k/255 grid: Synthetic, and the uint8 sources at their native size."""
+  mode = config.data.get("transport_dtype", "auto")
+  if mode not in ("auto", "uint8", "float32"):
+    raise ValueError(f"config.data.transport_dtype must be 'auto', "
+                     f"'uint8' or 'float32', got {mode!r}")
+  if mode != "auto":
+    return mode == "uint8"
+  if config.data.dataset == "Synthetic":
+    return True
+  native_sizes = {"CIFAR10": 32, "CIFAR100": 32, "SVHN": 32,
+                  "IMAGENET32": 32, "STL10": 96}
+  return native_sizes.get(config.data.dataset) == config.data.image_size
+
+
+def resize_op(config) -> Callable[[np.ndarray], np.ndarray]:
+  """JAX's ``_resize_op`` on a batch: uint8 [B, H, W, C] -> float32
+  [B, size, size, C] in [0, 1]."""
+  dataset, size = config.data.dataset, config.data.image_size
+  if dataset == "CELEBA":
+    return lambda b: resize.resize_small(
+        resize.central_crop(resize.convert_to_float(b), 140), size)
+  if dataset == "LSUN" and size == 128:
+    return lambda b: resize.central_crop(
+        resize.resize_small(resize.convert_to_float(b), size), size)
+  if dataset == "LSUN":
+    return lambda b: resize.convert_to_float(resize.crop_resize(b, size))
+  return lambda b: resize.tf_resize(resize.convert_to_float(b), size, size)
+
+
+def host_transform(config, evaluation: bool = False
+                   ) -> Callable[[np.ndarray], np.ndarray]:
+  """A source's uint8 batch -> the batch the device takes: the resize,
+  then uint8 again where :func:`transport_uint8` says so (``round(x *
+  255)``, exact on the grid), else float32. An evaluation batch is uint8
+  wherever the resize leaves it on the grid (LSUN's bicubic crop, which
+  ends in a cast to uint8, or a batch already at its size), else float32.
+  A batch the resize would not move is passed through as it is."""
+  op = resize_op(config)
+  dataset, size = config.data.dataset, config.data.image_size
+  plain = dataset not in ("CELEBA", "LSUN")
+  exact_ok = transport_uint8(config) or evaluation
+  to_uint8 = transport_uint8(config) or (evaluation and dataset == "LSUN"
+                                         and size != 128)
+
+  def transform(batch: np.ndarray) -> np.ndarray:
+    if exact_ok and plain and batch.shape[1:3] == (size, size):
+      return batch
+    x = op(batch)
+    return np.rint(x * 255.0).astype(np.uint8) if to_uint8 else x
+
+  return transform
+
+
 def _data_dir(config) -> Optional[str]:
   return (config.data.get("data_dir", None)
           or os.environ.get("SOFT_TRUNCATION_DATA_DIR"))
+
+
+def load_tfrecords(config) -> Optional[TFRecordImages]:
+  """The images of ``config.data.tfrecords_path``, or None where it is
+  unset or missing."""
+  path = config.data.get("tfrecords_path", None)
+  if not path or not os.path.exists(path):
+    return None
+  images = TFRecordImages(path)
+  log.info("loaded %s: %d images from %s", config.data.dataset, len(images),
+           path)
+  return images
+
+
+def load_source(config, split: str):
+  """The images of ``split``, by the order of sources in the module
+  docstring: an array-like uint8 [N, H, W, C]."""
+  images = None
+  if config.data.dataset in ("FFHQ", "CelebAHQ"):
+    images = load_tfrecords(config)
+  if images is None:
+    images = load_npz_array(config, split)
+  if images is None:
+    images = synthetic_array(config, split)
+  return images
 
 
 def load_npz_array(config, split: str = "train") -> Optional[np.ndarray]:
@@ -133,17 +236,20 @@ def synthetic_array(config, split: str = "train") -> np.ndarray:
 
 
 class BatchIterator:
-  """Endless uint8 batches [B, H, W, C] of ``images``: a permutation per
-  epoch (the remainder dropped), each image flipped left-right with
-  probability 1/2 when ``random_flip``."""
+  """Endless batches [B, H, W, C] of ``images`` (a uint8 array or any
+  array-like that takes an index array): a permutation per epoch (the
+  remainder dropped), ``transform`` (e.g. :func:`host_transform`) of each
+  batch, then each image flipped left-right with probability 1/2 when
+  ``random_flip``."""
 
-  def __init__(self, images: np.ndarray, batch_size: int, random_flip: bool,
-               seed):
+  def __init__(self, images, batch_size: int, random_flip: bool, seed,
+               transform: Optional[Callable] = None):
     if len(images) < batch_size:
       raise ValueError(f"{len(images)} images make no batch of "
                        f"{batch_size}")
     self.images, self.batch_size = images, batch_size
     self.random_flip = random_flip
+    self.transform = transform
     self.rng = np.random.default_rng(seed)
     self._order, self._pos = None, len(images)
 
@@ -156,6 +262,8 @@ class BatchIterator:
     idx = self._order[self._pos:self._pos + self.batch_size]
     self._pos += self.batch_size
     batch = self.images[idx]
+    if self.transform is not None:
+      batch = self.transform(batch)
     if self.random_flip:
       flip = self.rng.random(self.batch_size) < 0.5
       batch[flip] = batch[flip, :, ::-1]
@@ -166,16 +274,9 @@ def get_train_iterator(config, seed) -> BatchIterator:
   """The training batches of ``config.data.dataset`` (see module
   docstring), at ``config.training.batch_size``, shuffled and flipped from
   ``seed`` (anything ``np.random.default_rng`` takes)."""
-  images = load_npz_array(config, "train")
-  if images is None:
-    images = synthetic_array(config, "train")
-  want = (config.data.image_size, config.data.image_size,
-          config.data.num_channels)
-  if images.shape[1:] != want:
-    raise ValueError(f"training images must be {want} (resize the npz "
-                     f"beforehand), got {images.shape[1:]}")
-  return BatchIterator(images, config.training.batch_size,
-                       config.data.random_flip, seed)
+  return BatchIterator(load_source(config, "train"),
+                       config.training.batch_size, config.data.random_flip,
+                       seed, host_transform(config))
 
 
 # (train, eval) split of each dataset: soft_truncation_tpu/data/datasets.py
@@ -197,22 +298,16 @@ def eval_split(config) -> str:
 
 
 def get_eval_iterator(config) -> Iterator[np.ndarray]:
-  """One pass over the evaluation images (module docstring) as uint8
-  batches [B, H, W, C]; the order is shuffled from ``config.seed``, so
-  every call yields the same batches."""
-  split = eval_split(config)
-  images = load_npz_array(config, split)
-  if images is None:
-    images = synthetic_array(config, split)
-  want = (config.data.image_size, config.data.image_size,
-          config.data.num_channels)
-  if images.shape[1:] != want:
-    raise ValueError(f"evaluation images must be {want}, got "
-                     f"{images.shape[1:]}")
+  """One pass over the evaluation images (module docstring) as batches
+  [B, H, W, C], uint8 or float32 as :func:`host_transform` makes them; the
+  order is shuffled from ``config.seed``, so every call yields the same
+  batches."""
+  images = load_source(config, eval_split(config))
+  transform = host_transform(config, evaluation=True)
   order = np.random.default_rng(config.seed).permutation(len(images))
   size = config.eval.batch_size
   for start in range(0, len(images), size):
-    yield images[order[start:start + size]]
+    yield transform(images[order[start:start + size]])
 
 
 def eval_batches(config) -> Iterator[np.ndarray]:

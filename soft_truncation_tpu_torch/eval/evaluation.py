@@ -73,9 +73,13 @@ def load_dataset_stats(config, assetdir: str, mode: str = "clean"):
 def stream_features(batches: Iterable[np.ndarray], extractor,
                     num_data: Optional[int]) -> np.ndarray:
   """The features of the first ``num_data`` images (all without it) of
-  ``batches`` (uint8 NHWC arrays), read no further than they need."""
+  ``batches`` (uint8 NHWC arrays, or float32 ones in [0, 1], which are
+  taken to uint8 as the JAX package does: clipped ``x * 255``, truncated),
+  read no further than they need."""
   feats, seen = [], 0
   for imgs in batches:
+    if imgs.dtype != np.uint8:
+      imgs = np.clip(imgs * 255.0, 0, 255).astype(np.uint8)
     feats.append(extractor(imgs)[0])
     seen += len(imgs)
     if num_data and seen >= num_data:

@@ -26,7 +26,6 @@ takes inputs under 299 px only, larger ones go the host way, as in JAX.
 
 from __future__ import annotations
 
-import functools
 import hashlib
 import logging
 import os
@@ -35,6 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..data.resize import resize_weights
 from ..utils.device import resolve_device
 from .inception_v3 import load_params_npz
 
@@ -42,41 +42,6 @@ log = logging.getLogger(__name__)
 
 INCEPTION_DEFAULT_IMAGE_SIZE = 299
 WEIGHTS_FILE = "inception_v3_weights.npz"
-
-
-def _keys_cubic(x: np.ndarray) -> np.ndarray:
-  """Keys' cubic kernel, a = -0.5, of |offset| ``x``."""
-  out = ((1.5 * x - 2.5) * x) * x + 1.0
-  out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
-  return np.where(x >= 2.0, 0.0, out)
-
-
-def _triangle(x: np.ndarray) -> np.ndarray:
-  return np.maximum(0.0, 1.0 - np.abs(x))
-
-
-_KERNELS = {"cubic": _keys_cubic, "linear": _triangle}
-
-
-@functools.lru_cache(maxsize=None)
-def resize_weights(in_len: int, out_len: int, method: str,
-                   antialias: bool = True) -> np.ndarray:
-  """[in_len, out_len] float64 weights of ``jax.image.resize`` along one
-  axis (``jax._src.image.scale.compute_weight_mat``, scale out/in, no
-  translation): the kernel widened by in/out when downsampling with
-  ``antialias``, each output's weights renormalised to sum 1, and outputs
-  whose sample point lies outside the input zeroed. Cached: treat the
-  result as read-only."""
-  inv_scale = in_len / out_len
-  kernel_scale = max(inv_scale, 1.0) if antialias else 1.0
-  sample_f = (np.arange(out_len) + 0.5) * inv_scale - 0.5
-  x = np.abs(sample_f[None, :] - np.arange(in_len)[:, None]) / kernel_scale
-  weights = _KERNELS[method](x)
-  total = weights.sum(axis=0, keepdims=True)
-  weights = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
-                     weights / np.where(total != 0, total, 1), 0.0)
-  inside = (sample_f >= -0.5) & (sample_f <= in_len - 0.5)
-  return np.where(inside[None, :], weights, 0.0)
 
 
 def resize(x: torch.Tensor, out_h: int, out_w: int, method: str,

@@ -14,6 +14,9 @@ Counterpart of ``soft_truncation_tpu/likelihood/likelihood.py``:
   step control as JAX's);
 - the NELBO takes the same jvp with the score as its auxiliary output.
 
+Every SDE's exact NLL; the NELBO of the VP, VE and reciprocal-VE SDEs. The
+subVP SDE has no importance sampler, so its NELBO raises, as in JAX.
+
 Random draws go through ``draw(kind, shape)`` (``losses.make_draw`` of a
 ``torch.Generator``; tests hand in JAX's draws), in the order JAX's keys
 make them: the NLL's Hutchinson eps, its z0 ('correct' mode), then the

@@ -15,7 +15,7 @@ Counterpart of ``soft_truncation_tpu/losses/losses.py``:
 - :func:`get_sde_loss_fn`: the continuous score-matching loss with the
   importance-sampling, likelihood (g^2) and default weightings and the
   reconstruction term with both decoders; per-example losses [B].
-- The discrete SMLD / DDPM losses arrive with ROADMAP.md slice 6.
+- The discrete SMLD / DDPM losses arrive with ROADMAP.md Queue 1 item 4.
 
 Random draws go through ``draw(kind, shape)`` (kind 'uniform', 'normal' or
 'rademacher'), in the order JAX's keys make them: t's uniforms, z, then the
@@ -181,7 +181,7 @@ def get_sde_loss_fn(config, sde: SDE, train: bool,
   network's dropout at train."""
   if not config.training.continuous:
     raise NotImplementedError("the discrete SMLD / DDPM losses arrive with "
-                              "ROADMAP.md slice 6")
+                              "ROADMAP.md Queue 1 item 4")
   if variance not in ("ddpm", "scoreflow"):
     raise ValueError(variance)
   reduce_mean = config.training.reduce_mean

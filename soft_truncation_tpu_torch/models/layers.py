@@ -53,12 +53,17 @@ def default_init(scale: float = 1.0):
 
 
 class DDPMConv(nn.Module):
-  """kxk stride-1 SAME conv on NHWC with DDPM init (zero bias)."""
+  """kxk SAME conv on NHWC with DDPM init (zero bias); with ``stride=2``
+  the JAX package's strided downsampling conv instead, padded by one row
+  and column at the bottom and right only."""
 
   def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
-               init_scale: float = 1.0):
+               init_scale: float = 1.0, stride: int = 1):
     super().__init__()
+    if stride not in (1, 2):
+      raise ValueError(f"stride must be 1 or 2, got {stride}")
     self.init_scale = init_scale
+    self.stride = stride
     self.weight = nn.Parameter(
         torch.empty(out_ch, in_ch, kernel_size, kernel_size))
     self.bias = nn.Parameter(torch.zeros(out_ch))
@@ -96,8 +101,12 @@ class DDPMConv(nn.Module):
         "tf32_split", lambda: weight_operand(self.weight_hwio()))
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    pad = self.weight.shape[-1] // 2
-    y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias, padding=pad)
+    x = x.permute(0, 3, 1, 2)
+    if self.stride == 2:
+      y = F.conv2d(F.pad(x, (0, 1, 0, 1)), self.weight, self.bias, stride=2)
+    else:
+      y = F.conv2d(x, self.weight, self.bias,
+                   padding=self.weight.shape[-1] // 2)
     return y.permute(0, 2, 3, 1)
 
 

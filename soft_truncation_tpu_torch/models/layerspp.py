@@ -1,15 +1,18 @@
 """NCSN++ building blocks (NHWC), in PyTorch.
 
-Counterpart of ``soft_truncation_tpu/models/layerspp.py``: the blocks the
-flagship DDPM++ and UNCSN++ run (``AttnBlockpp``, ``ResnetBlockBigGANpp``
-with or without FIR resampling), the FIR ``Resample`` (``Upsample`` /
-``Downsample``), ``ConvResample`` and ``Combine`` of the progressive
-pyramids, and the Gaussian Fourier time embedding.
+Counterpart of ``soft_truncation_tpu/models/layerspp.py``: every block of
+its NCSN++: ``AttnBlockpp``, ``ResnetBlockBigGANpp`` (with or without FIR
+resampling) and ``ResnetBlockDDPMpp``, ``Resample`` (the ``Upsample`` /
+``Downsample`` of the pyramids and of the DDPM blocks' levels: FIR or
+nearest / mean-pool, each with or without its conv), ``ConvResample`` and
+``Combine``, the Gaussian Fourier time embedding and the fixed Fourier
+input features.
 
 At eval with SiLU, each res-block's GroupNorm -> SiLU -> conv3x3 chain runs
 as one call of ``ops.gn_silu_conv3x3``, at the sites the JAX package fuses:
-norm0 -> conv0 when the block neither up- nor down-samples, and norm1 ->
-conv1 always. On a CUDA tensor that is the hand-written kernel; on a CPU
+in a BigGAN block norm0 -> conv0 when the block neither up- nor
+down-samples, and norm1 -> conv1 always; in a DDPM block both. On a CUDA
+tensor that is the hand-written kernel; on a CPU
 tensor its plain version. Each factor-2 FIR resample of a block or a
 pyramid goes through ``ops.upsample_2d`` / ``downsample_2d``, which launch
 the ``fir2`` kernel on a CUDA tensor; ``last_fir_sites`` records each
@@ -81,6 +84,15 @@ def _fir_resample(module, x: torch.Tensor, mode: str,
   if mode == "up":
     return upsample_2d(x, k=tuple(fir_kernel), factor=2)
   return downsample_2d(x, k=tuple(fir_kernel), factor=2)
+
+
+def fixed_fourier_features(x: torch.Tensor) -> torch.Tensor:
+  """The JAX package's ``FixedFourierProjection``: x with sin and cos of
+  x * 128 pi and x * 256 pi beside it on the channel axis (5C channels)."""
+  return torch.cat([x, torch.sin(x * 128 * math.pi),
+                    torch.cos(x * 128 * math.pi),
+                    torch.sin(x * 256 * math.pi),
+                    torch.cos(x * 256 * math.pi)], dim=-1)
 
 
 class GaussianFourierProjection(nn.Module):
@@ -168,28 +180,92 @@ class ConvResample(nn.Module):
 
 
 class Resample(nn.Module):
-  """FIR 2x up- or down-sampling of a pyramid branch (the JAX package's
-  ``Upsample`` / ``Downsample`` with ``fir=True``): ``upsample_2d`` /
-  ``downsample_2d`` alone, or fused with a 3x3 conv (``ConvResample``,
-  named ``conv``) when ``with_conv``."""
+  """2x up- or down-sampling (the JAX package's ``Upsample`` /
+  ``Downsample``). With ``fir``: ``upsample_2d`` / ``downsample_2d`` alone
+  (the ``fir2`` kernel on a CUDA tensor), or fused with a 3x3 conv
+  (``ConvResample``) when ``with_conv``. Without: nearest-neighbour up or
+  mean-pool down, or with ``with_conv`` nearest up then a 3x3 conv, or a
+  stride-2 3x3 conv down. The conv is named ``conv`` either way."""
 
   def __init__(self, mode: str, in_ch: int, out_ch: Optional[int] = None,
                with_conv: bool = False,
-               fir_kernel: Sequence[float] = (1, 3, 3, 1)):
+               fir_kernel: Sequence[float] = (1, 3, 3, 1), fir: bool = True):
     super().__init__()
     if mode not in ("up", "down"):
       raise ValueError(f"mode must be 'up' or 'down', got {mode!r}")
     self.mode = mode
+    self.fir = fir
     self.fir_kernel = tuple(fir_kernel)
-    self.conv = (ConvResample(mode, in_ch, out_ch or in_ch, 3, fir_kernel)
-                 if with_conv else None)
+    out_ch = out_ch or in_ch
+    if not with_conv:
+      self.conv = None
+    elif fir:
+      self.conv = ConvResample(mode, in_ch, out_ch, 3, fir_kernel)
+    else:
+      self.conv = DDPMConv(in_ch, out_ch, 3,
+                           stride=2 if mode == "down" else 1)
     self.last_fir_sites = []
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     self.last_fir_sites = []
+    if self.fir:
+      if self.conv is not None:
+        return self.conv(x)
+      return _fir_resample(self, x, self.mode, self.fir_kernel)
+    if self.mode == "up":
+      x = naive_upsample_2d(x, factor=2)
+      return self.conv(x) if self.conv is not None else x
     if self.conv is not None:
       return self.conv(x)
-    return _fir_resample(self, x, self.mode, self.fir_kernel)
+    return naive_downsample_2d(x, factor=2)
+
+
+class ResnetBlockDDPMpp(nn.Module):
+  """DDPM-style residual block with skip rescale and a 1x1 (``NIN``)
+  shortcut when the width changes (JAX's ``conv_shortcut``, which no NCSN++
+  sets, is not ported). ``last_fused_sites`` as for
+  :class:`ResnetBlockBigGANpp`; both of its norm -> SiLU -> conv chains are
+  fused sites."""
+
+  def __init__(self, act: Callable, in_ch: int, out_ch: Optional[int] = None,
+               temb_dim: Optional[int] = None, dropout: float = 0.1,
+               skip_rescale: bool = False, init_scale: float = 0.0):
+    super().__init__()
+    out_ch = out_ch or in_ch
+    self.act = act
+    self.skip_rescale = skip_rescale
+    self.norm0 = GroupNorm(_groups(in_ch), in_ch)
+    self.conv0 = DDPMConv(in_ch, out_ch, 3)
+    self.temb_proj = (Dense(temb_dim, out_ch) if temb_dim is not None
+                      else None)
+    self.norm1 = GroupNorm(_groups(out_ch), out_ch)
+    self.dropout = Dropout(dropout)
+    self.conv1 = DDPMConv(out_ch, out_ch, 3, init_scale=init_scale)
+    self.shortcut = NIN(in_ch, out_ch) if in_ch != out_ch else None
+    self.last_fused_sites = []
+
+  def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None,
+              train: bool = False,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    self.last_fused_sites = []
+    out_ch = self.conv0.weight.shape[0]
+    if _gn_conv_eligible(self, x, out_ch, train):
+      h = _fused_gn_silu_conv(self, x, self.norm0, self.conv0)
+    else:
+      h = self.conv0(self.act(self.norm0(x)))
+    if self.temb_proj is not None:
+      h = h + self.temb_proj(self.act(temb))[:, None, None, :]
+    if _gn_conv_eligible(self, h, out_ch, train):
+      h = _fused_gn_silu_conv(self, h, self.norm1, self.conv1)
+    else:
+      h = self.act(self.norm1(h))
+      h = self.dropout(h, train, generator)
+      h = self.conv1(h)
+    if self.shortcut is not None:
+      x = self.shortcut(x)
+    if self.skip_rescale:
+      return (x + h) / math.sqrt(2.0)
+    return x + h
 
 
 class ResnetBlockBigGANpp(nn.Module):

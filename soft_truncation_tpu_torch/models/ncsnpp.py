@@ -1,4 +1,5 @@
-"""NCSN++ / DDPM++ U-Net (NHWC), in PyTorch: the flagship's options.
+"""NCSN++ / DDPM++ / UNCSN++ U-Net (NHWC), in PyTorch: every option of the
+JAX package's.
 
 Counterpart of ``soft_truncation_tpu/models/ncsnpp.py``, with the same block
 names as the Flax module (``temb_dense0/1``, ``stem``, ``down_{i}_{j}``,
@@ -6,15 +7,18 @@ names as the Flax module (``temb_dense0/1``, ``stem``, ``down_{i}_{j}``,
 ``mid_res1``, ``up_{i}_{j}``, ``up_attn_{i}``, ``up_{i}_us``, ``out_norm``,
 ``out_conv``), so a Flax parameter tree maps onto the state_dict by path.
 
-Ported: positional and Fourier time embeddings, ``conditional``, BigGAN
-res-blocks with ``auxiliary_resblock`` and FIR or naive resampling,
-attention, the progressive input (``input_skip`` / ``residual``, combined by
-``sum`` or ``cat``) and output (``output_skip`` / ``residual``) pyramids
-with FIR, ``skip_rescale``, ``centered`` and ``scale_by_sigma``, at eval
-and at train (``train=True``: dropout, whose mask comes from the
-``generator`` passed to the forward, and no fused sites). Other
-options raise ``NotImplementedError`` naming the ROADMAP.md slice that
-brings them.
+Options: positional (with ``lsgm``, of width ``embedding_dim``) and Fourier
+time embeddings, ``conditional``, ``fourier_feature`` input features,
+BigGAN or DDPM res-blocks (``resblock_type``) with ``auxiliary_resblock``,
+FIR or nearest / mean-pool resampling (``fir``, ``resamp_with_conv``),
+attention, the progressive input (``input_skip`` / ``residual``, combined
+by ``sum`` or ``cat``) and output (``output_skip`` / ``residual``)
+pyramids with or without FIR, ``skip_rescale``, ``centered`` and
+``scale_by_sigma``, at eval and at train (``train=True``: dropout, whose
+mask comes from the ``generator`` passed to the forward, and no fused
+sites). As in JAX, without ``auxiliary_resblock`` a level's
+downsampling result is never read (JAX's compiler drops it; the port does
+not compute it), and attention follows each block's actual resolution.
 """
 
 from __future__ import annotations
@@ -38,27 +42,27 @@ def get_sigmas(sigma_min: float, sigma_max: float,
   return np.exp(np.linspace(np.log(sigma_max), np.log(sigma_min), num_scales))
 
 
-def _refuse(option: str, slice_: str):
-  raise NotImplementedError(f"{option} arrives with ROADMAP.md {slice_}")
-
-
 @register_model(name="ncsnpp")
 class NCSNpp(nn.Module):
-  """Config-driven NCSN++ family U-Net (BigGAN blocks)."""
+  """Config-driven NCSN++ family U-Net."""
 
   def __init__(self, nf: int = 128, ch_mult: Sequence[int] = (1, 2, 2, 2),
                num_res_blocks: int = 4,
                attn_resolutions: Sequence[int] = (16,),
                attention: bool = True, dropout: float = 0.1,
+               resamp_with_conv: bool = True,
                image_size: int = 32, num_channels: int = 3,
                conditional: bool = True, fir: bool = False,
                fir_kernel: Sequence[float] = (1, 3, 3, 1),
-               skip_rescale: bool = True, progressive: str = "none",
+               skip_rescale: bool = True, resblock_type: str = "biggan",
+               auxiliary_resblock: bool = True, progressive: str = "none",
                progressive_input: str = "none",
                progressive_combine: str = "sum",
                embedding_type: str = "fourier", fourier_scale: float = 16.0,
+               fourier_feature: bool = False,
                init_scale: float = 0.0, nonlinearity: str = "swish",
-               scale_by_sigma: bool = False, sigma_min: float = 0.01,
+               scale_by_sigma: bool = False, lsgm: bool = False,
+               embedding_dim: int = 128, sigma_min: float = 0.01,
                sigma_max: float = 50.0, num_scales: int = 1000,
                centered: bool = True):
     super().__init__()
@@ -68,31 +72,45 @@ class NCSNpp(nn.Module):
       raise ValueError(f"unknown progressive {progressive!r}")
     if progressive_input not in ("none", "input_skip", "residual"):
       raise ValueError(f"unknown progressive_input {progressive_input!r}")
+    if resblock_type not in ("biggan", "ddpm"):
+      raise ValueError(f"unknown resblock_type {resblock_type!r}")
     act = get_act(nonlinearity)
-    self.nf = nf
     self.embedding_type = embedding_type
     self.conditional = conditional
     self.centered = centered
     self.scale_by_sigma = scale_by_sigma
+    self.fourier_feature = fourier_feature
     self.sigmas = (sigma_min, sigma_max, num_scales)
     self.act = act
     self.num_resolutions = len(ch_mult)
     self.num_res_blocks = num_res_blocks
     self.skip_rescale = skip_rescale
+    self.ddpm_blocks = resblock_type == "ddpm"
+    self.auxiliary_resblock = auxiliary_resblock
     self.progressive = progressive
     self.progressive_input = progressive_input
 
+    # the time embedding: Fourier features of width 2 nf, or sinusoids of
+    # width nf (embedding_dim with lsgm), then two Dense of 4x that width
     if embedding_type == "fourier":
       self.fourier_emb = layerspp.GaussianFourierProjection(
           embedding_size=nf, scale=fourier_scale)
-    temb_dim = None
-    if conditional:
-      temb_dim = nf * 4
-      self.temb_dense0 = Dense(nf * 2 if embedding_type == "fourier" else nf,
-                               temb_dim)
+      embed_dim, temb_dim = 2 * nf, 4 * nf
+    else:
+      self.embed_dim = embedding_dim if lsgm else nf
+      embed_dim = temb_dim = self.embed_dim
+      temb_dim *= 4
+    if not conditional:
+      temb_dim = None
+    else:
+      self.temb_dense0 = Dense(embed_dim, temb_dim)
       self.temb_dense1 = Dense(temb_dim, temb_dim)
 
     def res_block(in_ch, out_ch=None, up=False, down=False):
+      if self.ddpm_blocks:
+        return layerspp.ResnetBlockDDPMpp(
+            act, in_ch, out_ch, temb_dim=temb_dim, dropout=dropout,
+            skip_rescale=skip_rescale, init_scale=init_scale)
       return layerspp.ResnetBlockBigGANpp(
           act, in_ch, out_ch, temb_dim=temb_dim, up=up, down=down,
           dropout=dropout, fir=fir, fir_kernel=fir_kernel,
@@ -102,45 +120,60 @@ class NCSNpp(nn.Module):
       return layerspp.AttnBlockpp(ch, skip_rescale=skip_rescale,
                                   init_scale=init_scale)
 
-    # channel bookkeeping mirrors the Flax module's dataflow
-    self.stem = DDPMConv(num_channels, nf, 3)
-    hs_ch = [nf]
+    def resample(mode, in_ch, out_ch=None, with_conv=False):
+      return layerspp.Resample(mode, in_ch, out_ch, with_conv=with_conv,
+                               fir_kernel=fir_kernel, fir=fir)
+
+    # channel and resolution bookkeeping mirrors the Flax module's dataflow
+    self.stem = DDPMConv(num_channels * (5 if fourier_feature else 1), nf, 3)
+    hs = [(nf, image_size)]  # (channels, resolution) of each skip
     ch, res = nf, image_size
     pyr_ch = num_channels  # channels of the input pyramid
     self._attn_down, self._attn_up = set(), set()
     for i in range(self.num_resolutions):
       for j in range(num_res_blocks):
+        ch, res = hs[-1]
         out = nf * ch_mult[i]
         self.add_module(f"down_{i}_{j}", res_block(ch, out))
         ch = out
         if res in attn_resolutions and attention:
           self.add_module(f"down_attn_{i}_{j}", attn_block(ch))
           self._attn_down.add((i, j))
-        hs_ch.append(ch)
+        hs.append((ch, res))
       if i != self.num_resolutions - 1:
-        self.add_module(f"down_{i}_ds", res_block(ch, down=True))
+        ch, res = hs[-1]
+        if self.ddpm_blocks:
+          self.add_module(f"down_{i}_ds", resample(
+              "down", ch, with_conv=resamp_with_conv))
+          res //= 2
+        elif auxiliary_resblock:
+          self.add_module(f"down_{i}_ds", res_block(ch, down=True))
+          res //= 2
         if progressive_input == "input_skip":
-          self.add_module(f"pyr_ds_{i}", layerspp.Resample(
-              "down", num_channels, fir_kernel=fir_kernel))
+          self.add_module(f"pyr_ds_{i}", resample("down", num_channels))
           self.add_module(f"combine_{i}", layerspp.Combine(
               num_channels, ch, method=progressive_combine))
           if progressive_combine == "cat":
             ch *= 2
         elif progressive_input == "residual":
-          self.add_module(f"pyr_ds_{i}", layerspp.Resample(
-              "down", pyr_ch, ch, with_conv=True, fir_kernel=fir_kernel))
+          self.add_module(f"pyr_ds_{i}", resample("down", pyr_ch, ch,
+                                                  with_conv=True))
           pyr_ch = ch
-        hs_ch.append(ch)
-        res //= 2
+        if auxiliary_resblock:
+          hs.append((ch, res))
 
+    ch, res = hs[-1]
+    if not auxiliary_resblock:
+      hs.pop()
     self.mid_res0 = res_block(ch)
     self.mid_attn = attn_block(ch)
     self.mid_res1 = res_block(ch)
 
+    self.num_res_up = num_res_blocks + (1 if auxiliary_resblock else 0)
     for i in reversed(range(self.num_resolutions)):
-      for j in range(num_res_blocks + 1):
+      for j in range(self.num_res_up):
         out = nf * ch_mult[i]
-        self.add_module(f"up_{i}_{j}", res_block(ch + hs_ch.pop(), out))
+        self.add_module(f"up_{i}_{j}", res_block(ch + hs.pop()[0], out))
         ch = out
       if res in attn_resolutions and attention:
         self.add_module(f"up_attn_{i}", attn_block(ch))
@@ -154,19 +187,23 @@ class NCSNpp(nn.Module):
               init_scale=init_scale if progressive == "output_skip" else 1.0))
           pyr_ch = out
         elif progressive == "output_skip":
-          self.add_module(f"pyr_us_{i}", layerspp.Resample(
-              "up", num_channels, fir_kernel=fir_kernel))
+          self.add_module(f"pyr_us_{i}", resample("up", num_channels))
           self.add_module(f"pyr_norm_{i}", GroupNorm(min(ch // 4, 32), ch))
           self.add_module(f"pyr_conv_{i}", DDPMConv(ch, num_channels, 3,
                                                     init_scale=init_scale))
         else:
-          self.add_module(f"pyr_us_{i}", layerspp.Resample(
-              "up", pyr_ch, ch, with_conv=True, fir_kernel=fir_kernel))
+          self.add_module(f"pyr_us_{i}", resample("up", pyr_ch, ch,
+                                                  with_conv=True))
           pyr_ch = ch
       if i != 0:
-        self.add_module(f"up_{i}_us", res_block(ch, up=True))
-        res *= 2
-    assert not hs_ch
+        if self.ddpm_blocks:
+          self.add_module(f"up_{i}_us", resample(
+              "up", ch, with_conv=resamp_with_conv))
+          res *= 2
+        elif auxiliary_resblock:
+          self.add_module(f"up_{i}_us", res_block(ch, up=True))
+          res *= 2
+    assert not hs
 
     if progressive != "output_skip":
       self.out_norm = GroupNorm(min(ch // 4, 32), ch)
@@ -181,8 +218,7 @@ class NCSNpp(nn.Module):
   def fused_sites(self) -> List[Tuple[int, int, int, int]]:
     """(H, W, C, O) of each fused norm->SiLU->conv call of the last forward."""
     return [s for m in self.modules()
-            if isinstance(m, layerspp.ResnetBlockBigGANpp)
-            for s in m.last_fused_sites]
+            for s in getattr(m, "last_fused_sites", ())]
 
   def fir_sites(self) -> List[Tuple[str, int, int, int]]:
     """(mode, H, W, C) of each FIR 2x resample of the last forward."""
@@ -197,7 +233,7 @@ class NCSNpp(nn.Module):
       used_sigmas = time_cond
       temb = self.fourier_emb(torch.log(used_sigmas))
     else:
-      temb = get_timestep_embedding(time_cond, self.nf)
+      temb = get_timestep_embedding(time_cond, self.embed_dim)
 
     if self.conditional:
       temb = self.temb_dense1(act(self.temb_dense0(temb)))
@@ -208,6 +244,8 @@ class NCSNpp(nn.Module):
       x = 2 * x - 1.0
 
     input_pyramid = x if self.progressive_input != "none" else None
+    if self.fourier_feature:
+      x = layerspp.fixed_fourier_features(x)
     hs = [self.stem(x)]
     for i in range(self.num_resolutions):
       for j in range(self.num_res_blocks):
@@ -215,8 +253,12 @@ class NCSNpp(nn.Module):
         if (i, j) in self._attn_down:
           h = getattr(self, f"down_attn_{i}_{j}")(h)
         hs.append(h)
-      if i != self.num_resolutions - 1:
-        h = getattr(self, f"down_{i}_ds")(hs[-1], temb, train, generator)
+      # without auxiliary res-blocks nothing below is read
+      if i != self.num_resolutions - 1 and self.auxiliary_resblock:
+        if self.ddpm_blocks:
+          h = getattr(self, f"down_{i}_ds")(hs[-1])
+        else:
+          h = getattr(self, f"down_{i}_ds")(hs[-1], temb, train, generator)
         if self.progressive_input == "input_skip":
           input_pyramid = getattr(self, f"pyr_ds_{i}")(input_pyramid)
           h = getattr(self, f"combine_{i}")(input_pyramid, h)
@@ -227,12 +269,14 @@ class NCSNpp(nn.Module):
         hs.append(h)
 
     h = hs[-1]
+    if not self.auxiliary_resblock:
+      hs.pop()
     h = self.mid_res0(h, temb, train, generator)
     h = self.mid_attn(h)
     h = self.mid_res1(h, temb, train, generator)
 
     for i in reversed(range(self.num_resolutions)):
-      for j in range(self.num_res_blocks + 1):
+      for j in range(self.num_res_up):
         h = getattr(self, f"up_{i}_{j}")(torch.cat([h, hs.pop()], dim=-1),
                                          temb, train, generator)
       if i in self._attn_up:
@@ -250,7 +294,9 @@ class NCSNpp(nn.Module):
         else:
           pyramid = self._merge(getattr(self, f"pyr_us_{i}")(pyramid), h)
           h = pyramid
-      if i != 0:
+      if i != 0 and self.ddpm_blocks:
+        h = getattr(self, f"up_{i}_us")(h)
+      elif i != 0 and self.auxiliary_resblock:
         h = getattr(self, f"up_{i}_us")(h, temb, train, generator)
 
     if self.progressive == "output_skip":
@@ -279,28 +325,23 @@ class NCSNpp(nn.Module):
   def from_config(cls, config) -> "NCSNpp":
     """Build from a config with the JAX package's schema."""
     m, d = config.model, config.data
-    if m.resblock_type.lower() != "biggan":
-      _refuse(f"resblock_type={m.resblock_type!r}", "slice 6 (the rest)")
-    if not m.fir and (m.progressive.lower() != "none"
-                      or m.progressive_input.lower() != "none"):
-      _refuse("progressive paths without FIR (fir=False)",
-              "slice 6 (the rest)")
-    if not m.get("auxiliary_resblock", True):
-      _refuse("auxiliary_resblock=False", "slice 6 (the rest)")
-    if m.get("fourier_feature", False) or m.get("lsgm", False):
-      _refuse("fourier_feature / lsgm embeddings", "slice 6 (the rest)")
     return cls(
         nf=m.nf, ch_mult=tuple(m.ch_mult), num_res_blocks=m.num_res_blocks,
         attn_resolutions=tuple(m.attn_resolutions),
         attention=m.get("attention", True), dropout=m.dropout,
+        resamp_with_conv=m.get("resamp_with_conv", True),
         image_size=d.image_size, num_channels=d.num_channels,
         conditional=m.conditional, fir=m.fir,
         fir_kernel=tuple(m.fir_kernel), skip_rescale=m.skip_rescale,
+        resblock_type=m.resblock_type.lower(),
+        auxiliary_resblock=m.get("auxiliary_resblock", True),
         progressive=m.progressive.lower(),
         progressive_input=m.progressive_input.lower(),
         progressive_combine=m.progressive_combine.lower(),
         embedding_type=m.embedding_type.lower(),
         fourier_scale=m.get("fourier_scale", 16.0),
+        fourier_feature=m.get("fourier_feature", False),
         init_scale=m.init_scale, nonlinearity=m.nonlinearity,
-        scale_by_sigma=m.scale_by_sigma, sigma_min=m.sigma_min,
+        scale_by_sigma=m.scale_by_sigma, lsgm=m.get("lsgm", False),
+        embedding_dim=m.get("embedding_dim", 128), sigma_min=m.sigma_min,
         sigma_max=m.sigma_max, num_scales=m.num_scales, centered=d.centered)

@@ -2,10 +2,11 @@
 
 Counterpart of ``soft_truncation_tpu/models/score.py``:
 
-  VP, continuous: labels = t*999, or, with unbounded parametrization, the
-    normalised antiderivative of the log-variance scaled to [0, 999]; with
-    ``training.ddpm_score`` the model predicts scaled noise and
-    score = -out / std(t).
+  VP, continuous (subVP always): labels = t*999, or, with unbounded
+    parametrization, the normalised antiderivative of the log-variance
+    scaled to [0, 999]; with ``training.ddpm_score`` the model predicts
+    scaled noise and score = -out / std(t) (subVP's "std" is 1 - e^{2 lmc},
+    as in the JAX package).
   VP, discrete: labels = t*(N-1), std from the DDPM alphas grid.
   VE / reciprocal VE, continuous: labels = sigma(t) (the model embeds
     log sigma); discrete: labels = round((T-t)*(N-1)). The network's output
@@ -18,7 +19,8 @@ from typing import Callable, Optional
 
 import torch
 
-from ..sde.core import SDE, VESDE, VPSDE, ReciprocalVESDE, batch_mul
+from ..sde.core import (SDE, VESDE, VPSDE, ReciprocalVESDE, SubVPSDE,
+                        batch_mul)
 
 
 def get_model_fn(model, train: bool = False,
@@ -49,15 +51,15 @@ def get_score_fn(config, sde: SDE, model, train: bool = False,
       return model_fn(x, labels)
 
     return ve_score_fn
-  if not isinstance(sde, VPSDE):
+  if not isinstance(sde, (VPSDE, SubVPSDE)):
     raise NotImplementedError(
-        f"score of {type(sde).__name__} arrives with ROADMAP.md slice 6")
+        f"SDE class {type(sde).__name__} not yet supported.")
   unbounded = config.training.get("unbounded_parametrization", False)
   stab = config.training.get("stabilizing_constant", 1e-3)
   ddpm_score = config.training.get("ddpm_score", True)
 
   def score_fn(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    if continuous:
+    if continuous or isinstance(sde, SubVPSDE):
       if unbounded:
         lo = sde.antiderivative(t.new_tensor(1e-5), stab)
         hi = sde.antiderivative(t.new_tensor(sde.T), stab)

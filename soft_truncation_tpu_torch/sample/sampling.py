@@ -8,7 +8,7 @@ hands in the starting state. The PC sampler also draws its predictor and
 corrector noise from ``generator``, through ``draw(like) -> standard
 normal of like's shape``, which a caller may replace (``draw=``) to hand
 the same noise to two devices. Runs under ``torch.inference_mode``. The
-Picard samplers and ``sampling.chunk`` come with ROADMAP.md slice 6.
+Picard samplers and ``sampling.chunk`` come with ROADMAP.md Queue 1 item 5.
 """
 
 from __future__ import annotations
@@ -176,7 +176,8 @@ def get_sampling_fn(config, sde: SDE, shape, inverse_scaler,
         denoise=config.sampling.noise_removal, eps=eps)
   if name in ("picard", "picard_dpm"):
     raise NotImplementedError(
-        f"sampling.method={name!r} arrives with ROADMAP.md slice 6")
+        f"sampling.method={name!r} arrives with ROADMAP.md Queue 1 item 5 "
+        "(Picard)")
   raise ValueError(f"Sampler name {config.sampling.method} unknown.")
 
 

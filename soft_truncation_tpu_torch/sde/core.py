@@ -1,13 +1,13 @@
 """Forward and reverse diffusion SDEs on torch tensors.
 
-Counterpart of ``soft_truncation_tpu/sde/core.py`` for the serving
-slices: the VP, VE and reciprocal-VE SDEs, the reverse-time SDE /
-probability-flow ODE, and ``get_sde``. SDE objects are frozen dataclasses
-of Python floats; ``x`` is NHWC ``[B, H, W, C]`` and ``t`` is ``[B]``, on any
-device. Random draws take an explicit ``torch.Generator``. The reciprocal
-VE SDE keeps the JAX design: its constants and their logs are Python
-float64, and the device evaluates ``exp((2/t) * log b)`` in f32. subVP
-comes with ROADMAP.md slice 6.
+Counterpart of ``soft_truncation_tpu/sde/core.py``: the VP, subVP, VE and
+reciprocal-VE SDEs, the reverse-time SDE / probability-flow ODE, and
+``get_sde``. SDE objects are frozen dataclasses of Python floats; ``x`` is
+NHWC ``[B, H, W, C]`` and ``t`` is ``[B]``, on any device. Random draws take
+an explicit ``torch.Generator``. The reciprocal VE SDE keeps the JAX
+design: its constants and their logs are Python float64, and the device
+evaluates ``exp((2/t) * log b)`` in f32. subVP keeps the reference's
+marginal "std" without its square root, as the JAX package does.
 
 Training-time samplers: ``sample_diffusion_time`` (uniform or importance
 sampled) and the Soft-Truncation prior ``sample_t_min`` map uniforms the
@@ -173,6 +173,37 @@ class VPSDE(SDE):
                                                + self.antiderivative(t_min))))
          ) / bd
     return t, Z
+
+
+@dataclasses.dataclass(frozen=True)
+class SubVPSDE(SDE):
+  """sub-VP SDE: dx = -0.5 beta(t) x dt + sqrt(beta(t) (1 - e^{-2 int
+  beta})) dw. Its ``marginal_prob`` returns 1 - exp(2 lmc) as the std,
+  without the square root, as the reference and the JAX package do; it has
+  no importance sampler, and discretizes by Euler-Maruyama."""
+
+  beta_0: float = 0.1
+  beta_1: float = 20.0
+  eps: float = 1e-5
+
+  def sde(self, x, t):
+    beta_t = self.beta_0 + t * (self.beta_1 - self.beta_0)
+    drift = batch_mul(-0.5 * beta_t, x)
+    discount = 1.0 - torch.exp(
+        -2.0 * self.beta_0 * t - (self.beta_1 - self.beta_0) * t ** 2)
+    return drift, torch.sqrt(beta_t * discount)
+
+  def marginal_prob(self, x, t):
+    lmc = -0.25 * t ** 2 * (self.beta_1 - self.beta_0) - 0.5 * t * self.beta_0
+    mean = batch_mul(torch.exp(lmc), x)
+    std = 1.0 - torch.exp(2.0 * lmc)
+    return mean, std
+
+  def prior_sampling(self, generator, shape, device):
+    return torch.randn(shape, generator=generator, device=device)
+
+  def prior_logp(self, z):
+    return _gaussian_logp(z, 1.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -384,8 +415,8 @@ def get_sde(config) -> SDE:
     return ReciprocalVESDE(sigma_min=m.sigma_min, sigma_max=m.sigma_max,
                            N=m.num_scales, eta=config.uncsn.eta)
   if name == "subvpsde":
-    raise NotImplementedError(
-        f"SDE {config.training.sde} arrives with ROADMAP.md slice 6")
+    return SubVPSDE(beta_0=m.beta_min, beta_1=m.beta_max, N=m.num_scales,
+                    eps=config.training.truncation_time)
   raise NotImplementedError(f"SDE {config.training.sde} unknown.")
 
 

@@ -52,21 +52,28 @@ SMALL0 = {"data": torch_tiny.SMALL["data"],
                         attn_resolutions=(), init_scale=0.0)}
 
 
+LIKELIHOOD_MODES = ("correct", "wrong")
+
+
 @pytest.fixture(scope="module")
 def vp_small():
-  return torch_tiny.build(SMALL0, batch=2)
-
-
-@pytest.mark.parametrize("mode", ["correct", "wrong"])
-def test_likelihood_fn_matches_jax(vp_small, mode):
-  jc, pc, jmodel, params, pmodel = vp_small
+  """The tiny model, its data and key, and JAX's likelihood_fn in both
+  modes, compiled as one program (two compiles cost ~1.5x one)."""
+  jc, pc, jmodel, params, pmodel = torch_tiny.build(SMALL0, batch=2)
   x = (2.0 * np.random.default_rng(3).integers(0, 256, (2, 8, 8, 3)) / 255.0
        - 1.0).astype(np.float32)
   key = jax.random.PRNGKey(6)
   jfn = jax_get_likelihood_fn(jc, jax_get_sde(jc), jax_inverse(jc),
                               rtol=1e-3, atol=1e-3)
-  want, want_z, want_nfe = jax.jit(
-      lambda p, b: jfn(jmodel, p, b, key, mode=mode))(params, x)
+  want = jax.jit(lambda p, b: {m: jfn(jmodel, p, b, key, mode=m)
+                               for m in LIKELIHOOD_MODES})(params, x)
+  return pc, pmodel, x, key, want
+
+
+@pytest.mark.parametrize("mode", LIKELIHOOD_MODES)
+def test_likelihood_fn_matches_jax(vp_small, mode):
+  pc, pmodel, x, key, jax_runs = vp_small
+  want, want_z, want_nfe = jax_runs[mode]
   k_hutch, k_pert, k_resid = jax.random.split(key, 3)
   draws = [("rademacher", jax.random.rademacher(k_hutch, x.shape,
                                                 dtype=jnp.float32))]

@@ -55,7 +55,10 @@ def _assert_same_values(jc, pc):
 
 
 def test_port_flagship_config_equals_jax_config():
-  _assert_same_values(*torch_tiny.configs(changes={}))
+  """The flagship as published is a case of
+  ``test_port_config_copy_equals_jax_config``; here, the tiny cut the
+  parity tests apply, through each package's ``override``."""
+  _assert_same_values(*torch_tiny.configs())
 
 
 # the base keys the training, likelihood and sample-quality slices read
@@ -87,15 +90,24 @@ def test_port_base_holds_the_training_keys_with_jax_values():
 
 
 PORT_CONFIGS = pathlib.Path(torch_tiny.PORT_CONFIGS)
-COPIED_CONFIGS = sorted(p for p in PORT_CONFIGS.rglob("*.py")
-                        if p.name not in ("__init__.py", "base.py"))
+JAX_CONFIGS = REPO / "soft_truncation_tpu" / "configs"
+PUBLISHED_CONFIGS = sorted(p.relative_to(JAX_CONFIGS)
+                           for p in JAX_CONFIGS.rglob("*.py")
+                           if p.name not in ("__init__.py", "base.py"))
 
 
-@pytest.mark.parametrize("path", COPIED_CONFIGS,
-                         ids=lambda p: str(p.relative_to(PORT_CONFIGS)))
-def test_port_config_copy_equals_jax_config(path):
-  """Every config file of the port carries its JAX file's values."""
-  rel = path.relative_to(PORT_CONFIGS).with_suffix("")
+def test_the_port_copies_every_config_and_only_those():
+  copies = sorted(p.relative_to(PORT_CONFIGS) for p in PORT_CONFIGS.rglob(
+      "*.py") if p.name not in ("__init__.py", "base.py"))
+  assert copies == PUBLISHED_CONFIGS and len(copies) == 33
+
+
+@pytest.mark.parametrize("rel", PUBLISHED_CONFIGS, ids=str)
+def test_port_config_copy_equals_jax_config(rel):
+  """Every config file of the JAX package has a copy in the port, at the
+  same relative path, with its values."""
+  path = PORT_CONFIGS / rel
+  assert path.exists(), rel
   jax_module = importlib.import_module(
-      "soft_truncation_tpu.configs." + ".".join(rel.parts))
+      "soft_truncation_tpu.configs." + ".".join(rel.with_suffix("").parts))
   _assert_same_values(jax_module.get_config(), load_config(str(path)))
