@@ -144,6 +144,41 @@ Phases; any failure exits non-zero before the last line is printed:
      (ragged tiles, C and O off the tile widths); one JSON line per shape,
      then the
      `kernels` line and each kernel's time beside its library call's.
+  9. the legacy networks and the fp8 knob (after 7b; the legacy paths
+     launch no kernel, which each of 9a-9d checks, since JAX runs their
+     blocks as plain XLA), each legacy config the flagship's file with the
+     values of its public config in yang-song/score_sde_pytorch
+     (``LEGACY``), the zero-init convs given N(0, 0.02) weights:
+  9a. forwards card vs CPU within FORWARD_REL_TOL with ms per forward:
+     DDPM, NCSN and NCSNv2-64 at 32^2, batch 8; NCSNv2-128 at 128^2 and
+     NCSNv2-256 at 256^2, batch 2 (the layouts only they reach), and a
+     trace of NCSNv2-256's forward (as in phase 5b);
+  9b. serving, counted the same way: DDPM ('pc', ancestral sampling) at the
+     published N=1000 and NCSNv2 ('pc', annealed Langevin) at N=232 x 5, at
+     batch 8, once each through the HTTP server: the wall and the network
+     evaluations (a forward hook); then at N=25 (DDPM: the VP grid's betas
+     pass 1 below N=21) and N=3, batch 2, twice, against a CPU
+     SamplingService from the same prior and noise;
+  9c. one train step of DDPM (DDPM loss) and of NCSNv2 (SMLD loss) at batch
+     2 against the CPU, as phase 6 (integer labels among the draws);
+  9d. the CLI trainer on DDPM as published (batch 128, discrete DDPM loss,
+     steps 0..TRAIN_ITERS and a resume): ms per step, peak memory;
+  9e. fp8: the e4m3 and e5m2 rounding on the card bit for bit against the
+     CPU on a grid of subnormals, 447-481, 57344-61440, +-inf and NaN;
+     ``fp8_conv`` (forward, dx, dw) against the CPU on the same inputs at
+     UNCSN++'s conv shapes within KERNEL_REL_TOL;
+  9f. fp8 on UNCSN++ (``tpu.activation_dtype='float8_e4m3'``): one train
+     step against the CPU at batch 2, its losses and the gradients' L2
+     within FP8_SPREAD x the CPU's own spread (a CPU copy whose weights
+     differ by FP8_PERTURB: a conv input within f32 rounding of an e4m3
+     boundary rounds the other way on one side, and the flip travels), 12 +
+     12 fir2 launches; FP8_STEPS steps at batch 128 in f32, fp8, fp8, f32:
+     ms per step (CUDA events), peak memory, fir2's launches per shape
+     (their rows in the `kernels` line take phase 7's timings at the same
+     shapes and batch); the flagship's fp8 eval forward at batch 8: 82
+     gn_silu_conv3x3 launches at the f32 forward's shapes (unquantized, as
+     in JAX), card vs CPU in L2 within the CPU's spread as above, and
+     apart from f32.
 Imports torch and the port only, never jax or the JAX package.
 """
 
@@ -232,8 +267,74 @@ DEEPEST_TRAIN_ITERS = 3     # phase 7d: steps 0..3
 # 80 GB with little to spare (PERF.md): the phase frees the cache first
 PARAM_MOVE_TOL = 0.05   # card vs CPU, a parameter's move in one step, x lr
 # served uint8 vs the CPU run: a float difference within FORWARD_REL_TOL
-# moves a pixel across at most one quantisation step, and few of them
+# of samples in [0, 1] moves a pixel across at most one quantisation step,
+# and few of them; a sampler that leaves [0, 1] far behind (the legacy
+# networks' random weights blow DDPM's ancestral samples up to ~4500) has
+# an absolute difference err of its own, which may move a pixel by
+# another floor(255 err) steps
 SERVED_MAX_STEP, SERVED_MAX_MOVED = 1, 0.01
+# phases 9a-9f, the legacy networks: the public configs' values
+# (yang-song/score_sde_pytorch configs/vp/ddpm/cifar10.py,
+# configs/ve/ncsnv2/cifar10.py, configs/ve/ncsn/cifar10.py) over the
+# flagship's config file
+_DISCRETE = dict(continuous=False, likelihood_weighting=False, st=False)
+LEGACY = {
+    "ddpm": {
+        "training": dict(_DISCRETE, sde="vpsde", reduce_mean=True),
+        "sampling": dict(method="pc", predictor="ancestral_sampling",
+                         corrector="none", n_steps_each=1, snr=0.16),
+        "data": dict(centered=True),
+        "model": dict(name="ddpm", nf=128, ch_mult=(1, 2, 2, 2),
+                      num_res_blocks=2, attn_resolutions=(16,), dropout=0.1,
+                      resamp_with_conv=True, conditional=True,
+                      scale_by_sigma=False, ema_rate=0.9999,
+                      normalization="GroupNorm", nonlinearity="swish",
+                      num_scales=1000)},
+    "ncsnv2_64": {
+        "training": dict(_DISCRETE, sde="vesde", reduce_mean=False),
+        "sampling": dict(method="pc", predictor="none", corrector="ald",
+                         n_steps_each=5, snr=0.176),
+        "data": dict(centered=False),
+        "model": dict(name="ncsnv2_64", nf=128, scale_by_sigma=True,
+                      num_scales=232, sigma_min=0.01, sigma_max=50.0,
+                      ema_rate=0.999, normalization="InstanceNorm++",
+                      nonlinearity="elu"),
+        "optim": dict(lr=1e-4, warmup=0, grad_clip=-1.0)},
+    "ncsn": {
+        "training": dict(_DISCRETE, sde="vesde", reduce_mean=False),
+        "sampling": dict(method="pc", predictor="none", corrector="ald",
+                         n_steps_each=100, snr=0.316),
+        "data": dict(centered=False),
+        "model": dict(name="ncsn", nf=128, scale_by_sigma=False,
+                      num_scales=10, sigma_min=0.01, sigma_max=1.0,
+                      ema_rate=0.0, normalization="InstanceNorm++",
+                      nonlinearity="elu"),
+        "optim": dict(lr=1e-3, warmup=0, grad_clip=-1.0)},
+}
+LEGACY_BATCH = 8            # phases 9a, 9b: the 32^2 forwards and serving
+# phase 9a at batch 2: the layouts only the high-resolution v2 nets reach
+LEGACY_HIRES = (("ncsnv2_128", 128), ("ncsnv2_256", 256))
+DDPM_SERVE_STEPS = 1000     # phase 9b: N as published
+NCSNV2_SERVE_STEPS = 232
+# card vs CPU: NCSNv2 at N=3; ancestral sampling on the VP grid needs
+# beta_max / N < 1 (sqrt(1 - beta)), so DDPM at the least N above 20
+DDPM_CHECK_STEPS, NCSNV2_CHECK_STEPS = 25, 3
+# phase 9e: fp8_conv card vs CPU at UNCSN++'s conv shapes: (N, H, C, O,
+# kernel, stride)
+FP8_CONV_SHAPES = ((2, 32, 128, 128, 3, 1), (2, 16, 256, 256, 3, 1),
+                   (2, 32, 128, 256, 1, 1), (2, 8, 256, 256, 3, 2))
+FP8_STEPS = 5               # phase 9f: timed steps per run at batch 128
+# fp8 card vs CPU, whole network: a conv input within f32 rounding of an
+# e4m3 boundary rounds the other way on one side, and the flip travels:
+# two fp8 runs whose f32 sums differ in the last bits part about as far as
+# fp8 parts from f32, by an amount that depends on the inputs and draws.
+# So the card is held to the CPU's own spread on the same inputs: a CPU
+# run whose weights differ by FP8_PERTURB relative (~the card's f32
+# differences, phase 6), times FP8_SPREAD, plus FP8_FLOOR relative for f32
+# rounding
+FP8_PERTURB = 1e-6
+FP8_SPREAD = 3.0
+FP8_FLOOR = 1e-5
 
 
 def log(msg):
@@ -573,7 +674,8 @@ def _check_against_cpu(service, params, served, seed, method, steps,
   if not (torch.isfinite(card).all() and err <= FORWARD_REL_TOL * scale):
     raise AssertionError(f"card sampler disagrees with CPU: {err} vs "
                          f"{scale}")
-  if step.max() > SERVED_MAX_STEP or moved > SERVED_MAX_MOVED:
+  if (step.max() > SERVED_MAX_STEP + math.floor(255 * err)
+      or moved > SERVED_MAX_MOVED):
     raise AssertionError(f"served samples disagree with CPU: max step "
                          f"{step.max()}, {moved} of the pixels moved")
 
@@ -764,13 +866,49 @@ def phase_trace(name, config, params, label):
     _traced(f"{name} ODE function evaluation", lambda: ode_fn(0.5, flat))
 
 
-def phase_train_step(name, config, want_fir, want_bwd, forwards=1):
+def _recorded_draws(gen):
+  """A ``draw`` that records what it draws on the CPU from ``gen``, and
+  ``replay(device)``, a ``draw`` that replays those numbers on ``device``
+  in the same order."""
+  from soft_truncation_tpu_torch.losses import make_draw
+
+  draws, cpu_draw = [], make_draw(gen, "cpu")
+
+  def record(kind, shape, high=None):
+    value = cpu_draw(kind, shape, high)
+    draws.append((kind, high, value))
+    return value
+
+  def replay(device):
+    left = iter(draws)
+
+    def replayed(kind, shape, high=None):
+      want_kind, want_high, value = next(left)
+      if (kind, tuple(shape), high) != (want_kind, tuple(value.shape),
+                                        want_high):
+        raise AssertionError(f"draw {kind} {shape} {high} where the CPU "
+                             f"drew {want_kind} {tuple(value.shape)} "
+                             f"{want_high}")
+      return value.to(device)
+
+    return replayed
+
+  return record, replay
+
+
+def _fir_sites(model):
+  """The FIR sites of ``model``'s last forward (none for a legacy network)."""
+  return collections.Counter(getattr(model, "fir_sites", list)())
+
+
+def phase_train_step(name, config, want_fir, want_bwd, forwards=1,
+                     weights=None):
   """One train step at full width and batch 2 on the card and on a CPU copy
   with the same weights and draws. ``want_fir`` / ``want_bwd``: fir2's
   forward and adjoint launches per shape in one step (UNCSN++, the
   deepest model) or {}; ``forwards``: the network's forwards per step (2
   for the mixed loss, one per half), each with the last one's FIR
-  sites."""
+  sites; ``weights``: a state_dict for both (the seed's otherwise)."""
   import torch
   from soft_truncation_tpu_torch.data import get_data_scaler
   from soft_truncation_tpu_torch.models import create_model
@@ -783,32 +921,20 @@ def phase_train_step(name, config, want_fir, want_bwd, forwards=1):
   size = config.data.image_size
   batch = get_data_scaler(config)(torch.rand(TRAIN_CHECK_BATCH, size, size,
                                              3, generator=gen))
-  draws = []
-
-  def record(kind, shape):
-    value = (torch.rand if kind == "uniform" else torch.randn)(
-        shape, generator=gen)
-    draws.append((kind, value))
-    return value
-
-  replay = iter(draws)
-
-  def replayed(kind, shape):
-    want_kind, value = next(replay)
-    if (kind, tuple(shape)) != (want_kind, tuple(value.shape)):
-      raise AssertionError(f"draw {kind} {shape} where the CPU drew "
-                           f"{want_kind} {tuple(value.shape)}")
-    return value.to(DEVICE)
-
+  record, replay = _recorded_draws(gen)
   cpu_model = create_model(config, "cpu", seed=0)
+  gpu_model = create_model(config, DEVICE, seed=0)
+  if weights is not None:
+    cpu_model.load_state_dict(weights)
+    gpu_model.load_state_dict(weights)
   cpu_state = init_train_state(config, cpu_model)
-  gpu_state = init_train_state(config, create_model(config, DEVICE, seed=0))
+  gpu_state = init_train_state(config, gpu_model)
   start = [p.detach().clone() for p in cpu_state.optimizer.params]
   want = step(cpu_state, batch, torch.Generator(), record)
-  fir_sites = {s: k * forwards for s, k in
-               collections.Counter(cpu_model.fir_sites()).items()}
+  fir_sites = {s: k * forwards for s, k in _fir_sites(cpu_model).items()}
   _reset_launch_counts()
-  got = step(gpu_state, batch.to(DEVICE), torch.Generator(DEVICE), replayed)
+  got = step(gpu_state, batch.to(DEVICE), torch.Generator(DEVICE),
+             replay(DEVICE))
   torch.cuda.synchronize()
   launched, fir_fwd = _launch_counts()
   fir_bwd = _backward_launch_counts()
@@ -1596,6 +1722,404 @@ def phase_fid(workdir, sites):
   return launched, evals, summary
 
 
+# --- the legacy networks and the fp8 knob (phases 9a-9f) ---------------------
+
+
+def legacy_config(key, size=None, **model_overrides):
+  """A legacy configuration at the widths of its public config in
+  yang-song/score_sde_pytorch (no such file is in either package): the
+  flagship's config file with LEGACY[key]'s values over it, then ``size``
+  (data.image_size) and ``model_overrides``."""
+  config = load_config(FLAGSHIP)
+  for section, values in LEGACY[key].items():
+    config[section].update(values)
+  config.model.update(model_overrides)
+  if size is not None:
+    config.data.image_size = size
+  return config
+
+
+def legacy_flags(name):
+  """LEGACY[name] as the CLI's ``--config.<section>.<key>=<value>``."""
+  return [f"--config.{section}.{key}="
+          + (value if isinstance(value, str) else repr(value))
+          for section, values in LEGACY[name].items()
+          for key, value in values.items()]
+
+
+def _with_signal(model, seed=5):
+  """Give the zero-init convs (``init_scale`` 0: 1e-10 weights) N(0, 0.02)
+  weights, so that every layer carries signal; returns the state_dict."""
+  import torch
+  gen = torch.Generator().manual_seed(seed)
+  with torch.no_grad():
+    for p in model.parameters():
+      if p.dim() > 1 and p.abs().max() < 1e-6:
+        p.normal_(0.0, 0.02, generator=gen)
+  return model.state_dict()
+
+
+def _no_launches(name):
+  """The legacy networks run no fused site and no FIR resample: JAX runs
+  their blocks as plain XLA. Fails if either kernel was launched."""
+  launched, fir_launched = _launch_counts()
+  if launched or fir_launched or _backward_launch_counts():
+    raise AssertionError(f"{name}: a legacy path launched a kernel: "
+                         f"{launched} {fir_launched}")
+
+
+def phase_legacy_forward(name, config, labels, trace=False):
+  """A legacy network at full width on the card and on a CPU copy with the
+  same weights (every conv with signal): agreement per sample within
+  FORWARD_REL_TOL, no kernel launched, ms per forward (CUDA events); with
+  ``trace``, where its time goes (``_traced``). Returns the weights."""
+  import torch
+  from soft_truncation_tpu_torch.models import create_model
+
+  size, batch = config.data.image_size, len(labels)
+  cpu_model = create_model(config, "cpu", seed=0)
+  weights = _with_signal(cpu_model)
+  gpu_model = create_model(config, DEVICE, seed=0)
+  gpu_model.load_state_dict(weights)
+  gen = torch.Generator("cpu").manual_seed(1)
+  x = torch.rand(batch, size, size, 3, generator=gen)
+  labels = torch.tensor(labels)
+  xd, ld = x.to(DEVICE), labels.to(DEVICE)
+  with torch.inference_mode():
+    want = cpu_model(x, labels)
+    _reset_launch_counts()
+    got = gpu_model(xd, ld)
+    torch.cuda.synchronize()
+    _no_launches(name)
+    ms = time_ms(lambda: gpu_model(xd, ld), iters=10, warmup=2)
+    if trace:
+      _traced(f"{name} eval forward", lambda: gpu_model(xd, ld), batch)
+  err = (got.cpu() - want).abs().flatten(1).amax(1)
+  scale = want.abs().flatten(1).amax(1)
+  params = sum(p.numel() for p in cpu_model.parameters())
+  emit({"legacy_forward": name, "batch": batch, "size": size,
+        "parameters": params, "max_abs_diff": err.tolist(),
+        "max_abs_out": scale.tolist(), "ms_per_forward": ms})
+  log(f"forward {name} ({params} parameters) at {batch}x{size}^2: "
+      f"{ms:.3f} ms per forward; per sample max_abs_diff {err.tolist()} "
+      f"max|out| {scale.tolist()}")
+  if not (torch.isfinite(got).all() and (err <= FORWARD_REL_TOL
+                                         * scale).all()):
+    raise AssertionError(f"{name}: card forward disagrees with CPU: "
+                         f"{err.tolist()} vs {scale.tolist()}")
+  return weights
+
+
+def phase_serve_legacy(name, weights, steps, check_steps):
+  """A legacy main path: the port's HTTP server answering the config's own
+  'pc' (DDPM: ancestral sampling; NCSNv2: annealed Langevin) at N =
+  ``steps`` at batch 8, once, with its wall and network evaluations (a
+  hook counts them); no kernel launched. Then at N = ``check_steps``,
+  batch 2, the same request twice, held against a CPU SamplingService
+  from the same prior and noise."""
+  from soft_truncation_tpu_torch.serve.server import SamplingService
+
+  config = legacy_config(name, num_scales=steps)
+  service = SamplingService(config, weights, batch=LEGACY_BATCH,
+                            device=DEVICE)
+  evals = [0]
+  service.model.register_forward_pre_hook(
+      lambda *_: evals.__setitem__(0, evals[0] + 1))
+  walls = []
+
+  def published(url):
+    meta = _healthz(url)
+    want = (config.sampling.predictor, config.sampling.corrector)
+    if (meta["predictor"], meta["corrector"]) != want:
+      raise AssertionError(f"/healthz names {meta}, not {want}")
+    walls.extend(_serve_requests(url, [{"num": LEGACY_BATCH, "seed": 0}],
+                                 config, repeat=1, batch=LEGACY_BATCH)[2][0])
+
+  _reset_launch_counts()
+  _serving(service, published)
+  _no_launches(name)
+  ms_eval = walls[0] / evals[0] * 1e3
+  row = {"serve": name, "batch": LEGACY_BATCH, "method": "pc",
+         "predictor": config.sampling.predictor,
+         "corrector": config.sampling.corrector,
+         "n_steps_each": config.sampling.n_steps_each, "steps": steps,
+         "evaluations": evals[0], "request_wall_s": walls[0],
+         "ms_per_evaluation": ms_eval}
+  emit(row)
+  log(f"serve {name}: pc N={steps} ({row['predictor']}, "
+      f"{row['corrector']}) at batch {LEGACY_BATCH}: {evals[0]} evaluations "
+      f"in {walls[0]:.3f} s, {ms_eval:.3f} ms per evaluation")
+  check = legacy_config(name, num_scales=check_steps)
+  service = SamplingService(check, weights, batch=CHECK_BATCH, device=DEVICE)
+  req = {"num": CHECK_BATCH, "seed": 3}
+  _reset_launch_counts()
+  _, (served,), _ = _serving(service, lambda url: _serve_requests(
+      url, [req], check, batch=CHECK_BATCH))
+  _no_launches(name)
+  _check_against_cpu(service, weights, served, req["seed"], "pc",
+                     check_steps, batch=CHECK_BATCH)
+  return row
+
+
+def _cast_grid():
+  """The values where float8 formats part: subnormals and their ties,
+  447-481 (e4m3's 448, NaN past 464), e5m2's 57344-61440 (inf from 61440),
+  f32 subnormals, +-inf, NaN, and a spread of magnitudes."""
+  import numpy as np
+  rng = np.random.default_rng(0)
+  finite = np.concatenate([
+      np.arange(0, 17) * 2.0 ** -10, np.arange(0, 17) * 2.0 ** -17,
+      np.arange(447.0, 481.5, 0.25),
+      [463.99, 464.01, 479.99, 1e4, 3e38, 1e-40, 2.0 ** -126],
+      np.arange(57344.0, 61441.0, 128.0), [61439.99, 61440.01, 1e6],
+      rng.standard_normal(4096) * 10.0 ** rng.uniform(-8, 5, 4096)])
+  return np.concatenate([finite, -finite, [np.inf, -np.inf, np.nan]]).astype(
+      np.float32)
+
+
+def phase_fp8_casts():
+  """fp8 (1): the e4m3 and e5m2 rounding on the card bit for bit against the
+  CPU on ``_cast_grid`` (NaN's bits included); then ``fp8_conv`` (the
+  quantized conv and its custom backward) on the card against the CPU on
+  the same inputs at the full-width UNCSN++ conv shapes: the same values
+  are rounded the same way, so the output, dx and dw agree to f32 sums
+  (KERNEL_REL_TOL)."""
+  import numpy as np
+  import torch
+  from soft_truncation_tpu_torch.ops import quant
+
+  x = torch.from_numpy(_cast_grid())
+  for name, fn in (("e4m3", quant.round_e4m3), ("e5m2", quant.round_e5m2)):
+    want = fn(x).view(torch.int32).numpy()
+    got = fn(x.to(DEVICE)).view(torch.int32).cpu().numpy()
+    bad = np.flatnonzero(got != want)
+    log(f"fp8 cast {name} on the card: {bad.size} of {x.numel()} values "
+        f"differ from the CPU in their bits")
+    if bad.size:
+      raise AssertionError(f"{name}: card rounds {x[bad[:8]].tolist()} to "
+                           f"bits {got[bad[:8]].tolist()}, the CPU "
+                           f"{want[bad[:8]].tolist()}")
+  gen = torch.Generator().manual_seed(3)
+  for (n, h, c, o, k, stride) in FP8_CONV_SHAPES:
+    xs = torch.randn(n, h, h, c, generator=gen) * 2.0
+    w = torch.randn(o, c, k, k, generator=gen) / math.sqrt(c * k * k)
+    padding = ((0, 1), (0, 1)) if stride == 2 else "SAME"
+    outs = []
+    for dev in ("cpu", DEVICE):
+      xd = xs.detach().to(dev).requires_grad_()
+      wd = w.detach().to(dev).requires_grad_()
+      y = quant.fp8_conv(xd, wd, stride, padding)
+      g = torch.randn(y.shape, generator=torch.Generator().manual_seed(4))
+      y.backward(g.to(dev))
+      outs.append([t.detach().cpu() for t in (y, xd.grad, wd.grad)])
+    errs = []
+    for part, got, want in zip(("y", "dx", "dw"), outs[1], outs[0]):
+      err = (got - want).abs().max().item()
+      scale = want.abs().max().item()
+      errs.append(err / scale)
+      if not (torch.isfinite(got).all() and err <= KERNEL_REL_TOL * scale):
+        raise AssertionError(f"fp8_conv {part} at {(n, h, c, o, k, stride)}"
+                             f": card {err} from the CPU, max {scale}")
+    log(f"fp8_conv {(n, h, h, c)} -> {o}, {k}x{k} stride {stride}: card vs "
+        f"CPU y / dx / dw within {errs} of their max")
+
+
+def _global_grads(state):
+  import torch
+  return torch.cat([m.reshape(-1).cpu() for m in state.optimizer.mu])
+
+
+def _perturbed(model, rel=FP8_PERTURB, seed=9):
+  """``model`` with every parameter scaled by (1 + ``rel`` N(0, 1))."""
+  import torch
+  gen = torch.Generator().manual_seed(seed)
+  with torch.no_grad():
+    for p in model.parameters():
+      p.mul_(1.0 + rel * torch.randn(p.shape, generator=gen).to(p.device))
+  return model
+
+
+def _within_spread(name, err, spread, scale):
+  """fp8 card vs CPU: ``err`` within FP8_SPREAD x the CPU's own ``spread``
+  plus FP8_FLOOR x ``scale``."""
+  bound = FP8_SPREAD * spread + FP8_FLOOR * scale
+  log(f"{name}: card vs CPU {err:.4g}, the CPU's spread {spread:.4g} (bound "
+      f"{bound:.4g})")
+  if not err <= bound:
+    raise AssertionError(f"{name}: card vs CPU {err} beyond {FP8_SPREAD} x "
+                         f"the CPU's spread {spread} + {FP8_FLOOR} x {scale}")
+
+
+def phase_fp8_step(config):
+  """fp8 (2, 3): one UNCSN++ train step with ``activation_dtype`` e4m3 at
+  batch 2 on the card, on a CPU copy from the same weights and draws, and
+  on a CPU copy whose weights differ by FP8_PERTURB: the card's losses and
+  gradients (Adam's first moment, all tensors as one vector, in L2) within
+  the CPU's own spread (``_within_spread``); fir2 12 forward and 12
+  adjoint launches. Then FP8_STEPS timed steps at batch 128 in f32, fp8,
+  fp8, f32 (CUDA events, after a warm-up step each): ms per step and peak
+  memory, and fir2's launches per shape, 12 + 12 per step. Returns those
+  launches, the steps and the batch."""
+  import torch
+  from soft_truncation_tpu_torch.data import get_data_scaler
+  from soft_truncation_tpu_torch.losses import make_draw
+  from soft_truncation_tpu_torch.models import create_model
+  from soft_truncation_tpu_torch.sde import get_sde
+  from soft_truncation_tpu_torch.train import init_train_state, make_train_step
+
+  config.model.dropout, config.optim.warmup = 0.0, 0
+  sde = get_sde(config)
+  gen = torch.Generator().manual_seed(2)
+  batch = get_data_scaler(config)(torch.rand(TRAIN_CHECK_BATCH, 32, 32, 3,
+                                             generator=gen))
+  record, replay = _recorded_draws(gen)
+  step = make_train_step(config, sde)
+  cpu_state = init_train_state(config, create_model(config, "cpu", seed=0))
+  spread_state = init_train_state(
+      config, _perturbed(create_model(config, "cpu", seed=0)))
+  gpu_state = init_train_state(config, create_model(config, DEVICE, seed=0))
+  want = step(cpu_state, batch, torch.Generator(), record)
+  spread = step(spread_state, batch, torch.Generator(), replay("cpu"))
+  _reset_launch_counts()
+  got = step(gpu_state, batch.to(DEVICE), torch.Generator(DEVICE),
+             replay(DEVICE))
+  torch.cuda.synchronize()
+  _, fir_fwd = _launch_counts()
+  fir_bwd = _backward_launch_counts()
+  g_cpu = _global_grads(cpu_state)
+  log(f"fp8 train step uncsnpp: losses {want.tolist()}, card "
+      f"{got.tolist()}, perturbed CPU {spread.tolist()}")
+  if not torch.isfinite(got).all():
+    raise AssertionError(f"fp8 step: card losses {got.tolist()}")
+  scale = want.abs().max().item()
+  _within_spread("fp8 step losses", (got.cpu() - want).abs().max().item(),
+                 (spread - want).abs().max().item(), scale)
+  _within_spread("fp8 step gradients (L2, relative)",
+                 ((_global_grads(gpu_state) - g_cpu).norm()
+                  / g_cpu.norm()).item(),
+                 ((_global_grads(spread_state) - g_cpu).norm()
+                  / g_cpu.norm()).item(), 1.0)
+  if fir_fwd != UNCSNPP_FIR_SITES or fir_bwd != UNCSNPP_FIR_BWD_SITES:
+    raise AssertionError(f"fp8 step: fir2 launches {fir_fwd} / {fir_bwd}")
+  del cpu_state, spread_state, gpu_state
+
+  scaler = get_data_scaler(config)
+  big = scaler(torch.rand(TRAIN_BATCH, 32, 32, 3, generator=gen)).to(DEVICE)
+  runs, fwd_total, bwd_total = [], collections.Counter(), collections.Counter()
+  for dtype in ("", "float8_e4m3", "float8_e4m3", ""):
+    config.tpu.activation_dtype = dtype
+    state = init_train_state(config, create_model(config, DEVICE, seed=0))
+    train_step = make_train_step(config, sde)
+    dgen = torch.Generator(DEVICE).manual_seed(0)
+    draw = make_draw(dgen, DEVICE)
+    train_step(state, big, dgen, draw)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    events = []
+    for _ in range(FP8_STEPS):
+      start = torch.cuda.Event(enable_timing=True)
+      end = torch.cuda.Event(enable_timing=True)
+      start.record()
+      losses = train_step(state, big, dgen, draw)
+      end.record()
+      events.append((start, end))
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in events]
+    peak = torch.cuda.max_memory_allocated()
+    _, fwd = _launch_counts()
+    bwd = _backward_launch_counts()
+    if not torch.isfinite(losses).all():
+      raise AssertionError(f"{dtype or 'f32'} steps: a loss is not finite")
+    want_fwd = {s: k * FP8_STEPS for s, k in UNCSNPP_FIR_SITES.items()}
+    want_bwd = {s: k * FP8_STEPS for s, k in UNCSNPP_FIR_BWD_SITES.items()}
+    if fwd != want_fwd or bwd != want_bwd:
+      raise AssertionError(f"{dtype or 'f32'} steps: fir2 launches {fwd} / "
+                           f"{bwd}, expected {want_fwd} / {want_bwd}")
+    if dtype:
+      fwd_total.update(fwd)
+      bwd_total.update(bwd)
+    runs.append({"activation_dtype": dtype or "float32",
+                 "ms_per_step": sum(ms) / len(ms), "ms_each_step": ms,
+                 "peak_memory_bytes": peak})
+    del state, train_step, losses
+    gc.collect()
+    torch.cuda.empty_cache()
+  config.tpu.activation_dtype = "float8_e4m3"
+  emit({"fp8_train": "uncsnpp", "batch": TRAIN_BATCH, "steps": FP8_STEPS,
+        "runs": runs})
+  for r in runs:
+    log(f"train uncsnpp {r['activation_dtype']}: {r['ms_per_step']:.1f} ms "
+        f"per step at batch {TRAIN_BATCH}, peak {r['peak_memory_bytes']} "
+        "bytes")
+  return dict(fwd_total), dict(bwd_total), 2 * FP8_STEPS
+
+
+def phase_fp8_forward(sites):
+  """fp8 (4): the flagship's eval forward at batch 8 with ``activation_dtype``
+  e4m3 on the card and on a CPU copy: gn_silu_conv3x3 launched once at
+  each of the f32 forward's 82 fused sites (they run unquantized, as in
+  JAX); the card's output within the CPU's own spread of the CPU's in L2
+  (``_within_spread``, against a CPU copy whose weights differ by
+  FP8_PERTURB); and quantized: over 1 % in L2 from the card's f32 forward
+  of the same weights. Returns the launches per shape."""
+  import torch
+  from soft_truncation_tpu_torch.models import create_model
+
+  config = load_config(FLAGSHIP, init_scale=0.1)
+  config.tpu.activation_dtype = "float8_e4m3"
+  cpu_model = create_model(config, "cpu", seed=0)
+  spread_model = _perturbed(create_model(config, "cpu", seed=0))
+  gpu_model = create_model(config, DEVICE, seed=0)
+  f32_model = create_model(load_config(FLAGSHIP, init_scale=0.1), DEVICE,
+                           seed=0)
+  gen = torch.Generator("cpu").manual_seed(1)
+  x = torch.randn(SERVE_BATCH, 32, 32, 3, generator=gen)
+  labels = torch.linspace(0.01, 0.99, SERVE_BATCH) * 999.0
+  with torch.inference_mode():
+    want = cpu_model(x, labels)
+    spread = spread_model(x, labels)
+    _reset_launch_counts()
+    got = gpu_model(x.to(DEVICE), labels.to(DEVICE))
+    torch.cuda.synchronize()
+    launched, fir_launched = _launch_counts()
+    f32 = f32_model(x.to(DEVICE), labels.to(DEVICE)).cpu()
+  got = got.cpu()
+
+  def l2(a, b):
+    return ((a - b).norm() / b.norm()).item()
+
+  err, quantized = l2(got, want), l2(got, f32)
+  emit({"fp8_forward": "flagship", "batch": SERVE_BATCH,
+        "fused_launches": sum(launched.values()),
+        "l2_rel_card_vs_cpu": err, "l2_rel_cpu_spread": l2(spread, want),
+        "l2_rel_fp8_vs_f32": quantized})
+  log(f"fp8 forward flagship: {sum(launched.values())} gn_silu_conv3x3 "
+      f"launches; fp8 vs f32 {quantized:.4g} in L2")
+  if launched != sites or fir_launched:
+    raise AssertionError(f"fp8 forward: launches per shape {launched}, "
+                         f"expected the f32 forward's {sites}")
+  if not torch.isfinite(got).all():
+    raise AssertionError("fp8 forward: the card's output is not finite")
+  _within_spread("fp8 forward (L2, relative)", err, l2(spread, want), 1.0)
+  if not quantized > 0.01:
+    raise AssertionError(f"fp8 forward: not apart from f32: "
+                         f"{quantized.tolist()}")
+  return launched
+
+
+def _relaunched(rows, launched, units, per_key, shape_of):
+  """The rows of another path measured at the same shapes and batch, with
+  the launches of this path: (shape -> launches over ``units`` forwards or
+  steps). Fails where this path launched at a shape no row holds."""
+  by_shape = {shape_of(r): r for r in rows}
+  missing = set(launched) - set(by_shape)
+  if missing:
+    raise AssertionError(f"no kernel row holds the shapes {missing}")
+  return [dict(by_shape[s], launches=k, **{per_key: k / units})
+          for s, k in launched.items()]
+
+
 def _held(name, shape, got, want, tol):
   import torch
   torch.cuda.synchronize()
@@ -2095,6 +2619,41 @@ def main() -> int:
       "likelihood uncsnpp", phase_likelihood, "uncsnpp", UNCSNPP, u_workdir,
       u_sites, u_fir_sites, load_config(UNCSNPP, init_scale=0.1), u_params)
 
+  # phase 9: the legacy networks and the fp8 knob
+  t_legacy = time.perf_counter()
+  ddpm_t = [round(t * 999.0, 3) for t in (0.01, 0.15, 0.3, 0.45, 0.6,
+                                           0.75, 0.9, 0.99)]
+  legacy = {
+      "ddpm": phase("forward ddpm", phase_legacy_forward, "ddpm",
+                    legacy_config("ddpm"), ddpm_t),
+      "ncsn": phase("forward ncsn", phase_legacy_forward, "ncsn",
+                    legacy_config("ncsn"), list(range(LEGACY_BATCH))),
+      "ncsnv2_64": phase("forward ncsnv2_64", phase_legacy_forward,
+                         "ncsnv2_64", legacy_config("ncsnv2_64"),
+                         [0, 33, 66, 99, 132, 165, 198, 231])}
+  for name, size in LEGACY_HIRES:
+    phase(f"forward {name}", phase_legacy_forward, name,
+          legacy_config("ncsnv2_64", size, name=name), [0, 200],
+          size == 256)
+  phase("serve ddpm", phase_serve_legacy, "ddpm", legacy["ddpm"],
+        DDPM_SERVE_STEPS, DDPM_CHECK_STEPS)
+  phase("serve ncsnv2_64", phase_serve_legacy, "ncsnv2_64",
+        legacy["ncsnv2_64"], NCSNV2_SERVE_STEPS, NCSNV2_CHECK_STEPS)
+  for name in ("ddpm", "ncsnv2_64"):
+    phase(f"train step {name}", phase_train_step, name, legacy_config(name),
+          {}, {}, 1, legacy[name])
+  del legacy
+  shutil.rmtree(phase("train ddpm", phase_train, "ddpm", FLAGSHIP, {}, {},
+                      TRAIN_ITERS, True, legacy_flags("ddpm"))[-1],
+                ignore_errors=True)
+  phase("fp8 casts", phase_fp8_casts)
+  fp8_config = load_config(UNCSNPP, init_scale=0.1)
+  fp8_config.tpu.activation_dtype = "float8_e4m3"
+  fp8_fwd, fp8_bwd, fp8_steps = phase("fp8 train uncsnpp", phase_fp8_step,
+                                      fp8_config)
+  fp8_launched = phase("fp8 forward flagship", phase_fp8_forward, sites)
+  log(f"phases 9a-9f: {time.perf_counter() - t_legacy:.1f} s")
+
   gn_launched = collections.Counter(launched) + collections.Counter(
       u_launched)
   t0 = time.perf_counter()
@@ -2126,6 +2685,16 @@ def main() -> int:
       layouts["ffhq_1024"][1], 1, 1, "launches_per_forward")
   d_train_rows = kernels_fir(d_fwd, d_steps, d_batch, "launches_per_step")
   d_bwd_rows = kernels_fir_backward(d_bwd, d_steps, d_batch)
+  # the fp8 paths launch at shapes and batches rows above already time
+  fp8_gn_rows = _relaunched(gn_rows, fp8_launched, 1, "launches_per_forward",
+                            lambda r: tuple(r["shape_nhwc_o"][1:]))
+  fp8_fir_rows = _relaunched(
+      train_rows, fp8_fwd, fp8_steps, "launches_per_step",
+      lambda r: (r["kernel"][len("fir_"):-len("sample2")],
+                 *r["shape_nhwc"][1:]))
+  fp8_bwd_rows = _relaunched(
+      bwd_rows, fp8_bwd, fp8_steps, "launches_per_step",
+      lambda r: (r["launched_mode"], *r["shape_nhwc"][1:]))
   gn_jvp_rows = kernels_gn_jvp(
       collections.Counter(f_jvp) + collections.Counter(u_jvp),
       f_lik_evals + u_lik_evals)
@@ -2199,7 +2768,22 @@ def main() -> int:
                     d_step, "launches_per_step"),
       _kernel_entry("fir2_backward_deepest", fir_src,
                     "soft_truncation_tpu/ops/pallas/fir.py:212", d_bwd_rows,
-                    d_step, "launches_per_step")]
+                    d_step, "launches_per_step"),
+      _kernel_entry("gn_silu_conv3x3_fp8", gn_src,
+                    "soft_truncation_tpu/ops/pallas/gn_conv.py:74",
+                    fp8_gn_rows, f"one flagship eval forward at batch "
+                    f"{SERVE_BATCH} with tpu.activation_dtype float8_e4m3 "
+                    "(the fused sites unquantized)", "launches_per_forward"),
+      *(_kernel_entry(f"fir_{mode}sample2_fp8_train", fir_src, fir_fwd,
+                      [r for r in fp8_fir_rows
+                       if r["kernel"] == f"fir_{mode}sample2"],
+                      f"one UNCSN++ float8_e4m3 train step at batch "
+                      f"{TRAIN_BATCH}", "launches_per_step")
+        for mode in ("up", "down")),
+      _kernel_entry("fir2_backward_fp8", fir_src,
+                    "soft_truncation_tpu/ops/pallas/fir.py:212", fp8_bwd_rows,
+                    f"one UNCSN++ float8_e4m3 train step at batch "
+                    f"{TRAIN_BATCH}", "launches_per_step")]
   emit({"kernels": entries})
   for entry in entries:
     log(f"{entry['name']} ({entry['per']}): issued {entry['ms']:.4f} ms vs "

@@ -11,12 +11,14 @@ of the JAX package's 33 files, importing this module instead of the JAX
 one.
 
 The JAX package's ``tpu`` section is not carried, apart from
-``fid_resize``; no config file sets any of its knobs, and the port reads
-them so:
+``fid_resize`` and ``activation_dtype``; no config file sets any of its
+knobs, and the port reads them so:
   * ``mesh_shape``, ``donate_state``, ``steps_per_dispatch``,
     ``compilation_cache_dir``: no GPU meaning (one card, eager PyTorch);
-  * ``compute_dtype``, ``norm_dtype``, ``ema_dtype``, ``adam_mu_dtype``,
-    ``activation_dtype``: float32 only, their default;
+  * ``compute_dtype``, ``norm_dtype``, ``ema_dtype``, ``adam_mu_dtype``:
+    float32 only, their default;
+  * ``activation_dtype`` is carried and read: '' (off) or 'float8_e4m3'
+    (``ops/quant.py``; NCSN++'s convs store their inputs as e4m3);
   * ``remat`` / ``remat_policy``: activation checkpointing is not ported
     (ROADMAP.md, tooling item);
   * ``rng_impl`` / ``dropout_bits``: torch's generator, masks with
@@ -57,7 +59,8 @@ class Config(dict):
 
 # The values of soft_truncation_tpu/configs/base.py::_CIFAR10 for every key
 # the port reads; of the JAX package's ``tpu`` section only ``fid_resize``,
-# which the extractor of eval/inception.py reads.
+# which the extractor of eval/inception.py reads, and ``activation_dtype``,
+# which NCSN++ reads.
 _CIFAR10 = dict(
     training=dict(
         batch_size=128, n_iters=13000001, snapshot_freq=100000, log_freq=100,
@@ -87,7 +90,7 @@ _CIFAR10 = dict(
     optim=dict(
         weight_decay=0.0, optimizer="Adam", lr=2e-4, beta1=0.9, eps=1e-8,
         warmup=5000, grad_clip=1.0, num_micro_batch=1, amsgrad=False),
-    tpu=dict(fid_resize="host"),
+    tpu=dict(fid_resize="host", activation_dtype=""),
 )
 
 

@@ -15,12 +15,15 @@ Counterpart of ``soft_truncation_tpu/losses/losses.py``:
 - :func:`get_sde_loss_fn`: the continuous score-matching loss with the
   importance-sampling, likelihood (g^2) and default weightings and the
   reconstruction term with both decoders; per-example losses [B].
-- The discrete SMLD / DDPM losses arrive with ROADMAP.md Queue 1 item 4.
+- :func:`get_smld_loss_fn` / :func:`get_ddpm_loss_fn`: the discrete
+  (``training.continuous=False``) SMLD loss of a VE SDE, over the flipped
+  (descending) sigma grid, and DDPM loss of a VP SDE; per-example losses.
 
-Random draws go through ``draw(kind, shape)`` (kind 'uniform', 'normal' or
-'rademacher'), in the order JAX's keys make them: t's uniforms, z, then the
-reconstruction's z. :func:`make_draw` makes one from a ``torch.Generator``;
-tests hand in the numbers JAX draws.
+Random draws go through ``draw(kind, shape, high=None)`` (kind 'uniform',
+'normal', 'rademacher', or 'label': integers in [0, high)), in the order
+JAX's keys make them: t's uniforms, z, then the reconstruction's z; for the
+discrete losses the labels, then the noise. :func:`make_draw` makes one
+from a ``torch.Generator``; tests hand in the numbers JAX draws.
 """
 
 from __future__ import annotations
@@ -30,17 +33,21 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from ..models.score import get_score_fn
-from ..sde.core import SDE, batch_mul
+from ..models.score import get_model_fn, get_score_fn
+from ..sde.core import SDE, VESDE, VPSDE, batch_mul
 
-Draw = Callable[[str, tuple], torch.Tensor]
+Draw = Callable[..., torch.Tensor]
 
 
 def make_draw(generator: torch.Generator, device) -> Draw:
-  """``draw(kind, shape)``: uniforms, standard normals or Rademacher signs
-  (+-1 in f32) from ``generator`` on ``device``."""
+  """``draw(kind, shape, high=None)``: uniforms, standard normals,
+  Rademacher signs (+-1 in f32) or integer labels in [0, ``high``) (int64)
+  from ``generator`` on ``device``."""
 
-  def draw(kind: str, shape) -> torch.Tensor:
+  def draw(kind: str, shape, high: Optional[int] = None) -> torch.Tensor:
+    if kind == "label":
+      return torch.randint(0, high, shape, generator=generator,
+                           device=device)
     if kind == "uniform":
       return torch.rand(shape, generator=generator, device=device)
     if kind == "normal":
@@ -174,23 +181,26 @@ def discretized_gaussian_log_likelihood(x, means, log_scales):
 # ---------------------------------------------------------------------------
 
 
+def _reduce_op(config):
+  """The per-example reduction: the mean over the pixels, or half their
+  sum (``training.reduce_mean``)."""
+  if config.training.reduce_mean:
+    return lambda x: torch.mean(x, dim=-1)
+  return lambda x: 0.5 * torch.sum(x, dim=-1)
+
+
 def get_sde_loss_fn(config, sde: SDE, train: bool,
                     variance: str = "scoreflow") -> Callable:
   """Returns ``loss_fn(model, batch, t_min, importance_sampling, draw,
   generator=None)`` -> per-example losses [B]; ``generator`` feeds the
   network's dropout at train."""
-  if not config.training.continuous:
-    raise NotImplementedError("the discrete SMLD / DDPM losses arrive with "
-                              "ROADMAP.md Queue 1 item 4")
   if variance not in ("ddpm", "scoreflow"):
     raise ValueError(variance)
   reduce_mean = config.training.reduce_mean
   likelihood_weighting = config.training.likelihood_weighting
   reconstruction_loss = config.training.reconstruction_loss
   dequantization = config.data.dequantization
-
-  def reduce_op(x):
-    return torch.mean(x, dim=-1) if reduce_mean else 0.5 * torch.sum(x, dim=-1)
+  reduce_op = _reduce_op(config)
 
   def loss_fn(model, batch: torch.Tensor, t_min: torch.Tensor,
               importance_sampling: bool, draw: Draw,
@@ -246,5 +256,62 @@ def get_sde_loss_fn(config, sde: SDE, train: bool,
       losses = losses + recon
 
     return losses
+
+  return loss_fn
+
+
+# ---------------------------------------------------------------------------
+# Discrete SMLD / DDPM losses
+# ---------------------------------------------------------------------------
+
+
+def get_smld_loss_fn(config, vesde: VESDE, train: bool) -> Callable:
+  """Returns ``loss_fn(model, batch, draw, generator=None)`` -> the
+  per-example SMLD (NCSN) losses: a label per example, uniform over the N
+  noise levels of the flipped (descending) grid, the batch perturbed by
+  that sigma, and the squared error to -noise / sigma^2 weighted by
+  sigma^2. The network takes the integer labels."""
+  if not isinstance(vesde, VESDE):
+    raise ValueError("SMLD training only works for VESDEs.")
+  reduce_op = _reduce_op(config)
+
+  def loss_fn(model, batch: torch.Tensor, draw: Draw,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    b = batch.shape[0]
+    smld_sigmas = torch.flip(vesde.discrete_sigmas(batch.device), (0,))
+    labels = draw("label", (b,), vesde.N)
+    sigmas = smld_sigmas[labels]
+    noise = batch_mul(sigmas, draw("normal", tuple(batch.shape)))
+    score = get_model_fn(model, train=train, generator=generator)(
+        batch + noise, labels)
+    target = -batch_mul(1.0 / sigmas ** 2, noise)
+    sq = torch.square(score - target)
+    return reduce_op(sq.reshape(b, -1)) * sigmas ** 2
+
+  return loss_fn
+
+
+def get_ddpm_loss_fn(config, vpsde: VPSDE, train: bool) -> Callable:
+  """Returns ``loss_fn(model, batch, draw, generator=None)`` -> the
+  per-example DDPM losses: a label per example, uniform over the N steps,
+  the batch noised with that step's sqrt(alpha-bar), and the squared error
+  of the network's output to the noise."""
+  if not isinstance(vpsde, VPSDE):
+    raise ValueError("DDPM training only works for VPSDEs.")
+  reduce_op = _reduce_op(config)
+
+  def loss_fn(model, batch: torch.Tensor, draw: Draw,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    b = batch.shape[0]
+    labels = draw("label", (b,), vpsde.N)
+    sqrt_ac = vpsde.sqrt_alphas_cumprod(batch.device)
+    sqrt_1m = vpsde.sqrt_1m_alphas_cumprod(batch.device)
+    noise = draw("normal", tuple(batch.shape))
+    perturbed = (batch_mul(sqrt_ac[labels], batch)
+                 + batch_mul(sqrt_1m[labels], noise))
+    score = get_model_fn(model, train=train, generator=generator)(
+        perturbed, labels)
+    sq = torch.square(score - noise)
+    return reduce_op(sq.reshape(b, -1))
 
   return loss_fn

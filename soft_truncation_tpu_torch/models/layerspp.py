@@ -22,6 +22,12 @@ At train (``train=True``) nothing is fused: each block runs norm -> act ->
 (dropout) -> conv as plain torch ops, as the JAX package does, and its FIR
 resamples take gradients through ``ops.fir``'s adjoint. Dropout draws its
 mask from the ``generator`` passed down with the forward.
+
+``act_quant`` (``config.tpu.activation_dtype``) makes a block's convs
+``ops.quant.QConv``s, through ``layers.ddpm_conv``, where the JAX package
+passes it; a fused site ignores it there and here (JAX's
+``_gn_conv_eligible`` does not read it), so ``gn_silu_conv3x3`` runs
+unquantized at eval.
 """
 
 from __future__ import annotations
@@ -38,8 +44,8 @@ from ..ops import (conv_downsample_2d, downsample_2d, gn_silu_conv3x3,
                    upsample_2d, upsample_conv_2d)
 from ..ops.gn_conv import fits as gn_conv_fits
 from .dropout import Dropout
-from .layers import (NIN, DDPMConv, Dense, GroupNorm, default_init,
-                     spatial_attention)
+from .layers import (NIN, DDPMConv, Dense, GroupNorm, ddpm_conv,
+                     default_init, spatial_attention)
 
 
 # the JAX package's bound on a fused site's H * W * max(C, O)
@@ -138,12 +144,13 @@ class Combine(nn.Module):
   """Merge a progressive-input pyramid branch: 1x1-conv x, then cat or sum
   with y."""
 
-  def __init__(self, in_ch: int, out_ch: int, method: str = "cat"):
+  def __init__(self, in_ch: int, out_ch: int, method: str = "cat",
+               act_quant: Optional[str] = None):
     super().__init__()
     if method not in ("cat", "sum"):
       raise ValueError(f"combine method {method} not recognized")
     self.method = method
-    self.conv = DDPMConv(in_ch, out_ch, 1)
+    self.conv = ddpm_conv(in_ch, out_ch, 1, act_quant=act_quant)
 
   def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     h = self.conv(x)
@@ -189,7 +196,8 @@ class Resample(nn.Module):
 
   def __init__(self, mode: str, in_ch: int, out_ch: Optional[int] = None,
                with_conv: bool = False,
-               fir_kernel: Sequence[float] = (1, 3, 3, 1), fir: bool = True):
+               fir_kernel: Sequence[float] = (1, 3, 3, 1), fir: bool = True,
+               act_quant: Optional[str] = None):
     super().__init__()
     if mode not in ("up", "down"):
       raise ValueError(f"mode must be 'up' or 'down', got {mode!r}")
@@ -202,8 +210,9 @@ class Resample(nn.Module):
     elif fir:
       self.conv = ConvResample(mode, in_ch, out_ch, 3, fir_kernel)
     else:
-      self.conv = DDPMConv(in_ch, out_ch, 3,
-                           stride=2 if mode == "down" else 1)
+      self.conv = ddpm_conv(in_ch, out_ch, 3,
+                            stride=2 if mode == "down" else 1,
+                            act_quant=act_quant)
     self.last_fir_sites = []
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -229,18 +238,20 @@ class ResnetBlockDDPMpp(nn.Module):
 
   def __init__(self, act: Callable, in_ch: int, out_ch: Optional[int] = None,
                temb_dim: Optional[int] = None, dropout: float = 0.1,
-               skip_rescale: bool = False, init_scale: float = 0.0):
+               skip_rescale: bool = False, init_scale: float = 0.0,
+               act_quant: Optional[str] = None):
     super().__init__()
     out_ch = out_ch or in_ch
     self.act = act
     self.skip_rescale = skip_rescale
     self.norm0 = GroupNorm(_groups(in_ch), in_ch)
-    self.conv0 = DDPMConv(in_ch, out_ch, 3)
+    self.conv0 = ddpm_conv(in_ch, out_ch, 3, act_quant=act_quant)
     self.temb_proj = (Dense(temb_dim, out_ch) if temb_dim is not None
                       else None)
     self.norm1 = GroupNorm(_groups(out_ch), out_ch)
     self.dropout = Dropout(dropout)
-    self.conv1 = DDPMConv(out_ch, out_ch, 3, init_scale=init_scale)
+    self.conv1 = ddpm_conv(out_ch, out_ch, 3, init_scale=init_scale,
+                           act_quant=act_quant)
     self.shortcut = NIN(in_ch, out_ch) if in_ch != out_ch else None
     self.last_fused_sites = []
 
@@ -280,7 +291,8 @@ class ResnetBlockBigGANpp(nn.Module):
                temb_dim: Optional[int] = None, up: bool = False,
                down: bool = False, dropout: float = 0.1, fir: bool = False,
                fir_kernel: Sequence[float] = (1, 3, 3, 1),
-               skip_rescale: bool = True, init_scale: float = 0.0):
+               skip_rescale: bool = True, init_scale: float = 0.0,
+               act_quant: Optional[str] = None):
     super().__init__()
     out_ch = out_ch or in_ch
     self.act = act
@@ -288,13 +300,14 @@ class ResnetBlockBigGANpp(nn.Module):
     self.fir, self.fir_kernel = fir, tuple(fir_kernel)
     self.skip_rescale = skip_rescale
     self.norm0 = GroupNorm(_groups(in_ch), in_ch)
-    self.conv0 = DDPMConv(in_ch, out_ch, 3)
+    self.conv0 = ddpm_conv(in_ch, out_ch, 3, act_quant=act_quant)
     self.temb_proj = (Dense(temb_dim, out_ch) if temb_dim is not None
                       else None)
     self.norm1 = GroupNorm(_groups(out_ch), out_ch)
     self.dropout = Dropout(dropout)
-    self.conv1 = DDPMConv(out_ch, out_ch, 3, init_scale=init_scale)
-    self.shortcut = (DDPMConv(in_ch, out_ch, 1)
+    self.conv1 = ddpm_conv(out_ch, out_ch, 3, init_scale=init_scale,
+                           act_quant=act_quant)
+    self.shortcut = (ddpm_conv(in_ch, out_ch, 1, act_quant=act_quant)
                      if in_ch != out_ch or up or down else None)
     self.last_fused_sites = []
     self.last_fir_sites = []

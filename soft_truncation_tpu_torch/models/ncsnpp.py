@@ -19,6 +19,13 @@ mask comes from the ``generator`` passed to the forward, and no fused
 sites). As in JAX, without ``auxiliary_resblock`` a level's
 downsampling result is never read (JAX's compiler drops it; the port does
 not compute it), and attention follows each block's actual resolution.
+
+``config.tpu.activation_dtype = 'float8_e4m3'`` (``act_quant``) makes the
+convs JAX quantizes ``ops.quant.QConv`` (e4m3 input storage, e5m2
+cotangents): the stem, every res-block's conv0, conv1 and conv shortcut,
+the output pyramid's convs and ``out_conv``; not the resampling convs, the
+combine conv or the NIN / Dense layers, and not the fused eval sites,
+which run ``gn_silu_conv3x3`` unquantized as JAX's do.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ import torch
 import torch.nn as nn
 
 from . import layerspp
-from .layers import (DDPMConv, Dense, GroupNorm, get_act,
+from .layers import (Dense, GroupNorm, ddpm_conv, get_act,
                      get_timestep_embedding)
 from .registry import register_model
 
@@ -64,7 +71,7 @@ class NCSNpp(nn.Module):
                scale_by_sigma: bool = False, lsgm: bool = False,
                embedding_dim: int = 128, sigma_min: float = 0.01,
                sigma_max: float = 50.0, num_scales: int = 1000,
-               centered: bool = True):
+               centered: bool = True, act_quant: Optional[str] = None):
     super().__init__()
     if embedding_type not in ("fourier", "positional"):
       raise ValueError(f"unknown embedding_type {embedding_type!r}")
@@ -110,11 +117,13 @@ class NCSNpp(nn.Module):
       if self.ddpm_blocks:
         return layerspp.ResnetBlockDDPMpp(
             act, in_ch, out_ch, temb_dim=temb_dim, dropout=dropout,
-            skip_rescale=skip_rescale, init_scale=init_scale)
+            skip_rescale=skip_rescale, init_scale=init_scale,
+            act_quant=act_quant)
       return layerspp.ResnetBlockBigGANpp(
           act, in_ch, out_ch, temb_dim=temb_dim, up=up, down=down,
           dropout=dropout, fir=fir, fir_kernel=fir_kernel,
-          skip_rescale=skip_rescale, init_scale=init_scale)
+          skip_rescale=skip_rescale, init_scale=init_scale,
+          act_quant=act_quant)
 
     def attn_block(ch):
       return layerspp.AttnBlockpp(ch, skip_rescale=skip_rescale,
@@ -125,7 +134,8 @@ class NCSNpp(nn.Module):
                                fir_kernel=fir_kernel, fir=fir)
 
     # channel and resolution bookkeeping mirrors the Flax module's dataflow
-    self.stem = DDPMConv(num_channels * (5 if fourier_feature else 1), nf, 3)
+    self.stem = ddpm_conv(num_channels * (5 if fourier_feature else 1), nf, 3,
+                          act_quant=act_quant)
     hs = [(nf, image_size)]  # (channels, resolution) of each skip
     ch, res = nf, image_size
     pyr_ch = num_channels  # channels of the input pyramid
@@ -182,15 +192,17 @@ class NCSNpp(nn.Module):
         if i == self.num_resolutions - 1:
           out = num_channels if progressive == "output_skip" else ch
           self.add_module(f"pyr_norm_{i}", GroupNorm(min(ch // 4, 32), ch))
-          self.add_module(f"pyr_conv_{i}", DDPMConv(
+          self.add_module(f"pyr_conv_{i}", ddpm_conv(
               ch, out, 3,
-              init_scale=init_scale if progressive == "output_skip" else 1.0))
+              init_scale=init_scale if progressive == "output_skip" else 1.0,
+              act_quant=act_quant))
           pyr_ch = out
         elif progressive == "output_skip":
           self.add_module(f"pyr_us_{i}", resample("up", num_channels))
           self.add_module(f"pyr_norm_{i}", GroupNorm(min(ch // 4, 32), ch))
-          self.add_module(f"pyr_conv_{i}", DDPMConv(ch, num_channels, 3,
-                                                    init_scale=init_scale))
+          self.add_module(f"pyr_conv_{i}", ddpm_conv(
+              ch, num_channels, 3, init_scale=init_scale,
+              act_quant=act_quant))
         else:
           self.add_module(f"pyr_us_{i}", resample("up", pyr_ch, ch,
                                                   with_conv=True))
@@ -207,7 +219,8 @@ class NCSNpp(nn.Module):
 
     if progressive != "output_skip":
       self.out_norm = GroupNorm(min(ch // 4, 32), ch)
-      self.out_conv = DDPMConv(ch, num_channels, 3, init_scale=init_scale)
+      self.out_conv = ddpm_conv(ch, num_channels, 3, init_scale=init_scale,
+                                act_quant=act_quant)
 
   def reset_parameters(self, generator: Optional[torch.Generator] = None):
     """Draw every parameter from ``generator`` in module order."""
@@ -344,4 +357,5 @@ class NCSNpp(nn.Module):
         init_scale=m.init_scale, nonlinearity=m.nonlinearity,
         scale_by_sigma=m.scale_by_sigma, lsgm=m.get("lsgm", False),
         embedding_dim=m.get("embedding_dim", 128), sigma_min=m.sigma_min,
-        sigma_max=m.sigma_max, num_scales=m.num_scales, centered=d.centered)
+        sigma_max=m.sigma_max, num_scales=m.num_scales, centered=d.centered,
+        act_quant=config.get("tpu", {}).get("activation_dtype", "") or None)

@@ -24,15 +24,7 @@ def register_model(cls=None, *, name: str | None = None):
   return _register if cls is None else _register(cls)
 
 
-# the JAX package's legacy networks, not ported
-_LEGACY = ("ddpm", "ncsn", "ncsnv2_64", "ncsnv2_128", "ncsnv2_256")
-
-
 def get_model(name: str) -> type:
-  if name not in _MODELS and name in _LEGACY:
-    raise NotImplementedError(
-        f"model {name!r} arrives with ROADMAP.md Queue 1 item 4 (the legacy "
-        "models)")
   return _MODELS[name]
 
 

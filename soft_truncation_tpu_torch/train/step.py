@@ -9,9 +9,13 @@ back-propagated, so the gradients of the micro-batches' means are summed,
 as JAX sums them. The mixed variant scores the first half of each
 micro-batch with importance sampling and the second without, combined as
 ``l_is + ddpm_weight * l_dd`` (times ``stop_gradient(mean(l_is / l_dd))``
-when balanced). ``make_multi_train_step`` (K steps per dispatch) has no
-meaning without a dispatch cost to amortise: the port has none, and reads
-neither ``config.tpu.steps_per_dispatch`` nor ``donate_state``.
+when balanced). With ``training.continuous=False`` each micro-batch takes
+the discrete loss instead: SMLD for a VE SDE, DDPM for a VP SDE (any other
+raises, as does ``likelihood_weighting``); the ``t_min`` draw stays where
+JAX makes it (Soft-Truncation active), unread. ``make_multi_train_step``
+(K steps per dispatch) has no meaning without a dispatch cost to amortise:
+the port has none, and reads neither ``config.tpu.steps_per_dispatch`` nor
+``donate_state``.
 :func:`make_eval_loss_step` is the per-example eval loss.
 """
 
@@ -21,9 +25,10 @@ from typing import Callable, Optional
 
 import torch
 
-from ..losses.losses import Draw, get_sde_loss_fn, make_draw
+from ..losses.losses import (Draw, get_ddpm_loss_fn, get_sde_loss_fn,
+                             get_smld_loss_fn, make_draw)
 from ..models.ema import ema_update
-from ..sde.core import SDE, st_active_for
+from ..sde.core import SDE, VESDE, VPSDE, st_active_for
 from .state import TrainState
 
 
@@ -35,7 +40,8 @@ def make_train_step(config, sde: SDE) -> Callable:
   device) feeds the dropout masks and, unless ``draw`` is given, every
   other draw of the step, in the order JAX's keys make them: the ``t_min``
   uniform, then per micro-batch (and per half when mixed) t's uniforms,
-  z and the reconstruction's z."""
+  z and the reconstruction's z, or for the discrete losses the labels and
+  the noise."""
   num_micro = config.optim.num_micro_batch
   mixed = config.training.get("mixed", False)
   st = st_active_for(sde, config)
@@ -44,9 +50,24 @@ def make_train_step(config, sde: SDE) -> Callable:
   importance_sampling = config.training.importance_sampling
   ddpm_weight = config.training.get("ddpm_weight", 0.01)
   balanced = config.training.get("balanced", False)
-  loss_fn = get_sde_loss_fn(config, sde, train=True)
+  continuous = config.training.continuous
+  if continuous:
+    loss_fn = get_sde_loss_fn(config, sde, train=True)
+  else:
+    if config.training.likelihood_weighting:
+      raise ValueError("Likelihood weighting is not supported for original "
+                       "SMLD/DDPM training.")
+    if isinstance(sde, VESDE):
+      discrete_loss = get_smld_loss_fn(config, sde, train=True)
+    elif isinstance(sde, VPSDE):
+      discrete_loss = get_ddpm_loss_fn(config, sde, train=True)
+    else:
+      raise ValueError(f"Discrete training for {type(sde).__name__} is not "
+                       "recommended.")
 
   def micro_losses(model, mb, t_min, draw, generator):
+    if not continuous:
+      return discrete_loss(model, mb, draw, generator)
     if not mixed:
       return loss_fn(model, mb, t_min, importance_sampling, draw, generator)
     half = mb.shape[0] // 2

@@ -57,12 +57,23 @@ def _flatten(tree, prefix=()):
       yield prefix + (k,), v
 
 
+# leaves that keep their name, by their number of dimensions: InstanceNorm++
+# and VarianceNorm's affine vectors, LogSNR's scalar endpoints
+_KEPT = {"alpha": 1, "gamma": 1, "beta": 1, "gamma_min": 0, "gamma_gap": 0}
+# the ``batch_stats`` collection's running statistics -> torch's buffers
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
 def from_jax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
   """Map a Flax parameter tree (nested dict of arrays) to a state_dict.
 
-  conv ``kernel`` HWIO -> ``weight`` OIHW; Dense ``kernel`` (in, out) ->
-  ``weight`` (out, in); GroupNorm ``scale`` -> ``weight``; ``bias`` and the
-  Fourier embedding's ``W`` keep their names. A leaf of any other kind
+  conv ``kernel`` HWIO -> ``weight`` OIHW; Dense (and PosDense) ``kernel``
+  (in, out) -> ``weight`` (out, in); GroupNorm ``scale`` -> ``weight``;
+  ``embed/embedding`` -> ``embed.weight`` (the same rows); ``bias``, the
+  Fourier embedding's ``W``, the norms' ``alpha`` / ``gamma`` / ``beta``
+  and LogSNR's ``gamma_min`` / ``gamma_gap`` keep their names. The
+  ``batch_stats`` collection's tree maps the same way, its ``mean`` /
+  ``var`` onto ``running_mean`` / ``running_var``. A leaf of any other kind
   raises; load the result with ``model.load_state_dict(sd)`` (strict),
   which raises on any port parameter left unset or any leaf without one.
   """
@@ -76,6 +87,12 @@ def from_jax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
       a, name = a.T, "weight"
     elif name == "scale" and a.ndim == 1:
       name = "weight"
+    elif name == "embedding" and a.ndim == 2 and mods[-1:] == ["embed"]:
+      name = "weight"
+    elif name in _STATS and a.ndim == 1:
+      name = _STATS[name]
+    elif _KEPT.get(name) == a.ndim:
+      pass
     elif name not in ("bias", "W"):
       raise ValueError(f"no port parameter for leaf {'/'.join(path)} "
                        f"of shape {a.shape}")

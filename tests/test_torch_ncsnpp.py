@@ -159,13 +159,13 @@ def test_block_matches_jax(kind):
 
 
 def test_out_of_slice_options_raise():
-  """Every NCSN++ option builds now; what is still out of the port (the
-  legacy networks, the discrete losses, Picard) raises, naming its
-  ROADMAP.md item."""
-  from soft_truncation_tpu_torch.losses import get_sde_loss_fn
-  from soft_truncation_tpu_torch.models import create_model
+  """Every NCSN++ option builds, and so do the legacy networks and the
+  discrete losses (slice 6b); what is still out of the port (Picard)
+  raises, naming its ROADMAP.md item."""
+  from soft_truncation_tpu_torch.models import create_model, ddpm
   from soft_truncation_tpu_torch.sample.sampling import get_sampling_fn
   from soft_truncation_tpu_torch.sde import get_sde
+  from soft_truncation_tpu_torch.train import make_train_step
   for section, key, value in (("model", "fourier_feature", True),
                               ("model", "resblock_type", "ddpm"),
                               ("model", "progressive", "output_skip"),
@@ -175,13 +175,11 @@ def test_out_of_slice_options_raise():
     pc[section][key] = value
     create_model(pc, "cpu")
   _, pc = torch_tiny.configs()
-  pc.model.name = "ddpm"
-  with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
-    create_model(pc, "cpu")
+  pc.model.update(name="ddpm", nf=32)
+  assert isinstance(create_model(pc, "cpu"), ddpm.DDPM)
   _, pc = torch_tiny.configs()
-  pc.training.continuous = False
-  with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
-    get_sde_loss_fn(pc, get_sde(pc), train=True)
+  pc.training.update(continuous=False, likelihood_weighting=False)
+  make_train_step(pc, get_sde(pc))  # the discrete DDPM loss of a VP SDE
   pc.sampling.method = "picard"
   with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
     get_sampling_fn(pc, get_sde(pc), torch_tiny.SHAPE, lambda x: x, 1e-3)
