@@ -150,11 +150,12 @@ Phases; any failure exits non-zero before the last line is printed:
      values of its public config in yang-song/score_sde_pytorch
      (``LEGACY``), the zero-init convs given N(0, 0.02) weights:
   9a. forwards card vs CPU within FORWARD_REL_TOL with ms per forward:
-     DDPM, NCSN and NCSNv2-64 at 32^2, batch 8; NCSNv2-128 at 128^2 and
-     NCSNv2-256 at 256^2, batch 2 (the layouts only they reach), and a
-     trace of NCSNv2-256's forward (as in phase 5b);
-  9b. serving, counted the same way: DDPM ('pc', ancestral sampling) at the
-     published N=1000 and NCSNv2 ('pc', annealed Langevin) at N=232 x 5, at
+     DDPM, NCSN and NCSNv2-64 at 32^2, batch 8; NCSNv2-128 at 128^2,
+     batch 2, and NCSNv2-256 at 256^2, batch 1 (the layouts only they
+     reach), and a trace of NCSNv2-256's forward (as in phase 5b);
+  9b. serving, counted the same way: DDPM ('pc', ancestral sampling) at
+     N=DDPM_SERVE_STEPS and NCSNv2 ('pc', annealed Langevin) at
+     N=NCSNV2_SERVE_STEPS x 5 (a quarter of the published 1000 and 232), at
      batch 8, once each through the HTTP server: the wall and the network
      evaluations (a forward hook); then at N=25 (DDPM: the VP grid's betas
      pass 1 below N=21) and N=3, batch 2, twice, against a CPU
@@ -179,6 +180,39 @@ Phases; any failure exits non-zero before the last line is printed:
      gn_silu_conv3x3 launches at the f32 forward's shapes (unquantized, as
      in JAX), card vs CPU in L2 within the CPU's spread as above, and
      apart from f32.
+  10. slice 6c (after 9f), each counted as the main paths are:
+  10a. Picard on the flagship (phase-3 weights): 'picard_dpm' at the
+     config's N = 50 DPM steps in one window (each sweep one network call
+     at batch 400) at tol 0 against the sequential 'dpm_solver' from the
+     same prior (within PICARD_FLAGSHIP_REL_TOL of max |x|), at tol
+     PICARD_TOL with its sweeps, nfe, ms per sweep and wall against the
+     sequential wall, then served over HTTP twice per seed at
+     PICARD_SERVED_STEPS steps (the same bytes); 82 gn_silu_conv3x3 launches per network call, at batch 400 as
+     at 8;
+  10b. Picard on UNCSN++ (phase-3 weights): 'picard' at tol 0 on a chain
+     cut to N = PICARD_UNCSNPP_STEPS (of 1,000: tol 0 costs up to W x the
+     sequential evaluations), window 8, against the sequential 'pc' from
+     the same prior and noise generator, within PICARD_UNCSNPP_REL_TOL of
+     max |x|; launches per sweep 2 x (82 + 12);
+  10c. DDP: one step of the flagship's CLI trainer at the global batch 128
+     (no warmup), alone, on two gloo ranks of 64 on the card (``python -m
+     torch.distributed.run --nproc_per_node 2``) and on one NCCL rank: the
+     gradients and the parameters' moves held to phase 6's bars, the
+     errors against DDP_REL_TOL of each tensor's largest beside them; then
+     steps 0..DDP_TIMED_ITERS on the two ranks, the host's ms per step
+     from the log;
+  10d. the profiler: the CLI trainer on UNCSN++ (batch 128), steps 0..11
+     with ``--config.tpu.profile_dir``: the trace of step 10 names 24 fir2
+     launches (12 forward, 12 adjoint) and the adjoint's autograd node;
+  10e. remat: the flagship's step at batch 128 with tpu.remat off, 'full'
+     and 'conv_outputs' (dropout 0.1): the same losses, gradients within
+     1e-5, the same generator state; ms per step and peak memory;
+  10f. FFHQ 1024^2 trained by the CLI trainer with tpu.remat at batch 16
+     (steps 0..3): finite losses, ms per step, peak memory, fir2 launches
+     forward (the recompute's included) and adjoint per shape; then one
+     step without remat, or its out-of-memory error;
+     and phase 8 gains rows for gn_silu_conv3x3 at batch 400 and 64 and
+     fir2 at 64 (Picard), fir2 and its adjoint at FFHQ's shapes, batch 16.
 Imports torch and the port only, never jax or the JAX package.
 """
 
@@ -191,6 +225,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -223,7 +258,7 @@ PC_PUBLISHED_STEPS = 1000  # model.num_scales of ve/CIFAR10/uncsnpp_st.py
 TRAIN_BATCH = 128        # training.batch_size of both configs
 TRAIN_CHECK_BATCH = 2    # phase 6
 TRAIN_ITERS = 5          # phase 7: steps 0..5, then a resume to 7
-TRACE_FORWARDS = 5       # phase 5b: calls traced per model and kind
+TRACE_FORWARDS = 3       # phase 5b: calls traced per model and kind
 # the adjoint's launches of one UNCSN++ train step: (launched mode, H, W, C)
 # of each cotangent -> count (the backward of an up site launches down)
 UNCSNPP_FIR_BWD_SITES = {("up", 16, 16, 128): 2, ("up", 8, 8, 256): 2,
@@ -314,8 +349,10 @@ LEGACY = {
 LEGACY_BATCH = 8            # phases 9a, 9b: the 32^2 forwards and serving
 # phase 9a at batch 2: the layouts only the high-resolution v2 nets reach
 LEGACY_HIRES = (("ncsnv2_128", 128), ("ncsnv2_256", 256))
-DDPM_SERVE_STEPS = 1000     # phase 9b: N as published
-NCSNV2_SERVE_STEPS = 232
+# phase 9b: N cut to a quarter of the published 1000 and 232 (for the time
+# of phase 10; the wall per evaluation is what the phase reads)
+DDPM_SERVE_STEPS = 250
+NCSNV2_SERVE_STEPS = 58
 # card vs CPU: NCSNv2 at N=3; ancestral sampling on the VP grid needs
 # beta_max / N < 1 (sqrt(1 - beta)), so DDPM at the least N above 20
 DDPM_CHECK_STEPS, NCSNV2_CHECK_STEPS = 25, 3
@@ -335,6 +372,25 @@ FP8_STEPS = 5               # phase 9f: timed steps per run at batch 128
 FP8_PERTURB = 1e-6
 FP8_SPREAD = 3.0
 FP8_FLOOR = 1e-5
+# slice 6c (phases 10a-10f)
+PICARD_TOL = 1e-3           # 10a: the base config's sampling.picard_tol
+PICARD_FLAGSHIP_REL_TOL = 1e-4  # 10a: tol = 0 vs sequential, of max |x|
+PICARD_SERVED_STEPS = 10    # 10a: the served request's dpm_steps
+# 10b: UNCSN++ 'picard' at tol = 0 on a chain cut from N = 1000 to 32 steps
+# (tol = 0 costs up to W x the sequential evaluations), window 8
+PICARD_UNCSNPP_STEPS, PICARD_UNCSNPP_WINDOW = 32, 8
+PICARD_UNCSNPP_REL_TOL = 1e-3
+# 10c: the flagship's CLI trainer at the global batch 128, one step alone,
+# on two gloo ranks (64 each) and on one NCCL rank, held to phase 6's bars
+# (phase_ddp says why), the errors against DDP_REL_TOL of each tensor's
+# largest reported beside them; then steps 0..DDP_TIMED_ITERS on the ranks
+DDP_TIMED_ITERS = 3
+DDP_REL_TOL = 1e-5
+PROFILE_ITERS = 11          # 10d: steps 0..11, the eleventh (10) traced
+FFHQ = os.path.join(CONFIGS, "ve", "ffhq_1024_uncsn.py")
+FFHQ_BATCH = 16             # 10f: training.batch_size of ffhq_1024_uncsn.py
+FFHQ_TRAIN_ITERS = 3        # 10f: steps 0..3 with tpu.remat
+REMAT_STEPS = 3             # 10e: steps per policy, the first compared
 
 
 def log(msg):
@@ -1010,16 +1066,14 @@ def _timed_steps(make_train_step, events):
 
 
 def phase_train(name, path, fir_per_step, fir_bwd_per_step,
-                iters=TRAIN_ITERS, resume=True, flags=()):
+                iters=TRAIN_ITERS, resume=True, flags=(), batch=TRAIN_BATCH):
   """The third main path: the CLI trainer on a published config, batch 128,
   Synthetic data, steps 0..``iters``, then (``resume``) a resume. ``flags``:
-  more ``--config.*`` arguments. Returns the steps run, the fir2 launches
+  more ``--config.*`` arguments; ``batch``: the config's training batch,
+  for imgs/s. Returns the steps run, the fir2 launches
   per shape (forward and backward), the batch every one of them ran at
   (the mixed loss runs the network once per half of a micro-batch) and
   the workdir, which the likelihood phase evaluates and then removes."""
-  import re
-  import shutil
-
   import torch
   from soft_truncation_tpu_torch import main as port_main
   from soft_truncation_tpu_torch import run_lib
@@ -1069,9 +1123,9 @@ def phase_train(name, path, fir_per_step, fir_bwd_per_step,
   for groups in logged:
     log(f"train {name}: step {groups[0]} loss mean {groups[1]} std "
         f"{groups[2]} ({groups[3]} steps/s, {groups[4]} imgs/s)")
-  summary = {"train": name, "batch": TRAIN_BATCH, "flags": list(flags),
+  summary = {"train": name, "batch": batch, "flags": list(flags),
              "steps": steps,
-             "ms_per_step": ms_step, "imgs_per_s": TRAIN_BATCH / ms_step * 1e3,
+             "ms_per_step": ms_step, "imgs_per_s": batch / ms_step * 1e3,
              "ms_each_step": ms, "peak_memory_bytes": peak,
              "fir2_forward_launches": sum(fir_fwd.values()),
              "fir2_backward_launches": sum(fir_bwd.values()),
@@ -2108,6 +2162,481 @@ def phase_fp8_forward(sites):
   return launched
 
 
+# --- slice 6c: Picard, DDP, the profiler, remat, FFHQ 1024^2 (phase 10) ------
+
+
+def _timed_call(fn):
+  """``fn()`` and its wall in seconds, between two synchronisations."""
+  import torch
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  out = fn()
+  torch.cuda.synchronize()
+  return out, time.perf_counter() - t0
+
+
+def _check_launches(name, calls, sites, fir_sites):
+  """Each kernel launched once per site per network call, every call at
+  its shapes: the fused sites of the batch-8 forward fuse at W*B too."""
+  launched, fir_launched = _launch_counts()
+  want = {s: k * calls for s, k in sites.items()}
+  want_fir = {s: k * calls for s, k in fir_sites.items()}
+  if launched != want or fir_launched != want_fir:
+    raise AssertionError(f"{name}: launches per shape gn_silu_conv3x3 "
+                         f"{launched}, fir2 {fir_launched}; expected the "
+                         f"sites x {calls} network calls: {want}, "
+                         f"{want_fir}")
+  return launched, fir_launched
+
+
+def phase_picard_flagship(sites, params):
+  """10a: 'picard_dpm' on the flagship (phase-3 weights) at its DPM steps
+  N, window N (one block): each sweep one network call at batch N * 8.
+  tol = 0 against the sequential 'dpm_solver' from the same prior; tol =
+  PICARD_TOL with its sweeps, nfe and wall against the sequential wall;
+  then served over HTTP twice per seed (PICARD_SERVED_STEPS steps). Returns the fused launches made at
+  batch N * 8 and the network calls that made them, and N * 8."""
+  import copy
+
+  import torch
+  from soft_truncation_tpu_torch.data import get_data_inverse_scaler
+  from soft_truncation_tpu_torch.sample import get_sampling_fn
+  from soft_truncation_tpu_torch.serve.server import SamplingService
+
+  config = load_config(FLAGSHIP, init_scale=0.1)
+  config.sampling.picard_window = 0  # one block, served too
+  service = SamplingService(config, params, batch=SERVE_BATCH, device=DEVICE)
+  steps = config.sampling.dpm_steps
+  prior = service.prior(0, 0)
+  sequential = service.sampler("dpm_solver", steps)
+
+  def picard(tol, max_sweeps=0):
+    c = copy.deepcopy(config)
+    c.sampling.update(method="picard_dpm", picard_tol=tol, picard_window=0,
+                      picard_max_sweeps=max_sweeps)
+    return get_sampling_fn(c, service.sde, service.shape,
+                           get_data_inverse_scaler(c),
+                           c.sampling.truncation_time)
+
+  sequential(service.model, x=prior)  # warm-up
+  (want, seq_nfe), seq_wall = _timed_call(
+      lambda: sequential(service.model, x=prior))
+  exact, fast = picard(0.0), picard(PICARD_TOL)
+  picard(0.0, max_sweeps=1)(service.model, x=prior)  # warm-up at N * 8
+  rows = {}
+  for tol, fn in ((0.0, exact), (PICARD_TOL, fast)):
+    _reset_launch_counts()
+    (got, nfe), wall = _timed_call(lambda: fn(service.model, x=prior))
+    sweeps = fn.last_sweeps
+    _check_launches(f"picard_dpm tol {tol}", sweeps + 1, sites, {})
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    row = {"picard": "flagship", "method": "picard_dpm", "tol": tol,
+           "steps": steps, "window": steps, "batch": SERVE_BATCH,
+           "network_batch": steps * SERVE_BATCH, "sweeps": sweeps, "nfe": nfe,
+           "wall_s": wall, "ms_per_sweep": wall / sweeps * 1e3,
+           "sequential_nfe": seq_nfe, "sequential_wall_s": seq_wall,
+           "speedup_over_sequential": seq_wall / wall,
+           "max_abs_diff_vs_sequential": err, "max_abs_sequential": scale}
+    emit(row)
+    rows[tol] = row
+    if not torch.isfinite(got).all():
+      raise AssertionError(f"picard_dpm tol {tol}: samples not finite")
+  if not (rows[0.0]["max_abs_diff_vs_sequential"]
+          <= PICARD_FLAGSHIP_REL_TOL * rows[0.0]["max_abs_sequential"]):
+    raise AssertionError(f"picard_dpm at tol 0 is not the sequential "
+                         f"sample: {rows[0.0]}")
+  if rows[0.0]["nfe"] != rows[0.0]["sweeps"] * steps + 1:
+    raise AssertionError(f"picard_dpm nfe {rows[0.0]['nfe']} is not sweeps "
+                         f"x N + 1")
+  _reset_launch_counts()
+  req = {"num": SERVE_BATCH, "seed": 5, "method": "picard_dpm",
+         "dpm_steps": PICARD_SERVED_STEPS}
+  _serving(service, lambda url: _serve_requests(url, [req], config))
+  served_sweeps = service.sampler("picard_dpm",
+                                  PICARD_SERVED_STEPS).last_sweeps
+  _check_launches("picard_dpm served", 2 * (served_sweeps + 1), sites, {})
+  calls = rows[0.0]["sweeps"] + rows[PICARD_TOL]["sweeps"]
+  return {s: k * calls for s, k in sites.items()}, calls, steps * SERVE_BATCH
+
+
+def phase_picard_uncsnpp(sites, fir_sites, params):
+  """10b: 'picard' on UNCSN++ (phase-3 weights; reverse diffusion and
+  Langevin, RVE) at tol = 0 on a chain cut to N = PICARD_UNCSNPP_STEPS,
+  window PICARD_UNCSNPP_WINDOW, against the sequential 'pc' from the same
+  prior and noise generator: each sweep two network calls at batch W * 8,
+  each launching gn_silu_conv3x3 at every fused site and fir2 at every FIR
+  site. Returns both kernels' launches at batch W * 8, the calls and W * 8."""
+  import torch
+  from soft_truncation_tpu_torch.serve.server import SamplingService
+
+  config = load_config(UNCSNPP, init_scale=0.1,
+                       num_scales=PICARD_UNCSNPP_STEPS)
+  config.sampling.update(picard_window=PICARD_UNCSNPP_WINDOW, picard_tol=0.0)
+  service = SamplingService(config, params, batch=SERVE_BATCH, device=DEVICE)
+  prior = service.prior(0, 0)
+  sequential = service.sampler("pc", None)
+  picard = service.sampler("picard", None)
+  (want, seq_nfe), seq_wall = _timed_call(
+      lambda: sequential(service.model, service.noise(0, 0), x=prior))
+  _reset_launch_counts()
+  (got, nfe), wall = _timed_call(
+      lambda: picard(service.model, service.noise(0, 0), x=prior))
+  sweeps = picard.last_sweeps
+  calls = 2 * sweeps  # the corrector's and the predictor's evaluation
+  launched, fir_launched = _check_launches("picard uncsnpp", calls + 1,
+                                           sites, fir_sites)
+  err = (got - want).abs().max().item()
+  scale = want.abs().max().item()
+  row = {"picard": "uncsnpp", "method": "picard", "tol": 0.0,
+         "steps": PICARD_UNCSNPP_STEPS, "published_steps": PC_PUBLISHED_STEPS,
+         "window": PICARD_UNCSNPP_WINDOW, "batch": SERVE_BATCH,
+         "network_batch": PICARD_UNCSNPP_WINDOW * SERVE_BATCH,
+         "sweeps": sweeps, "nfe": nfe, "wall_s": wall,
+         "ms_per_sweep": wall / sweeps * 1e3, "sequential_nfe": seq_nfe,
+         "sequential_wall_s": seq_wall,
+         "gn_silu_conv3x3_launches_per_sweep":
+             2 * sum(sites.values()),
+         "fir2_launches_per_sweep": 2 * sum(fir_sites.values()),
+         "fused_sites": sum(sites.values()),
+         "fir_sites": sum(fir_sites.values()),
+         "max_abs_diff_vs_sequential": err, "max_abs_sequential": scale}
+  emit(row)
+  if not (torch.isfinite(got).all() and err <= PICARD_UNCSNPP_REL_TOL * scale):
+    raise AssertionError(f"picard at tol 0 is not the sequential 'pc' "
+                         f"sample: {err} vs {scale}")
+  if nfe != sweeps * PICARD_UNCSNPP_WINDOW * 2:
+    raise AssertionError(f"picard nfe {nfe} is not sweeps x W x 2")
+  return ({s: k * calls for s, k in sites.items()},
+          {s: k * calls for s, k in fir_sites.items()}, calls,
+          PICARD_UNCSNPP_WINDOW * SERVE_BATCH)
+
+
+def _ddp_runs(specs):
+  """The flagship's CLI trainer under each ``(name, launcher, flags)`` of
+  ``specs`` (a command prefix and its ``--config.*`` arguments), each in
+  its own workdir, all at once; returns name -> (workdir, wall, output).
+  The processes are waited for, and killed if they outlive the phase."""
+  env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+             + os.environ.get("PYTHONPATH", ""))
+  procs = {}
+  try:
+    for name, launcher, flags in specs:
+      workdir = os.path.join(REPO, "build", "chip_smoke_ddp", name)
+      shutil.rmtree(workdir, ignore_errors=True)
+      cmd = launcher + ["soft_truncation_tpu_torch.main", "--config",
+                        FLAGSHIP, "--workdir", workdir, "--mode", "train",
+                        *flags]
+      procs[name] = (workdir, time.perf_counter(), subprocess.Popen(
+          cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+          stderr=subprocess.STDOUT, text=True))
+    out = {}
+    for name, (workdir, t0, proc) in procs.items():
+      output = proc.communicate(timeout=900)[0]
+      out[name] = (workdir, time.perf_counter() - t0, output)
+      if proc.returncode != 0:
+        raise AssertionError(f"ddp {name}: exit {proc.returncode}\n"
+                             f"{output[-3000:]}")
+    return out
+  finally:
+    for _, _, proc in procs.values():
+      if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def phase_ddp(extra_flags=()):
+  """10c: data parallelism. The flagship's CLI trainer (as published but
+  for no warmup, so that the step moves the parameters, and init_scale
+  0.1, so that every conv carries signal, as in phase 6) at the global
+  batch 128 on Synthetic data, one step: alone; on two gloo ranks of 64 on
+  the one card (``torch.distributed.run --nproc_per_node 2``; NCCL refuses
+  two ranks on one device, so the port picks gloo); on one NCCL rank
+  (world size 1). Each launched run's step against the lone run's, held
+  to phase 6's bars for the same step in another reduction order (the
+  ranks' batch sums are reassociated, and cuDNN picks its algorithms by
+  batch): the gradients (Adam's first moment) within FORWARD_REL_TOL of
+  each tensor's largest, and each parameter's move (and the EMA's) within
+  PARAM_MOVE_TOL x lr where the gradient is above FORWARD_REL_TOL of that
+  largest (Adam's first update lr * g / (|g| + eps) turns a near-zero
+  gradient's rounding into a move of up to lr). Beside them the row gives
+  the errors against DDP_REL_TOL of each tensor's largest, the bar asked
+  for first (not met on the card: ``PERF.md``). Then the two gloo ranks
+  for steps 0..DDP_TIMED_ITERS: the host's ms per step after the first,
+  from the  log. ``extra_flags``: more ``--config.*`` arguments (a rehearsal's
+  cuts)."""
+  import torch
+
+  flags = ["--config.data.dataset", "Synthetic", *extra_flags,
+           "--config.model.init_scale", "0.1",
+           "--config.training.log_freq", "1",
+           "--config.training.snapshot_freq", "1000000",
+           "--config.training.snapshot_freq_for_preemption", "1000000",
+           "--config.optim.warmup", "0"]
+  if DEVICE == "cpu":  # a run on the host, without the card
+    flags.append("--cpu")
+  one_step = flags + ["--config.training.n_iters", "0"]
+  run = [sys.executable, "-m"]
+  torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone"]
+  gloo_2 = torchrun + ["--nproc_per_node", "2", "-m"]
+  # the three one-step runs side by side (~35 GB of the card), then the
+  # timed run alone
+  runs = _ddp_runs([("alone", run, one_step), ("gloo_2", gloo_2, one_step),
+                    ("nccl_1", torchrun + ["--nproc_per_node", "1", "-m"],
+                     one_step)])
+  runs.update(_ddp_runs([("gloo_2_timed", gloo_2, flags + [
+      "--config.training.n_iters", str(DDP_TIMED_ITERS)])]))
+  line = re.compile(r"step: (\d+), training loss mean: (\S+), .*\((\S+) "
+                    r"steps/s")
+
+  def logged(name):
+    with open(os.path.join(runs[name][0], "stdout.txt")) as f:
+      return [m.groups() for m in map(line.search, f) if m]
+
+  def state(name):
+    path = os.path.join(runs[name][0], "checkpoints", "checkpoint_0")
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+  want = state("alone")
+  want_mu = want["optimizer"]["mu"]
+  floor = 1e-6 * max(m.abs().max().item() for m in want_mu)
+  names = list(want["model"])
+  lr = load_config(FLAGSHIP).optim.lr
+  # on the host (a rehearsal) every process group is gloo's
+  for name, backend in (("gloo_2", "gloo"),
+                        ("nccl_1", "nccl" if DEVICE == "cuda" else "gloo")):
+    got = state(name)
+    output = runs[name][2]
+    if f"process group: {backend}" not in output:
+      raise AssertionError(f"ddp {name}: no '{backend}' process group in "
+                           f"its log:\n{output[-2000:]}")
+    grad_err = move_err = param_rel_err = 0.0
+    kept = 0
+    for i, (m_got, m_want) in enumerate(zip(got["optimizer"]["mu"], want_mu)):
+      # each tensor's largest gradient, floored at 1e-6 of the largest of
+      # all (the attention's key biases take none: theirs is rounding)
+      g_scale = max(m_want.abs().max().item(), floor)
+      grad_err = max(grad_err, (m_got - m_want).abs().max().item() / g_scale)
+      keep = m_want.abs() > FORWARD_REL_TOL * g_scale
+      kept += int(keep.sum())
+      for part in ("model", "ema"):
+        w, g = want[part][names[i]], got[part][names[i]]
+        if keep.any():
+          diff = (g - w)[keep].abs().max().item()
+          move_err = max(move_err, diff)
+          param_rel_err = max(param_rel_err,
+                              diff / max(w.abs().max().item(), 1e-30))
+    row = {"ddp": name, "backend": backend, "global_batch": TRAIN_BATCH,
+           "ranks": 2 if name == "gloo_2" else 1, "steps": 1,
+           "grad_max_rel_err": grad_err, "move_max_abs_err": move_err,
+           "move_max_err_in_lr": move_err / lr,
+           "param_max_rel_err": param_rel_err, "first_bar": DDP_REL_TOL,
+           "params_held": kept,
+           "params": sum(m.numel() for m in want_mu),
+           "loss_vs_alone": [float(logged(name)[0][1]),
+                             float(logged("alone")[0][1])],
+           "run_wall_s": runs[name][1], "alone_run_wall_s": runs["alone"][1]}
+    emit(row)
+    if (got["step"] != want["step"] or not grad_err <= FORWARD_REL_TOL
+        or not move_err <= PARAM_MOVE_TOL * lr):
+      raise AssertionError(f"ddp {name}: step {got['step']} vs "
+                           f"{want['step']}, gradients within {grad_err} of "
+                           f"each tensor's max (bar {FORWARD_REL_TOL}), "
+                           f"moves within {move_err / lr} lr (bar "
+                           f"{PARAM_MOVE_TOL} lr)")
+  # the log's steps/s: the host's clock per step (each log line gathers
+  # the ranks' losses and reads them back, a synchronisation)
+  timed = logged("gloo_2_timed")
+  emit({"ddp": "gloo_2_timed", "backend": "gloo", "ranks": 2,
+        "global_batch": TRAIN_BATCH, "steps": len(timed),
+        "host_ms_per_step_after_the_first":
+            [1e3 / float(g[2]) for g in timed[1:]],
+        "run_wall_s": runs["gloo_2_timed"][1]})
+  if len(timed) != DDP_TIMED_ITERS + 1 or not all(
+      math.isfinite(float(g[1])) for g in timed):
+    raise AssertionError(f"ddp gloo_2_timed: logged {timed}")
+  shutil.rmtree(os.path.join(REPO, "build", "chip_smoke_ddp"),
+                ignore_errors=True)
+
+
+def phase_profile():
+  """10d: the CLI trainer on UNCSN++ as published (batch 128), steps
+  0..PROFILE_ITERS with ``--config.tpu.profile_dir``: the trace of the
+  eleventh step is written and names fir2's kernels, forward and adjoint
+  (12 + 12 launches in the step), and the adjoint's autograd node.
+  Training runs no fused site (eval only)."""
+  trace_dir = os.path.join(REPO, "build", "chip_smoke_trace")
+  shutil.rmtree(trace_dir, ignore_errors=True)
+  steps, fwd, bwd, batch, workdir = phase_train(
+      "uncsnpp_profiled", UNCSNPP, UNCSNPP_FIR_SITES, UNCSNPP_FIR_BWD_SITES,
+      PROFILE_ITERS, False, ("--config.tpu.profile_dir", trace_dir))
+  shutil.rmtree(workdir, ignore_errors=True)
+  path = os.path.join(trace_dir, "trace.json")
+  with open(path) as f:
+    events = json.load(f)["traceEvents"]
+  kernels = collections.Counter(
+      e["name"] for e in events if e.get("cat") == "kernel"
+      and any(k in e.get("name", "") for k in ("fir2_", "gn_silu_conv3x3",
+                                               "splitk_reduce")))
+  nodes = sum(1 for e in events if "_Fir2Backward" in e.get("name", ""))
+  fir_events = sum(k for n, k in kernels.items() if "fir2_" in n)
+  want = sum(UNCSNPP_FIR_SITES.values()) + sum(
+      UNCSNPP_FIR_BWD_SITES.values())
+  emit({"profile": "uncsnpp train", "trace": os.path.relpath(path, REPO),
+        "trace_bytes": os.path.getsize(path), "traced_steps": 1,
+        "hand_written_kernel_events": dict(kernels),
+        "fir2_backward_nodes": nodes})
+  shutil.rmtree(trace_dir, ignore_errors=True)
+  if fir_events != want or nodes < sum(UNCSNPP_FIR_BWD_SITES.values()):
+    raise AssertionError(f"profile: the trace names {dict(kernels)} and "
+                         f"{nodes} _Fir2Backward nodes; expected {want} fir2 "
+                         f"launches (12 forward, 12 adjoint) and 12 nodes")
+  if any("gn_silu" in n or "splitk" in n for n in kernels):
+    raise AssertionError("profile: a fused site ran in training")
+
+
+def phase_remat():
+  """10e: the flagship's train step (published dropout 0.1, init_scale 0.1,
+  no warmup) at batch 128 with tpu.remat off, 'full' and 'conv_outputs',
+  each from the same weights, batch and generator: the first step's losses
+  and gradients (Adam's first moment) within 1e-5 of each tensor's largest,
+  the generator left in the same state; ms per step (CUDA events, the
+  steps after the first) and peak memory of each."""
+  import torch
+  from soft_truncation_tpu_torch.data import get_data_scaler
+  from soft_truncation_tpu_torch.models import create_model
+  from soft_truncation_tpu_torch.sde import get_sde
+  from soft_truncation_tpu_torch.train import init_train_state, make_train_step
+
+  results = {}
+  for policy in (None, "full", "conv_outputs"):
+    config = load_config(FLAGSHIP, init_scale=0.1)
+    config.optim.warmup = 0
+    config.tpu.update(remat=policy is not None, remat_policy=policy or "full")
+    model = create_model(config, DEVICE, seed=0).train()
+    state = init_train_state(config, model)
+    step = make_train_step(config, get_sde(config))
+    gen = torch.Generator(DEVICE).manual_seed(5)
+    batch = get_data_scaler(config)(torch.rand(
+        TRAIN_BATCH, 32, 32, 3, generator=torch.Generator(DEVICE).manual_seed(
+            6), device=DEVICE))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses = step(state, batch, gen)
+    first = (losses.cpu(), [m.detach().cpu() for m in state.optimizer.mu],
+             gen.get_state())
+    events = []
+    for _ in range(REMAT_STEPS - 1):
+      events.append((torch.cuda.Event(enable_timing=True),
+                     torch.cuda.Event(enable_timing=True)))
+      events[-1][0].record()
+      step(state, batch, gen)
+      events[-1][1].record()
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in events]
+    results[policy] = first + (sum(ms) / len(ms),
+                               torch.cuda.max_memory_allocated())
+    del model, state, step
+  base = results[None]
+  for policy, (losses, mu, gen_state, ms, peak) in results.items():
+    loss_err = (losses - base[0]).abs().max().item()
+    grad_err = max((m - b).abs().max().item() / max(b.abs().max().item(),
+                                                     1e-30)
+                   for m, b in zip(mu, base[1]))
+    row = {"remat": policy or "off", "batch": TRAIN_BATCH,
+           "ms_per_step": ms, "peak_memory_bytes": peak,
+           "loss_max_abs_diff": loss_err, "grad_max_rel_err": grad_err,
+           "same_generator_state": bool(torch.equal(gen_state, base[2]))}
+    emit(row)
+    if not (loss_err <= 1e-5 * base[0].abs().max().item()
+            and grad_err <= 1e-5 and row["same_generator_state"]):
+      raise AssertionError(f"remat {policy}: {row}")
+  gc.collect()
+  torch.cuda.empty_cache()
+
+
+def _fir_sites_of(model, modules):
+  """FIR sites of the last forward, per (mode, H, W, C), of the modules
+  for which ``modules(name, module)`` holds."""
+  out = collections.Counter()
+  for name, m in model.named_modules():
+    if modules(name, m):
+      out.update(getattr(m, "last_fir_sites", ()))
+  return out
+
+
+def phase_ffhq_train():
+  """10f: FFHQ 1024^2 (``ve/ffhq_1024_uncsn.py`` as published: nf 16,
+  ch_mult (1,2,4,8,16,32,32,32), FIR, RVE, batch 16) trained on the card
+  by the CLI trainer with ``tpu.remat`` on Synthetic 1024^2 images, steps
+  0..FFHQ_TRAIN_ITERS: finite losses, ms per step, peak memory; fir2's
+  launches per shape forward (the sites, plus the res-blocks' sites again
+  in the recompute) and adjoint (none for the input pyramid's downsampling
+  of the images). Then one step of the same config without
+  remat: its ms and peak, or its out-of-memory error. Returns the fir2
+  launches forward and backward, the steps and the batch."""
+  import torch
+  from soft_truncation_tpu_torch import main as port_main
+  from soft_truncation_tpu_torch.models import create_model
+
+  config = load_config(FFHQ)
+  size = config.data.image_size
+  model = create_model(config, DEVICE, seed=0)
+  with torch.no_grad():
+    model(torch.rand(1, size, size, 3, device=DEVICE),
+          torch.full((1,), 10.0, device=DEVICE), train=True,
+          generator=torch.Generator(DEVICE).manual_seed(0))
+  sites = _fir_sites(model)
+  # remat recomputes the res-blocks' resamples; the input pyramid's
+  # (of the images, which take no gradient) have no adjoint
+  recomputed = _fir_sites_of(model, lambda name, m: hasattr(m, "conv0"))
+  adjoint = adjoint_sites(_fir_sites_of(
+      model, lambda name, m: not name.startswith("pyr_ds_")))
+  del model
+  gc.collect()
+  torch.cuda.empty_cache()
+  fwd_per_step = dict(sites + recomputed)
+  steps, fwd, bwd, batch, workdir = phase_train(
+      "ffhq_1024_remat", FFHQ, fwd_per_step, adjoint,
+      FFHQ_TRAIN_ITERS, False, ("--config.tpu.remat=True",
+                                "--config.training.snapshot_sampling=False"),
+      batch=FFHQ_BATCH)
+  shutil.rmtree(workdir, ignore_errors=True)
+  log(f"train ffhq_1024: {sum(sites.values())} FIR sites per forward, "
+      f"{sum(recomputed.values())} of them recomputed per step under remat")
+  # without remat
+  workdir = os.path.join(REPO, "build", "chip_smoke_train", "ffhq_1024")
+  shutil.rmtree(workdir, ignore_errors=True)
+  argv = ["--config", FFHQ, "--workdir", workdir, "--mode", "train",
+          "--config.data.dataset", "Synthetic",
+          "--config.training.n_iters", "0",
+          "--config.training.snapshot_freq", "1000000",
+          "--config.training.snapshot_sampling=False"]
+  if DEVICE == "cpu":
+    argv.append("--cpu")
+  gc.collect()
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  row = {"train": "ffhq_1024", "remat": "off", "batch": FFHQ_BATCH}
+  try:
+    port_main.main(argv)
+    torch.cuda.synchronize()
+    row.update(oom=None, run_wall_s=time.perf_counter() - t0,
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+  except RuntimeError as e:  # torch's OutOfMemoryError, or a library's
+    if not any(k in str(e) for k in ("out of memory", "ALLOC_FAILED")):
+      raise
+    row.update(oom=str(e).split("\n")[0][:300],
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+  gc.collect()
+  torch.cuda.empty_cache()
+  shutil.rmtree(workdir, ignore_errors=True)
+  emit(row)
+  return steps, fwd, bwd, batch
+
+
 def _relaunched(rows, launched, units, per_key, shape_of):
   """The rows of another path measured at the same shapes and batch, with
   the launches of this path: (shape -> launches over ``units`` forwards or
@@ -2633,7 +3162,8 @@ def main() -> int:
                          [0, 33, 66, 99, 132, 165, 198, 231])}
   for name, size in LEGACY_HIRES:
     phase(f"forward {name}", phase_legacy_forward, name,
-          legacy_config("ncsnv2_64", size, name=name), [0, 200],
+          legacy_config("ncsnv2_64", size, name=name),
+          [0, 200] if size < 256 else [200],
           size == 256)
   phase("serve ddpm", phase_serve_legacy, "ddpm", legacy["ddpm"],
         DDPM_SERVE_STEPS, DDPM_CHECK_STEPS)
@@ -2653,6 +3183,21 @@ def main() -> int:
                                       fp8_config)
   fp8_launched = phase("fp8 forward flagship", phase_fp8_forward, sites)
   log(f"phases 9a-9f: {time.perf_counter() - t_legacy:.1f} s")
+
+  # phase 10: Picard, DDP, the profiler, remat and FFHQ 1024^2 training
+  t_10 = time.perf_counter()
+  pic_launched, pic_calls, pic_batch = phase(
+      "picard flagship", phase_picard_flagship, sites, flag_params)
+  upic_launched, upic_fir, upic_calls, upic_batch = phase(
+      "picard uncsnpp", phase_picard_uncsnpp, u_sites, u_fir_sites, u_params)
+  gc.collect()
+  torch.cuda.empty_cache()
+  phase("ddp flagship", phase_ddp)
+  phase("profile uncsnpp", phase_profile)
+  phase("remat flagship", phase_remat)
+  ffhq_steps, ffhq_fwd, ffhq_bwd, ffhq_batch = phase(
+      "train ffhq 1024", phase_ffhq_train)
+  log(f"phases 10a-10f: {time.perf_counter() - t_10:.1f} s")
 
   gn_launched = collections.Counter(launched) + collections.Counter(
       u_launched)
@@ -2699,6 +3244,14 @@ def main() -> int:
       collections.Counter(f_jvp) + collections.Counter(u_jvp),
       f_lik_evals + u_lik_evals)
   fir_jvp_rows = kernels_fir_jvp(u_fir_jvp, u_lik_evals)
+  with torch.inference_mode():  # Picard's network calls at batch W * 8
+    pic_rows = kernels_gn(pic_launched, pic_calls, pic_batch)
+    upic_rows = kernels_gn(upic_launched, upic_calls, upic_batch)
+  upic_fir_rows = kernels_fir(upic_fir, upic_calls, upic_batch,
+                              "launches_per_forward")
+  ffhq_rows = kernels_fir(ffhq_fwd, ffhq_steps, ffhq_batch,
+                          "launches_per_step")
+  ffhq_bwd_rows = kernels_fir_backward(ffhq_bwd, ffhq_steps, ffhq_batch)
   log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 
   fir_src = "soft_truncation_tpu_torch/csrc/fir2.cu"
@@ -2783,7 +3336,33 @@ def main() -> int:
       _kernel_entry("fir2_backward_fp8", fir_src,
                     "soft_truncation_tpu/ops/pallas/fir.py:212", fp8_bwd_rows,
                     f"one UNCSN++ float8_e4m3 train step at batch "
-                    f"{TRAIN_BATCH}", "launches_per_step")]
+                    f"{TRAIN_BATCH}", "launches_per_step"),
+      _kernel_entry("gn_silu_conv3x3_picard", gn_src,
+                    "soft_truncation_tpu/ops/pallas/gn_conv.py:74", pic_rows,
+                    f"one network call of a flagship picard_dpm sweep at "
+                    f"batch {pic_batch} (window {pic_batch // SERVE_BATCH} x "
+                    f"{SERVE_BATCH})", "launches_per_forward"),
+      _kernel_entry("gn_silu_conv3x3_picard_uncsnpp", gn_src,
+                    "soft_truncation_tpu/ops/pallas/gn_conv.py:74", upic_rows,
+                    f"one network call of a UNCSN++ picard sweep at batch "
+                    f"{upic_batch}", "launches_per_forward"),
+      *(_kernel_entry(f"fir_{mode}sample2_picard", fir_src, fir_fwd,
+                      [r for r in upic_fir_rows
+                       if r["kernel"] == f"fir_{mode}sample2"],
+                      f"one network call of a UNCSN++ picard sweep at batch "
+                      f"{upic_batch}", "launches_per_forward")
+        for mode in ("up", "down")),
+      *(_kernel_entry(f"fir_{mode}sample2_ffhq_train", fir_src, fir_fwd,
+                      [r for r in ffhq_rows
+                       if r["kernel"] == f"fir_{mode}sample2"],
+                      f"one FFHQ 1024^2 train step at batch {ffhq_batch} "
+                      "with tpu.remat (the recompute's launches included)",
+                      "launches_per_step")
+        for mode in ("up", "down")),
+      _kernel_entry("fir2_backward_ffhq", fir_src,
+                    "soft_truncation_tpu/ops/pallas/fir.py:212",
+                    ffhq_bwd_rows, f"one FFHQ 1024^2 train step at batch "
+                    f"{ffhq_batch} with tpu.remat", "launches_per_step")]
   emit({"kernels": entries})
   for entry in entries:
     log(f"{entry['name']} ({entry['per']}): issued {entry['ms']:.4f} ms vs "

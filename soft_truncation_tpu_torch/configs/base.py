@@ -10,19 +10,23 @@ where a file leaves them out. Config files under ``configs/`` are copies
 of the JAX package's 33 files, importing this module instead of the JAX
 one.
 
-The JAX package's ``tpu`` section is not carried, apart from
-``fid_resize`` and ``activation_dtype``; no config file sets any of its
-knobs, and the port reads them so:
-  * ``mesh_shape``, ``donate_state``, ``steps_per_dispatch``,
-    ``compilation_cache_dir``: no GPU meaning (one card, eager PyTorch);
+The JAX package's ``tpu`` section is carried where the port reads a key;
+no config file sets any of its knobs, and the port reads them so:
+  * ``mesh_shape``: () or (world size,), the ranks ``torchrun`` launches
+    (``parallel/ddp.py``); a 2-D (data, space) mesh raises (not ported);
+  * ``remat`` / ``remat_policy``: activation checkpointing of NCSN++'s
+    res-blocks, 'full' or 'conv_outputs' (``models/ncsnpp.py``);
+  * ``activation_dtype``: '' (off) or 'float8_e4m3' (``ops/quant.py``;
+    NCSN++'s convs store their inputs as e4m3);
+  * ``fid_resize``: the Inception's resize (``eval/inception.py``);
+  * ``profile_dir``: no key, as in JAX; ``run_lib.train`` reads it with
+    ``get`` and the CLI accepts it (``main.OPTIONAL_KEYS``);
+  * ``donate_state``, ``steps_per_dispatch``, ``compilation_cache_dir``:
+    no GPU meaning (eager PyTorch), not carried;
   * ``compute_dtype``, ``norm_dtype``, ``ema_dtype``, ``adam_mu_dtype``:
-    float32 only, their default;
-  * ``activation_dtype`` is carried and read: '' (off) or 'float8_e4m3'
-    (``ops/quant.py``; NCSN++'s convs store their inputs as e4m3);
-  * ``remat`` / ``remat_policy``: activation checkpointing is not ported
-    (ROADMAP.md, tooling item);
+    float32 only, their default, not carried;
   * ``rng_impl`` / ``dropout_bits``: torch's generator, masks with
-    ``bits=32`` semantics.
+    ``bits=32`` semantics, not carried.
 """
 
 from __future__ import annotations
@@ -58,9 +62,7 @@ class Config(dict):
 
 
 # The values of soft_truncation_tpu/configs/base.py::_CIFAR10 for every key
-# the port reads; of the JAX package's ``tpu`` section only ``fid_resize``,
-# which the extractor of eval/inception.py reads, and ``activation_dtype``,
-# which NCSN++ reads.
+# the port reads, the ``tpu`` section's as the module docstring says.
 _CIFAR10 = dict(
     training=dict(
         batch_size=128, n_iters=13000001, snapshot_freq=100000, log_freq=100,
@@ -73,7 +75,9 @@ _CIFAR10 = dict(
         balanced=False),
     sampling=dict(
         n_steps_each=1, noise_removal=True, probability_flow=False,
-        snr=0.16, batch_size=1024, truncation_time=1e-5, dpm_steps=50),
+        snr=0.16, batch_size=1024, truncation_time=1e-5, chunk=0,
+        dpm_steps=50, picard_window=16, picard_tol=1e-3, picard_max_sweeps=0,
+        picard_unsafe_tol=False),
     eval=dict(
         batch_size=200, enable_sampling=False, enable_loss=True,
         enable_bpd=False, bpd_dataset="test", num_test_data=10000,
@@ -90,7 +94,8 @@ _CIFAR10 = dict(
     optim=dict(
         weight_decay=0.0, optimizer="Adam", lr=2e-4, beta1=0.9, eps=1e-8,
         warmup=5000, grad_clip=1.0, num_micro_batch=1, amsgrad=False),
-    tpu=dict(fid_resize="host", activation_dtype=""),
+    tpu=dict(mesh_shape=(), remat=False, remat_policy="full",
+             fid_resize="host", activation_dtype=""),
 )
 
 

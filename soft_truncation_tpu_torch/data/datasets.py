@@ -11,7 +11,8 @@ JAX package resolves them:
      (``tools/make_dataset_npz.py`` writes them);
   3. else the deterministic Synthetic images (low-frequency 4x4 noise
      upsampled bilinearly, plus N(0, 8) noise), with a warning; the same
-     arrays as the JAX package's.
+     arrays as the JAX package's up to 90^2, fewer of them above
+     (:data:`SYNTHETIC_MAX_BYTES`), so that 1024^2 fits in a host's memory.
 
 Every source then goes through the dataset's resize, JAX's ``_resize_op``
 (:func:`resize_op`, the TF ops of ``data/resize.py`` in numpy): CELEBA is
@@ -219,20 +220,34 @@ def _bilinear_upsample_np(a: np.ndarray, out_len: int, axis: int
   return np.take(a, x0, axis=axis) * (1 - f) + np.take(a, x1, axis=axis) * f
 
 
+# the Synthetic images' bytes at most: JAX's 8,192 (train) or 2,048 images
+# up to 90^2 (CIFAR-10, CelebA 64^2), fewer above (85 at 1024^2, where JAX's
+# 8,192 would take 26 GB as uint8 and 206 GB as they are drawn)
+SYNTHETIC_MAX_BYTES = 2 ** 28
+
+
 def synthetic_array(config, split: str = "train") -> np.ndarray:
-  """Deterministic stand-in data (uint8 NHWC) for data-less machines."""
-  n = 2048 if split != "train" else 8192
+  """Deterministic stand-in data (uint8 NHWC) for data-less machines: the
+  JAX package's images, as many as SYNTHETIC_MAX_BYTES hold, drawn a chunk
+  of images at a time (the same stream)."""
   size = config.data.image_size
   c = config.data.num_channels
+  n = 2048 if split != "train" else 8192
+  n = max(1, min(n, SYNTHETIC_MAX_BYTES // (size * size * c)))
   log.warning("SYNTHETIC DATA in use for %s/%s: no real dataset found. Set "
               "SOFT_TRUNCATION_DATA_DIR to a directory of npz arrays.",
               config.data.dataset, split)
   rng = np.random.RandomState(0 if split == "train" else 1)
   base = rng.randint(0, 256, size=(n, 4, 4, c)).astype(np.float32)
-  imgs = _bilinear_upsample_np(_bilinear_upsample_np(base, size, axis=1),
-                               size, axis=2)
-  imgs = imgs + rng.normal(0, 8, size=(n, size, size, c))
-  return np.clip(imgs, 0, 255).astype(np.uint8)
+  out = np.empty((n, size, size, c), np.uint8)
+  chunk = max(1, 2 ** 24 // (size * size * c))
+  for i in range(0, n, chunk):
+    b = base[i:i + chunk]
+    imgs = _bilinear_upsample_np(_bilinear_upsample_np(b, size, axis=1),
+                                 size, axis=2)
+    imgs = imgs + rng.normal(0, 8, size=(len(b), size, size, c))
+    out[i:i + chunk] = np.clip(imgs, 0, 255).astype(np.uint8)
+  return out
 
 
 class BatchIterator:

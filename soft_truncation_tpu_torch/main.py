@@ -19,7 +19,9 @@ reports in ``workdir/<eval_folder>``). ``--assetdir`` holds
 ``inception_v3_weights.npz`` and the real images' statistics; without the
 weights FID runs on a dummy feature extractor and says so. Both modes run
 on the card unless ``--cpu`` is given, in float32: TF32 is turned off for
-cuDNN's convolutions and for matrix products.
+cuDNN's convolutions and for matrix products. Under ``torchrun`` the
+trainer is data parallel (``parallel/ddp.py``): every rank logs to stdout,
+rank 0 alone to ``workdir``.
 """
 
 from __future__ import annotations
@@ -33,6 +35,9 @@ import sys
 from .configs.base import Config, load_config
 
 _PREFIX = "--config."
+# keys no config holds, read with ``get`` (as the JAX package reads them),
+# that an override may add
+OPTIONAL_KEYS = {"tpu.profile_dir"}
 
 
 def _parse_value(text: str, old):
@@ -69,18 +74,20 @@ def apply_overrides(config: Config, args) -> Config:
       if part not in node or not isinstance(node[part], dict):
         raise SystemExit(f"--config.{name}: no config section {part!r}")
       node = node[part]
-    if key not in node:
+    if key not in node and name not in OPTIONAL_KEYS:
       raise SystemExit(f"--config.{name}: no such config key")
-    node[key] = _parse_value(text, node[key])
+    node[key] = _parse_value(text, node.get(key, ""))
   return config
 
 
-def _log_handlers(workdir: str, filename: str):
-  """Handlers writing the log to stdout and to ``workdir/filename``."""
+def _log_handlers(workdir, filename):
+  """Handlers writing the log to stdout and to ``workdir/filename`` (to
+  stdout alone for no ``workdir``)."""
   fmt = logging.Formatter(
       "%(levelname)s - %(filename)s - %(asctime)s - %(message)s")
-  handlers = [logging.StreamHandler(sys.stdout),
-              logging.FileHandler(os.path.join(workdir, filename))]
+  handlers = [logging.StreamHandler(sys.stdout)]
+  if workdir:
+    handlers.append(logging.FileHandler(os.path.join(workdir, filename)))
   for handler in handlers:
     handler.setFormatter(fmt)
   return handlers
@@ -112,15 +119,21 @@ def main(argv=None) -> None:
   import torch
 
   from . import run_lib
+  from .parallel import world_from_env
+  main_rank = world_from_env().is_main
   # f32 model and Inception: no TF32 in the convolutions or the products
   torch.backends.cudnn.allow_tf32 = False
   torch.backends.cuda.matmul.allow_tf32 = False
   os.makedirs(args.workdir, exist_ok=True)
-  _dump_config(config, args.workdir)
   logger = logging.getLogger()
   logger.setLevel("INFO")
-  handlers = _log_handlers(args.workdir, "stdout.txt" if args.mode == "train"
-                           else "evaluation_history.txt")
+  if main_rank:
+    _dump_config(config, args.workdir)
+    handlers = _log_handlers(args.workdir, "stdout.txt"
+                             if args.mode == "train"
+                             else "evaluation_history.txt")
+  else:
+    handlers = _log_handlers(None, None)
   for handler in handlers:
     logger.addHandler(handler)
   device = "cpu" if args.cpu else "cuda"

@@ -72,6 +72,7 @@ class DDPMConv(nn.Module):
         torch.empty(out_ch, in_ch, kernel_size, kernel_size))
     self.bias = nn.Parameter(torch.zeros(out_ch))
     self._derived, self._derived_key = {}, None
+    self.reset_parameters()
 
   def reset_parameters(self, generator: Optional[torch.Generator] = None):
     o, i, kh, kw = self.weight.shape
@@ -160,6 +161,7 @@ class Conv2d(nn.Module):
     self.bias = nn.Parameter(torch.zeros(out_ch)) if use_bias else None
     total = dilation * (kernel_size - 1)
     self.pads = (total // 2, total - total // 2) * 2
+    self.reset_parameters()
 
   def reset_parameters(self, generator: Optional[torch.Generator] = None):
     o, i, kh, kw = self.weight.shape
@@ -209,6 +211,7 @@ class Dense(nn.Module):
     self.init_scale = init_scale
     self.weight = nn.Parameter(torch.empty(out_features, in_features))
     self.bias = nn.Parameter(torch.zeros(out_features))
+    self.reset_parameters()
 
   def reset_parameters(self, generator: Optional[torch.Generator] = None):
     o, i = self.weight.shape

@@ -108,6 +108,7 @@ class GaussianFourierProjection(nn.Module):
     super().__init__()
     self.scale = scale
     self.W = nn.Parameter(torch.empty(embedding_size), requires_grad=False)
+    self.reset_parameters()
 
   def reset_parameters(self, generator: Optional[torch.Generator] = None):
     with torch.no_grad():
@@ -170,6 +171,7 @@ class ConvResample(nn.Module):
     self.fir_kernel = tuple(fir_kernel)
     self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel))
     self.bias = nn.Parameter(torch.zeros(out_ch))
+    self.reset_parameters()
 
   def reset_parameters(self, generator: Optional[torch.Generator] = None):
     o, i, kh, kw = self.weight.shape

@@ -25,6 +25,7 @@ class PosDense(nn.Module):
     super().__init__()
     self.weight = nn.Parameter(torch.empty(out_features, in_features))
     self.bias = nn.Parameter(torch.zeros(out_features))
+    self.reset_parameters()
 
   def reset_parameters(self, generator: Optional[torch.Generator] = None):
     std = math.sqrt(1.0 / self.weight.shape[1]) / 0.87962566103423978

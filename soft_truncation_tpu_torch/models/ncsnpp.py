@@ -26,21 +26,75 @@ cotangents): the stem, every res-block's conv0, conv1 and conv shortcut,
 the output pyramid's convs and ``out_conv``; not the resampling convs, the
 combine conv or the NIN / Dense layers, and not the fused eval sites,
 which run ``gn_silu_conv3x3`` unquantized as JAX's do.
+
+``config.tpu.remat`` checkpoints every res-block at train, as JAX's
+``nn.remat`` wraps its block class: ``torch.utils.checkpoint`` without
+re-entry keeps a block's input and recomputes the rest in the backward
+(``remat_policy`` 'full'), or keeps the convolutions' outputs as well and
+recomputes the norms, activations and dropout ('conv_outputs', JAX's
+``save_only_these_names('conv_out')`` on the tagged ``DDPMConv`` outputs;
+selective activation checkpointing). The recompute runs a block's FIR
+resamples again, through the kernel. Dropout draws its masks from the
+forward's explicit generator, which ``preserve_rng_state`` does not cover:
+:func:`remat_block` rewinds it to its state at the block's entry for the
+recompute and puts it back after, so the recomputed masks are the forward's
+and the next draws do not repeat.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import layerspp
 from .layers import (Dense, GroupNorm, ddpm_conv, get_act,
                      get_timestep_embedding)
 from .registry import register_model
+
+
+REMAT_POLICIES = ("full", "conv_outputs")
+
+
+def _save_conv_outputs(ctx, op, *args, **kwargs):
+  """'conv_outputs': keep the convolutions' results, recompute the rest."""
+  if op is torch.ops.aten.convolution.default:
+    return CheckpointPolicy.MUST_SAVE
+  return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_block(block: nn.Module, x: torch.Tensor,
+                temb: Optional[torch.Tensor],
+                generator: Optional[torch.Generator],
+                policy: str = "full") -> torch.Tensor:
+  """``block(x, temb, True, generator)`` under activation checkpointing,
+  its recompute drawing the forward's dropout masks again (module
+  docstring)."""
+  entry = None if generator is None else generator.get_state()
+  runs = []
+
+  def run(x, temb):
+    runs.append(None)
+    if len(runs) == 1 or generator is None:
+      return block(x, temb, True, generator)
+    after = generator.get_state()
+    generator.set_state(entry)
+    try:
+      return block(x, temb, True, generator)
+    finally:
+      generator.set_state(after)
+
+  kwargs = {}
+  if policy == "conv_outputs":
+    kwargs["context_fn"] = functools.partial(
+        create_selective_checkpoint_contexts, _save_conv_outputs)
+  return checkpoint(run, x, temb, use_reentrant=False, **kwargs)
 
 
 def get_sigmas(sigma_min: float, sigma_max: float,
@@ -71,8 +125,12 @@ class NCSNpp(nn.Module):
                scale_by_sigma: bool = False, lsgm: bool = False,
                embedding_dim: int = 128, sigma_min: float = 0.01,
                sigma_max: float = 50.0, num_scales: int = 1000,
-               centered: bool = True, act_quant: Optional[str] = None):
+               centered: bool = True, act_quant: Optional[str] = None,
+               remat: bool = False, remat_policy: str = "full"):
     super().__init__()
+    if remat_policy not in REMAT_POLICIES:
+      raise ValueError(f"unknown remat_policy {remat_policy!r}")
+    self.remat, self.remat_policy = remat, remat_policy
     if embedding_type not in ("fourier", "positional"):
       raise ValueError(f"unknown embedding_type {embedding_type!r}")
     if progressive not in ("none", "output_skip", "residual"):
@@ -262,7 +320,7 @@ class NCSNpp(nn.Module):
     hs = [self.stem(x)]
     for i in range(self.num_resolutions):
       for j in range(self.num_res_blocks):
-        h = getattr(self, f"down_{i}_{j}")(hs[-1], temb, train, generator)
+        h = self._res(f"down_{i}_{j}", hs[-1], temb, train, generator)
         if (i, j) in self._attn_down:
           h = getattr(self, f"down_attn_{i}_{j}")(h)
         hs.append(h)
@@ -271,7 +329,7 @@ class NCSNpp(nn.Module):
         if self.ddpm_blocks:
           h = getattr(self, f"down_{i}_ds")(hs[-1])
         else:
-          h = getattr(self, f"down_{i}_ds")(hs[-1], temb, train, generator)
+          h = self._res(f"down_{i}_ds", hs[-1], temb, train, generator)
         if self.progressive_input == "input_skip":
           input_pyramid = getattr(self, f"pyr_ds_{i}")(input_pyramid)
           h = getattr(self, f"combine_{i}")(input_pyramid, h)
@@ -284,14 +342,14 @@ class NCSNpp(nn.Module):
     h = hs[-1]
     if not self.auxiliary_resblock:
       hs.pop()
-    h = self.mid_res0(h, temb, train, generator)
+    h = self._res("mid_res0", h, temb, train, generator)
     h = self.mid_attn(h)
-    h = self.mid_res1(h, temb, train, generator)
+    h = self._res("mid_res1", h, temb, train, generator)
 
     for i in reversed(range(self.num_resolutions)):
       for j in range(self.num_res_up):
-        h = getattr(self, f"up_{i}_{j}")(torch.cat([h, hs.pop()], dim=-1),
-                                         temb, train, generator)
+        h = self._res(f"up_{i}_{j}", torch.cat([h, hs.pop()], dim=-1),
+                      temb, train, generator)
       if i in self._attn_up:
         h = getattr(self, f"up_attn_{i}")(h)
       if self.progressive != "none":
@@ -310,7 +368,7 @@ class NCSNpp(nn.Module):
       if i != 0 and self.ddpm_blocks:
         h = getattr(self, f"up_{i}_us")(h)
       elif i != 0 and self.auxiliary_resblock:
-        h = getattr(self, f"up_{i}_us")(h, temb, train, generator)
+        h = self._res(f"up_{i}_us", h, temb, train, generator)
 
     if self.progressive == "output_skip":
       h = pyramid
@@ -327,6 +385,15 @@ class NCSNpp(nn.Module):
         used_sigmas = sigmas[idx]
       h = h / used_sigmas.reshape((x.shape[0],) + (1,) * (h.dim() - 1))
     return h
+
+  def _res(self, name: str, h: torch.Tensor, temb: Optional[torch.Tensor],
+           train: bool, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The res-block ``name``; checkpointed at train with ``remat`` when
+    gradients are taken."""
+    block = getattr(self, name)
+    if self.remat and train and torch.is_grad_enabled():
+      return remat_block(block, h, temb, generator, self.remat_policy)
+    return block(h, temb, train, generator)
 
   def _merge(self, pyramid: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """A residual pyramid step: the sum, rescaled with ``skip_rescale``."""
@@ -358,4 +425,6 @@ class NCSNpp(nn.Module):
         scale_by_sigma=m.scale_by_sigma, lsgm=m.get("lsgm", False),
         embedding_dim=m.get("embedding_dim", 128), sigma_min=m.sigma_min,
         sigma_max=m.sigma_max, num_scales=m.num_scales, centered=d.centered,
-        act_quant=config.get("tpu", {}).get("activation_dtype", "") or None)
+        act_quant=config.get("tpu", {}).get("activation_dtype", "") or None,
+        remat=config.get("tpu", {}).get("remat", False),
+        remat_policy=config.get("tpu", {}).get("remat_policy", "full"))

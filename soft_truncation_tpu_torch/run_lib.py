@@ -10,7 +10,10 @@ numbered snapshot every ``snapshot_freq`` and at the last step; at each
 snapshot (with ``eval.enable_bpd``) the bpd of the EMA weights into
 ``workdir/bpd``, and at each snapshot and the last step (with
 ``training.snapshot_sampling``) FID, KID and IS of the EMA weights'
-samples into ``workdir/samples``. :func:`evaluate`: the eval loss, the bpd
+samples into ``workdir/samples``; with ``config.tpu.profile_dir`` (read
+with ``get``, as JAX reads it) a ``torch.profiler`` trace of the run's
+eleventh step, the step JAX traces. Under ``torchrun``, data parallel over
+the ranks (``parallel/ddp.py``). :func:`evaluate`: the eval loss, the bpd
 and (with ``eval.enable_sampling``) FID, KID and IS of the EMA weights of
 the rolling checkpoint (or of the seed's weights without one), into
 ``workdir/<eval_folder>``. Sampling for FID uses ``sampling.method`` at
@@ -23,7 +26,6 @@ from __future__ import annotations
 
 import logging
 import os
-import time
 
 import numpy as np
 import torch
@@ -32,12 +34,14 @@ from . import data as datasets
 from .eval import evaluation
 from .likelihood import get_elbo_fn, get_likelihood_fn
 from .models import create_model
+from .parallel import ddp
 from .sample import get_sampling_fn
 from .sde import get_sde
 from .train import (CheckpointManager, init_train_state, make_eval_loss_step,
                     make_train_step)
 from .train.state import param_count
 from .utils.device import resolve_device
+from .utils.profiling import StepTimer, trace
 
 log = logging.getLogger(__name__)
 
@@ -46,24 +50,6 @@ def _crossed(step: int, freq: int, allow_zero: bool = False) -> bool:
   """Whether ``step`` is on the ``freq`` cadence (step 0 only with
   ``allow_zero``; never for ``freq`` <= 0)."""
   return freq > 0 and step % freq == 0 and (step > 0 or allow_zero)
-
-
-class StepTimer:
-  """Steps and images per second since the last report."""
-
-  def __init__(self, batch_size: int):
-    self.batch_size = batch_size
-    self._t0 = time.perf_counter()
-    self._steps = 0
-
-  def tick(self) -> None:
-    self._steps += 1
-
-  def report(self):
-    now = time.perf_counter()
-    sps = self._steps / max(now - self._t0, 1e-9)
-    self._t0, self._steps = now, 0
-    return sps, sps * self.batch_size
 
 
 def _sampling_fn(config, sde):
@@ -80,8 +66,15 @@ def train(config, workdir: str, assetdir=None, device="cuda"):
 
   ``device`` is 'cuda' unless the caller asks for 'cpu'; without a card
   'cuda' raises. ``assetdir`` holds the Inception weights and the real
-  images' statistics of snapshot sampling."""
-  device = resolve_device(device)
+  images' statistics of snapshot sampling. Launched by ``torchrun``, each
+  rank trains on its rows of the global batch (``parallel/ddp.py``) and
+  rank 0 alone writes the checkpoints, the log lines, the bpd and the
+  samples; every rank restores the rolling checkpoint."""
+  with ddp.process_group(config, device) as (world, device):
+    return _train(config, workdir, assetdir, world, device)
+
+
+def _train(config, workdir, assetdir, world, device):
   sde = get_sde(config)
   model = create_model(config, device, seed=config.seed)
   state = init_train_state(config, model)
@@ -89,6 +82,7 @@ def train(config, workdir: str, assetdir=None, device="cuda"):
   ckpt = CheckpointManager(workdir)
   ckpt.restore_meta(state)
   initial_step = state.step
+  state.replica = ddp.replicate(model, world)
 
   log.info("loading %s...", config.data.dataset)
   # a resumed run draws data and noise afresh, from the seed and its step
@@ -96,9 +90,13 @@ def train(config, workdir: str, assetdir=None, device="cuda"):
   batches = datasets.get_train_iterator(config, seed)
   preprocess = datasets.make_preprocess_fn(config)
   train_step = make_train_step(config, sde)
+  # the parts of the global batch each rank takes its rows of
+  parts = config.optim.num_micro_batch * (
+      2 if config.training.get("mixed", False) else 1)
   generator = torch.Generator(device).manual_seed(
       int(seed.generate_state(1)[0]))
   timer = StepTimer(config.training.batch_size)
+  profile_dir = config.get("tpu", {}).get("profile_dir") or None
   inverse_scaler = datasets.get_data_inverse_scaler(config)
   nll_fn = get_likelihood_fn(config, sde, inverse_scaler)
   nelbo_fn = get_elbo_fn(config, sde, inverse_scaler)
@@ -106,17 +104,24 @@ def train(config, workdir: str, assetdir=None, device="cuda"):
   n_iters = config.training.n_iters
   log.info("Starting training loop at step %d.", initial_step)
   for step in range(initial_step, n_iters + 1):
-    batch = torch.from_numpy(next(batches)).to(device)
-    losses = train_step(state, preprocess(batch, generator), generator)
+    batch = preprocess(torch.from_numpy(next(batches)).to(device), generator)
+    # the step JAX traces: the eleventh of this run
+    traced = (profile_dir if world.is_main and step == initial_step + 10
+              else None)
+    with trace(traced):
+      losses = train_step(state, ddp.shard(batch, world, parts), generator)
     timer.tick()
 
     if _crossed(step, config.training.log_freq, allow_zero=True):
-      losses = losses.cpu()
+      losses = ddp.gather(losses).cpu()
       sps, ips = timer.report()
-      log.info("step: %d, training loss mean: %.5e, training loss std: "
-               "%.5e (%.2f steps/s, %.0f imgs/s)", step,
-               losses.mean().item(), losses.std(unbiased=False).item(), sps,
-               ips)
+      if world.is_main:
+        log.info("step: %d, training loss mean: %.5e, training loss std: "
+                 "%.5e (%.2f steps/s, %.0f imgs/s)", step,
+                 losses.mean().item(), losses.std(unbiased=False).item(),
+                 sps, ips)
+    if not world.is_main:
+      continue
 
     if _crossed(step, config.training.snapshot_freq_for_preemption):
       ckpt.save_meta(state)

@@ -7,14 +7,16 @@ the prior is drawn with ``generator`` on the model's device unless ``x``
 hands in the starting state. The PC sampler also draws its predictor and
 corrector noise from ``generator``, through ``draw(like) -> standard
 normal of like's shape``, which a caller may replace (``draw=``) to hand
-the same noise to two devices. Runs under ``torch.inference_mode``. The
-Picard samplers and ``sampling.chunk`` come with ROADMAP.md Queue 1 item 5.
+the same noise to two devices. Runs under ``torch.inference_mode``.
+``sampling.method`` 'picard' and 'picard_dpm' are the parallel-in-time
+versions of 'pc' and 'dpm_solver' (``sample/parallel.py``); the DPM
+schedule and step below are shared with the latter.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -104,14 +106,25 @@ def none_predictor(rsde, x, t, draw: Draw, next_t=None):
   return x, x
 
 
-# Correctors: corrector(sde, score_fn, x, t, draw, snr, n_steps)
-#   -> (x, x_mean)
+# Correctors: corrector(sde, score_fn, x, t, draw, snr, n_steps,
+#   positions=1) -> (x, x_mean). ``x`` stacks ``positions`` batches of
+#   equal size (the Picard window's chain steps): a batch statistic is taken
+#   per position.
 
 
 def _corrector_alpha(sde: SDE, t):
   if isinstance(sde, VPSDE):
     return sde.alphas(t.device)[(t * (sde.N - 1) / sde.T).long()]
   return torch.ones_like(t)
+
+
+def _per_position_mean(v: torch.Tensor, positions: int) -> torch.Tensor:
+  """The mean of [P*B] values over each position's B: a 0-d tensor for one
+  position, else [P*B] (each position's mean repeated B times)."""
+  if positions == 1:
+    return v.mean()
+  return v.reshape(positions, -1).mean(dim=1).repeat_interleave(
+      v.shape[0] // positions)
 
 
 def _langevin(sde, score_fn, x, t, draw: Draw, n_steps, step_size_fn):
@@ -127,22 +140,24 @@ def _langevin(sde, score_fn, x, t, draw: Draw, n_steps, step_size_fn):
 
 
 @register_corrector("langevin")
-def langevin_corrector(sde, score_fn, x, t, draw: Draw, snr, n_steps):
-  """Langevin steps sized to a target signal-to-noise ratio ``snr``."""
+def langevin_corrector(sde, score_fn, x, t, draw: Draw, snr, n_steps,
+                       positions: int = 1):
+  """Langevin steps sized to a target signal-to-noise ratio ``snr``, from
+  the batch's mean gradient and noise norms (per position)."""
+
+  def norm_mean(v):
+    return _per_position_mean(
+        torch.linalg.norm(v.reshape(v.shape[0], -1), dim=-1), positions)
 
   def step_size(grad, noise):
-    grad_norm = torch.linalg.norm(grad.reshape(grad.shape[0], -1),
-                                  dim=-1).mean()
-    noise_norm = torch.linalg.norm(noise.reshape(noise.shape[0], -1),
-                                   dim=-1).mean()
-    return (snr * noise_norm / grad_norm) ** 2 * 2
+    return (snr * norm_mean(noise) / norm_mean(grad)) ** 2 * 2
 
   return _langevin(sde, score_fn, x, t, draw, n_steps, step_size)
 
 
 @register_corrector("ald")
 def annealed_langevin_corrector(sde, score_fn, x, t, draw: Draw, snr,
-                                n_steps):
+                                n_steps, positions: int = 1):
   """The original NCSN annealed Langevin dynamics."""
   std = sde.marginal_prob(x, t)[1]
   return _langevin(sde, score_fn, x, t, draw, n_steps,
@@ -150,8 +165,16 @@ def annealed_langevin_corrector(sde, score_fn, x, t, draw: Draw, snr,
 
 
 @register_corrector("none")
-def none_corrector(sde, score_fn, x, t, draw: Draw, snr, n_steps):
+def none_corrector(sde, score_fn, x, t, draw: Draw, snr, n_steps,
+                   positions: int = 1):
   return x, x
+
+
+def draws_per_step(predictor: str, corrector: str, n_steps: int) -> int:
+  """The noises one PC step draws: the corrector's ``n_steps`` (none for
+  'none'), then the predictor's one (none for 'none')."""
+  return ((n_steps if corrector.lower() != "none" else 0)
+          + (predictor.lower() != "none"))
 
 
 def get_sampling_fn(config, sde: SDE, shape, inverse_scaler,
@@ -166,18 +189,32 @@ def get_sampling_fn(config, sde: SDE, shape, inverse_scaler,
         config, sde, shape, inverse_scaler,
         steps=config.sampling.get("dpm_steps", 50),
         denoise=config.sampling.noise_removal, eps=eps)
-  if name == "pc":
-    return get_pc_sampler(
-        config, sde, shape, predictor=config.sampling.predictor,
+  if name == "picard_dpm":
+    from .parallel import get_picard_dpm_sampler
+    return get_picard_dpm_sampler(
+        config, sde, shape, inverse_scaler,
+        steps=config.sampling.get("dpm_steps", 50),
+        denoise=config.sampling.noise_removal, eps=eps,
+        window=config.sampling.get("picard_window", 0),
+        tol=config.sampling.get("picard_tol", 1e-2),
+        max_sweeps=config.sampling.get("picard_max_sweeps", 0))
+  if name in ("pc", "picard"):
+    kwargs = dict(
+        predictor=config.sampling.predictor,
         corrector=config.sampling.corrector, inverse_scaler=inverse_scaler,
         snr=config.sampling.snr, n_steps=config.sampling.n_steps_each,
         probability_flow=config.sampling.probability_flow,
         continuous=config.training.continuous,
         denoise=config.sampling.noise_removal, eps=eps)
-  if name in ("picard", "picard_dpm"):
-    raise NotImplementedError(
-        f"sampling.method={name!r} arrives with ROADMAP.md Queue 1 item 5 "
-        "(Picard)")
+    if name == "pc":
+      return get_pc_sampler(config, sde, shape, **kwargs)
+    from .parallel import get_picard_pc_sampler
+    return get_picard_pc_sampler(
+        config, sde, shape,
+        window=config.sampling.get("picard_window", 64),
+        tol=config.sampling.get("picard_tol", 1e-2),
+        max_sweeps=config.sampling.get("picard_max_sweeps", 0),
+        unsafe_tol=config.sampling.get("picard_unsafe_tol", False), **kwargs)
   raise ValueError(f"Sampler name {config.sampling.method} unknown.")
 
 
@@ -278,18 +315,73 @@ def _dpm_schedule(sde: SDE, N: int, eps: float):
   return ts, c_all, s_all, lam
 
 
+class DPMTables(NamedTuple):
+  """The DPM-Solver++(2M) coefficients of a grid of N steps, on a device:
+  per grid time i (N+1) ``ts``, ``s2`` = s(t_i)^2 and ``c`` = c(t_i); per
+  step i (N) ``a`` = s_{i+1}/s_i, ``b`` = c_{i+1} expm1(-h_i) and ``k`` =
+  h_i / (2 h_{i-1}) (0 at the first step)."""
+  ts: torch.Tensor
+  s2: torch.Tensor
+  c: torch.Tensor
+  a: torch.Tensor
+  b: torch.Tensor
+  k: torch.Tensor
+
+
+def dpm_tables(sde: SDE, N: int, eps: float, device) -> DPMTables:
+  """:func:`_dpm_schedule`'s grid as :class:`DPMTables`, computed in f32 on
+  the host and moved to ``device``."""
+  ts, c_all, s_all, lam = _dpm_schedule(sde, N, eps)
+  h = lam[1:] - lam[:-1]
+  h_prev = torch.cat([h.new_zeros(1), h[:-1]])
+  k = torch.where(h_prev > 0, h / (2.0 * h_prev), torch.zeros_like(h))
+  tables = DPMTables(ts, s_all ** 2, c_all, s_all[1:] / s_all[:-1],
+                     c_all[1:] * torch.expm1(-h), k)
+  return DPMTables(*(t.to(device) for t in tables))
+
+
+def _per_position(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+  """[P] coefficients shaped to multiply a [P, B, ...] stack."""
+  return v.reshape((-1,) + (1,) * (like.dim() - 1))
+
+
+def dpm_data_pred(score_fn, tables: DPMTables, x: torch.Tensor,
+                  i0: int) -> torch.Tensor:
+  """The data prediction (x + s^2 score) / c of a [P, B, ...] stack whose
+  position p sits at grid time ``i0 + p``: one network call at batch P*B."""
+  p, b = x.shape[:2]
+  t = tables.ts[i0:i0 + p].repeat_interleave(b)
+  score = score_fn(x.reshape((p * b,) + x.shape[2:]), t).reshape(x.shape)
+  return ((x + _per_position(tables.s2[i0:i0 + p], x) * score)
+          / _per_position(tables.c[i0:i0 + p], x))
+
+
+def dpm_step(score_fn, tables: DPMTables, state, i0: int):
+  """DPM-Solver++(2M) steps ``i0 .. i0 + P - 1`` of the augmented state
+  (x, previous data prediction), each a [P, B, ...] stack:
+
+      x_{i+1} = (s_{i+1}/s_i) x_i - c_{i+1} (e^{-h_i} - 1) D_i
+      D_i = (1 + k_i) x0_i - k_i x0_{i-1}
+
+  Returns the next state. The sequential sampler runs it at P = 1."""
+  x, prev_d = state
+  p = x.shape[0]
+  d = dpm_data_pred(score_fn, tables, x, i0)
+  k = _per_position(tables.k[i0:i0 + p], x)
+  big_d = (1.0 + k) * d - k * prev_d
+  x = (_per_position(tables.a[i0:i0 + p], x) * x
+       - _per_position(tables.b[i0:i0 + p], x) * big_d)
+  return x, d
+
+
 def get_dpm_solver_sampler(config, sde: SDE, shape, inverse_scaler,
                            steps: int = 50, denoise: bool = True,
                            eps: float = 1e-3) -> Callable:
-  """DPM-Solver++(2M) in data-prediction form (Lu et al., 2211.01095).
-
-  In log-SNR time, with h_i = lambda_{i+1} - lambda_i:
-      x_{i+1} = (s_{i+1}/s_i) x_i - c_{i+1} (e^{-h_i} - 1) D_i
-      D_i = (1 + k) x0_i - k x0_{i-1},   k = h_i / (2 h_{i-1})
-  (the first step is the order-1 update). One score evaluation per step;
-  with ``denoise`` the final state is replaced by its data prediction.
-  The step coefficients are host f32 scalars, as the JAX version computes
-  them in f32."""
+  """DPM-Solver++(2M) in data-prediction form (Lu et al., 2211.01095), in
+  log-SNR time with h_i = lambda_{i+1} - lambda_i (:func:`dpm_step`; the
+  first step is the order-1 update). One score evaluation per step; with
+  ``denoise`` the final state is replaced by its data prediction. The
+  step coefficients are f32, as the JAX version computes them."""
   N = int(steps)
 
   @torch.inference_mode()
@@ -297,28 +389,16 @@ def get_dpm_solver_sampler(config, sde: SDE, shape, inverse_scaler,
               x: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, int]:
     score_fn = get_score_fn(config, sde, model, train=False, continuous=True)
     x = _start(sde, shape, model, generator, x)
-    ts, c_all, s_all, lam = _dpm_schedule(sde, N, eps)
-
-    def data_pred(x, i):
-      t_vec = torch.full((x.shape[0],), ts[i].item(), device=x.device)
-      return ((x + (s_all[i] ** 2).item() * score_fn(x, t_vec))
-              / c_all[i].item())
-
-    prev_d = torch.zeros_like(x)
+    tables = dpm_tables(sde, N, eps, x.device)
+    state = (x[None], torch.zeros_like(x[None]))
     for i in range(N):
-      d = data_pred(x, i)
-      h = lam[i + 1] - lam[i]
-      h_prev = lam[i] - lam[max(i - 1, 0)]
-      k = (h / (2.0 * h_prev)).item() if h_prev > 0 else 0.0
-      D = (1.0 + k) * d - k * prev_d
-      x = ((s_all[i + 1] / s_all[i]).item() * x
-           - (c_all[i + 1] * torch.expm1(-h)).item() * D)
-      prev_d = d
+      state = dpm_step(score_fn, tables, state, i)
+    x = state[0]
     nfe = N
     if denoise:
-      x = data_pred(x, N)
+      x = dpm_data_pred(score_fn, tables, x, N)
       nfe += 1
-    return inverse_scaler(x), nfe
+    return inverse_scaler(x[0]), nfe
 
   return sampler
 

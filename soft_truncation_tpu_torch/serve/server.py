@@ -12,7 +12,8 @@ Endpoints::
     GET  /healthz            -> 200 {"status": "ok", "meta": {...}}
     POST /sample             -> body {"num": int, "seed": int,
                                       "format": "npz" | "png",
-                                      "method": "pc" | "ode" | "dpm_solver",
+                                      "method": "pc" | "ode" | "dpm_solver"
+                                                | "picard" | "picard_dpm",
                                       "dpm_steps": int}
         npz: application/octet-stream, np.savez{"samples": uint8 NHWC,
              "nfe": int}
@@ -21,6 +22,10 @@ Endpoints::
 
 ``method`` and ``dpm_steps`` default to the config's (``pc`` runs the
 config's predictor and corrector over ``model.num_scales`` steps).
+``picard`` and ``picard_dpm`` are the parallel-in-time versions of ``pc``
+and ``dpm_solver`` (``sample/parallel.py``) with the config's
+``sampling.picard_*`` keys: ``picard`` with a ``picard_tol`` above 0 on a
+stochastic chain is refused (400), as the sampler refuses it.
 Determinism: the same ``seed`` always returns the same samples; round ``r``
 of a request draws its prior from a ``torch.Generator`` on the device
 seeded from ``(seed, r)``, and the PC sampler's noise from a second one
@@ -58,7 +63,7 @@ from ..utils.jax_params import from_jax_params, load_params_npz
 
 log = logging.getLogger(__name__)
 
-METHODS = ("pc", "ode", "dpm_solver")
+METHODS = ("pc", "ode", "dpm_solver", "picard", "picard_dpm")
 MAX_DPM_STEPS = 1000
 
 
@@ -123,8 +128,11 @@ class SamplingService:
   def sampler(self, method: str, dpm_steps: int):
     """The sampling function of ``method``, built once per (method, steps):
     ``sampler(self.model, generator, x=prior) -> (samples in [0, 1],
-    nfe)``; ``pc`` draws its noise from ``generator`` (or ``draw=``)."""
-    key = (method, dpm_steps if method == "dpm_solver" else None)
+    nfe)``; ``pc`` and ``picard`` draw their noise from ``generator`` (or
+    ``draw=``). A method the config's keys make invalid raises
+    ValueError."""
+    key = (method, dpm_steps if method in ("dpm_solver", "picard_dpm")
+           else None)
     if key not in self._samplers:
       config = copy.deepcopy(self.config)
       config.sampling.method = method

@@ -3,13 +3,15 @@
 Counterpart of ``soft_truncation_tpu/train/state.py``. Where JAX threads an
 immutable pytree through the jitted step, the port's step updates this
 object in place (the model's parameters, the optimizer's moments and the
-EMA copies), which saves a second copy of each.
+EMA copies), which saves a second copy of each. ``replica`` is the
+DistributedDataParallel wrapper of ``model`` under data parallelism
+(``parallel.ddp.replicate``; not part of the checkpoint).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -24,6 +26,7 @@ class TrainState:
   optimizer: Optimizer
   ema: Dict[str, torch.Tensor]
   ema_rate: float = 0.9999
+  replica: Optional[torch.nn.Module] = None
 
   def state_dict(self) -> Dict[str, Any]:
     return {"step": self.step, "model": self.model.state_dict(),

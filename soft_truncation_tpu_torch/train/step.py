@@ -16,25 +16,38 @@ JAX makes it (Soft-Truncation active), unread. ``make_multi_train_step``
 (K steps per dispatch) has no meaning without a dispatch cost to amortise:
 the port has none, and reads neither ``config.tpu.steps_per_dispatch`` nor
 ``donate_state``.
+
+Data parallelism: with ``state.replica`` (``parallel.ddp.replicate``) the
+step runs its forwards through that DistributedDataParallel wrapper, on
+this rank's rows of the global batch (``parallel.ddp.shard``); every draw
+is the global batch's cut to those rows, the micro-batches but the last
+accumulate under ``no_sync``, and the balanced mixed loss's batch mean is
+averaged over the ranks, so that the step equals one process's on the
+whole batch.
 :func:`make_eval_loss_step` is the per-example eval loss.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..losses.losses import (Draw, get_ddpm_loss_fn, get_sde_loss_fn,
                              get_smld_loss_fn, make_draw)
+from ..models.dropout import batch_shard
 from ..models.ema import ema_update
+from ..parallel.ddp import sharded_draw
 from ..sde.core import SDE, VESDE, VPSDE, st_active_for
 from .state import TrainState
 
 
 def make_train_step(config, sde: SDE) -> Callable:
   """Returns ``train_step(state, batch, generator, draw=None)`` -> the
-  per-example losses ([B], or [B/2] for mixed), updating ``state`` in place.
+  per-example losses ([B], or [B/2] for mixed; this rank's under data
+  parallelism), updating ``state`` in place.
 
   ``batch`` is [B, H, W, C] on the model's device; ``generator`` (on that
   device) feeds the dropout masks and, unless ``draw`` is given, every
@@ -65,7 +78,7 @@ def make_train_step(config, sde: SDE) -> Callable:
       raise ValueError(f"Discrete training for {type(sde).__name__} is not "
                        "recommended.")
 
-  def micro_losses(model, mb, t_min, draw, generator):
+  def micro_losses(model, mb, t_min, draw, generator, ranks):
     if not continuous:
       return discrete_loss(model, mb, draw, generator)
     if not mixed:
@@ -74,13 +87,22 @@ def make_train_step(config, sde: SDE) -> Callable:
     l_is = loss_fn(model, mb[:half], t_min, True, draw, generator)
     l_dd = loss_fn(model, mb[half:], t_min, False, draw, generator)
     if balanced:
-      return l_is + ddpm_weight * torch.mean(l_is / l_dd).detach() * l_dd
+      ratio = torch.mean(l_is / l_dd).detach()
+      if ranks > 1:  # the global batch's mean: equal rows on every rank
+        dist.all_reduce(ratio)
+        ratio = ratio / ranks
+      return l_is + ddpm_weight * ratio * l_dd
     return l_is + ddpm_weight * l_dd
 
   def train_step(state: TrainState, batch: torch.Tensor,
                  generator: torch.Generator,
                  draw: Optional[Draw] = None) -> torch.Tensor:
     draw = draw or make_draw(generator, batch.device)
+    replica = state.replica
+    rank, ranks = ((dist.get_rank(), dist.get_world_size())
+                   if replica is not None else (0, 1))
+    if ranks > 1:
+      draw = sharded_draw(draw, rank, ranks)
     if st:
       t_min = sde.sample_t_min(draw("uniform", ()), k_exp, trunc)
     else:
@@ -92,10 +114,17 @@ def make_train_step(config, sde: SDE) -> Callable:
     for p in state.optimizer.params:
       p.grad = None
     losses = []
-    for mb in batch.reshape((num_micro, b // num_micro) + batch.shape[1:]):
-      micro = micro_losses(state.model, mb, t_min, draw, generator)
-      micro.mean().backward()
-      losses.append(micro.detach())
+    micro_batches = batch.reshape((num_micro, b // num_micro)
+                                  + batch.shape[1:])
+    with batch_shard(rank, ranks):
+      for j, mb in enumerate(micro_batches):
+        # DDP reduces the accumulated gradients after the last backward
+        sync = replica is None or j == num_micro - 1
+        with contextlib.nullcontext() if sync else replica.no_sync():
+          micro = micro_losses(replica or state.model, mb, t_min, draw,
+                               generator, ranks)
+          micro.mean().backward()
+        losses.append(micro.detach())
     state.optimizer.step()
     for p in state.optimizer.params:
       p.grad = None

@@ -188,3 +188,21 @@ def test_celeba_npz_goes_through_as_float32_like_jax(tmp_path):
   u = torch.rand(x.shape, generator=torch.Generator().manual_seed(0))
   dq = datasets.make_preprocess_fn(pc)(x, torch.Generator().manual_seed(0))
   torch.testing.assert_close(dq, (255.0 * x + u) / 256.0, rtol=0, atol=0)
+
+
+def test_synthetic_images_are_jax_s_within_their_byte_bound(monkeypatch):
+  """Up to SYNTHETIC_MAX_BYTES the Synthetic images are the JAX package's,
+  drawn a chunk at a time; above it as many of the same draw as fit (at
+  1024^2 JAX's 8,192 would take 26 GB)."""
+  jc = jax_default("cifar10")
+  jc.data.update(dataset="Synthetic", image_size=16)
+  pc = Config({"data": dict(dataset="Synthetic", image_size=16,
+                            num_channels=3)})
+  want = jax_datasets._synthetic_array(jc, "test")
+  np.testing.assert_array_equal(datasets.synthetic_array(pc, "test"), want)
+  assert 8192 * 1024 * 1024 * 3 > datasets.SYNTHETIC_MAX_BYTES
+  monkeypatch.setattr(datasets, "SYNTHETIC_MAX_BYTES", 100 * 16 * 16 * 3)
+  cut = datasets.synthetic_array(pc, "test")
+  assert cut.shape == (100, 16, 16, 3) and cut.dtype == np.uint8
+  np.testing.assert_array_equal(cut, datasets.synthetic_array(pc, "test"))
+  assert cut.std() > 10

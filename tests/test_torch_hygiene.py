@@ -89,6 +89,41 @@ def test_port_base_holds_the_training_keys_with_jax_values():
   _assert_same_values(jc, pc)
 
 
+# the keys slice 6c reads: the Picard samplers', the data-parallel mesh's
+# and activation checkpointing's
+SLICE_6C_KEYS = {
+    "sampling": {"chunk", "picard_window", "picard_tol",
+                 "picard_max_sweeps", "picard_unsafe_tol"},
+    "tpu": {"mesh_shape", "remat", "remat_policy"},
+}
+
+
+def test_port_base_holds_the_picard_mesh_and_remat_keys_with_jax_values():
+  from soft_truncation_tpu.configs.base import default_config as jax_default
+  from soft_truncation_tpu_torch.configs.base import default_config
+  for family in ("cifar10", "celeba", "lsun", "stl10"):
+    jc, pc = jax_default(family), default_config(family)
+    for section, keys in SLICE_6C_KEYS.items():
+      assert keys <= set(pc[section]), (family, section)
+      for key in keys:
+        want, got = jc[section][key], pc[section][key]
+        if isinstance(want, (list, tuple)):
+          want, got = tuple(want), tuple(got)
+        assert got == want, f"{family} {section}.{key}: {got!r} != {want!r}"
+  assert "profile_dir" not in pc.tpu and "profile_dir" not in jc.tpu
+
+
+SLICE_6C_MODULES = ("sample/parallel.py", "parallel/__init__.py",
+                    "parallel/ddp.py", "utils/profiling.py",
+                    "utils/torch_port.py")
+
+
+def test_the_slice_6c_modules_are_held_to_the_import_rule():
+  held = {str(p.relative_to(REPO / "soft_truncation_tpu_torch"))
+          for p in PORT_FILES if "soft_truncation_tpu_torch" in p.parts}
+  assert set(SLICE_6C_MODULES) <= held
+
+
 PORT_CONFIGS = pathlib.Path(torch_tiny.PORT_CONFIGS)
 JAX_CONFIGS = REPO / "soft_truncation_tpu" / "configs"
 PUBLISHED_CONFIGS = sorted(p.relative_to(JAX_CONFIGS)

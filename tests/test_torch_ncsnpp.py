@@ -160,8 +160,10 @@ def test_block_matches_jax(kind):
 
 def test_out_of_slice_options_raise():
   """Every NCSN++ option builds, and so do the legacy networks and the
-  discrete losses (slice 6b); what is still out of the port (Picard)
-  raises, naming its ROADMAP.md item."""
+  discrete losses (slice 6b) and the Picard samplers (slice 6c), whose
+  stochastic-chain guard refuses the base config's tolerance on a PC
+  chain; what is still out of the port (the 2-D data x space mesh)
+  raises."""
   from soft_truncation_tpu_torch.models import create_model, ddpm
   from soft_truncation_tpu_torch.sample.sampling import get_sampling_fn
   from soft_truncation_tpu_torch.sde import get_sde
@@ -181,8 +183,14 @@ def test_out_of_slice_options_raise():
   pc.training.update(continuous=False, likelihood_weighting=False)
   make_train_step(pc, get_sde(pc))  # the discrete DDPM loss of a VP SDE
   pc.sampling.method = "picard"
-  with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
+  with pytest.raises(ValueError, match="stochastic chain"):
     get_sampling_fn(pc, get_sde(pc), torch_tiny.SHAPE, lambda x: x, 1e-3)
+  pc.sampling.method = "picard_dpm"
+  get_sampling_fn(pc, get_sde(pc), torch_tiny.SHAPE, lambda x: x, 1e-3)
+  from soft_truncation_tpu_torch.parallel import ddp
+  pc.tpu.mesh_shape = (1, 1)
+  with pytest.raises(NotImplementedError, match="space"):
+    ddp.check_mesh(pc, ddp.World())
 
 
 @pytest.mark.slow

@@ -116,12 +116,14 @@ def test_fp8_conv_and_its_gradients_match_jax(stride, padding):
 
 
 def test_qconv_is_a_drop_in_and_unsupported_dtypes_raise():
+  gen = torch.Generator().manual_seed(0)
   plain, q = ddpm_conv(4, 6, 3), ddpm_conv(4, 6, 3, act_quant="float8_e4m3")
   assert isinstance(q, quant.QConv) and type(plain) is DDPMConv
   assert {k: v.shape for k, v in q.state_dict().items()} == {
       k: v.shape for k, v in plain.state_dict().items()}
+  plain.reset_parameters(gen)
   q.load_state_dict(plain.state_dict())
-  x = torch.randn(2, 5, 5, 4)
+  x = torch.randn(2, 5, 5, 4, generator=gen)
   want = plain(quant.round_e4m3(x))
   torch.testing.assert_close(q(x), want, rtol=1e-6, atol=1e-6)
   with pytest.raises(NotImplementedError):
