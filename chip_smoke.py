@@ -36,7 +36,8 @@ Phases; any failure exits non-zero before the last line is printed:
      and (as in phase 5) no autograd.Function on the way;
   5. serve UNCSN++ (the other main path), counted the same way: with the
      config as published (init_scale 0) /healthz, then /sample with no
-     method, i.e. the config's 'pc' at N = PC_PUBLISHED_STEPS, once, with
+     method, i.e. the config's 'pc' at N = PC_SERVED_STEPS (a quarter of
+     the published PC_PUBLISHED_STEPS), once, with
      its wall; 'pc' at N = 50 and 'dpm_solver' (20 steps) twice each; with
      the phase-3 weights 'pc' at N = 3, whose batch is held against a CPU
      SamplingService given the same prior and the same noise. Both kernels'
@@ -213,6 +214,32 @@ Phases; any failure exits non-zero before the last line is printed:
      step without remat, or its out-of-memory error;
      and phase 8 gains rows for gn_silu_conv3x3 at batch 400 and 64 and
      fir2 at 64 (Picard), fir2 and its adjoint at FFHQ's shapes, batch 16.
+  11. slice 6d, the exported sampler (after 10f): first the operators'
+     dispatch against the direct launch (host us per call, DISPATCH_CALLS
+     calls of each route interleaved, at a 4x4 site of batch 8 and a fir2
+     up site); then per model, the phase-3 weights (init_scale 0.1)
+     written with the port's save_params_npz and ``serve/export.py``'s
+     score programs exported on the card at batch EXPORT_BATCH and saved
+     as one artifact (seconds, bytes); a fresh subprocess
+     (``chip_smoke.py --replay-server``, with the port's ``models`` and
+     ``configs`` made unimportable) loads the pair (seconds) and serves it
+     over HTTP, and the live SamplingService in this process serves the
+     same seeds:
+  11a. the flagship: two seeds with its own 'ode' and two with 'dpm_solver'
+     at EXPORT_DPM_STEPS steps;
+  11b. UNCSN++ with 'pc' at N = EXPORT_PC_STEPS (of 1,000) and
+     'dpm_solver', two seeds each;
+     held: the same nfe for 'pc' and 'dpm_solver' (both printed for
+     'ode'), samples before quantisation within EXPORT_REL_TOL of max |x|
+     (EXPORT_ODE_REL_TOL for 'ode'), the served uint8 bytes apart by at
+     most 1 in at most EXPORT_MAX_MOVED of the positions, and in the
+     subprocess, counted inside the operators, 82 gn_silu_conv3x3 launches
+     (and 12 fir2 for UNCSN++) per score evaluation at the fused (FIR)
+     sites' shapes; printed and held: the host ms per evaluation and
+     torch.profiler's kernels per evaluation, replay against eager
+     (within EXPORT_KERNELS_REL); phase 8's lines gain the replay's
+     launches (``*_replay`` entries, the timings of phase 8's batch-8
+     rows at the same shapes).
 Imports torch and the port only, never jax or the JAX package.
 """
 
@@ -229,6 +256,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -255,6 +283,7 @@ UNCSNPP_FIR_SITES = {("down", 32, 32, 128): 2, ("down", 16, 16, 256): 2,
                      ("up", 8, 8, 256): 2, ("up", 16, 16, 256): 2}
 FIR_KERNEL = (1, 3, 3, 1)
 PC_PUBLISHED_STEPS = 1000  # model.num_scales of ve/CIFAR10/uncsnpp_st.py
+PC_SERVED_STEPS = 250      # phase 5: the config's 'pc' served, N cut
 TRAIN_BATCH = 128        # training.batch_size of both configs
 TRAIN_CHECK_BATCH = 2    # phase 6
 TRAIN_ITERS = 5          # phase 7: steps 0..5, then a resume to 7
@@ -387,6 +416,17 @@ PICARD_UNCSNPP_REL_TOL = 1e-3
 DDP_TIMED_ITERS = 3
 DDP_REL_TOL = 1e-5
 PROFILE_ITERS = 11          # 10d: steps 0..11, the eleventh (10) traced
+EXPORT_BATCH = 8            # 11: the artifact's batch
+EXPORT_DPM_STEPS = 50       # 11: 'dpm_solver' steps served
+EXPORT_PC_STEPS = 32        # 11b: UNCSN++'s 'pc' N, cut from 1,000
+EXPORT_SEEDS = (0, 1)
+EXPORT_REL_TOL = 1e-5       # 11: replay vs live, of max |x|
+EXPORT_ODE_REL_TOL = 1e-3   # 11: 'ode' (adaptive steps follow the rounding)
+EXPORT_MAX_MOVED = 1e-3     # 11: uint8 positions that may differ (by 1)
+EXPORT_KERNELS_REL = 0.05   # 11: profiler kernels per evaluation
+EXPORT_PROFILE_EVALS = 3    # 11: evaluations timed and traced per side
+DISPATCH_CALLS = 1000       # 11: calls per route
+DISPATCH_RULE_US = 10       # 11: the operator's cost the eager route takes
 FFHQ = os.path.join(CONFIGS, "ve", "ffhq_1024_uncsn.py")
 FFHQ_BATCH = 16             # 10f: training.batch_size of ffhq_1024_uncsn.py
 FFHQ_TRAIN_ITERS = 3        # 10f: steps 0..3 with tpu.remat
@@ -797,7 +837,7 @@ def phase_serve_uncsnpp(sites, fir_sites, params):
   from soft_truncation_tpu_torch.models import create_model
   from soft_truncation_tpu_torch.serve.server import SamplingService
 
-  config = load_config(UNCSNPP, num_scales=PC_PUBLISHED_STEPS)
+  config = load_config(UNCSNPP, num_scales=PC_SERVED_STEPS)
   weights = create_model(config, "cpu", seed=1).state_dict()
   service = SamplingService(config, weights, batch=SERVE_BATCH,
                             device=DEVICE)
@@ -834,7 +874,7 @@ def phase_serve_uncsnpp(sites, fir_sites, params):
   _check_tallies("uncsnpp", evals, launched, sites, fir_launched, fir_sites)
   _check_against_cpu(service01, params, served01, pc01["seed"], "pc",
                      config01.model.num_scales)
-  log(f"serve uncsnpp: pc as published, N={PC_PUBLISHED_STEPS}: "
+  log(f"serve uncsnpp: pc, N={PC_SERVED_STEPS} of {PC_PUBLISHED_STEPS}: "
       f"{out['pc_evals']} evaluations in {out['pc_wall_s']:.3f} s, "
       f"{out['pc_wall_s'] / out['pc_evals'] * 1e3:.3f} ms per evaluation")
   return launched, fir_launched, evals
@@ -2637,6 +2677,335 @@ def phase_ffhq_train():
   return steps, fwd, bwd, batch
 
 
+def phase_dispatch():
+  """Host microseconds per call of each kernel's operator (the route every
+  call takes, eager or traced) against a direct call of its launch
+  function, at one shape each: DISPATCH_CALLS calls per route in four
+  interleaved rounds, each call timed alone on the host clock (the device
+  synchronised every 32 calls, so the launch queue never blocks), the
+  medians. Both routes launch and count; the counts are reset after."""
+  import statistics
+  import torch
+  from soft_truncation_tpu_torch.ops import fir, gn_conv
+
+  gen = torch.Generator(DEVICE).manual_seed(0)
+
+  def randn(*shape):
+    return torch.randn(*shape, device=DEVICE, generator=gen)
+
+  n, h, w, c, o, g = SERVE_BATCH, 4, 4, 256, 256, 32
+  x = randn(n, h, w, c)
+  mean, rsqrt = gn_conv.gn_stats(x, g)
+  gamma, beta, wt, b = randn(c), randn(c), randn(3, 3, c, o) * 0.05, randn(o)
+  hi, lo = gn_conv.weight_operand(wt)
+  xf = randn(n, 8, 8, 256)
+  taps = [float(v) for v in FIR_KERNEL]
+  routes = {
+      f"gn_silu_conv3x3 {n}x{h}x{w}x{c}->{o}": (
+          lambda: gn_conv._OP(x, mean, rsqrt, gamma, beta, wt, b, g, hi, lo),
+          lambda: gn_conv._primal_cuda(x, mean, rsqrt, gamma, beta, wt, b, g,
+                                       (hi, lo))),
+      f"fir2 up {n}x8x8x256": (
+          lambda: fir._OP(xf, taps, 1.0, "up", None, "up:forward"),
+          lambda: fir._resample_cuda(xf, tuple(taps), 1.0, "up",
+                                     fir.fir_upsample2, "forward"))}
+  rows = []
+  with torch.inference_mode():
+    for name, (op, direct) in routes.items():
+      times = {"op": [], "direct": []}
+      for fn in (op, direct):
+        for _ in range(10):
+          fn()
+      for _ in range(4):
+        for route, fn in (("op", op), ("direct", direct)):
+          torch.cuda.synchronize()
+          for i in range(DISPATCH_CALLS // 4):
+            t0 = time.perf_counter()
+            fn()
+            times[route].append(time.perf_counter() - t0)
+            if i % 32 == 31:
+              torch.cuda.synchronize()
+      torch.cuda.synchronize()
+      op_us, direct_us = (statistics.median(times[r]) * 1e6
+                          for r in ("op", "direct"))
+      row = {"dispatch": name, "calls_per_route": len(times["op"]),
+             "op_us_per_call": op_us, "direct_us_per_call": direct_us,
+             "op_adds_us": op_us - direct_us}
+      emit(row)
+      rows.append(row)
+  _reset_launch_counts()
+  worst = max(r["op_adds_us"] for r in rows)
+  over = (" (over it: measure again before choosing the route)"
+          if worst > DISPATCH_RULE_US else "")
+  log(f"dispatch: the operator adds at most {worst:.2f} us per call over "
+      f"the launch function; every call goes through the operator, as the "
+      f"design allows up to {DISPATCH_RULE_US} us{over}")
+  return rows
+
+
+def _stash_floats(service):
+  """Record each of ``service``'s sampler runs (samples before
+  quantisation, nfe) in the list returned."""
+  runs, sampler = [], service.sampler
+
+  def recording(method, steps):
+    fn = sampler(method, steps)
+
+    def run(*args, **kwargs):
+      out, nfe = fn(*args, **kwargs)
+      runs.append((out.float().cpu().numpy(), int(nfe)))
+      return out, nfe
+    return run
+
+  service.sampler = recording
+  return runs
+
+
+def _count_evaluations(service):
+  """A one-item list counting ``service``'s score evaluations: the
+  network's forwards, or the replay's program calls."""
+  count, model = [0], service.model
+  if hasattr(model, "score_fn"):
+    score_fn = model.score_fn
+
+    def counted(continuous):
+      fn = score_fn(continuous)
+
+      def score(x, t):
+        count[0] += 1
+        return fn(x, t)
+      return score
+
+    model.score_fn = counted
+  else:
+    model.register_forward_hook(lambda *_: count.__setitem__(0, count[0] + 1))
+  return count
+
+
+def _eval_profile(score_fn, x, t):
+  """The synchronised host wall per score evaluation over
+  EXPORT_PROFILE_EVALS calls, and the kernels per evaluation in a
+  torch.profiler trace of as many (memcpy and memset left out)."""
+  import torch
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+
+  def calls(n):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+      score_fn(x, t)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+  with torch.inference_mode():
+    calls(2)
+    wall_ms = calls(EXPORT_PROFILE_EVALS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      calls(EXPORT_PROFILE_EVALS)
+  kernels = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not e.key.startswith(("Memcpy", "Memset")))
+  return {"wall_ms_per_eval": wall_ms,
+          "kernels_per_eval": kernels / EXPORT_PROFILE_EVALS}
+
+
+def _shape_counts(counts):
+  return [[list(k), v] for k, v in counts.items()]
+
+
+def replay_server(artifact, params) -> int:
+  """Phase 11's subprocess: load the pair with the port's model and config
+  packages made unimportable, serve it over HTTP on a free port (printed
+  as the first JSON line with the load's seconds), and answer JSON
+  commands on stdin: 'counts' (the score evaluations and both kernels'
+  launches per shape since the last 'counts', counted inside the
+  operators, and the sampler runs' samples before quantisation, written
+  beside the artifact), 'profile' (``_eval_profile`` at round 0 of seed
+  0's prior, t = 0.5) and 'quit'."""
+  for name in ("soft_truncation_tpu_torch.models",
+               "soft_truncation_tpu_torch.configs"):
+    sys.modules[name] = None
+  sys.path.insert(0, REPO)
+  import numpy as np
+  import torch
+  from soft_truncation_tpu_torch.serve.server import (SamplingService,
+                                                      make_server)
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.deterministic = True
+  t0 = time.perf_counter()
+  service = SamplingService.from_artifact(artifact, params)
+  torch.cuda.synchronize()
+  load_s = time.perf_counter() - t0
+  runs, evals = _stash_floats(service), _count_evaluations(service)
+  _reset_launch_counts()
+  srv = make_server(service, host="127.0.0.1", port=0)
+  thread = threading.Thread(target=srv.serve_forever, daemon=True)
+  thread.start()
+  emit({"port": srv.server_address[1], "load_s": load_s})
+  try:
+    for line in sys.stdin:
+      cmd = json.loads(line)["cmd"]
+      if cmd == "counts":
+        gn, firs = _launch_counts()
+        path = artifact + ".replay_floats.npz"
+        np.savez(path, *[r[0] for r in runs],
+                 nfe=np.asarray([r[1] for r in runs]))
+        emit({"evals": evals[0], "gn": _shape_counts(gn),
+              "fir": _shape_counts(firs), "floats": path})
+        runs.clear()
+        evals[0] = 0
+        _reset_launch_counts()
+      elif cmd == "profile":
+        t = torch.full((service.batch,), 0.5, device=service.device)
+        emit(_eval_profile(service.model.score_fn(True),
+                           service.prior(0, 0), t))
+      elif cmd == "quit":
+        break
+  finally:
+    srv.shutdown()
+    thread.join(timeout=60)
+    srv.server_close()
+  return 0
+
+
+def _ask(child, cmd=None):
+  """Send ``cmd`` to the replay subprocess (if any) and read its next JSON
+  line."""
+  if cmd is not None:
+    child.stdin.write(json.dumps(cmd) + "\n")
+    child.stdin.flush()
+  while True:
+    line = child.stdout.readline()
+    if not line:
+      raise AssertionError(f"the replay subprocess ended (rc "
+                           f"{child.poll()})")
+    if line.startswith("{"):
+      return json.loads(line)
+
+
+def phase_export(name, config, params, requests, sites, fir_sites,
+                 workdir):
+  """11a / 11b (module docstring): export on the card, replay in a fresh
+  subprocess over HTTP, hold it against the live service. Returns the
+  replay's launches per shape of both kernels and its score
+  evaluations."""
+  import numpy as np
+  import torch
+  from soft_truncation_tpu_torch.sample.sampling import score_of
+  from soft_truncation_tpu_torch.serve import export
+  from soft_truncation_tpu_torch.serve.server import SamplingService
+
+  artifact = os.path.join(workdir, name + export.EXTENSION)
+  npz = os.path.join(workdir, name + ".params.npz")
+  t0 = time.perf_counter()
+  exported, shape = export.export_sampler(config, params, EXPORT_BATCH,
+                                          DEVICE)
+  export_s = time.perf_counter() - t0
+  nodes = collections.Counter(
+      str(n.target) for p in exported.programs.values()
+      for n in p.graph.nodes if n.op == "call_function")
+  export.save_artifact(exported, export.artifact_meta(config, shape,
+                                                      exported), artifact)
+  export.save_params_npz(params, npz)
+  log(f"export {name}: {export_s:.2f} s, programs "
+      f"{[p.name for p in exported.specs]}, artifact "
+      f"{os.path.getsize(artifact)} bytes, params npz "
+      f"{os.path.getsize(npz)} bytes")
+  del exported
+  child = subprocess.Popen(
+      [sys.executable, os.path.abspath(__file__), "--replay-server",
+       artifact, npz], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+      text=True, cwd=REPO)
+  try:
+    hello = _ask(child)
+    url = f"http://127.0.0.1:{hello['port']}"
+    meta = _healthz(url)
+    if "artifact" not in meta:
+      raise AssertionError(f"/healthz of the replay names no artifact: "
+                           f"{meta}")
+    replayed = []
+    for req in requests:
+      t0 = time.perf_counter()
+      with np.load(io.BytesIO(_post(url + "/sample", req))) as f:
+        replayed.append((f["samples"], int(f["nfe"])))
+      log(f"replay {name}: {json.dumps(req)} nfe {replayed[-1][1]} wall_s "
+          f"{time.perf_counter() - t0:.3f}")
+    counts = _ask(child, {"cmd": "counts"})
+    replay_profile = _ask(child, {"cmd": "profile"})
+    child.stdin.write(json.dumps({"cmd": "quit"}) + "\n")
+    child.stdin.flush()
+    child.wait(timeout=120)
+  finally:
+    if child.poll() is None:
+      child.kill()
+      child.wait()
+  if child.returncode != 0:
+    raise AssertionError(f"replay subprocess exited {child.returncode}")
+  with np.load(counts["floats"]) as f:
+    replay_floats = [f[f"arr_{i}"] for i in range(len(requests))]
+
+  live = SamplingService(config, params, batch=EXPORT_BATCH, device=DEVICE)
+  live_runs = _stash_floats(live)
+  live_served = [live.sample(r["num"], r["seed"], r.get("method"),
+                             r.get("dpm_steps")) for r in requests]
+  t = torch.full((EXPORT_BATCH,), 0.5, device=DEVICE)
+  eager_profile = _eval_profile(score_of(config, live.sde, live.model, True),
+                                live.prior(0, 0), t)
+  for req, (r8, r_nfe), (l8, l_nfe), rf, (lf, _) in zip(
+      requests, replayed, live_served, replay_floats, live_runs):
+    method = req.get("method", config.sampling.method)
+    err = float(np.abs(rf - lf).max())
+    scale = float(np.abs(lf).max())
+    step = np.abs(r8.astype(np.int16) - l8.astype(np.int16))
+    moved = float((step > 0).mean())
+    tol = EXPORT_ODE_REL_TOL if method == "ode" else EXPORT_REL_TOL
+    log(f"replay {name} vs live: {json.dumps(req)} nfe {r_nfe} vs {l_nfe}, "
+        f"max_abs_diff {err} max|x| {scale}, uint8 max step "
+        f"{int(step.max())} moved {moved}")
+    if method != "ode" and r_nfe != l_nfe:
+      raise AssertionError(f"{name} {method}: nfe {r_nfe} replayed, "
+                           f"{l_nfe} live")
+    if not (np.isfinite(rf).all() and err <= tol * scale):
+      raise AssertionError(f"{name} {method}: replay {err} from live, max "
+                           f"|x| {scale}")
+    if step.max() > 1 or moved > EXPORT_MAX_MOVED:
+      raise AssertionError(f"{name} {method}: served bytes differ by up to "
+                           f"{step.max()} in {moved} of the positions")
+  evals = counts["evals"]
+  gn = {tuple(k): v for k, v in counts["gn"]}
+  firs = {tuple(k): v for k, v in counts["fir"]}
+  want_gn = {s: k * evals for s, k in sites.items()}
+  want_fir = {s: k * evals for s, k in fir_sites.items()}
+  log(f"replay {name}: {evals} score evaluations, "
+      f"{sum(gn.values()) / max(evals, 1):g} gn_silu_conv3x3 and "
+      f"{sum(firs.values()) / max(evals, 1):g} fir2 launches per "
+      f"evaluation; load {hello['load_s']:.2f} s")
+  if not evals or gn != want_gn or firs != want_fir:
+    raise AssertionError(f"{name}: the replay's launches per shape {gn}, "
+                         f"{firs} are not the sites x {evals} evaluations: "
+                         f"{want_gn}, {want_fir}")
+  row = {"export": name, "batch": EXPORT_BATCH, "export_s": export_s,
+         "graph_nodes": sum(nodes.values()),
+         "graph_dtype_assert_and_cast_nodes": (
+             nodes["aten._assert_tensor_metadata.default"]
+             + nodes["aten.to.dtype"]),
+         "artifact_bytes": os.path.getsize(artifact),
+         "load_s": hello["load_s"], "evals": evals,
+         "gn_silu_conv3x3_per_eval": sum(gn.values()) / evals,
+         "fir2_per_eval": sum(firs.values()) / evals,
+         "replay": replay_profile, "eager": eager_profile}
+  emit(row)
+  rk, ek = replay_profile["kernels_per_eval"], eager_profile[
+      "kernels_per_eval"]
+  if abs(rk - ek) > EXPORT_KERNELS_REL * ek:
+    raise AssertionError(f"{name}: {rk} kernels per evaluation replayed, "
+                         f"{ek} eager")
+  return gn, firs, evals
+
+
 def _relaunched(rows, launched, units, per_key, shape_of):
   """The rows of another path measured at the same shapes and batch, with
   the launches of this path: (shape -> launches over ``units`` forwards or
@@ -3199,6 +3568,24 @@ def main() -> int:
       "train ffhq 1024", phase_ffhq_train)
   log(f"phases 10a-10f: {time.perf_counter() - t_10:.1f} s")
 
+  # phase 11: the exported sampler, replayed in a fresh process
+  t_11 = time.perf_counter()
+  phase("dispatch", phase_dispatch)
+  export_dir = tempfile.mkdtemp(prefix="chip_smoke_export_")
+  dpm = [{"num": EXPORT_BATCH, "seed": s, "method": "dpm_solver",
+          "dpm_steps": EXPORT_DPM_STEPS} for s in EXPORT_SEEDS]
+  own = [{"num": EXPORT_BATCH, "seed": s} for s in EXPORT_SEEDS]
+  x_gn, x_fir, x_evals = phase(
+      "export flagship", phase_export, "flagship",
+      load_config(FLAGSHIP, init_scale=0.1), flag_params, own + dpm, sites,
+      {}, export_dir)
+  ux_gn, ux_fir, ux_evals = phase(
+      "export uncsnpp", phase_export, "uncsnpp",
+      load_config(UNCSNPP, init_scale=0.1, num_scales=EXPORT_PC_STEPS),
+      u_params, own + dpm, u_sites, u_fir_sites, export_dir)
+  shutil.rmtree(export_dir, ignore_errors=True)
+  log(f"phases 11a-11b: {time.perf_counter() - t_11:.1f} s")
+
   gn_launched = collections.Counter(launched) + collections.Counter(
       u_launched)
   t0 = time.perf_counter()
@@ -3252,6 +3639,15 @@ def main() -> int:
   ffhq_rows = kernels_fir(ffhq_fwd, ffhq_steps, ffhq_batch,
                           "launches_per_step")
   ffhq_bwd_rows = kernels_fir_backward(ffhq_bwd, ffhq_steps, ffhq_batch)
+  # the replay launches at the serve phases' shapes and batch
+  replay_gn_rows = _relaunched(
+      gn_rows, collections.Counter(x_gn) + collections.Counter(ux_gn),
+      x_evals + ux_evals, "launches_per_forward",
+      lambda r: tuple(r["shape_nhwc_o"][1:]))
+  replay_fir_rows = _relaunched(
+      fir_rows, ux_fir, ux_evals, "launches_per_forward",
+      lambda r: (r["kernel"][len("fir_"):-len("sample2")],
+                 *r["shape_nhwc"][1:]))
   log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 
   fir_src = "soft_truncation_tpu_torch/csrc/fir2.cu"
@@ -3362,7 +3758,20 @@ def main() -> int:
       _kernel_entry("fir2_backward_ffhq", fir_src,
                     "soft_truncation_tpu/ops/pallas/fir.py:212",
                     ffhq_bwd_rows, f"one FFHQ 1024^2 train step at batch "
-                    f"{ffhq_batch} with tpu.remat", "launches_per_step")]
+                    f"{ffhq_batch} with tpu.remat", "launches_per_step"),
+      _kernel_entry("gn_silu_conv3x3_replay", gn_src,
+                    "soft_truncation_tpu/ops/pallas/gn_conv.py:74",
+                    replay_gn_rows, f"one score evaluation of the exported "
+                    f"flagship or UNCSN++ program at batch {EXPORT_BATCH}, "
+                    "replayed in a fresh process (counted inside the "
+                    "operator)", "launches_per_forward"),
+      *(_kernel_entry(f"fir_{mode}sample2_replay", fir_src, fir_fwd,
+                      [r for r in replay_fir_rows
+                       if r["kernel"] == f"fir_{mode}sample2"],
+                      f"one score evaluation of the exported UNCSN++ "
+                      f"program at batch {EXPORT_BATCH}, replayed in a "
+                      "fresh process", "launches_per_forward")
+        for mode in ("up", "down"))]
   emit({"kernels": entries})
   for entry in entries:
     log(f"{entry['name']} ({entry['per']}): issued {entry['ms']:.4f} ms vs "
@@ -3378,4 +3787,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+  if sys.argv[1:2] == ["--replay-server"]:
+    sys.exit(replay_server(*sys.argv[2:4]))
   sys.exit(main())

@@ -459,13 +459,21 @@ int run(Params p, int rows, int splits, int slots, void* stream) {
       (!kTangent && p.bias == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  static bool configured = false;  // one per mode
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gn_silu_conv3x3_tf32x3_kernel<kTangent>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  // The shared-memory attribute holds for the current device only, so it is
+  // set once per device (and per mode: one flag table per instantiation);
+  // a process that launches on a second card sets it there too. Past
+  // kMaxDevices it is set at every launch.
+  constexpr int kMaxDevices = 64;
+  static bool configured[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device >= kMaxDevices || !configured[device]) {
+    err = cudaFuncSetAttribute(gn_silu_conv3x3_tf32x3_kernel<kTangent>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
+    if (device < kMaxDevices) configured[device] = true;
   }
   p.M = (int)M;
   p.rows = rows;

@@ -21,6 +21,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops._autodiff import below_transforms
+from ..ops._build import tracing
 from ..ops.gn_conv import weight_operand
 from .dropout import Dropout
 
@@ -72,6 +73,7 @@ class DDPMConv(nn.Module):
         torch.empty(out_ch, in_ch, kernel_size, kernel_size))
     self.bias = nn.Parameter(torch.zeros(out_ch))
     self._derived, self._derived_key = {}, None
+    self.traced_operands = None
     self.reset_parameters()
 
   def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -85,7 +87,16 @@ class DDPMConv(nn.Module):
     """``make()`` once per weight value (a load, an in-place update or a
     move to another device makes a new one), not once per forward. It runs
     below any ``torch.func`` transform, so that a first forward under
-    ``torch.func.jvp`` caches plain tensors, which a kernel can read."""
+    ``torch.func.jvp`` caches plain tensors, which a kernel can read.
+
+    While tracing (``torch.export``) nothing is cached and no data pointer
+    is read: the value is ``traced_operands[name]`` where the exporter set
+    it (an input of the exported program, prepared once per params load:
+    ``serve/export.py``), else ``make()`` in the graph."""
+    if tracing():
+      if self.traced_operands is not None and name in self.traced_operands:
+        return self.traced_operands[name]
+      return make()
     key = (self.weight.device, self.weight.data_ptr(), self.weight._version)
     if self._derived_key != key:
       self._derived, self._derived_key = {}, key

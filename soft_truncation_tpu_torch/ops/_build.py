@@ -8,6 +8,13 @@ compiler's report (``-Xptxas -v``: registers, shared memory, spills) is
 kept beside it as ``.log``. Importing this module needs neither ``nvcc``
 nor a card. :func:`launch` calls a loaded entry point on the current
 stream of a tensor's device.
+
+Each kernel is also an operator of the ``soft_truncation`` namespace
+(:func:`define_op`), so that ``torch.export`` and the compiler see it as one
+opaque node: a CPU implementation (the kernel's plain version), a CUDA one
+(the launch) and a fake one (the output's shape, dtype and device). Eager
+calls go through the operator too: ``PERF.md`` gives the dispatcher's cost
+per call on the card's host, a few microseconds.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NAMESPACE = "soft_truncation"
+_LIBRARY = torch.library.Library(NAMESPACE, "DEF")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -72,3 +81,19 @@ def launch(fn, device: torch.device, *args) -> int:
     return fn(*args, torch._C._cuda_getCurrentRawStream(index))
   with torch.cuda.device(index):
     return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
+def define_op(name: str, schema: str, cpu, cuda, fake):
+  """Define the operator ``soft_truncation::<name><schema>`` with its CPU,
+  CUDA and fake implementations; returns its overload."""
+  _LIBRARY.define(name + schema)
+  _LIBRARY.impl(name, cpu, "CPU")
+  _LIBRARY.impl(name, cuda, "CUDA")
+  torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=_LIBRARY)
+  return getattr(getattr(torch.ops, NAMESPACE), name).default
+
+
+def tracing() -> bool:
+  """Whether the call is being traced (``torch.export``, ``torch.compile``):
+  its tensors have no storage, no data pointer and no version counter."""
+  return torch.compiler.is_compiling()

@@ -37,6 +37,12 @@ Where no derivative can be asked of the call (under ``torch.no_grad`` /
 wrappers call the resample directly, without the Function
 (``ops/_autodiff.py``).
 
+The resample is also the operator ``soft_truncation::fir2`` (``x, taps,
+gain, mode, out_hw, count_as``; ``ops/_build.py::define_op``): CPU = the
+plain version, CUDA = the launch (:func:`_resample_cuda`, which counts it
+as ``count_as`` names), fake = the output's shape. Every call goes
+through it, traced (``torch.export``) or eager.
+
 Each wrapper counts its forward launches in ``.launches`` and, per input
 ``(H, W, C)``, in ``.launches_by_shape``; the launches its backward makes
 (in the other mode) in ``.backward_launches`` and, per cotangent
@@ -56,7 +62,7 @@ import numpy as np
 import torch
 
 from ._autodiff import below_transforms, plain, records_derivatives
-from ._build import launch, load_library
+from ._build import define_op, launch, load_library, tracing
 
 _KERNEL = "fir2"
 MAX_TAPS = 8
@@ -280,21 +286,59 @@ _TALLIES = {"forward": ("launches", "launches_by_shape"),
             "jvp": ("jvp_launches", "jvp_launches_by_shape")}
 
 
-def _resample(x, k, gain: float, mode: str, wrapper, tally: str,
-              out_hw=None):
-  """The plain version for a CPU tensor, the kernel for a CUDA tensor,
-  counted on ``wrapper`` as a ``tally`` ('forward', 'backward' or 'jvp')
-  launch."""
-  device = x.device
-  if device.type == "cpu":
-    return _fir2_plain(x, k, gain, mode, out_hw)
-  if device.type != "cuda":
-    raise ValueError(f"fir_{mode}sample2 runs on cuda or cpu, not {device}")
-  out = _launch(x, k, gain, mode, out_hw, device)
+def _resample_cuda(x, k, gain: float, mode: str, wrapper, tally: str,
+                   out_hw=None):
+  """One launch of the kernel on the CUDA tensor ``x``, counted on
+  ``wrapper`` as a ``tally`` ('forward', 'backward' or 'jvp') launch: the
+  operator's CUDA implementation."""
+  out = _launch(x, k, gain, mode, out_hw, x.device)
   total, by_shape = _TALLIES[tally]
   setattr(wrapper, total, getattr(wrapper, total) + 1)
   _count(getattr(wrapper, by_shape), tuple(x.shape[1:]))
   return out
+
+
+def _op_args(taps, out_hw, count_as):
+  """The operator's list arguments as the launch function takes them, and
+  its ``count_as`` ('<up|down>:<tally>') as (wrapper, tally)."""
+  wrapper, tally = count_as.split(":")
+  return (tuple(taps), None if out_hw is None else tuple(out_hw),
+          fir_upsample2 if wrapper == "up" else fir_downsample2, tally)
+
+
+def _op_cpu(x, taps, gain, mode, out_hw, count_as):
+  k, out_hw, _, _ = _op_args(taps, out_hw, count_as)
+  return _fir2_plain(x, k, gain, mode, out_hw)
+
+
+def _op_cuda(x, taps, gain, mode, out_hw, count_as):
+  k, out_hw, wrapper, tally = _op_args(taps, out_hw, count_as)
+  return _resample_cuda(x, k, gain, mode, wrapper, tally, out_hw)
+
+
+def _op_fake(x, taps, gain, mode, out_hw, count_as):
+  k, out_hw, _, _ = _op_args(taps, out_hw, count_as)
+  n, _, _, c = x.shape
+  oh, ow = _check(tuple(x.shape), _plan(k, float(gain), mode), mode, out_hw)
+  return x.new_empty((n, oh, ow, c))
+
+
+_OP = define_op(
+    "fir2", "(Tensor x, float[] taps, float gain, str mode, int[]? out_hw, "
+    "str count_as) -> Tensor", cpu=_op_cpu, cuda=_op_cuda, fake=_op_fake)
+
+
+def _resample(x, k, gain: float, mode: str, wrapper, tally: str,
+              out_hw=None):
+  """The operator: the plain version for a CPU tensor, the kernel for a
+  CUDA tensor, counted on ``wrapper`` as a ``tally`` ('forward',
+  'backward' or 'jvp') launch; an opaque node while tracing."""
+  if x.device.type not in ("cpu", "cuda") and not tracing():
+    raise ValueError(f"fir_{mode}sample2 runs on cuda or cpu, not "
+                     f"{x.device}")
+  count_as = f"{'up' if wrapper is fir_upsample2 else 'down'}:{tally}"
+  return _OP(x, list(k), gain, mode, None if out_hw is None else list(out_hw),
+             count_as)
 
 
 def _lax_equivalent(x, k, gain: float, mode: str):

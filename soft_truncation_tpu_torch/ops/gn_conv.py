@@ -26,6 +26,14 @@ the primal and for the tangent. There is no reverse-mode rule: the
 Function's backward refuses, as the JAX package has no VJP for its kernel.
 Where no derivative can be asked of the call (serving) the wrapper calls
 the kernel directly, without the Function (``ops/_autodiff.py``).
+
+Both modes are also operators, ``soft_truncation::gn_silu_conv3x3`` and
+``::gn_silu_conv3x3_jvp`` (``ops/_build.py::define_op``): CPU = the plain
+version, CUDA = the launch (:func:`_primal_cuda`, :func:`_jvp_cuda`, which
+count it), fake = the output's shape. Every call goes through the
+operator, traced (``torch.export``) or eager: on the card's host its
+dispatch costs a few microseconds per call over a direct call of the
+launch function (``PERF.md``).
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from ._autodiff import below_transforms, plain, records_derivatives
-from ._build import launch, load_library
+from ._build import define_op, launch, load_library, tracing
 
 _KERNEL = "gn_silu_conv3x3"
 _FORWARD_ONLY = ("gn_silu_conv3x3 is forward-only: call it under "
@@ -268,12 +276,9 @@ def _count(counts: dict, key) -> None:
   counts[key] = counts.get(key, 0) + 1
 
 
-def _primal(x, mean, rsqrt, gamma, beta, w, b, groups: int, w_split):
-  """The plain version for a CPU tensor, one launch for a CUDA tensor."""
-  if x.device.type == "cpu":
-    return gn_silu_conv3x3_plain(x, mean, rsqrt, gamma, beta, w, b, groups)
-  if x.device.type != "cuda":
-    raise ValueError(f"gn_silu_conv3x3 runs on cuda or cpu, not {x.device}")
+def _primal_cuda(x, mean, rsqrt, gamma, beta, w, b, groups: int, w_split):
+  """One launch of the kernel on CUDA tensors, counted: the operator's
+  CUDA implementation."""
   _check(x, mean, rsqrt, gamma, beta, w, b, groups)
   plan, w_hi, w_lo = _kernel_operands(
       "gn_silu_conv3x3", x, (("x", x), ("w", w), ("b", b), ("gamma", gamma),
@@ -296,19 +301,49 @@ def _primal(x, mean, rsqrt, gamma, beta, w, b, groups: int, w_split):
   return out
 
 
-def gn_silu_conv3x3_jvp(x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, w,
-                        groups: int = 32, w_split=None) -> torch.Tensor:
-  """The tangent of :func:`gn_silu_conv3x3` (see
-  :func:`gn_silu_conv3x3_jvp_plain`): a CUDA tensor launches the kernel in
-  its tangent mode and counts the launch in
-  ``gn_silu_conv3x3.jvp_launches`` and, per ``(H, W, C, O)``, in
-  ``gn_silu_conv3x3.jvp_launches_by_shape``; a CPU tensor takes the plain
-  version. ``w_split`` as for :func:`gn_silu_conv3x3`."""
-  if x.device.type == "cpu":
-    return gn_silu_conv3x3_jvp_plain(x, dx, mean, dmean, rsqrt, drsqrt,
-                                     gamma, beta, w, groups)
-  if x.device.type != "cuda":
+def _split_pair(w_hi, w_lo):
+  return None if w_hi is None else (w_hi, w_lo)
+
+
+def _fake_out(x, w):
+  n, h, wd, _ = x.shape
+  return x.new_empty((n, h, wd, w.shape[-1]))
+
+
+def _op_fake(x, mean, rsqrt, gamma, beta, w, b, groups, w_hi, w_lo):
+  _check(x, mean, rsqrt, gamma, beta, w, b, groups)
+  return _fake_out(x, w)
+
+
+_OP = define_op(
+    "gn_silu_conv3x3",
+    "(Tensor x, Tensor mean, Tensor rsqrt, Tensor gamma, Tensor beta, "
+    "Tensor w, Tensor b, int groups, Tensor? w_hi, Tensor? w_lo) -> Tensor",
+    cpu=lambda x, mean, rsqrt, gamma, beta, w, b, groups, w_hi, w_lo:
+    gn_silu_conv3x3_plain(x, mean, rsqrt, gamma, beta, w, b, groups),
+    cuda=lambda x, mean, rsqrt, gamma, beta, w, b, groups, w_hi, w_lo:
+    _primal_cuda(x, mean, rsqrt, gamma, beta, w, b, groups,
+                 _split_pair(w_hi, w_lo)),
+    fake=_op_fake)
+
+
+def _on_cpu_or_cuda(x) -> None:
+  if x.device.type not in ("cpu", "cuda") and not tracing():
     raise ValueError(f"gn_silu_conv3x3 runs on cuda or cpu, not {x.device}")
+
+
+def _primal(x, mean, rsqrt, gamma, beta, w, b, groups: int, w_split):
+  """The operator: the plain version for a CPU tensor, one launch for a
+  CUDA tensor, an opaque node while tracing."""
+  _on_cpu_or_cuda(x)
+  w_hi, w_lo = w_split if w_split is not None else (None, None)
+  return _OP(x, mean, rsqrt, gamma, beta, w, b, groups, w_hi, w_lo)
+
+
+def _jvp_cuda(x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, w,
+              groups: int, w_split):
+  """One launch of the tangent mode on CUDA tensors, counted: the
+  operator's CUDA implementation."""
   _check(x, mean, rsqrt, gamma, beta, w, w.new_empty(w.shape[-1]), groups)
   _check_tangents(x, dx, dmean, drsqrt, groups)
   plan, w_hi, w_lo = _kernel_operands(
@@ -332,6 +367,43 @@ def gn_silu_conv3x3_jvp(x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, w,
   gn_silu_conv3x3.jvp_launches += 1
   _count(gn_silu_conv3x3.jvp_launches_by_shape, (h, wd, c, o))
   return out
+
+
+def _jvp_op_fake(x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, w, groups,
+                 w_hi, w_lo):
+  _check(x, mean, rsqrt, gamma, beta, w, w.new_empty(w.shape[-1]), groups)
+  _check_tangents(x, dx, dmean, drsqrt, groups)
+  return _fake_out(x, w)
+
+
+_JVP_OP = define_op(
+    "gn_silu_conv3x3_jvp",
+    "(Tensor x, Tensor dx, Tensor mean, Tensor dmean, Tensor rsqrt, "
+    "Tensor drsqrt, Tensor gamma, Tensor beta, Tensor w, int groups, "
+    "Tensor? w_hi, Tensor? w_lo) -> Tensor",
+    cpu=lambda x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, w, groups,
+    w_hi, w_lo: gn_silu_conv3x3_jvp_plain(x, dx, mean, dmean, rsqrt, drsqrt,
+                                          gamma, beta, w, groups),
+    cuda=lambda x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, w, groups,
+    w_hi, w_lo: _jvp_cuda(x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, w,
+                          groups, _split_pair(w_hi, w_lo)),
+    fake=_jvp_op_fake)
+
+
+def gn_silu_conv3x3_jvp(x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, w,
+                        groups: int = 32, w_split=None) -> torch.Tensor:
+  """The tangent of :func:`gn_silu_conv3x3` (see
+  :func:`gn_silu_conv3x3_jvp_plain`): a CUDA tensor launches the kernel in
+  its tangent mode and counts the launch in
+  ``gn_silu_conv3x3.jvp_launches`` and, per ``(H, W, C, O)``, in
+  ``gn_silu_conv3x3.jvp_launches_by_shape``; a CPU tensor takes the plain
+  version (both through the operator
+  ``soft_truncation::gn_silu_conv3x3_jvp``). ``w_split`` as for
+  :func:`gn_silu_conv3x3`."""
+  _on_cpu_or_cuda(x)
+  w_hi, w_lo = w_split if w_split is not None else (None, None)
+  return _JVP_OP(x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, w, groups,
+                 w_hi, w_lo)
 
 
 class _GnSiluConv3x3(torch.autograd.Function):
@@ -377,7 +449,9 @@ def gn_silu_conv3x3(x, mean, rsqrt, gamma, beta, w, b, groups: int = 32,
   Returns [N, H, W, O] in x's dtype. A CUDA tensor launches the kernel
   and counts the launch in ``gn_silu_conv3x3.launches`` and, per
   ``(H, W, C, O)``, in ``gn_silu_conv3x3.launches_by_shape``; a CPU tensor
-  takes the plain version. Forward and forward mode only: under
+  takes the plain version (both through the operator
+  ``soft_truncation::gn_silu_conv3x3``, which ``torch.export`` keeps as one
+  node). Forward and forward mode only: under
   ``torch.func.jvp`` the tangent is :func:`gn_silu_conv3x3_jvp`, and a
   backward through the call raises. ``w_split`` is ``weight_operand(w)``
   where the caller keeps it per weight value; without it the kernel's call

@@ -55,11 +55,10 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from ..models.score import get_score_fn
 from ..sde.core import SDE, ReciprocalVESDE, ReverseSDE
 from .sampling import (Draw, _denoise_step, _start, dpm_data_pred, dpm_step,
                        dpm_tables, draws_per_step, get_corrector,
-                       get_predictor)
+                       get_predictor, score_of)
 
 State = Tuple[torch.Tensor, ...]
 
@@ -165,8 +164,7 @@ def get_picard_pc_sampler(config, sde: SDE, shape, predictor: str,
   def sampler(model, generator: Optional[torch.Generator] = None,
               x: Optional[torch.Tensor] = None,
               draw: Optional[Draw] = None) -> Tuple[torch.Tensor, int]:
-    score_fn = get_score_fn(config, sde, model, train=False,
-                            continuous=continuous)
+    score_fn = score_of(config, sde, model, continuous)
     rsde = ReverseSDE(sde, score_fn, probability_flow=probability_flow,
                       lambda_=0.0 if probability_flow else 1.0)
     x = _start(sde, shape, model, generator, x)
@@ -231,7 +229,7 @@ def get_picard_dpm_sampler(config, sde: SDE, shape, inverse_scaler,
   @torch.inference_mode()
   def sampler(model, generator: Optional[torch.Generator] = None,
               x: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, int]:
-    score_fn = get_score_fn(config, sde, model, train=False, continuous=True)
+    score_fn = score_of(config, sde, model, True)
     x = _start(sde, shape, model, generator, x)
     tables = dpm_tables(sde, N, eps, x.device)
 

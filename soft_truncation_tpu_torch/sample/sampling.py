@@ -4,7 +4,10 @@ ODE and DPM-Solver++(2M).
 Counterpart of ``soft_truncation_tpu/sample/sampling.py``. A sampler is
 ``sampler(model, generator=None, x=None) -> (samples in [0, 1], nfe)``:
 the prior is drawn with ``generator`` on the model's device unless ``x``
-hands in the starting state. The PC sampler also draws its predictor and
+hands in the starting state. ``model`` is the network, or an object that
+gives the score function itself (:func:`score_of`: the exported program's
+replay, ``serve/export.py::ExportedScore``), so that the live server and the
+replay run the same loops. The PC sampler also draws its predictor and
 corrector noise from ``generator``, through ``draw(like) -> standard
 normal of like's shape``, which a caller may replace (``draw=``) to hand
 the same noise to two devices. Runs under ``torch.inference_mode``.
@@ -21,7 +24,6 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.score import get_score_fn
 from ..sde.core import (SDE, VESDE, VPSDE, ReciprocalVESDE, ReverseSDE,
                         batch_mul)
 from .ode import odeint_dopri5
@@ -218,12 +220,24 @@ def get_sampling_fn(config, sde: SDE, shape, inverse_scaler,
   raise ValueError(f"Sampler name {config.sampling.method} unknown.")
 
 
+def score_of(config, sde: SDE, model, continuous: bool) -> Callable:
+  """s(x, t) at eval: ``model.score_fn(continuous)`` where ``model`` gives
+  its score function itself, else ``models/score.py::get_score_fn`` of the
+  network (imported here: a replay that never builds a network does not
+  import the model package)."""
+  if hasattr(model, "score_fn"):
+    return model.score_fn(continuous)
+  from ..models.score import get_score_fn
+  return get_score_fn(config, sde, model, train=False, continuous=continuous)
+
+
 def _start(sde: SDE, shape, model, generator, x) -> torch.Tensor:
   if x is not None:
     if tuple(x.shape) != tuple(shape):
       raise ValueError(f"x has shape {tuple(x.shape)}, sampler {shape}")
     return x
-  device = next(model.parameters()).device
+  device = (model.device if hasattr(model, "score_fn")
+            else next(model.parameters()).device)
   return sde.prior_sampling(generator, shape, device)
 
 
@@ -259,8 +273,7 @@ def get_pc_sampler(config, sde: SDE, shape, predictor: str, corrector: str,
   def sampler(model, generator: Optional[torch.Generator] = None,
               x: Optional[torch.Tensor] = None,
               draw: Optional[Draw] = None) -> Tuple[torch.Tensor, int]:
-    score_fn = get_score_fn(config, sde, model, train=False,
-                            continuous=continuous)
+    score_fn = score_of(config, sde, model, continuous)
     rsde = ReverseSDE(sde, score_fn, probability_flow=probability_flow,
                       lambda_=0.0 if probability_flow else 1.0)
     x = _start(sde, shape, model, generator, x)
@@ -387,7 +400,7 @@ def get_dpm_solver_sampler(config, sde: SDE, shape, inverse_scaler,
   @torch.inference_mode()
   def sampler(model, generator: Optional[torch.Generator] = None,
               x: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, int]:
-    score_fn = get_score_fn(config, sde, model, train=False, continuous=True)
+    score_fn = score_of(config, sde, model, True)
     x = _start(sde, shape, model, generator, x)
     tables = dpm_tables(sde, N, eps, x.device)
     state = (x[None], torch.zeros_like(x[None]))
@@ -411,7 +424,7 @@ def get_ode_sampler(config, sde: SDE, shape, inverse_scaler,
   @torch.inference_mode()
   def sampler(model, generator: Optional[torch.Generator] = None,
               x: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, int]:
-    score_fn = get_score_fn(config, sde, model, train=False, continuous=True)
+    score_fn = score_of(config, sde, model, True)
     rsde = ReverseSDE(sde, score_fn, probability_flow=True, lambda_=0.0)
     x = _start(sde, shape, model, generator, x)
 

@@ -31,10 +31,24 @@ of a request draws its prior from a ``torch.Generator`` on the device
 seeded from ``(seed, r)``, and the PC sampler's noise from a second one
 seeded from ``(seed, r)`` on a separate stream.
 
+Two ways to build the service, the same endpoints, checks and samples
+per seed:
+
+- live: ``SamplingService(config, params)`` builds ``get_sde`` ->
+  ``create_model`` -> ``get_sampling_fn`` from a config;
+- replay: ``SamplingService.from_artifact(artifact, params_npz)`` serves
+  the pair ``serve/export.py`` writes. It builds no network and reads no
+  config file (the host loop's keys come from the artifact's meta), and
+  imports neither ``soft_truncation_tpu_torch.models`` nor ``.configs``:
+  the samplers evaluate the exported score programs
+  (``export.ExportedScore``) in the network's place, with the same draws.
+
 Run: ``python -m soft_truncation_tpu_torch.serve.server --config <file>
 --params <npz> [--batch B] [--cpu] --port P``, with a config file of the
 port (``soft_truncation_tpu_torch/configs/...``) and the params npz that
-the JAX package's ``save_params_npz`` / ``tools/export_sampler.py`` write.
+the JAX package's ``save_params_npz`` / ``tools/export_sampler.py`` (or the
+port's ``serve/export.py``) write; or ``--artifact <file.pt2> --params
+<npz> [--cpu]`` to replay an exported artifact.
 """
 
 from __future__ import annotations
@@ -52,10 +66,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..configs.base import load_config
 from ..data import get_data_inverse_scaler
 from ..eval.sampling_io import _to_uint8, save_image_grid
-from ..models import create_model
 from ..sample import get_sampling_fn
 from ..sde import get_sde
 from ..utils.device import resolve_device
@@ -81,18 +93,42 @@ class SamplingService:
   ``params`` is the port model's state_dict (``from_jax_params`` of a Flax
   tree, or a port model's own). ``max_num`` bounds one request's work: the
   lock is held for all its rounds and their samples are buffered on the
-  host."""
+  host. :meth:`from_artifact` builds the same service on an exported
+  artifact instead of the network."""
 
   def __init__(self, config, params: Dict[str, torch.Tensor],
                batch: Optional[int] = None, device="cuda",
                max_num: int = 4096):
-    self.device = resolve_device(device)
+    from ..models import create_model
+    device = resolve_device(device)
+    model = create_model(config, device)
+    model.load_state_dict(params)
+    self._setup(config, model, device, batch, max_num, {})
+
+  @classmethod
+  def from_artifact(cls, artifact: str, params: str, device=None,
+                    max_num: int = 4096) -> "SamplingService":
+    """The service on ``artifact`` (``serve/export.py``'s file) with the
+    weights of the params npz ``params``, on the device type it was
+    exported on (``device`` another type raises ValueError)."""
+    from .export import ExportedScore, load_artifact, meta_config
+    exported, meta = load_artifact(artifact, device)
+    score = ExportedScore(exported, meta,
+                          from_jax_params(load_params_npz(params)), device)
+    service = cls.__new__(cls)
+    service._setup(meta_config(meta), score, score.device,
+                   meta["sample_shape"][0], max_num,
+                   {"artifact": {k: meta[k] for k in (
+                       "programs", "torch_version", "device_type")}})
+    return service
+
+  def _setup(self, config, model, device, batch, max_num, meta):
+    self.device = device
     self.config = config
     self.batch = int(batch or config.sampling.batch_size)
     self.shape = (self.batch, config.data.image_size, config.data.image_size,
                   config.data.num_channels)
-    self.model = create_model(config, self.device)
-    self.model.load_state_dict(params)
+    self.model = model  # the network, or the exported programs' replay
     self.sde = get_sde(config)
     self.max_num = int(max_num)
     self._samplers = {}
@@ -113,6 +149,7 @@ class SamplingService:
         "device_name": (torch.cuda.get_device_name(self.device)
                         if self.device.type == "cuda" else "cpu"),
         "output": "uint8 NHWC in [0,255] + nfe",
+        **meta,
     }
 
   def prior(self, seed: int, r: int = 0) -> torch.Tensor:
@@ -242,14 +279,18 @@ def make_server(service: SamplingService, host: str = "0.0.0.0",
 
 def main(argv=None):
   p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-  p.add_argument("--config", required=True,
-                 help="a config file of the port (configs/...)")
+  source = p.add_mutually_exclusive_group(required=True)
+  source.add_argument("--config",
+                      help="a config file of the port (configs/...)")
+  source.add_argument("--artifact",
+                      help="an artifact of serve/export.py: replay it "
+                           "without the network or a config file")
   p.add_argument("--params", required=True,
-                 help="params npz written by the JAX package's "
+                 help="params npz written by either package's "
                       "save_params_npz")
   p.add_argument("--batch", type=int, default=None,
                  help="samples per sampler round (default: "
-                      "config.sampling.batch_size)")
+                      "config.sampling.batch_size; an artifact's own)")
   p.add_argument("--cpu", action="store_true",
                  help="run on the host CPU instead of the card")
   p.add_argument("--host", default="0.0.0.0")
@@ -262,11 +303,18 @@ def main(argv=None):
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.deterministic = True
   logging.basicConfig(level=logging.INFO)
-  config = load_config(args.config)
-  params = from_jax_params(load_params_npz(args.params))
-  service = SamplingService(config, params, batch=args.batch,
-                            device="cpu" if args.cpu else "cuda",
-                            max_num=args.max_num)
+  device = "cpu" if args.cpu else "cuda"
+  if args.artifact:
+    if args.batch is not None:
+      p.error("--batch is the artifact's own; export another to change it")
+    service = SamplingService.from_artifact(args.artifact, args.params,
+                                            device, max_num=args.max_num)
+  else:
+    from ..configs.base import load_config
+    config = load_config(args.config)
+    params = from_jax_params(load_params_npz(args.params))
+    service = SamplingService(config, params, batch=args.batch,
+                              device=device, max_num=args.max_num)
   srv = make_server(service, args.host, args.port)
   log.info("serving on %s:%d", *srv.server_address)
   try:

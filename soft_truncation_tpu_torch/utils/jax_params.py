@@ -6,6 +6,10 @@
 parameter tree, with numpy only. ``from_jax_params`` maps that tree onto
 the port's state_dict by path: the port's modules carry the Flax names, so
 ``down_0_0/conv0/kernel`` becomes ``down_0_0.conv0.weight``.
+``to_jax_params`` and ``save_params_npz`` go the other way: a port
+state_dict to the Flax tree and the npz the JAX package's
+``load_params_npz`` reads, bfloat16 and fp8 leaves as same-width unsigned
+integers named in its ``__dtypes__`` manifest.
 """
 
 from __future__ import annotations
@@ -98,3 +102,69 @@ def from_jax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                        f"of shape {a.shape}")
     sd[".".join(mods + [name])] = torch.tensor(a)
   return sd
+
+
+_JAX_NAMES = {"running_mean": "mean", "running_var": "var"}
+# torch dtypes that npz cannot hold, by the ml_dtypes name JAX's loader
+# resolves, and the unsigned integer of their width
+_EXTENDED = {torch.bfloat16: ("bfloat16", torch.int16, np.uint16),
+             torch.float8_e4m3fn: ("float8_e4m3fn", torch.int8, np.uint8),
+             torch.float8_e5m2: ("float8_e5m2", torch.int8, np.uint8)}
+
+
+def to_jax_params(state_dict: Dict[str, torch.Tensor],
+                  collection: str = "params") -> Dict[str, Any]:
+  """The inverse of :func:`from_jax_params`: a port state_dict as the Flax
+  tree of ``collection`` ('params', or 'batch_stats' for the running
+  statistics), leaves as CPU tensors in their own dtype. OIHW conv weights
+  become HWIO ``kernel``, (out, in) dense weights (in, out) ``kernel``,
+  ``embed.weight`` ``embed/embedding``, other 1-D weights GroupNorm
+  ``scale``; a leaf of any other kind raises."""
+  tree: Dict[str, Any] = {}
+  for key, t in state_dict.items():
+    *mods, name = key.split(".")
+    a = t.detach().cpu()
+    stats = name in _JAX_NAMES and a.ndim == 1
+    if stats != (collection == "batch_stats"):
+      continue
+    if stats:
+      name = _JAX_NAMES[name]
+    elif name == "weight" and a.ndim == 4:
+      a, name = a.permute(2, 3, 1, 0), "kernel"
+    elif name == "weight" and a.ndim == 2 and mods[-1:] == ["embed"]:
+      name = "embedding"
+    elif name == "weight" and a.ndim == 2:
+      a, name = a.t(), "kernel"
+    elif name == "weight" and a.ndim == 1:
+      name = "scale"
+    elif not (name in ("bias", "W") or _KEPT.get(name) == a.ndim):
+      raise ValueError(f"no Flax leaf for {key} of shape {tuple(a.shape)}")
+    node = tree
+    for m in mods:
+      node = node.setdefault(m, {})
+    node[name] = a.contiguous()
+  return tree
+
+
+def save_params_npz(tree: Dict[str, Any], path: str) -> None:
+  """Write a nested parameter tree (tensors or numpy arrays) as the JAX
+  package's ``save_params_npz`` does: path-keyed leaves ('/'-joined), and
+  bfloat16 / fp8 leaves bit-cast to unsigned integers and named in the
+  ``__dtypes__`` manifest (JSON bytes)."""
+  flat, ext_dtypes = {}, {}
+  for keys, leaf in _flatten(tree):
+    name = "/".join(keys)
+    if name == _DTYPES_KEY:
+      raise ValueError(f"parameter path collides with the reserved "
+                       f"manifest key {_DTYPES_KEY!r}")
+    if isinstance(leaf, torch.Tensor):
+      leaf = leaf.detach().cpu().contiguous()
+      if leaf.dtype in _EXTENDED:
+        ext_dtypes[name], signed, unsigned = _EXTENDED[leaf.dtype]
+        leaf = leaf.view(signed).numpy().view(unsigned)
+      else:
+        leaf = leaf.numpy()
+    flat[name] = np.asarray(leaf)
+  flat[_DTYPES_KEY] = np.frombuffer(
+      json.dumps(ext_dtypes, sort_keys=True).encode("utf-8"), np.uint8)
+  np.savez(path, **flat)
