@@ -36,8 +36,8 @@ Phases; any failure exits non-zero before the last line is printed:
      and (as in phase 5) no autograd.Function on the way;
   5. serve UNCSN++ (the other main path), counted the same way: with the
      config as published (init_scale 0) /healthz, then /sample with no
-     method, i.e. the config's 'pc' at N = PC_SERVED_STEPS (a quarter of
-     the published PC_PUBLISHED_STEPS), once, with
+     method, i.e. the config's 'pc' at N = PC_SERVED_STEPS (a sixteenth
+     of the published PC_PUBLISHED_STEPS), once, with
      its wall; 'pc' at N = 50 and 'dpm_solver' (20 steps) twice each; with
      the phase-3 weights 'pc' at N = 3, whose batch is held against a CPU
      SamplingService given the same prior and the same noise. Both kernels'
@@ -156,7 +156,7 @@ Phases; any failure exits non-zero before the last line is printed:
      reach), and a trace of NCSNv2-256's forward (as in phase 5b);
   9b. serving, counted the same way: DDPM ('pc', ancestral sampling) at
      N=DDPM_SERVE_STEPS and NCSNv2 ('pc', annealed Langevin) at
-     N=NCSNV2_SERVE_STEPS x 5 (a quarter of the published 1000 and 232), at
+     N=NCSNV2_SERVE_STEPS x 5 (an eighth of the published 1000 and 232), at
      batch 8, once each through the HTTP server: the wall and the network
      evaluations (a forward hook); then at N=25 (DDPM: the VP grid's betas
      pass 1 below N=21) and N=3, batch 2, twice, against a CPU
@@ -199,9 +199,9 @@ Phases; any failure exits non-zero before the last line is printed:
      (no warmup), alone, on two gloo ranks of 64 on the card (``python -m
      torch.distributed.run --nproc_per_node 2``) and on one NCCL rank: the
      gradients and the parameters' moves held to phase 6's bars, the
-     errors against DDP_REL_TOL of each tensor's largest beside them; then
-     steps 0..DDP_TIMED_ITERS on the two ranks, the host's ms per step
-     from the log;
+     errors against DDP_REL_TOL of each tensor's largest beside them; and
+     beside them steps 0..DDP_TIMED_ITERS on two more ranks, the host's ms
+     per step from the log;
   10d. the profiler: the CLI trainer on UNCSN++ (batch 128), steps 0..11
      with ``--config.tpu.profile_dir``: the trace of step 10 names 24 fir2
      launches (12 forward, 12 adjoint) and the adjoint's autograd node;
@@ -209,8 +209,9 @@ Phases; any failure exits non-zero before the last line is printed:
      and 'conv_outputs' (dropout 0.1): the same losses, gradients within
      1e-5, the same generator state; ms per step and peak memory;
   10f. FFHQ 1024^2 trained by the CLI trainer with tpu.remat at batch 16
-     (steps 0..3): finite losses, ms per step, peak memory, fir2 launches
-     forward (the recompute's included) and adjoint per shape; then one
+     (steps 0..FFHQ_TRAIN_ITERS): finite losses, ms per step, peak
+     memory, fir2 launches forward (the recompute's included) and adjoint
+     per shape; then one
      step without remat, or its out-of-memory error;
      and phase 8 gains rows for gn_silu_conv3x3 at batch 400 and 64 and
      fir2 at 64 (Picard), fir2 and its adjoint at FFHQ's shapes, batch 16.
@@ -228,7 +229,7 @@ Phases; any failure exits non-zero before the last line is printed:
   11a. the flagship: two seeds with its own 'ode' and two with 'dpm_solver'
      at EXPORT_DPM_STEPS steps;
   11b. UNCSN++ with 'pc' at N = EXPORT_PC_STEPS (of 1,000) and
-     'dpm_solver', two seeds each;
+     'dpm_solver', one seed each;
      held: the same nfe for 'pc' and 'dpm_solver' (both printed for
      'ode'), samples before quantisation within EXPORT_REL_TOL of max |x|
      (EXPORT_ODE_REL_TOL for 'ode'), the served uint8 bytes apart by at
@@ -240,6 +241,38 @@ Phases; any failure exits non-zero before the last line is printed:
      (within EXPORT_KERNELS_REL); phase 8's lines gain the replay's
      launches (``*_replay`` entries, the timings of phase 8's batch-8
      rows at the same shapes).
+  12. slice 6e, the 2-D (data, space) mesh (after 11):
+  12a. CelebA-HQ 256^2 (``ve/celebahq_256_uncsn.py`` as published but for
+     no warmup and init_scale 0.1, as in 10c) at the global batch
+     MESH_TRAIN_BATCH on Synthetic data, steps 0..MESH_TRAIN_ITERS of the
+     CLI trainer in three runs, the first two side by side
+     (``chip_smoke.py --mesh-train``, which runs the CLI in-process and
+     prints each step's
+     per-sample losses and host ms, the state after step 0, and fir2's
+     launches per shape, forward and adjoint, and its peak memory):
+     alone,
+     and under ``torch.distributed.run`` with ``--config.tpu.mesh_shape``
+     (1, 2) and (2, 2), gloo ranks sharing the card, each holding its
+     samples' H/2 rows. Held: every rank logs its shard (H/s rows), its
+     losses within FORWARD_REL_TOL of alone's, each rank's fir2 and adjoint
+     launches summed over shapes equal alone's (every FIR site, on
+     halo'd rows), every rank the same space collectives (halo, sum,
+     gather, each way; printed per step), and phase 10c's bars on the
+     gradients and moves, with DDP_REL_TOL's errors beside them;
+  12b. (beside 12a's (2, 2) run) the flagship exported with
+     ``mesh=(MESH_REPLAY_RANKS,)`` at batch
+     EXPORT_BATCH (programs at EXPORT_BATCH / MESH_REPLAY_RANKS) and
+     replayed by ``SamplingService.from_artifact`` on that many gloo ranks
+     under ``torch.distributed.run`` (``chip_smoke.py --replay-ranks``:
+     rank 0 takes 11a's requests, the others follow), against 11a's
+     one-process replay of the same requests: samples before quantisation
+     within MESH_REPLAY_REL_TOL of max |x|, the uint8 samples within one
+     level, every rank the same nfe (printed beside one process's), and
+     on every rank, counted inside the operator, 82 gn_silu_conv3x3
+     launches per score evaluation;
+     and phase 8's lines gain ``*_mesh`` entries: fir2 and its adjoint at
+     a (2, 2) rank's halo'd shapes and batch, gn_silu_conv3x3 at 12b's
+     batch per rank.
 Imports torch and the port only, never jax or the JAX package.
 """
 
@@ -283,11 +316,11 @@ UNCSNPP_FIR_SITES = {("down", 32, 32, 128): 2, ("down", 16, 16, 256): 2,
                      ("up", 8, 8, 256): 2, ("up", 16, 16, 256): 2}
 FIR_KERNEL = (1, 3, 3, 1)
 PC_PUBLISHED_STEPS = 1000  # model.num_scales of ve/CIFAR10/uncsnpp_st.py
-PC_SERVED_STEPS = 250      # phase 5: the config's 'pc' served, N cut
+PC_SERVED_STEPS = 63       # phase 5: the config's 'pc' served, N cut
 TRAIN_BATCH = 128        # training.batch_size of both configs
 TRAIN_CHECK_BATCH = 2    # phase 6
 TRAIN_ITERS = 5          # phase 7: steps 0..5, then a resume to 7
-TRACE_FORWARDS = 3       # phase 5b: calls traced per model and kind
+TRACE_FORWARDS = 1       # phase 5b: calls traced per model and kind
 # the adjoint's launches of one UNCSN++ train step: (launched mode, H, W, C)
 # of each cotangent -> count (the backward of an up site launches down)
 UNCSNPP_FIR_BWD_SITES = {("up", 16, 16, 128): 2, ("up", 8, 8, 256): 2,
@@ -296,7 +329,7 @@ UNCSNPP_FIR_BWD_SITES = {("up", 16, 16, 128): 2, ("up", 8, 8, 256): 2,
 LIKELIHOOD_BATCH = 8     # phase 7b: eval.batch_size of the CLI evaluation
 LIKELIHOOD_CHECK_BATCH = 2  # phase 7b: card vs CPU
 LIKELIHOOD_TIMES = (1e-5, 0.5, 1.0)  # phase 7b: the ODE function's t
-FID_SAMPLES = 512        # phase 7c: eval.num_samples, 4 shards
+FID_SAMPLES = 128        # phase 7c: eval.num_samples, 1 shard
 FID_SHARD = 128          # phase 7c: sampling.batch_size
 FID_DPM_STEPS = 20       # phase 7c: sampling.dpm_steps
 FID_CHECK_IMAGES = 8     # phase 7c: card vs CPU, resize and Inception
@@ -311,8 +344,8 @@ CELEBAHQ = os.path.join(CONFIGS, "ve", "celebahq_256_uncsn.py")
 FFHQ1024 = os.path.join(CONFIGS, "ve", "ffhq_1024_uncsn.py")
 GN_CONV_MAX_HWC = 32 * 32 * 512  # JAX's bound on a fused site's H*W*max(C,O)
 CHECK_BATCH = 2             # card vs CPU at full width
-DEEPEST_SERVE_STEPS = 50    # phase 5c: 'pc' N
-HQ_SERVE_STEPS = 5          # phase 5d: 'pc' N
+DEEPEST_SERVE_STEPS = 25    # phase 5c: 'pc' N
+HQ_SERVE_STEPS = 3          # phase 5d: 'pc' N
 HQ_PUBLISHED_STEPS = 2000   # model.num_scales of ve/celebahq_256_uncsn.py
 # phase 3b: (name, config, model overrides, labels): VP labels t * 999,
 # CelebA 64^2's unbounded ones as they come, VE / RVE labels sigmas
@@ -326,7 +359,7 @@ PUBLISHED_LAYOUTS = (
      [0.01 * 999.0, 0.6 * 999.0]),
     ("no_auxiliary", FLAGSHIP, {"auxiliary_resblock": False},
      [0.01 * 999.0, 0.6 * 999.0]))
-DEEPEST_TRAIN_ITERS = 3     # phase 7d: steps 0..3
+DEEPEST_TRAIN_ITERS = 2     # phase 7d: steps 0..2 (the first two untimed)
 # phase 7d: batch 128 in one micro-batch, as published, fits the card's
 # 80 GB with little to spare (PERF.md): the phase frees the cache first
 PARAM_MOVE_TOL = 0.05   # card vs CPU, a parameter's move in one step, x lr
@@ -378,10 +411,10 @@ LEGACY = {
 LEGACY_BATCH = 8            # phases 9a, 9b: the 32^2 forwards and serving
 # phase 9a at batch 2: the layouts only the high-resolution v2 nets reach
 LEGACY_HIRES = (("ncsnv2_128", 128), ("ncsnv2_256", 256))
-# phase 9b: N cut to a quarter of the published 1000 and 232 (for the time
-# of phase 10; the wall per evaluation is what the phase reads)
-DDPM_SERVE_STEPS = 250
-NCSNV2_SERVE_STEPS = 58
+# phase 9b: N cut to an eighth of the published 1000 and 232 (for the time
+# of phases 10-12; the wall per evaluation is what the phase reads)
+DDPM_SERVE_STEPS = 125
+NCSNV2_SERVE_STEPS = 29
 # card vs CPU: NCSNv2 at N=3; ancestral sampling on the VP grid needs
 # beta_max / N < 1 (sqrt(1 - beta)), so DDPM at the least N above 20
 DDPM_CHECK_STEPS, NCSNV2_CHECK_STEPS = 25, 3
@@ -413,13 +446,14 @@ PICARD_UNCSNPP_REL_TOL = 1e-3
 # on two gloo ranks (64 each) and on one NCCL rank, held to phase 6's bars
 # (phase_ddp says why), the errors against DDP_REL_TOL of each tensor's
 # largest reported beside them; then steps 0..DDP_TIMED_ITERS on the ranks
-DDP_TIMED_ITERS = 3
+DDP_TIMED_ITERS = 1
 DDP_REL_TOL = 1e-5
 PROFILE_ITERS = 11          # 10d: steps 0..11, the eleventh (10) traced
 EXPORT_BATCH = 8            # 11: the artifact's batch
 EXPORT_DPM_STEPS = 50       # 11: 'dpm_solver' steps served
 EXPORT_PC_STEPS = 32        # 11b: UNCSN++'s 'pc' N, cut from 1,000
-EXPORT_SEEDS = (0, 1)
+EXPORT_SEEDS = (0, 1)       # 11a (and 12b); 11b takes the first alone
+TIMED_CALLS = 10            # calls per time_ms / graph_ms reading
 EXPORT_REL_TOL = 1e-5       # 11: replay vs live, of max |x|
 EXPORT_ODE_REL_TOL = 1e-3   # 11: 'ode' (adaptive steps follow the rounding)
 EXPORT_MAX_MOVED = 1e-3     # 11: uint8 positions that may differ (by 1)
@@ -429,8 +463,14 @@ DISPATCH_CALLS = 1000       # 11: calls per route
 DISPATCH_RULE_US = 10       # 11: the operator's cost the eager route takes
 FFHQ = os.path.join(CONFIGS, "ve", "ffhq_1024_uncsn.py")
 FFHQ_BATCH = 16             # 10f: training.batch_size of ffhq_1024_uncsn.py
-FFHQ_TRAIN_ITERS = 3        # 10f: steps 0..3 with tpu.remat
-REMAT_STEPS = 3             # 10e: steps per policy, the first compared
+FFHQ_TRAIN_ITERS = 2        # 10f: steps 0..2 with tpu.remat
+REMAT_STEPS = 2             # 10e: steps per policy, the first compared
+# slice 6e (phase 12)
+MESH_TRAIN_BATCH = 4        # 12a: CelebA-HQ 256^2's global batch
+MESH_TRAIN_ITERS = 1        # 12a: steps 0..1: the first held, both timed
+MESH_SHAPES = ((1, 2), (2, 2))  # 12a: tpu.mesh_shape of the ranked runs
+MESH_REPLAY_RANKS = 2       # 12b: ranks the exported batch is split over
+MESH_REPLAY_REL_TOL = 1e-4  # 12b: vs the one-process replay, of max |x|
 
 
 def log(msg):
@@ -449,9 +489,11 @@ def device_line():
   return f"device: {out}"
 
 
-def time_ms(fn, iters=20, warmup=3):
-  """Mean ms per call on the card, with CUDA events around ``iters`` calls."""
+def time_ms(fn, iters=None, warmup=3):
+  """Mean ms per call on the card, with CUDA events around ``iters`` calls
+  (TIMED_CALLS by default)."""
   import torch
+  iters = iters or TIMED_CALLS
   for _ in range(warmup):
     fn()
   start = torch.cuda.Event(enable_timing=True)
@@ -464,11 +506,12 @@ def time_ms(fn, iters=20, warmup=3):
   return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters=20):
+def graph_ms(fn, iters=None):
   """Mean device ms per call of ``fn`` replayed from a CUDA graph of
-  ``iters`` calls: the device's share of a call, without the host's cost
-  of issuing it (which ``time_ms`` includes)."""
+  ``iters`` calls (TIMED_CALLS by default): the device's share of a call,
+  without the host's cost of issuing it (which ``time_ms`` includes)."""
   import torch
+  iters = iters or TIMED_CALLS
   side = torch.cuda.Stream()
   side.wait_stream(torch.cuda.current_stream())
   with torch.cuda.stream(side):
@@ -2352,21 +2395,22 @@ def phase_picard_uncsnpp(sites, fir_sites, params):
           PICARD_UNCSNPP_WINDOW * SERVE_BATCH)
 
 
-def _ddp_runs(specs):
-  """The flagship's CLI trainer under each ``(name, launcher, flags)`` of
-  ``specs`` (a command prefix and its ``--config.*`` arguments), each in
-  its own workdir, all at once; returns name -> (workdir, wall, output).
-  The processes are waited for, and killed if they outlive the phase."""
+def _ddp_runs(specs, config=FLAGSHIP, entry=("soft_truncation_tpu_torch.main",),
+              tag="ddp"):
+  """The CLI trainer on ``config`` under each ``(name, launcher, flags)``
+  of ``specs`` (a command prefix, then ``entry``, and its ``--config.*``
+  arguments), each in its own workdir, all at once; returns name ->
+  (workdir, wall, output). The processes are waited for, and killed if
+  they outlive the phase."""
   env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
              + os.environ.get("PYTHONPATH", ""))
   procs = {}
   try:
     for name, launcher, flags in specs:
-      workdir = os.path.join(REPO, "build", "chip_smoke_ddp", name)
+      workdir = os.path.join(REPO, "build", f"chip_smoke_{tag}", name)
       shutil.rmtree(workdir, ignore_errors=True)
-      cmd = launcher + ["soft_truncation_tpu_torch.main", "--config",
-                        FLAGSHIP, "--workdir", workdir, "--mode", "train",
-                        *flags]
+      cmd = launcher + [*entry, "--config", config, "--workdir", workdir,
+                        "--mode", "train", *flags]
       procs[name] = (workdir, time.perf_counter(), subprocess.Popen(
           cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
           stderr=subprocess.STDOUT, text=True))
@@ -2375,7 +2419,7 @@ def _ddp_runs(specs):
       output = proc.communicate(timeout=900)[0]
       out[name] = (workdir, time.perf_counter() - t0, output)
       if proc.returncode != 0:
-        raise AssertionError(f"ddp {name}: exit {proc.returncode}\n"
+        raise AssertionError(f"{tag} {name}: exit {proc.returncode}\n"
                              f"{output[-3000:]}")
     return out
   finally:
@@ -2383,6 +2427,53 @@ def _ddp_runs(specs):
       if proc.poll() is None:
         proc.kill()
         proc.wait()
+
+
+def _trainable(config):
+  """The names of the trainable parameters of ``config``'s model, in the
+  optimizer's order (built on the meta device)."""
+  from soft_truncation_tpu_torch.models import create_model
+  model = create_model(config, "meta")
+  return [n for n, p in model.named_parameters() if p.requires_grad]
+
+
+def _against_alone(name, got, want, lr, names):
+  """A launched run's checkpoint after one step against the lone run's,
+  held to phase 6's bars (phase_ddp says why): the gradients (Adam's first
+  moment) within FORWARD_REL_TOL of each tensor's largest, and each
+  parameter's move (and the EMA's) within PARAM_MOVE_TOL x lr where the
+  gradient is above FORWARD_REL_TOL of that largest. Returns the errors,
+  with each parameter's error relative to its tensor's largest beside
+  DDP_REL_TOL, the bar asked for first. ``names``: the parameters in the
+  optimizer's order."""
+  want_mu = want["optimizer"]["mu"]
+  floor = 1e-6 * max(m.abs().max().item() for m in want_mu)
+  grad_err = move_err = param_rel_err = 0.0
+  kept = 0
+  for i, (m_got, m_want) in enumerate(zip(got["optimizer"]["mu"], want_mu)):
+    # each tensor's largest gradient, floored at 1e-6 of the largest of
+    # all (the attention's key biases take none: theirs is rounding)
+    g_scale = max(m_want.abs().max().item(), floor)
+    grad_err = max(grad_err, (m_got - m_want).abs().max().item() / g_scale)
+    keep = m_want.abs() > FORWARD_REL_TOL * g_scale
+    kept += int(keep.sum())
+    for part in ("model", "ema"):
+      w, g = want[part][names[i]], got[part][names[i]]
+      if keep.any():
+        diff = (g - w)[keep].abs().max().item()
+        move_err = max(move_err, diff)
+        param_rel_err = max(param_rel_err,
+                            diff / max(w.abs().max().item(), 1e-30))
+  if (got["step"] != want["step"] or not grad_err <= FORWARD_REL_TOL
+      or not move_err <= PARAM_MOVE_TOL * lr):
+    raise AssertionError(f"{name}: step {got['step']} vs {want['step']}, "
+                         f"gradients within {grad_err} of each tensor's max "
+                         f"(bar {FORWARD_REL_TOL}), moves within "
+                         f"{move_err / lr} lr (bar {PARAM_MOVE_TOL} lr)")
+  return {"grad_max_rel_err": grad_err, "move_max_abs_err": move_err,
+          "move_max_err_in_lr": move_err / lr,
+          "param_max_rel_err": param_rel_err, "first_bar": DDP_REL_TOL,
+          "params_held": kept, "params": sum(m.numel() for m in want_mu)}
 
 
 def phase_ddp(extra_flags=()):
@@ -2401,11 +2492,12 @@ def phase_ddp(extra_flags=()):
   largest (Adam's first update lr * g / (|g| + eps) turns a near-zero
   gradient's rounding into a move of up to lr). Beside them the row gives
   the errors against DDP_REL_TOL of each tensor's largest, the bar asked
-  for first (not met on the card: ``PERF.md``). Then the two gloo ranks
-  for steps 0..DDP_TIMED_ITERS: the host's ms per step after the first,
-  from the  log. ``extra_flags``: more ``--config.*`` arguments (a rehearsal's
-  cuts)."""
+  for first (not met on the card: ``PERF.md``). Beside them, two more gloo
+  ranks for steps 0..DDP_TIMED_ITERS: the host's ms per step after the
+  first, from the log. ``extra_flags``: more ``--config.*`` arguments (a
+  rehearsal's cuts)."""
   import torch
+  from soft_truncation_tpu_torch.main import apply_overrides
 
   flags = ["--config.data.dataset", "Synthetic", *extra_flags,
            "--config.model.init_scale", "0.1",
@@ -2419,13 +2511,13 @@ def phase_ddp(extra_flags=()):
   run = [sys.executable, "-m"]
   torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone"]
   gloo_2 = torchrun + ["--nproc_per_node", "2", "-m"]
-  # the three one-step runs side by side (~35 GB of the card), then the
-  # timed run alone
+  # the three one-step runs and the timed run side by side (~50 GB of the
+  # card); the timed steps after the first come when the others are done
   runs = _ddp_runs([("alone", run, one_step), ("gloo_2", gloo_2, one_step),
                     ("nccl_1", torchrun + ["--nproc_per_node", "1", "-m"],
-                     one_step)])
-  runs.update(_ddp_runs([("gloo_2_timed", gloo_2, flags + [
-      "--config.training.n_iters", str(DDP_TIMED_ITERS)])]))
+                     one_step),
+                    ("gloo_2_timed", gloo_2, flags + [
+                        "--config.training.n_iters", str(DDP_TIMED_ITERS)])])
   line = re.compile(r"step: (\d+), training loss mean: (\S+), .*\((\S+) "
                     r"steps/s")
 
@@ -2438,52 +2530,23 @@ def phase_ddp(extra_flags=()):
     return torch.load(path, map_location="cpu", weights_only=True)
 
   want = state("alone")
-  want_mu = want["optimizer"]["mu"]
-  floor = 1e-6 * max(m.abs().max().item() for m in want_mu)
-  names = list(want["model"])
   lr = load_config(FLAGSHIP).optim.lr
+  names = _trainable(apply_overrides(load_config(FLAGSHIP),
+                                     [f for f in flags if f != "--cpu"]))
   # on the host (a rehearsal) every process group is gloo's
   for name, backend in (("gloo_2", "gloo"),
                         ("nccl_1", "nccl" if DEVICE == "cuda" else "gloo")):
-    got = state(name)
     output = runs[name][2]
     if f"process group: {backend}" not in output:
       raise AssertionError(f"ddp {name}: no '{backend}' process group in "
                            f"its log:\n{output[-2000:]}")
-    grad_err = move_err = param_rel_err = 0.0
-    kept = 0
-    for i, (m_got, m_want) in enumerate(zip(got["optimizer"]["mu"], want_mu)):
-      # each tensor's largest gradient, floored at 1e-6 of the largest of
-      # all (the attention's key biases take none: theirs is rounding)
-      g_scale = max(m_want.abs().max().item(), floor)
-      grad_err = max(grad_err, (m_got - m_want).abs().max().item() / g_scale)
-      keep = m_want.abs() > FORWARD_REL_TOL * g_scale
-      kept += int(keep.sum())
-      for part in ("model", "ema"):
-        w, g = want[part][names[i]], got[part][names[i]]
-        if keep.any():
-          diff = (g - w)[keep].abs().max().item()
-          move_err = max(move_err, diff)
-          param_rel_err = max(param_rel_err,
-                              diff / max(w.abs().max().item(), 1e-30))
     row = {"ddp": name, "backend": backend, "global_batch": TRAIN_BATCH,
            "ranks": 2 if name == "gloo_2" else 1, "steps": 1,
-           "grad_max_rel_err": grad_err, "move_max_abs_err": move_err,
-           "move_max_err_in_lr": move_err / lr,
-           "param_max_rel_err": param_rel_err, "first_bar": DDP_REL_TOL,
-           "params_held": kept,
-           "params": sum(m.numel() for m in want_mu),
+           **_against_alone(f"ddp {name}", state(name), want, lr, names),
            "loss_vs_alone": [float(logged(name)[0][1]),
                              float(logged("alone")[0][1])],
            "run_wall_s": runs[name][1], "alone_run_wall_s": runs["alone"][1]}
     emit(row)
-    if (got["step"] != want["step"] or not grad_err <= FORWARD_REL_TOL
-        or not move_err <= PARAM_MOVE_TOL * lr):
-      raise AssertionError(f"ddp {name}: step {got['step']} vs "
-                           f"{want['step']}, gradients within {grad_err} of "
-                           f"each tensor's max (bar {FORWARD_REL_TOL}), "
-                           f"moves within {move_err / lr} lr (bar "
-                           f"{PARAM_MOVE_TOL} lr)")
   # the log's steps/s: the host's clock per step (each log line gathers
   # the ranks' losses and reads them back, a synchronisation)
   timed = logged("gloo_2_timed")
@@ -2891,7 +2954,8 @@ def phase_export(name, config, params, requests, sites, fir_sites,
   """11a / 11b (module docstring): export on the card, replay in a fresh
   subprocess over HTTP, hold it against the live service. Returns the
   replay's launches per shape of both kernels and its score
-  evaluations."""
+  evaluations, and its answer to each request (uint8 samples, nfe,
+  samples before quantisation)."""
   import numpy as np
   import torch
   from soft_truncation_tpu_torch.sample.sampling import score_of
@@ -3003,7 +3067,8 @@ def phase_export(name, config, params, requests, sites, fir_sites,
   if abs(rk - ek) > EXPORT_KERNELS_REL * ek:
     raise AssertionError(f"{name}: {rk} kernels per evaluation replayed, "
                          f"{ek} eager")
-  return gn, firs, evals
+  return gn, firs, evals, [(r8, nfe, rf) for (r8, nfe), rf in
+                           zip(replayed, replay_floats)]
 
 
 def _relaunched(rows, launched, units, per_key, shape_of):
@@ -3418,6 +3483,310 @@ def _kernel_entry(name, source, replaces, rows, per, per_key):
   return entry
 
 
+def mesh_train(*argv) -> int:
+  """Phase 12a's trainer, one rank (or the lone run): the CLI trainer
+  (``soft_truncation_tpu_torch.main``) with ``argv`` in this process,
+  whose train step is wrapped to record what it took (its batch's shape)
+  and gave (the per-sample losses) and its host ms, and on rank 0 to save
+  the state after the first step to ``<workdir>/first_step.pt``; then its
+  row (:func:`_write_row`, in the workdir) with those and fir2's launches
+  per shape, forward and adjoint."""
+  sys.path.insert(0, REPO)
+  import torch
+  from soft_truncation_tpu_torch import main as cli
+  from soft_truncation_tpu_torch import run_lib
+  from soft_truncation_tpu_torch.parallel import spatial, world_from_env
+  record = {"host_ms": [], "losses": []}
+  make = run_lib.make_train_step
+  first = os.path.join(argv[list(argv).index("--workdir") + 1],
+                       "first_step.pt")
+  main_rank = world_from_env().is_main
+
+  def sync():
+    if torch.cuda.is_available():
+      torch.cuda.synchronize()
+
+  def recording(config, sde):
+    step = make(config, sde)
+
+    def run(state, batch, generator, draw=None):
+      sync()
+      t0 = time.perf_counter()
+      losses = step(state, batch, generator, draw)
+      sync()
+      record["host_ms"].append((time.perf_counter() - t0) * 1e3)
+      record["local_shape"] = list(batch.shape)
+      record["losses"].append(losses.cpu().tolist())
+      if len(record["losses"]) == 1 and main_rank:  # what 12a holds
+        torch.save(state.state_dict(), first)
+      return losses
+    return run
+
+  run_lib.make_train_step = recording
+  _reset_launch_counts()
+  spatial.calls.clear()
+  cli.main(list(argv))
+  _, firs = _launch_counts()
+  peak = (torch.cuda.max_memory_allocated() if torch.cuda.is_available()
+          else None)
+  rank = world_from_env().rank
+  _write_row(os.path.dirname(first), rank, {
+      "rank": rank, **record, "fir": _shape_counts(firs),
+      "fir_bwd": _shape_counts(_backward_launch_counts()),
+      "collectives": dict(spatial.calls), "peak_memory_bytes": peak})
+  return 0
+
+
+def _write_row(directory, rank, row):
+  """A rank's JSON row, to ``<directory>/rank<r>.json``: the ranks share
+  one stdout, where their lines interleave."""
+  with open(os.path.join(directory, f"rank{rank}.json"), "w") as f:
+    json.dump(row, f)
+
+
+def _rank_rows(directory):
+  """The JSON rows the ranks of a run wrote to ``directory``
+  (:func:`_write_row`), by rank."""
+  rows = {}
+  for name in os.listdir(directory):
+    if re.fullmatch(r"rank\d+\.json", name):
+      with open(os.path.join(directory, name)) as f:
+        row = json.load(f)
+      rows[row["rank"]] = row
+  return rows
+
+
+def phase_mesh_train(extra_flags=(), beside=None):
+  """12a (module docstring). Returns a (2, 2) rank's fir2 launches per
+  shape, forward and adjoint, its batch and the steps, and what
+  ``beside`` returned: a callable run in a thread while the (2, 2) ranks
+  train, which take a fifth of the card's memory (12b). ``extra_flags``:
+  more ``--config.*`` arguments (a rehearsal's cuts)."""
+  import torch
+  from soft_truncation_tpu_torch.main import apply_overrides
+
+  flags = ["--config.data.dataset", "Synthetic", *extra_flags,
+           "--config.training.batch_size", str(MESH_TRAIN_BATCH),
+           "--config.model.init_scale", "0.1",
+           "--config.optim.warmup", "0",
+           "--config.training.n_iters", str(MESH_TRAIN_ITERS),
+           "--config.training.log_freq", "1",
+           "--config.training.snapshot_freq", "1000000",
+           "--config.training.snapshot_freq_for_preemption", "1000000",
+           "--config.training.snapshot_sampling=False",
+           "--config.eval.enable_bpd=False"]
+  if DEVICE == "cpu":
+    flags.append("--cpu")
+  worker = [os.path.abspath(__file__), "--mesh-train"]
+  torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone"]
+  if DEVICE == "cuda":
+    log(f"mesh: this process holds {torch.cuda.memory_allocated()} bytes "
+        f"of the card ({torch.cuda.memory_reserved()} reserved)")
+  specs = [("alone", [sys.executable], flags)]
+  for d, s in MESH_SHAPES:
+    specs.append((f"mesh_{d}x{s}", torchrun + ["--nproc_per_node",
+                                                str(d * s)],
+                  flags + ["--config.tpu.mesh_shape", f"({d}, {s})"]))
+  # alone and (1, 2) side by side, then (2, 2): all seven processes at
+  # once ran the card out of memory beside this process's own tensors
+  # (cuDNN answered CUDNN_STATUS_INTERNAL_ERROR)
+  runs = _ddp_runs(specs[:2], CELEBAHQ, worker, "mesh")
+  with concurrent.futures.ThreadPoolExecutor(1) as pool:
+    beside_result = pool.submit(beside or (lambda: None))
+    runs.update(_ddp_runs(specs[2:], CELEBAHQ, worker, "mesh"))
+    beside_result = beside_result.result()
+
+  def state(name):  # after the first step
+    path = os.path.join(runs[name][0], "first_step.pt")
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+  config = apply_overrides(load_config(CELEBAHQ), [f for f in flags
+                                                    if f != "--cpu"])
+  alone = _rank_rows(runs["alone"][0])[0]
+  want = state("alone")
+  lr = config.optim.lr
+  names = _trainable(config)
+  size = config.data.image_size
+  fwd_sites = sum(n for _, n in alone["fir"])  # over all the steps
+  bwd_sites = sum(n for _, n in alone["fir_bwd"])
+  alone_losses = alone["losses"][0]
+  if len(alone["losses"]) != MESH_TRAIN_ITERS + 1:
+    raise AssertionError(f"mesh alone: {len(alone['losses'])} steps")
+  quad = None
+  for (d, s), (name, _, _) in zip(MESH_SHAPES, specs[1:]):
+    ranks = _rank_rows(runs[name][0])
+    if sorted(ranks) != list(range(d * s)) or any(
+        len(row["losses"]) != MESH_TRAIN_ITERS + 1 for row in ranks.values()):
+      raise AssertionError(f"mesh {name}: ranks {sorted(ranks)} reported")
+    n = MESH_TRAIN_BATCH // d
+    loss_err = 0.0
+    for r, row in ranks.items():
+      data, space = divmod(r, s)
+      shard = [n, size // s, size, 3]
+      logged = (f"mesh (data {d}, space {s}): rank {r} at ({data}, {space})"
+                f", local batch [{MESH_TRAIN_BATCH // d}, {size // s}, "
+                f"{size}, 3]")
+      if row["local_shape"] != shard or logged not in runs[name][2]:
+        raise AssertionError(f"mesh {name} rank {r}: trained on "
+                             f"{row['local_shape']}, not its shard {shard}, "
+                             "or logged no shard")
+      for got_step, want_step in zip(row["losses"], alone["losses"]):
+        for g, w in zip(got_step, want_step[data * n:(data + 1) * n]):
+          loss_err = max(loss_err, abs(g - w) / max(abs(w), 1e-30))
+      fwd = sum(k for _, k in row["fir"])
+      bwd = sum(k for _, k in row["fir_bwd"])
+      if row["collectives"] != ranks[0]["collectives"] or not row[
+          "collectives"]:
+        raise AssertionError(f"mesh {name} rank {r}: space collectives "
+                             f"{row['collectives']}, rank 0 "
+                             f"{ranks[0]['collectives']}")
+      if fwd != fwd_sites or bwd != bwd_sites:
+        raise AssertionError(f"mesh {name} rank {r}: {fwd} fir2 and {bwd} "
+                             f"adjoint launches, alone {fwd_sites} and "
+                             f"{bwd_sites}")
+    emit({"mesh": name, "mesh_shape": [d, s],
+          "global_batch": MESH_TRAIN_BATCH,
+          **_against_alone(f"mesh {name}", state(name), want, lr, names),
+          "loss_max_rel_err": loss_err,
+          "losses_by_rank": {r: row["losses"][0] for r, row in ranks.items()},
+          "alone_losses": alone_losses,
+          "steps": MESH_TRAIN_ITERS + 1,
+          "fir2_launches_per_rank": fwd_sites,
+          "adjoint_launches_per_rank": bwd_sites,
+          "fir2_shapes_rank0": ranks[0]["fir"],
+          "host_ms_by_step_and_rank": {r: row["host_ms"]
+                                       for r, row in ranks.items()},
+          "alone_host_ms_by_step": alone["host_ms"],
+          "peak_memory_bytes_by_rank": {r: row["peak_memory_bytes"]
+                                        for r, row in ranks.items()},
+          "space_collectives_per_step_rank0": {
+              k: v / (MESH_TRAIN_ITERS + 1)
+              for k, v in ranks[0]["collectives"].items()},
+          "alone_peak_memory_bytes": alone["peak_memory_bytes"],
+          "run_wall_s": runs[name][1], "alone_run_wall_s": runs["alone"][1]})
+    if not loss_err <= FORWARD_REL_TOL:
+      raise AssertionError(f"mesh {name}: losses {loss_err} from alone's")
+    if (d, s) == (2, 2):
+      quad = ranks[0]
+  shutil.rmtree(os.path.join(REPO, "build", "chip_smoke_mesh"),
+                ignore_errors=True)
+  return ({tuple(k): v for k, v in quad["fir"]},
+          {tuple(k): v for k, v in quad["fir_bwd"]},
+          quad["local_shape"][0], MESH_TRAIN_ITERS + 1, beside_result)
+
+
+def replay_ranks(artifact, params, requests, out) -> int:
+  """Phase 12b's ranks: the artifact replayed by
+  ``SamplingService.from_artifact`` on the world ``torch.distributed.run``
+  makes, rank 0 sampling each of ``requests`` (JSON) and the others
+  following; each rank writes ``<out>.rank<r>.npz`` (its rows of each
+  run's samples before quantisation, its nfe, and on rank 0 the uint8
+  samples) and its row (:func:`_write_row`, beside ``out``): its score
+  evaluations and gn_silu_conv3x3's launches per shape, counted inside the
+  operator."""
+  sys.path.insert(0, REPO)
+  import numpy as np
+  import torch
+  from soft_truncation_tpu_torch.serve.server import SamplingService
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.deterministic = True
+  t0 = time.perf_counter()
+  service = SamplingService.from_artifact(artifact, params)
+  load_s = time.perf_counter() - t0
+  runs, evals = _stash_floats(service), _count_evaluations(service)
+  _reset_launch_counts()
+  rank = service.world.rank
+  served = {}
+  t0 = time.perf_counter()
+  if rank == 0:
+    for i, r in enumerate(json.loads(requests)):
+      samples, _ = service.sample(r["num"], r["seed"], r.get("method"),
+                                  r.get("dpm_steps"))
+      served[f"uint8_{i}"] = samples
+    service.stop()
+  else:
+    service.follow()
+  wall_s = time.perf_counter() - t0
+  gn, _ = _launch_counts()
+  np.savez(f"{out}.rank{rank}.npz", *[r[0] for r in runs],
+           nfe=np.asarray([r[1] for r in runs]), **served)
+  _write_row(os.path.dirname(out), rank, {
+      "rank": rank, "evals": evals[0], "gn": _shape_counts(gn),
+      "load_s": load_s, "wall_s": wall_s})
+  return 0
+
+
+def phase_mesh_replay(config, params, requests, one_process, sites,
+                      workdir):
+  """12b (module docstring): ``one_process`` is 11a's replay of
+  ``requests`` ((uint8, nfe, floats) each). Returns rank 0's
+  gn_silu_conv3x3 launches per shape, its score evaluations and batch."""
+  import numpy as np
+  from soft_truncation_tpu_torch.serve import export
+
+  artifact = os.path.join(workdir, "mesh" + export.EXTENSION)
+  npz = os.path.join(workdir, "flagship.params.npz")  # 11a's, the same
+  t0 = time.perf_counter()
+  exported, shape = export.export_sampler(config, params, EXPORT_BATCH,
+                                          DEVICE, (MESH_REPLAY_RANKS,))
+  export_s = time.perf_counter() - t0
+  export.save_artifact(exported, export.artifact_meta(config, shape,
+                                                      exported), artifact)
+  if not os.path.exists(npz):
+    export.save_params_npz(params, npz)
+  del exported
+  out = os.path.join(workdir, "mesh_replay")
+  cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(MESH_REPLAY_RANKS),
+         os.path.abspath(__file__), "--replay-ranks", artifact, npz,
+         json.dumps(requests), out]
+  t0 = time.perf_counter()
+  proc = subprocess.run(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                        stderr=subprocess.STDOUT, text=True, timeout=900)
+  wall_s = time.perf_counter() - t0
+  if proc.returncode != 0:
+    raise AssertionError(f"mesh replay: exit {proc.returncode}\n"
+                         f"{proc.stdout[-3000:]}")
+  ranks = _rank_rows(workdir)
+  files = [np.load(f"{out}.rank{r}.npz") for r in range(MESH_REPLAY_RANKS)]
+  per = EXPORT_BATCH // MESH_REPLAY_RANKS
+  for i, (req, (w8, w_nfe, wf)) in enumerate(zip(requests, one_process)):
+    got = np.concatenate([f[f"arr_{i}"] for f in files])
+    nfes = [int(f["nfe"][i]) for f in files]
+    got8 = files[0][f"uint8_{i}"]
+    err = float(np.abs(got - wf).max())
+    scale = float(np.abs(wf).max())
+    step = int(np.abs(got8.astype(np.int16) - w8.astype(np.int16)).max())
+    emit({"mesh_replay": req, "ranks": MESH_REPLAY_RANKS,
+          "batch_per_rank": per, "nfe_by_rank": nfes,
+          "one_process_nfe": w_nfe, "max_abs_diff": err, "max_abs_x": scale,
+          "bit_for_bit": bool(np.array_equal(got, wf)),
+          "uint8_max_step": step,
+          "uint8_moved": float((got8 != w8).mean())})
+    if len(set(nfes)) != 1 or not (np.isfinite(got).all()
+                                   and err <= MESH_REPLAY_REL_TOL * scale
+                                   and step <= 1):
+      raise AssertionError(f"mesh replay {req}: nfe {nfes} (one process "
+                           f"{w_nfe}), {err} from one process's samples "
+                           f"(max |x| {scale}), uint8 step {step}")
+  for r, row in ranks.items():
+    gn = {tuple(k): v for k, v in row["gn"]}
+    want_gn = {s_: k * row["evals"] for s_, k in sites.items()}
+    log(f"mesh replay rank {r}: {row['evals']} score evaluations, "
+        f"{sum(gn.values()) / max(row['evals'], 1):g} gn_silu_conv3x3 "
+        f"launches per evaluation at batch {per}; load {row['load_s']:.2f} "
+        f"s, requests {row['wall_s']:.2f} s")
+    if not row["evals"] or gn != want_gn:
+      raise AssertionError(f"mesh replay rank {r}: launches per shape {gn} "
+                           f"are not the sites x {row['evals']} "
+                           f"evaluations")
+  emit({"mesh_replay": "flagship", "export_s": export_s,
+        "artifact_bytes": os.path.getsize(artifact), "run_wall_s": wall_s,
+        "load_s_by_rank": {r: row["load_s"] for r, row in ranks.items()}})
+  return ({tuple(k): v for k, v in ranks[0]["gn"]}, ranks[0]["evals"], per)
+
+
 def main() -> int:
   try:
     import torch
@@ -3575,16 +3944,30 @@ def main() -> int:
   dpm = [{"num": EXPORT_BATCH, "seed": s, "method": "dpm_solver",
           "dpm_steps": EXPORT_DPM_STEPS} for s in EXPORT_SEEDS]
   own = [{"num": EXPORT_BATCH, "seed": s} for s in EXPORT_SEEDS]
-  x_gn, x_fir, x_evals = phase(
+  x_gn, x_fir, x_evals, x_replayed = phase(
       "export flagship", phase_export, "flagship",
       load_config(FLAGSHIP, init_scale=0.1), flag_params, own + dpm, sites,
       {}, export_dir)
-  ux_gn, ux_fir, ux_evals = phase(
+  ux_gn, ux_fir, ux_evals, _ = phase(
       "export uncsnpp", phase_export, "uncsnpp",
       load_config(UNCSNPP, init_scale=0.1, num_scales=EXPORT_PC_STEPS),
-      u_params, own + dpm, u_sites, u_fir_sites, export_dir)
-  shutil.rmtree(export_dir, ignore_errors=True)
+      u_params, own[:1] + dpm[:1], u_sites, u_fir_sites, export_dir)
   log(f"phases 11a-11b: {time.perf_counter() - t_11:.1f} s")
+
+  # phase 12: the 2-D (data, space) mesh
+  t_12 = time.perf_counter()
+  gc.collect()
+  torch.cuda.empty_cache()
+  # 12b beside 12a's (2, 2) run: its two ranks and the export fit beside
+  # the four
+  mesh_fir, mesh_bwd, mesh_batch, mesh_steps, replayed = phase(
+      "mesh train celebahq 256 and mesh replay flagship", phase_mesh_train,
+      (), lambda: phase("mesh replay flagship", phase_mesh_replay,
+                        load_config(FLAGSHIP, init_scale=0.1), flag_params,
+                        own + dpm, x_replayed, sites, export_dir))
+  mr_gn, mr_evals, mr_batch = replayed
+  shutil.rmtree(export_dir, ignore_errors=True)
+  log(f"phases 12a-12b: {time.perf_counter() - t_12:.1f} s")
 
   gn_launched = collections.Counter(launched) + collections.Counter(
       u_launched)
@@ -3648,6 +4031,12 @@ def main() -> int:
       fir_rows, ux_fir, ux_evals, "launches_per_forward",
       lambda r: (r["kernel"][len("fir_"):-len("sample2")],
                  *r["shape_nhwc"][1:]))
+  # the mesh's halo'd shard shapes (12a, a (2, 2) rank) and batch (12b)
+  mesh_fir_rows = kernels_fir(mesh_fir, mesh_steps, mesh_batch,
+                              "launches_per_step")
+  mesh_bwd_rows = kernels_fir_backward(mesh_bwd, mesh_steps, mesh_batch)
+  with torch.inference_mode():
+    mesh_gn_rows = kernels_gn(mr_gn, mr_evals, mr_batch)
   log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 
   fir_src = "soft_truncation_tpu_torch/csrc/fir2.cu"
@@ -3771,7 +4160,27 @@ def main() -> int:
                       f"one score evaluation of the exported UNCSN++ "
                       f"program at batch {EXPORT_BATCH}, replayed in a "
                       "fresh process", "launches_per_forward")
-        for mode in ("up", "down"))]
+        for mode in ("up", "down")),
+      *(_kernel_entry(f"fir_{mode}sample2_mesh_train", fir_src, fir_fwd,
+                      [r for r in mesh_fir_rows
+                       if r["kernel"] == f"fir_{mode}sample2"],
+                      f"one rank's part of a CelebA-HQ 256^2 train step on "
+                      f"the (2, 2) mesh (batch {mesh_batch} of "
+                      f"{MESH_TRAIN_BATCH}, half the rows with their halo)",
+                      "launches_per_step")
+        for mode in ("up", "down")),
+      _kernel_entry("fir2_backward_mesh", fir_src,
+                    "soft_truncation_tpu/ops/pallas/fir.py:212",
+                    mesh_bwd_rows, f"one rank's part of a CelebA-HQ 256^2 "
+                    f"train step on the (2, 2) mesh (batch {mesh_batch})",
+                    "launches_per_step"),
+      _kernel_entry("gn_silu_conv3x3_mesh_replay", gn_src,
+                    "soft_truncation_tpu/ops/pallas/gn_conv.py:74",
+                    mesh_gn_rows, f"one rank's score evaluation of the "
+                    f"flagship exported for {MESH_REPLAY_RANKS} ranks at "
+                    f"batch {EXPORT_BATCH} (batch {mr_batch} per rank), "
+                    "replayed under torch.distributed.run (counted inside "
+                    "the operator)", "launches_per_forward")]
   emit({"kernels": entries})
   for entry in entries:
     log(f"{entry['name']} ({entry['per']}): issued {entry['ms']:.4f} ms vs "
@@ -3789,4 +4198,8 @@ def main() -> int:
 if __name__ == "__main__":
   if sys.argv[1:2] == ["--replay-server"]:
     sys.exit(replay_server(*sys.argv[2:4]))
+  if sys.argv[1:2] == ["--mesh-train"]:
+    sys.exit(mesh_train(*sys.argv[2:]))
+  if sys.argv[1:2] == ["--replay-ranks"]:
+    sys.exit(replay_ranks(*sys.argv[2:6]))
   sys.exit(main())

@@ -13,7 +13,8 @@ one.
 The JAX package's ``tpu`` section is carried where the port reads a key;
 no config file sets any of its knobs, and the port reads them so:
   * ``mesh_shape``: () or (world size,), the ranks ``torchrun`` launches
-    (``parallel/ddp.py``); a 2-D (data, space) mesh raises (not ported);
+    (``parallel/ddp.py``), or (d, s) with d * s the world size: the batch
+    over d and each image's rows over s ranks (``parallel/mesh.py``);
   * ``remat`` / ``remat_policy``: activation checkpointing of NCSN++'s
     res-blocks, 'full' or 'conv_outputs' (``models/ncsnpp.py``);
   * ``activation_dtype``: '' (off) or 'float8_e4m3' (``ops/quant.py``;

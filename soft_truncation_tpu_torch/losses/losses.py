@@ -24,6 +24,11 @@ Random draws go through ``draw(kind, shape, high=None)`` (kind 'uniform',
 JAX's keys make them: t's uniforms, z, then the reconstruction's z; for the
 discrete losses the labels, then the noise. :func:`make_draw` makes one
 from a ``torch.Generator``; tests hand in the numbers JAX draws.
+
+Under a space axis (``parallel/spatial.py``) a batch holds this rank's rows
+of each image: every sum or mean over a sample's pixels is summed over the
+axis and the pixel count is the whole image's, so each per-example loss is
+the whole image's, the same on every rank of the axis.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from ..models.score import get_model_fn, get_score_fn
+from ..parallel import spatial
 from ..sde.core import SDE, VESDE, VPSDE, batch_mul
 
 Draw = Callable[..., torch.Tensor]
@@ -181,12 +187,30 @@ def discretized_gaussian_log_likelihood(x, means, log_scales):
 # ---------------------------------------------------------------------------
 
 
+def _image_sum(x: torch.Tensor) -> torch.Tensor:
+  """[B, n] -> [B]: each sample's sum over its pixels, under a space axis
+  over every rank's rows (``parallel/spatial.py``)."""
+  space = spatial.current()
+  if space is None:
+    return torch.sum(x, dim=-1)
+  return space.sum(torch.sum(x, dim=-1))
+
+
+def _image_mean(x: torch.Tensor) -> torch.Tensor:
+  """[B, n] -> [B]: each sample's mean over its pixels, as
+  :func:`_image_sum`."""
+  space = spatial.current()
+  if space is None:
+    return torch.mean(x, dim=-1)
+  return space.sum(torch.sum(x, dim=-1)) / (x.shape[-1] * space.size)
+
+
 def _reduce_op(config):
   """The per-example reduction: the mean over the pixels, or half their
   sum (``training.reduce_mean``)."""
   if config.training.reduce_mean:
-    return lambda x: torch.mean(x, dim=-1)
-  return lambda x: 0.5 * torch.sum(x, dim=-1)
+    return _image_mean
+  return lambda x: 0.5 * _image_sum(x)
 
 
 def get_sde_loss_fn(config, sde: SDE, train: bool,
@@ -235,21 +259,24 @@ def get_sde_loss_fn(config, sde: SDE, train: bool,
       if variance == "ddpm":
         q_std = beta
       else:
-        q_std = beta / torch.mean(alpha, dim=(1, 2, 3))
+        q_std = beta / _image_mean(alpha.reshape(b, -1))
 
-      n_dim = math.prod(batch.shape[1:])
+      # the whole image's size, under a space axis too
+      space = spatial.current()
+      n_dim = math.prod(batch.shape[1:]) * (space.size if space else 1)
+
       if dequantization == "lossless":
         decoder_nll = -discretized_gaussian_log_likelihood(
             batch, means=q_mean, log_scales=torch.log(q_std).reshape(b, 1, 1,
                                                                      1))
-        recon = decoder_nll.sum(dim=(1, 2, 3))
+        recon = _image_sum(decoder_nll.reshape(b, -1))
       else:
         p_entropy = n_dim / 2.0 * (math.log(2 * math.pi)
                                    + 2 * torch.log(r_std) + 1.0)
         q_recon = (n_dim / 2.0 * (math.log(2 * math.pi)
                                   + 2 * torch.log(q_std))
                    + 0.5 / (q_std ** 2)
-                   * torch.square(batch - q_mean).sum(dim=(1, 2, 3)))
+                   * _image_sum(torch.square(batch - q_mean).reshape(b, -1)))
         recon = q_recon - p_entropy
       if reduce_mean:
         recon = recon / n_dim

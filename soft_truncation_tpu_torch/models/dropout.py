@@ -9,7 +9,8 @@ mask does not match JAX's bits: tests hand both packages the same mask
 through :func:`keep_mask`. The JAX package's ``config.tpu.dropout_bits``
 (8/16-bit packed masks, a TPU hashing knob) has no meaning here and is not
 read. Under data parallelism (``parallel/ddp.py``) :func:`batch_shard`
-makes each mask the global batch's, cut to this rank's rows.
+makes each mask the global batch's, cut to this rank's rows (and, under a
+space axis, to its image rows).
 """
 
 from __future__ import annotations
@@ -20,16 +21,22 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from ..parallel.ddp import sharded_draw
 
-_SHARD = (0, 1)  # (rank, ranks) of the batch rows a mask is drawn for
+
+_SHARD = (0, 1, 0, 1)  # (rank, ranks, space rank, space ranks) of a mask
 
 
 @contextlib.contextmanager
-def batch_shard(rank: int, size: int):
+def batch_shard(rank: int, size: int, space_rank: int = 0,
+                space_size: int = 1):
   """Within the block, a mask of n rows is drawn for n * ``size`` rows and
-  its rows [rank * n, (rank + 1) * n) kept: the global batch's mask."""
+  its rows [rank * n, (rank + 1) * n) kept: the global batch's mask; under
+  a space axis of ``space_size`` ranks a mask of image shape [n, L, W, C]
+  is drawn for L * ``space_size`` image rows, of which this rank keeps
+  [space_rank * L, (space_rank + 1) * L)."""
   global _SHARD
-  old, _SHARD = _SHARD, (rank, size)
+  old, _SHARD = _SHARD, (rank, size, space_rank, space_size)
   try:
     yield
   finally:
@@ -40,13 +47,11 @@ def keep_mask(shape, keep: float, generator: Optional[torch.Generator],
               device) -> torch.Tensor:
   """Bernoulli(keep) mask of ``shape``: uniform < keep (see
   :func:`batch_shard`)."""
-  rank, size = _SHARD
-  if size == 1:
-    return torch.rand(shape, generator=generator, device=device) < keep
-  n = shape[0]
-  u = torch.rand((n * size,) + tuple(shape[1:]), generator=generator,
-                 device=device)
-  return u[rank * n:(rank + 1) * n] < keep
+
+  def uniform(kind, shape, high=None):
+    return torch.rand(shape, generator=generator, device=device)
+
+  return sharded_draw(uniform, *_SHARD)("uniform", tuple(shape)) < keep
 
 
 class Dropout(nn.Module):

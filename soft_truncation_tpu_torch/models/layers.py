@@ -9,6 +9,12 @@ view them as NCHW for ``F.conv2d``. Parameters keep PyTorch's layouts (conv
 ``[O, I, kh, kw]``, dense ``[out, in]``); ``utils/jax_params.py`` maps the
 Flax tree onto them. Inits follow the JAX package's variance-scaling family,
 drawn from an explicit ``torch.Generator`` by ``reset_parameters``.
+
+Under a space axis (``parallel/spatial.py``: each rank holds H/s rows of
+every image) a kxk conv takes k // 2 halo rows on each side (the stride-2
+conv one row from below), GroupNorm sums its statistics over the axis, and
+attention takes its keys and values from every rank's rows; ``Conv2d`` (the
+legacy networks') refuses the axis.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch.nn.functional as F
 from ..ops._autodiff import below_transforms
 from ..ops._build import tracing
 from ..ops.gn_conv import weight_operand
+from ..parallel import spatial
 from .dropout import Dropout
 
 
@@ -117,12 +124,29 @@ class DDPMConv(nn.Module):
         "tf32_split", lambda: weight_operand(self.weight_hwio()))
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
+    space = spatial.current()
+    if space is not None:
+      return self._sharded(x, space)
     x = x.permute(0, 3, 1, 2)
     if self.stride == 2:
       y = F.conv2d(F.pad(x, (0, 1, 0, 1)), self.weight, self.bias, stride=2)
     else:
       y = F.conv2d(x, self.weight, self.bias,
                    padding=self.weight.shape[-1] // 2)
+    return y.permute(0, 2, 3, 1)
+
+  def _sharded(self, x: torch.Tensor, space) -> torch.Tensor:
+    """The conv of this rank's rows: the rows padding would add come from
+    the neighbours (zeros past the image's edges)."""
+    if self.stride == 2:
+      if x.shape[1] % 2:  # an even first row, as in the whole image
+        raise ValueError(f"a stride-2 conv over a shard of {x.shape[1]} rows")
+      x = space.halo(x, 0, 1).permute(0, 3, 1, 2)
+      y = F.conv2d(F.pad(x, (0, 1)), self.weight, self.bias, stride=2)
+    else:
+      r = self.weight.shape[-1] // 2
+      y = F.conv2d(space.halo(x, r, r).permute(0, 3, 1, 2), self.weight,
+                   self.bias, padding=(0, r))
     return y.permute(0, 2, 3, 1)
 
 
@@ -191,6 +215,7 @@ class Conv2d(nn.Module):
       init(self.bias, fan_in, generator)
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
+    spatial.refuse("the legacy networks' Conv2d")
     x = F.pad(x.permute(0, 3, 1, 2), self.pads)
     y = F.conv2d(x, self.weight, self.bias, dilation=self.dilation)
     return y.permute(0, 2, 3, 1)
@@ -243,7 +268,8 @@ class GroupNorm(nn.Module):
   """GroupNorm over an NHWC tensor, as ``flax.linen.GroupNorm`` computes it.
 
   Statistics in f32 with var = E[x^2] - E[x]^2 clipped at 0, then
-  ``(x - mean) * (rsqrt(var + eps) * weight) + bias``."""
+  ``(x - mean) * (rsqrt(var + eps) * weight) + bias``. Under a space axis
+  the sums of x and x^2 per (sample, group) are summed over the axis."""
 
   def __init__(self, num_groups: int, channels: int, eps: float = 1e-6):
     super().__init__()
@@ -261,9 +287,16 @@ class GroupNorm(nn.Module):
     n, h, w, c = x.shape
     g = self.num_groups
     xg = x.float().reshape(n, h * w, g, c // g)
-    mean = xg.mean(dim=(1, 3), keepdim=True)
-    var = (xg.square().mean(dim=(1, 3), keepdim=True)
-           - mean.square()).clamp_min(0.0)
+    space = spatial.current()
+    if space is None:
+      mean = xg.mean(dim=(1, 3), keepdim=True)
+      mean2 = xg.square().mean(dim=(1, 3), keepdim=True)
+    else:
+      sums = space.sum(torch.stack([xg.sum(dim=(1, 3), keepdim=True),
+                                    xg.square().sum(dim=(1, 3),
+                                                    keepdim=True)]))
+      mean, mean2 = sums / (h * space.size * w * (c // g))
+    var = (mean2 - mean.square()).clamp_min(0.0)
     mul = torch.rsqrt(var + self.eps) * self.weight.reshape(g, c // g)
     y = (xg - mean) * mul + self.bias.reshape(g, c // g)
     return y.reshape(n, h, w, c).to(x.dtype)
@@ -290,15 +323,25 @@ def spatial_attention(q: torch.Tensor, k: torch.Tensor,
   """All-pairs spatial self-attention over an NHWC feature map.
 
   out[b,h,w,:] = sum_ij softmax_ij(q[b,h,w].k[b,i,j] / sqrt(C)) v[b,i,j],
-  with the softmax in f32."""
+  with the softmax in f32. ``k`` and ``v`` may hold more rows than ``q``
+  (the whole image's, for a shard's queries)."""
   b, h, w, c = q.shape
   q = q.reshape(b, h * w, c)
-  k = k.reshape(b, h * w, c)
-  v = v.reshape(b, h * w, c)
+  k = k.reshape(b, -1, c)
+  v = v.reshape(b, -1, c)
   logits = torch.bmm(q.float(), k.float().transpose(1, 2)) * (int(c) ** -0.5)
   weights = torch.softmax(logits, dim=-1)
   out = torch.bmm(weights.to(v.dtype), v)
   return out.reshape(b, h, w, c)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+  """:func:`spatial_attention`; under a space axis the queries of this
+  rank's rows against the keys and values of every rank's."""
+  space = spatial.current()
+  if space is not None:
+    k, v = space.gather(torch.cat([k, v], dim=-1)).split(k.shape[-1], dim=-1)
+  return spatial_attention(q, k, v)
 
 
 class AttnBlock(nn.Module):
@@ -315,7 +358,7 @@ class AttnBlock(nn.Module):
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     h = self.norm(x)
-    h = spatial_attention(self.q(h), self.k(h), self.v(h))
+    h = attend(self.q(h), self.k(h), self.v(h))
     return x + self.out(h)
 
 

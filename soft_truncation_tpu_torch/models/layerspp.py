@@ -23,6 +23,11 @@ At train (``train=True``) nothing is fused: each block runs norm -> act ->
 resamples take gradients through ``ops.fir``'s adjoint. Dropout draws its
 mask from the ``generator`` passed down with the forward.
 
+Under a space axis (``parallel/spatial.py``) the layers take their halo
+rows, sums and gathers as ``models/layers.py`` and ``ops/resample.py``
+say; ``last_fir_sites`` records the shard's shapes. The fused eval sites
+raise there.
+
 ``act_quant`` (``config.tpu.activation_dtype``) makes a block's convs
 ``ops.quant.QConv``s, through ``layers.ddpm_conv``, where the JAX package
 passes it; a fused site ignores it there and here (JAX's
@@ -43,9 +48,10 @@ from ..ops import (conv_downsample_2d, downsample_2d, gn_silu_conv3x3,
                    gn_stats, naive_downsample_2d, naive_upsample_2d,
                    upsample_2d, upsample_conv_2d)
 from ..ops.gn_conv import fits as gn_conv_fits
+from ..parallel import spatial
 from .dropout import Dropout
-from .layers import (NIN, DDPMConv, Dense, GroupNorm, ddpm_conv,
-                     default_init, spatial_attention)
+from .layers import (NIN, DDPMConv, Dense, GroupNorm, attend, ddpm_conv,
+                     default_init)
 
 
 # the JAX package's bound on a fused site's H * W * max(C, O)
@@ -70,7 +76,9 @@ def _gn_conv_eligible(block, h: torch.Tensor, out_ch: int,
 
 def _fused_gn_silu_conv(block, h: torch.Tensor, norm: GroupNorm,
                         conv: DDPMConv) -> torch.Tensor:
-  """norm -> SiLU -> conv3x3 as one fused call; records the site's shape."""
+  """norm -> SiLU -> conv3x3 as one fused call; records the site's shape.
+  No JAX path runs an eval forward under a space axis: there it raises."""
+  spatial.refuse("the fused GroupNorm -> SiLU -> conv3x3 eval site")
   h = h.contiguous()
   g = _groups(h.shape[-1])
   mean, rsqrt = gn_stats(h, g, eps=norm.eps)
@@ -134,7 +142,7 @@ class AttnBlockpp(nn.Module):
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     h = self.norm(x)
-    h = spatial_attention(self.q(h), self.k(h), self.v(h))
+    h = attend(self.q(h), self.k(h), self.v(h))
     h = self.out(h)
     if self.skip_rescale:
       return (x + h) / math.sqrt(2.0)

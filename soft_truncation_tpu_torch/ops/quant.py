@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.layers import DDPMConv
+from ..parallel import spatial
 
 #: config.tpu.activation_dtype values this module implements.
 SUPPORTED = ("float8_e4m3",)
@@ -167,5 +168,6 @@ class QConv(DDPMConv):
     super().__init__(in_ch, out_ch, kernel_size, init_scale, stride)
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
+    spatial.refuse("an fp8 conv (tpu.activation_dtype)")
     padding = ((0, 1), (0, 1)) if self.stride == 2 else "SAME"
     return fp8_conv(x, self.weight, self.stride, padding) + self.bias

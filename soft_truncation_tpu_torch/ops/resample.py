@@ -7,17 +7,27 @@ kernel, since the FIR filter is a true convolution. ``upsample_2d`` /
 ``downsample_2d`` route statically: factor 2 with a 1-D kernel goes to
 ``ops.fir`` (the CUDA kernel for a CUDA tensor, its plain version for a
 CPU tensor); any other factor or a 2-D kernel goes to ``upfirdn2d``.
+
+Under a space axis (``parallel/spatial.py``: each rank holds H/s rows of
+every image) the nearest / mean-pool resamples are local (H/s is even where
+a level is halved), and each FIR resample, alone or fused with its conv,
+runs on this rank's rows with a halo of the filter's reach (a multiple of
+the stride, so the output keeps the whole image's phase) and is cropped to
+this rank's output rows (:func:`_on_shard`); the ``fir2``
+kernel and its adjoint run on the halo'd rows as they are.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+import math
+from typing import Callable, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .fir import fir_downsample2, fir_upsample2
+from ..parallel import spatial
+from .fir import fir2_pads, fir_downsample2, fir_upsample2
 
 
 def naive_upsample_2d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
@@ -46,6 +56,36 @@ def setup_fir_kernel(k: Union[Sequence[float], np.ndarray],
   return k / np.sum(k) * gain
 
 
+def reach(taps: int, up: int, down: int, pad0: int) -> Tuple[int, int]:
+  """The input rows above and below a shard's own that its outputs read,
+  for ``upfirdn2d`` with ``taps`` rows of filter and leading pad ``pad0``:
+  output o reads the inputs i with ``i * up`` in ``[o * down - pad0, o *
+  down - pad0 + taps - 1]``."""
+  return (max(pad0 // up, 0),
+          max((taps - 1 - pad0 - down) // up + 1, 0))
+
+
+def _on_shard(fn: Callable, x: torch.Tensor, rows: Tuple[int, int],
+              up: int = 1, down: int = 1) -> torch.Tensor:
+  """``fn`` (a resample by up / down along H) of this rank's rows under a
+  space axis: on them with ``rows`` = (above, below) halo rows, each
+  rounded up to a multiple of the stride (the rows above so that the
+  output keeps the whole image's phase, the rows below so that a
+  downsample's input stays even), then cropped to this rank's output rows;
+  ``fn(x)`` without a space axis."""
+  space = spatial.current()
+  if space is None:
+    return fn(x)
+  n = x.shape[1]
+  if (n * up) % down:
+    raise ValueError(f"a shard of {n} rows is not resampled by {up}/{down} "
+                     "in whole rows")
+  stride = down // math.gcd(up, down)
+  above, below = (-(-r // stride) * stride for r in rows)
+  y = fn(space.halo(x, above, below))
+  return y.narrow(1, above * up // down, n * up // down)
+
+
 def upfirdn2d(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
               pad: Tuple[int, int] = (0, 0)) -> torch.Tensor:
   """[B, H, W, C] -> upsample x``up``, pad, FIR-filter, downsample /``down``.
@@ -53,6 +93,13 @@ def upfirdn2d(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
   ``pad[0]`` leading and ``pad[1]`` trailing on both spatial axes; negative
   values crop. Output size ``(size * up + pad0 + pad1 - k) // down + 1``.
   """
+  rows = reach(np.shape(kernel)[0], up, down, pad[0])
+  return _on_shard(lambda x: _upfirdn2d(x, kernel, up, down, pad), x, rows,
+                   up, down)
+
+
+def _upfirdn2d(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
+               pad: Tuple[int, int] = (0, 0)) -> torch.Tensor:
   b, h, w, c = x.shape
   k = torch.as_tensor(np.asarray(kernel, dtype=np.float32), device=x.device)
   kh, kw = k.shape
@@ -80,7 +127,9 @@ def upsample_2d(x: torch.Tensor, k=None, factor: int = 2,
   if k is None:
     k = [1.0] * factor
   if _is_separable_2x(k, factor):
-    return fir_upsample2(x.contiguous(), k, gain)
+    taps = len(k)
+    return _on_shard(lambda x: fir_upsample2(x.contiguous(), k, gain), x,
+                     reach(taps, 2, 1, fir2_pads(taps, "up")[0]), up=2)
   k = setup_fir_kernel(k, gain * (factor ** 2))
   p = k.shape[0] - factor
   return upfirdn2d(x, k, up=factor, pad=((p + 1) // 2 + factor - 1, p // 2))
@@ -92,7 +141,9 @@ def downsample_2d(x: torch.Tensor, k=None, factor: int = 2,
   if k is None:
     k = [1.0] * factor
   if _is_separable_2x(k, factor):
-    return fir_downsample2(x.contiguous(), k, gain)
+    taps = len(k)
+    return _on_shard(lambda x: fir_downsample2(x.contiguous(), k, gain), x,
+                     reach(taps, 1, 2, fir2_pads(taps, "down")[0]), down=2)
   k = setup_fir_kernel(k, gain)
   p = k.shape[0] - factor
   return upfirdn2d(x, k, down=factor, pad=((p + 1) // 2, p // 2))
@@ -109,13 +160,22 @@ def upsample_conv_2d(x: torch.Tensor, w: torch.Tensor, k=None,
     k = [1.0] * factor
   k = setup_fir_kernel(k, gain * (factor ** 2))
   p = (k.shape[0] - factor) - (kh - 1)
+  pad0 = (p + 1) // 2 + factor - 1
+  # the full correlation then the filter: one filter of k + kh - 1 taps
+  return _on_shard(lambda x: _upsample_conv_2d(x, w, k, factor, p, pad0), x,
+                   reach(k.shape[0] + kh - 1, factor, 1, pad0 + kh - 1),
+                   up=factor)
+
+
+def _upsample_conv_2d(x, w, k: np.ndarray, factor: int, p: int,
+                      pad0: int) -> torch.Tensor:
+  kh = w.shape[0]
   b, h, wd, c = x.shape
   # full correlation over the input with zeros between its samples
   z = x.new_zeros((b, c, (h - 1) * factor + 1, (wd - 1) * factor + 1))
   z[:, :, ::factor, ::factor] = x.permute(0, 3, 1, 2)
   y = F.conv2d(z, w.permute(3, 2, 0, 1).to(x.dtype), padding=kh - 1)
-  return upfirdn2d(y.permute(0, 2, 3, 1), k,
-                   pad=((p + 1) // 2 + factor - 1, p // 2 + 1))
+  return _upfirdn2d(y.permute(0, 2, 3, 1), k, pad=(pad0, p // 2 + 1))
 
 
 def conv_downsample_2d(x: torch.Tensor, w: torch.Tensor, k=None,
@@ -127,6 +187,12 @@ def conv_downsample_2d(x: torch.Tensor, w: torch.Tensor, k=None,
     k = [1.0] * factor
   k = setup_fir_kernel(k, gain)
   p = (k.shape[0] - factor) + (kh - 1)
-  y = upfirdn2d(x, k, pad=((p + 1) // 2, p // 2)).permute(0, 3, 1, 2)
-  out = F.conv2d(y, w.permute(3, 2, 0, 1).to(x.dtype), stride=factor)
-  return out.permute(0, 2, 3, 1)
+
+  def fn(x):
+    y = _upfirdn2d(x, k, pad=((p + 1) // 2, p // 2)).permute(0, 3, 1, 2)
+    out = F.conv2d(y, w.permute(3, 2, 0, 1).to(x.dtype), stride=factor)
+    return out.permute(0, 2, 3, 1)
+
+  # the filtered rows, then the strided conv's kh taps over them
+  return _on_shard(fn, x, reach(k.shape[0] + kh - 1, 1, factor, (p + 1) // 2),
+                   down=factor)

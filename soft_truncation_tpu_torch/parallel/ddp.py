@@ -5,8 +5,9 @@ mesh. The world comes from the environment ``torchrun`` sets (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``,
 ``MASTER_PORT``); without ``WORLD_SIZE`` the process trains alone and no
 process group is made. ``config.tpu.mesh_shape`` may be ``()`` (every rank
-on the data axis) or ``(d,)`` with d the world size; a 2-D ``(d, s)`` mesh,
-JAX's spatial ``space`` axis, is not ported and raises.
+on the data axis), ``(d,)`` with d the world size, or ``(d, s)`` with d * s
+the world size: JAX's spatial ``space`` axis, each image's rows split over
+s ranks (``mesh.py``, ``spatial.py``).
 
 Each rank runs on ``cuda:<LOCAL_RANK % cards>`` (or the CPU when asked).
 The backend is NCCL where every local rank has a card of its own, else
@@ -19,8 +20,10 @@ The global batch (``training.batch_size``) is split so that a step on
 of it, for the mixed loss), and every random draw of the step is drawn for
 the global batch from the same seeded generator on every rank, then cut to
 the rank's rows (:func:`sharded_draw`, and ``models.dropout.batch_shard``
-for the dropout masks). The one per-step draw of ``t_min`` is made whole on
-every rank, so it agrees. DDP averages the gradients, so the optimizer, the
+for the dropout masks); under a space axis an image-shaped draw is cut to
+the rank's image rows too. The one per-step draw of ``t_min`` is made whole
+on every rank, so it agrees. DDP averages the gradients (under a space axis
+the step all-reduces them itself, ``train/step.py``), so the optimizer, the
 parameters and the EMA stay the same on every rank.
 """
 
@@ -67,23 +70,20 @@ def world_from_env() -> World:
 
 
 def check_mesh(config, world: World) -> None:
-  """``config.tpu.mesh_shape`` against the world: () or (world size,)."""
-  mesh = tuple(config.get("tpu", {}).get("mesh_shape", ()) or ())
-  if len(mesh) > 1:
-    raise NotImplementedError(
-        f"tpu.mesh_shape={mesh}: the 2-D (data, space) mesh of the JAX "
-        "package (spatial sharding) is not ported; use (world size,) or ()")
-  if mesh and mesh[0] != world.size:
-    raise ValueError(f"tpu.mesh_shape={mesh} != the world size {world.size}")
+  """``config.tpu.mesh_shape`` against the world and, with a space axis,
+  the config (``mesh.check_space``: the model, each level's height)."""
+  from .mesh import check_space, mesh_dims
+  _, s = mesh_dims(config.get("tpu", {}).get("mesh_shape", ()), world)
+  if s > 1:
+    check_space(config, s)
 
 
-@contextlib.contextmanager
-def process_group(config, device="cuda"):
-  """The world of this process and its device for the block, in the process
-  group the environment names (joined here, and left on exit, unless the
-  process is in one already). Yields ``(world, device)``."""
+def join(device="cuda"):
+  """Join the process group the environment names, unless the process is
+  in one already or none is named. Returns ``(world, device, joined)``:
+  this rank's device (``cuda:<LOCAL_RANK % cards>``, or the CPU when
+  asked) and whether this call made the group."""
   world = world_from_env()
-  check_mesh(config, world)
   device = resolve_device(device)
   if device.type == "cuda":
     device = torch.device("cuda", world.local_rank % torch.cuda.device_count())
@@ -96,6 +96,16 @@ def process_group(config, device="cuda"):
                             world_size=world.size)
     log.info("process group: %s, rank %d of %d on %s", backend, world.rank,
              world.size, device)
+  return world, device, joined
+
+
+@contextlib.contextmanager
+def process_group(config, device="cuda"):
+  """The world of this process and its device for the block, in the process
+  group the environment names (joined here, and left on exit, unless the
+  process is in one already). Yields ``(world, device)``."""
+  check_mesh(config, world_from_env())
+  world, device, joined = join(device)
   try:
     yield world, device
   finally:
@@ -128,17 +138,25 @@ def shard(batch: torch.Tensor, world: World, parts: int) -> torch.Tensor:
   return chunks[:, world.rank].reshape((parts * rows,) + batch.shape[1:])
 
 
-def sharded_draw(draw: Callable, rank: int, size: int) -> Callable:
+def sharded_draw(draw: Callable, rank: int, size: int, space_rank: int = 0,
+                 space_size: int = 1) -> Callable:
   """``draw`` for the global batch cut to this rank's rows: a draw whose
   leading dimension is a rank's n rows is made for n * size rows and its
-  rows [rank * n, (rank + 1) * n) kept; a 0-d draw (``t_min``) is made
-  whole."""
+  rows [rank * n, (rank + 1) * n) kept; an image-shaped draw [n, L, W, C]
+  under a space axis of ``space_size`` ranks is made for L * space_size
+  image rows and rows [space_rank * L, (space_rank + 1) * L) kept; a 0-d
+  draw (``t_min``) is made whole."""
 
   def draw_rows(kind, shape, high=None):
     shape = tuple(shape)
     if not shape:
       return draw(kind, shape, high)
     n = shape[0]
+    if space_size > 1 and len(shape) == 4:
+      rows = shape[1]
+      whole = draw(kind, (n * size, rows * space_size) + shape[2:], high)
+      return whole[rank * n:(rank + 1) * n,
+                   space_rank * rows:(space_rank + 1) * rows]
     return draw(kind, (n * size,) + shape[1:], high)[rank * n:(rank + 1) * n]
 
   return draw_rows

@@ -13,7 +13,10 @@ snapshot (with ``eval.enable_bpd``) the bpd of the EMA weights into
 samples into ``workdir/samples``; with ``config.tpu.profile_dir`` (read
 with ``get``, as JAX reads it) a ``torch.profiler`` trace of the run's
 eleventh step, the step JAX traces. Under ``torchrun``, data parallel over
-the ranks (``parallel/ddp.py``). :func:`evaluate`: the eval loss, the bpd
+the ranks (``parallel/ddp.py``), or with ``tpu.mesh_shape = (d, s)`` over
+a ``(data, space)`` mesh whose space ranks each hold H/s rows of every
+image (``parallel/mesh.py``); snapshot sampling and the bpd run on rank 0
+either way. :func:`evaluate`: the eval loss, the bpd
 and (with ``eval.enable_sampling``) FID, KID and IS of the EMA weights of
 the rolling checkpoint (or of the seed's weights without one), into
 ``workdir/<eval_folder>``. Sampling for FID uses ``sampling.method`` at
@@ -35,6 +38,7 @@ from .eval import evaluation
 from .likelihood import get_elbo_fn, get_likelihood_fn
 from .models import create_model
 from .parallel import ddp
+from .parallel.mesh import first_of_space, local_shape, make_mesh, shard_batch
 from .sample import get_sampling_fn
 from .sde import get_sde
 from .train import (CheckpointManager, init_train_state, make_eval_loss_step,
@@ -82,7 +86,15 @@ def _train(config, workdir, assetdir, world, device):
   ckpt = CheckpointManager(workdir)
   ckpt.restore_meta(state)
   initial_step = state.step
-  state.replica = ddp.replicate(model, world)
+  mesh = make_mesh(config.get("tpu", {}).get("mesh_shape", ()), world)
+  if mesh.space > 1:  # the step all-reduces the gradients itself
+    state.mesh = mesh
+    log.info("mesh (data %d, space %d): rank %d at (%d, %d), local batch "
+             "%s", mesh.data, mesh.space, world.rank, mesh.data_index,
+             mesh.space_index, list(local_shape(
+                 config, mesh, config.training.batch_size)))
+  else:
+    state.replica = ddp.replicate(model, world)
 
   log.info("loading %s...", config.data.dataset)
   # a resumed run draws data and noise afresh, from the seed and its step
@@ -109,11 +121,12 @@ def _train(config, workdir, assetdir, world, device):
     traced = (profile_dir if world.is_main and step == initial_step + 10
               else None)
     with trace(traced):
-      losses = train_step(state, ddp.shard(batch, world, parts), generator)
+      losses = train_step(state, shard_batch(batch, mesh, True, parts),
+                          generator)
     timer.tick()
 
     if _crossed(step, config.training.log_freq, allow_zero=True):
-      losses = ddp.gather(losses).cpu()
+      losses = first_of_space(ddp.gather(losses), mesh).cpu()
       sps, ips = timer.report()
       if world.is_main:
         log.info("step: %d, training loss mean: %.5e, training loss std: "

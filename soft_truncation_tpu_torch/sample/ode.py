@@ -9,6 +9,8 @@ loop: the scalars that steer it (t, h, the error norm) live on the host as
 float32, with the same f32 arithmetic as the JAX version, and each step
 reads its error norm from the device once. That one synchronisation per
 step is accepted in this port; the model evaluations dominate the step.
+Where the batch is split over ranks (the replay on several ranks,
+``serve/server.py``) the error norms are the whole batch's.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import batch_mean
 
 _f32 = np.float32
 
@@ -52,7 +56,10 @@ class ODEResult(NamedTuple):
 
 
 def _rms(v: torch.Tensor) -> np.float32:
-  return _f32(torch.sqrt(torch.mean(v ** 2)).item())
+  """The root mean square of ``v``: of the whole batch's where its rows are
+  split over ranks (``parallel/mesh.py::batch_sharded``), so that every
+  rank takes the same steps."""
+  return _f32(torch.sqrt(batch_mean(v ** 2)).item())
 
 
 def _initial_step(func, t0, y0, f0, direction, rtol, atol) -> np.float32:

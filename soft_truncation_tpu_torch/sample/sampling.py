@@ -10,7 +10,10 @@ replay, ``serve/export.py::ExportedScore``), so that the live server and the
 replay run the same loops. The PC sampler also draws its predictor and
 corrector noise from ``generator``, through ``draw(like) -> standard
 normal of like's shape``, which a caller may replace (``draw=``) to hand
-the same noise to two devices. Runs under ``torch.inference_mode``.
+the same noise to two devices. Runs under ``torch.inference_mode``. The
+batch means that steer a sampler (dopri5's error norm, the Langevin step
+size) are the whole batch's where its rows are split over ranks
+(``parallel/mesh.py::batch_sharded``).
 ``sampling.method`` 'picard' and 'picard_dpm' are the parallel-in-time
 versions of 'pc' and 'dpm_solver' (``sample/parallel.py``); the DPM
 schedule and step below are shared with the latter.
@@ -24,6 +27,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import batch_mean
 from ..sde.core import (SDE, VESDE, VPSDE, ReciprocalVESDE, ReverseSDE,
                         batch_mul)
 from .ode import odeint_dopri5
@@ -124,7 +128,7 @@ def _per_position_mean(v: torch.Tensor, positions: int) -> torch.Tensor:
   """The mean of [P*B] values over each position's B: a 0-d tensor for one
   position, else [P*B] (each position's mean repeated B times)."""
   if positions == 1:
-    return v.mean()
+    return batch_mean(v)
   return v.reshape(positions, -1).mean(dim=1).repeat_interleave(
       v.shape[0] // positions)
 

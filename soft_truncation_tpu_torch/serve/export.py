@@ -14,6 +14,11 @@ seed. A serving host replays the pair (artifact, params npz) with torch,
 numpy and the port's ``ops``, ``sde``, ``sample`` and ``serve``: no
 network module, no config file.
 
+Several ranks (``export_sampler(mesh=...)``, ``--mesh N``): the sample
+batch B is split over N ranks, each replaying the programs at B / N
+(``SamplingService.from_artifact`` under ``torchrun``, exactly N ranks);
+the meta's ``num_devices`` is N and its ``sample_shape`` the whole batch's.
+
 Programs: one per (batch, continuous) the served methods need: the
 artifact's batch B with continuous labels (``ode``, ``dpm_solver``,
 ``picard_dpm``), B with ``training.continuous``'s labels where that is
@@ -36,7 +41,8 @@ sampling keys, the sample shape, the draw scheme) besides provenance.
 CLI: ``python -m soft_truncation_tpu_torch.serve.export --config <port
 config> --out <prefix> [--workdir W] [--batch B] [--cpu]
 [--config.<section>.<key> value ...]`` (the train CLI's overrides) writes
-``<prefix>.pt2`` and ``<prefix>.params.npz`` from the EMA weights of
+``<prefix>.pt2`` and ``<prefix>.params.npz`` (``--mesh N``: for N ranks)
+from the EMA weights of
 ``W/checkpoints-meta/checkpoint`` (random weights, with a warning, without
 one).
 """
@@ -48,6 +54,7 @@ import copy
 import io
 import json
 import logging
+import math
 import os
 import struct
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
@@ -126,6 +133,7 @@ class Exported(NamedTuple):
   params: Tuple[str, ...]
   operands: Tuple[str, ...]
   device_type: str
+  num_devices: int = 1  # the ranks the batch is split over
 
 
 def _methods_continuous(config) -> Dict[str, bool]:
@@ -247,14 +255,23 @@ def make_serving_fn(config, batch: Optional[int] = None, device="cuda"):
 
 
 def export_sampler(config, params: Dict[str, torch.Tensor],
-                   batch: Optional[int] = None, device="cuda"
+                   batch: Optional[int] = None, device="cuda", mesh=None
                    ) -> Tuple[Exported, Tuple[int, ...]]:
   """``torch.export`` each score program of ``config`` on ``device``.
 
   ``params`` (a port state_dict) gives the example inputs' values; the
-  programs take the weights as inputs and keep none. Returns
-  ``(exported, shape)``."""
-  model, programs, shape = make_serving_fn(config, batch, device)
+  programs take the weights as inputs and keep none. With ``mesh`` (a
+  mesh shape such as ``(4,)`` or ``(2, 2)``) the sample batch is split
+  over its ranks, as JAX's ``export_sampler(mesh=...)``
+  shards it over ``data``: the programs take batch / ranks samples, and
+  a batch that the ranks do not divide raises ValueError. Returns
+  ``(exported, shape)``, ``shape`` the whole batch's."""
+  devices = math.prod(mesh) if mesh else 1
+  whole = int(batch or config.sampling.batch_size)
+  if whole % devices:
+    raise ValueError(f"batch {whole} does not split over the mesh's "
+                     f"{devices} ranks")
+  model, programs, shape = make_serving_fn(config, whole // devices, device)
   model.load_state_dict(params)
   state = model.state_dict()
   any_program = next(iter(programs.values()))
@@ -270,8 +287,8 @@ def export_sampler(config, params: Dict[str, torch.Tensor],
       program = torch.export.export(module, (x, t, *tensors), strict=False)
       program.example_inputs = None  # the weights: not in the artifact
       exported[spec.name] = program
-  return Exported(exported, tuple(programs), names, convs,
-                  device.type), shape
+  return Exported(exported, tuple(programs), names, convs, device.type,
+                  devices), (whole,) + tuple(shape[1:])
 
 
 def artifact_meta(config, shape, exported: Exported) -> Dict[str, Any]:
@@ -299,6 +316,7 @@ def artifact_meta(config, shape, exported: Exported) -> Dict[str, Any]:
       "operands": list(exported.operands),
       "draws": DRAWS,
       "device_type": exported.device_type,
+      "num_devices": exported.num_devices,
       "torch_version": torch.__version__,
       "output": "uint8 NHWC in [0,255] + nfe (host loop over score(x, t))",
   }
@@ -356,7 +374,8 @@ def load_artifact(path: str, device=None) -> Tuple[Exported, Dict[str, Any]]:
           io.BytesIO(f.read(int(entry["bytes"]))))
       specs.append(spec)
   return Exported(programs, tuple(specs), tuple(meta["params"]),
-                  tuple(meta["operands"]), want), meta
+                  tuple(meta["operands"]), want,
+                  int(meta.get("num_devices", 1))), meta
 
 
 def _flat_call(program) -> Callable:
@@ -411,7 +430,7 @@ class ExportedScore:
     self.inputs = [state[n] for n in exported.params] + [
         t for c in exported.operands
         for t in conv_operands(state[f"{c}.weight"])]
-    self.batch = int(meta["sample_shape"][0])
+    self.batch = int(meta["sample_shape"][0]) // exported.num_devices
     self._modules = {(s.batch, s.continuous): _flat_call(
         exported.programs[s.name]) for s in exported.specs}
 
@@ -475,6 +494,9 @@ def main(argv=None) -> None:
                       "config.sampling.batch_size)")
   p.add_argument("--cpu", action="store_true",
                  help="export on the host CPU instead of the card")
+  p.add_argument("--mesh", type=int, default=1,
+                 help="ranks the batch is split over at replay (the "
+                      "programs take batch / mesh samples)")
   args, overrides = p.parse_known_args(argv)
   logging.basicConfig(level=logging.INFO)
   from ..configs.base import load_config
@@ -489,7 +511,8 @@ def main(argv=None) -> None:
                 f" in {args.workdir}" if args.workdir else "")
     log.warning("=" * 72)
   params = model.state_dict()
-  exported, shape = export_sampler(config, params, args.batch, device)
+  exported, shape = export_sampler(config, params, args.batch, device,
+                                   (args.mesh,))
   path = args.out + EXTENSION
   save_artifact(exported, artifact_meta(config, shape, exported), path)
   save_params_npz(params, args.out + ".params.npz")

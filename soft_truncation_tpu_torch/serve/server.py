@@ -42,6 +42,14 @@ per seed:
   imports neither ``soft_truncation_tpu_torch.models`` nor ``.configs``:
   the samplers evaluate the exported score programs
   (``export.ExportedScore``) in the network's place, with the same draws.
+  An artifact exported for N ranks (``export_sampler(mesh=...)``) replays
+  under ``torchrun --nproc_per_node N`` and on no other count: rank 0
+  takes each request (HTTP or :meth:`SamplingService.sample`) and hands it
+  to the others (:meth:`SamplingService.follow`), every rank samples its
+  B / N rows of each round (the prior and the PC noise drawn for the whole
+  batch and cut to them; dopri5's error norms and the Langevin step sizes
+  taken over the whole batch) and rank 0 gathers the samples: those of one
+  process.
 
 Run: ``python -m soft_truncation_tpu_torch.serve.server --config <file>
 --params <npz> [--batch B] [--cpu] --port P``, with a config file of the
@@ -61,13 +69,16 @@ import json
 import logging
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data import get_data_inverse_scaler
 from ..eval.sampling_io import _to_uint8, save_image_grid
+from ..parallel.ddp import gather, join, shard, sharded_draw
+from ..parallel.mesh import batch_sharded
 from ..sample import get_sampling_fn
 from ..sde import get_sde
 from ..utils.device import resolve_device
@@ -113,21 +124,35 @@ class SamplingService:
     exported on (``device`` another type raises ValueError)."""
     from .export import ExportedScore, load_artifact, meta_config
     exported, meta = load_artifact(artifact, device)
+    world = None
+    if exported.num_devices > 1:
+      world, device, _ = join(device or exported.device_type)
+      if world.size != exported.num_devices:
+        raise ValueError(
+            f"{artifact} splits its batch over {exported.num_devices} ranks; "
+            f"this world has {world.size} (launch it with torchrun "
+            f"--nproc_per_node {exported.num_devices})")
     score = ExportedScore(exported, meta,
                           from_jax_params(load_params_npz(params)), device)
     service = cls.__new__(cls)
     service._setup(meta_config(meta), score, score.device,
                    meta["sample_shape"][0], max_num,
-                   {"artifact": {k: meta[k] for k in (
-                       "programs", "torch_version", "device_type")}})
+                   {"artifact": {k: meta.get(k, 1) for k in (
+                       "programs", "torch_version", "device_type",
+                       "num_devices")}}, world)
     return service
 
-  def _setup(self, config, model, device, batch, max_num, meta):
+  def _setup(self, config, model, device, batch, max_num, meta, world=None):
     self.device = device
     self.config = config
     self.batch = int(batch or config.sampling.batch_size)
     self.shape = (self.batch, config.data.image_size, config.data.image_size,
                   config.data.num_channels)
+    # the ranks the batch is split over (the replay on several ranks)
+    self.world = world if world is not None and world.size > 1 else None
+    ranks = self.world.size if self.world else 1
+    self.local_shape = (self.batch // ranks,) + self.shape[1:]
+
     self.model = model  # the network, or the exported programs' replay
     self.sde = get_sde(config)
     self.max_num = int(max_num)
@@ -153,14 +178,25 @@ class SamplingService:
     }
 
   def prior(self, seed: int, r: int = 0) -> torch.Tensor:
-    """The starting state of round ``r`` of a request with ``seed``."""
+    """The starting state of round ``r`` of a request with ``seed`` (this
+    rank's rows of it)."""
     gen = torch.Generator(self.device).manual_seed(_round_seed(seed, r))
-    return self.sde.prior_sampling(gen, self.shape, self.device)
+    x = self.sde.prior_sampling(gen, self.shape, self.device)
+    return x if self.world is None else shard(x, self.world, 1)
 
   def noise(self, seed: int, r: int = 0) -> torch.Generator:
     """The generator of the PC sampler's noise in round ``r``."""
     return torch.Generator(self.device).manual_seed(
         _round_seed(seed, r, stream=1))
+
+  def _draw(self, generator: torch.Generator):
+    """The PC noise of a rank: each draw made for the whole batch from
+    ``generator`` and cut to this rank's rows (``ddp.sharded_draw``)."""
+    rows = sharded_draw(
+        lambda kind, shape, high=None: torch.randn(
+            shape, generator=generator, device=self.device),
+        self.world.rank, self.world.size)
+    return lambda like: rows("normal", like.shape)
 
   def sampler(self, method: str, dpm_steps: int):
     """The sampling function of ``method``, built once per (method, steps):
@@ -175,13 +211,42 @@ class SamplingService:
       config.sampling.method = method
       config.sampling.dpm_steps = dpm_steps
       self._samplers[key] = get_sampling_fn(
-          config, self.sde, self.shape, get_data_inverse_scaler(config),
-          config.sampling.truncation_time)
+          config, self.sde, self.local_shape,
+          get_data_inverse_scaler(config), config.sampling.truncation_time)
     return self._samplers[key]
 
   def sample(self, num: int, seed: int, method: Optional[str] = None,
              dpm_steps: Optional[int] = None) -> Tuple[np.ndarray, int]:
-    """``num`` uint8 NHWC samples and the total NFE."""
+    """``num`` uint8 NHWC samples and the total NFE. On several ranks, rank
+    0 calls this and hands the request to the others (:meth:`follow`);
+    each samples its rows and rank 0 gathers them."""
+    with self._lock:
+      request = self._check(num, method, dpm_steps) + (int(seed),)
+      if self.world is not None:
+        dist.broadcast_object_list([request], src=0)
+      return self._rounds(*request)
+
+  def follow(self) -> List[int]:
+    """On a rank but 0 of several: sample the rows of each request rank 0
+    hands over until it calls :meth:`stop`; returns each request's NFE as
+    this rank's loop counted it."""
+    nfes = []
+    while True:
+      box = [None]
+      dist.broadcast_object_list(box, src=0)
+      if box[0] is None:
+        return nfes
+      nfes.append(self._rounds(*box[0])[1])
+
+  def stop(self) -> None:
+    """On rank 0 of several: release the ranks in :meth:`follow`."""
+    if self.world is not None:
+      with self._lock:
+        dist.broadcast_object_list([None], src=0)
+
+  def _check(self, num, method, dpm_steps):
+    """``(num, method, dpm_steps)`` of a request, checked, with the
+    config's defaults filled in; ValueError for one out of bounds."""
     if not 0 < num <= self.max_num:
       raise ValueError(f"num must be in [1, {self.max_num}], got {num}")
     method = (method or self.config.sampling.method).lower()
@@ -193,14 +258,27 @@ class SamplingService:
     if not 0 < dpm_steps <= MAX_DPM_STEPS:
       raise ValueError(f"dpm_steps must be in [1, {MAX_DPM_STEPS}], got "
                        f"{dpm_steps}")
+    if self.world is not None and method.startswith("picard"):
+      raise ValueError(f"{method} is not served on several ranks")
+    self.sampler(method, dpm_steps)  # a method the keys refuse raises here
+    return num, method, dpm_steps
+
+  def _rounds(self, num, method, dpm_steps, seed):
     chunks, nfe = [], 0
-    with self._lock:
-      sampler = self.sampler(method, dpm_steps)
-      for r in range((num + self.batch - 1) // self.batch):
+    sampler = self.sampler(method, dpm_steps)
+    for r in range((num + self.batch - 1) // self.batch):
+      if self.world is None:
         samples, n = sampler(self.model, self.noise(seed, r),
                              x=self.prior(seed, r))
-        chunks.append(_to_uint8(samples).cpu().numpy())
-        nfe += int(n)
+      else:
+        kwargs = ({"draw": self._draw(self.noise(seed, r))}
+                  if method == "pc" else {})
+        with batch_sharded():
+          samples, n = sampler(self.model, self.noise(seed, r),
+                               x=self.prior(seed, r), **kwargs)
+        samples = gather(samples)
+      chunks.append(_to_uint8(samples).cpu().numpy())
+      nfe += int(n)
     return np.concatenate(chunks, axis=0)[:num], nfe
 
 
@@ -309,6 +387,9 @@ def main(argv=None):
       p.error("--batch is the artifact's own; export another to change it")
     service = SamplingService.from_artifact(args.artifact, args.params,
                                             device, max_num=args.max_num)
+    if service.world is not None and service.world.rank:
+      service.follow()  # rank 0 serves and hands each request over
+      return
   else:
     from ..configs.base import load_config
     config = load_config(args.config)
@@ -321,6 +402,8 @@ def main(argv=None):
     srv.serve_forever()
   except KeyboardInterrupt:
     srv.shutdown()
+  finally:
+    service.stop()
 
 
 if __name__ == "__main__":

@@ -5,7 +5,9 @@ immutable pytree through the jitted step, the port's step updates this
 object in place (the model's parameters, the optimizer's moments and the
 EMA copies), which saves a second copy of each. ``replica`` is the
 DistributedDataParallel wrapper of ``model`` under data parallelism
-(``parallel.ddp.replicate``; not part of the checkpoint).
+(``parallel.ddp.replicate``; not part of the checkpoint), and ``mesh``
+the ``(data, space)`` mesh the step shards each image's rows over
+(``parallel.mesh.make_mesh``; not part of the checkpoint either).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ class TrainState:
   ema: Dict[str, torch.Tensor]
   ema_rate: float = 0.9999
   replica: Optional[torch.nn.Module] = None
+  mesh: Optional[Any] = None  # parallel.mesh.Mesh under a space axis
 
   def state_dict(self) -> Dict[str, Any]:
     return {"step": self.step, "model": self.model.state_dict(),

@@ -24,6 +24,18 @@ is the global batch's cut to those rows, the micro-batches but the last
 accumulate under ``no_sync``, and the balanced mixed loss's batch mean is
 averaged over the ranks, so that the step equals one process's on the
 whole batch.
+
+Under a space axis (``state.mesh``, ``parallel/mesh.py``: the batch split
+over ``data`` and each image's rows over ``space``) there is no DDP
+wrapper: the forwards and losses run within ``parallel.spatial.sharded``
+(halo rows, space-wide sums and gathers), every draw and dropout mask is
+the global batch's cut to this rank's samples and rows, and after the last
+backward one all-reduce averages the gradients over the world. Each
+collective's backward is its exact adjoint, so each rank holds its share of
+the gradient of the sum of the s equal copies of its data group's loss:
+the world's mean is the gradient of one process on the whole batch. The
+balanced mixed loss's ratio is averaged over the world as before (equal on
+the ranks of a space group).
 :func:`make_eval_loss_step` is the per-example eval loss.
 """
 
@@ -39,6 +51,7 @@ from ..losses.losses import (Draw, get_ddpm_loss_fn, get_sde_loss_fn,
                              get_smld_loss_fn, make_draw)
 from ..models.dropout import batch_shard
 from ..models.ema import ema_update
+from ..parallel import spatial
 from ..parallel.ddp import sharded_draw
 from ..sde.core import SDE, VESDE, VPSDE, st_active_for
 from .state import TrainState
@@ -99,10 +112,16 @@ def make_train_step(config, sde: SDE) -> Callable:
                  draw: Optional[Draw] = None) -> torch.Tensor:
     draw = draw or make_draw(generator, batch.device)
     replica = state.replica
-    rank, ranks = ((dist.get_rank(), dist.get_world_size())
-                   if replica is not None else (0, 1))
+    mesh = state.mesh
+    space = mesh.space_shard() if mesh is not None else None
+    shards = (0, 1, 0, 1)  # (data rank, data ranks, space rank, space ranks)
+    if space is not None:
+      shards = (mesh.data_index, mesh.data, mesh.space_index, mesh.space)
+    elif replica is not None:
+      shards = (dist.get_rank(), dist.get_world_size(), 0, 1)
+    ranks = shards[1] * shards[3]
     if ranks > 1:
-      draw = sharded_draw(draw, rank, ranks)
+      draw = sharded_draw(draw, *shards)
     if st:
       t_min = sde.sample_t_min(draw("uniform", ()), k_exp, trunc)
     else:
@@ -116,7 +135,7 @@ def make_train_step(config, sde: SDE) -> Callable:
     losses = []
     micro_batches = batch.reshape((num_micro, b // num_micro)
                                   + batch.shape[1:])
-    with batch_shard(rank, ranks):
+    with batch_shard(*shards), spatial.sharded(space):
       for j, mb in enumerate(micro_batches):
         # DDP reduces the accumulated gradients after the last backward
         sync = replica is None or j == num_micro - 1
@@ -125,6 +144,8 @@ def make_train_step(config, sde: SDE) -> Callable:
                                generator, ranks)
           micro.mean().backward()
         losses.append(micro.detach())
+    if space is not None:
+      _average_gradients(state.optimizer.params, ranks)
     state.optimizer.step()
     for p in state.optimizer.params:
       p.grad = None
@@ -133,6 +154,18 @@ def make_train_step(config, sde: SDE) -> Callable:
     return torch.cat(losses)
 
   return train_step
+
+
+def _average_gradients(params, ranks: int) -> None:
+  """Each parameter's gradient averaged over the world, in one
+  all-reduce."""
+  grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+           for p in params]
+  flat = torch.cat([g.reshape(-1) for g in grads])
+  dist.all_reduce(flat)
+  flat /= ranks
+  for p, g in zip(params, flat.split([g.numel() for g in grads])):
+    p.grad = g.view_as(p)
 
 
 def make_eval_loss_step(config, sde: SDE) -> Callable:

@@ -9,8 +9,9 @@ global batch: after one step the last step's snapshot's parameters and EMA
 within 1e-6, and Adam's moments within 1e-5 of their largest value (the
 sums over the batch are reassociated across the ranks). Then both resume
 from the one process's checkpoint (every rank restores it) for one more
-step, to the same bars in the rolling checkpoint. Then the mesh check and
-the shard of the global batch.
+step, to the same bars in the rolling checkpoint. Then the mesh check (the
+1-D mesh and the rules of a 2-D one; tests/test_torch_mesh.py trains on
+it) and the shard of the global batch.
 
 Adam's ``eps`` is 1e-3 here, not the configs' 1e-8: an update is lr * g /
 (|g| + eps), whose gain near g = 0 is lr / eps, so at 1e-8 a weight whose
@@ -30,7 +31,7 @@ import pytest
 import torch
 
 from soft_truncation_tpu_torch import main as cli
-from soft_truncation_tpu_torch.configs.base import default_config
+from soft_truncation_tpu_torch.configs.base import default_config, load_config
 from soft_truncation_tpu_torch.parallel import ddp
 
 import torch_tiny
@@ -153,9 +154,19 @@ def test_the_mesh_is_the_world():
   ddp.check_mesh(config, ddp.World(rank=1, size=2, launched=True))
   with pytest.raises(ValueError):
     ddp.check_mesh(config, ddp.World())
+  # a (data, space) mesh: d * s is the world size, every level's height
+  # splits into s shards no thinner than the widest halo
+  config = load_config(torch_tiny.PORT_FLAGSHIP)
   config.tpu.mesh_shape = (2, 2)
-  with pytest.raises(NotImplementedError, match="space"):
-    ddp.check_mesh(config, ddp.World(size=4, launched=True))
+  ddp.check_mesh(config, ddp.World(size=4, launched=True))
+  with pytest.raises(ValueError, match="world size"):
+    ddp.check_mesh(config, ddp.World(size=2, launched=True))
+  config.tpu.mesh_shape = (1, 3)
+  with pytest.raises(ValueError, match="level 0"):
+    ddp.check_mesh(config, ddp.World(size=3, launched=True))
+  config.tpu.mesh_shape = (1, 8)  # the flagship's 4x4 level: 0.5 rows
+  with pytest.raises(ValueError, match="level 3"):
+    ddp.check_mesh(config, ddp.World(size=8, launched=True))
 
 
 def test_shard_takes_each_parts_rows():

@@ -162,8 +162,8 @@ def test_out_of_slice_options_raise():
   """Every NCSN++ option builds, and so do the legacy networks and the
   discrete losses (slice 6b) and the Picard samplers (slice 6c), whose
   stochastic-chain guard refuses the base config's tolerance on a PC
-  chain; what is still out of the port (the 2-D data x space mesh)
-  raises."""
+  chain, and the 2-D (data, space) mesh (slice 6e); what is still out of
+  the port (a mesh axis past data and space) raises."""
   from soft_truncation_tpu_torch.models import create_model, ddpm
   from soft_truncation_tpu_torch.sample.sampling import get_sampling_fn
   from soft_truncation_tpu_torch.sde import get_sde
@@ -188,8 +188,10 @@ def test_out_of_slice_options_raise():
   pc.sampling.method = "picard_dpm"
   get_sampling_fn(pc, get_sde(pc), torch_tiny.SHAPE, lambda x: x, 1e-3)
   from soft_truncation_tpu_torch.parallel import ddp
-  pc.tpu.mesh_shape = (1, 1)
-  with pytest.raises(NotImplementedError, match="space"):
+  pc.tpu.mesh_shape = (1, 1)  # the (data, space) mesh: slice 6e
+  ddp.check_mesh(pc, ddp.World())
+  pc.tpu.mesh_shape = (1, 1, 1)
+  with pytest.raises(NotImplementedError, match="past \\(data, space\\)"):
     ddp.check_mesh(pc, ddp.World())
 
 
