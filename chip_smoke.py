@@ -273,6 +273,32 @@ Phases; any failure exits non-zero before the last line is printed:
      and phase 8's lines gain ``*_mesh`` entries: fir2 and its adjoint at
      a (2, 2) rank's halo'd shapes and batch, gn_silu_conv3x3 at 12b's
      batch per rank.
+  13. slice 12, bf16 compute (the four ``tpu.*_dtype`` knobs; after 12):
+  13a. the flagship and UNCSN++ with ``tpu.compute_dtype`` bfloat16, full
+     width, batch 2: the card against the CPU within BF16_FORWARD_REL_TOL
+     and against the card's own f32 forward from the same weights within
+     BF16_VS_F32_REL_TOL; 82 launches of gn_silu_conv3x3's bf16 mode per
+     forward, and each FIR site's fir2 in bf16 where the CPU's input is
+     bf16 (the others take f32, as in JAX);
+  13b. one function evaluation of each bf16 model's likelihood ODE (drift
+     and Hutchinson divergence) at LIKELIHOOD_BATCH: 82 launches of the
+     bf16 tangent mode and the FIR tangents per evaluation; card vs CPU at
+     batch 2;
+  13c. UNCSN++ with all four knobs bfloat16: one train step card vs CPU
+     at batch 2 (losses, gradients in L2, the moves), then the CLI trainer
+     at batch 128, steps 0..BF16_TRAIN_ITERS (ms per step and peak memory
+     beside phase 7's f32 run), fir2 and its adjoint in bf16 where the CPU
+     step's are;
+  13d. the bf16 flagship exported at EXPORT_BATCH (bf16 operator nodes,
+     pre-cast weight inputs) and replayed from its files in this process:
+     one 'dpm_solver' request bit for bit the live bf16 service's, 82 bf16
+     launches per evaluation;
+     and phase 8's lines gain the ``*_bf16`` entries: each bf16 mode held
+     against its plain version (BF16_REL_TOL) at these paths' shapes and
+     batches, timed beside the bf16 library chain (F.group_norm -> F.silu
+     -> F.conv2d, channels-last; cuDNN's depthwise bf16 conv for fir2),
+     the bound at the dense bf16 rate or half the bytes.
+TF32 and cuBLAS's reduced-precision bf16 reductions are off throughout.
 Imports torch and the port only, never jax or the JAX package.
 """
 
@@ -308,6 +334,7 @@ LISTED_SHAPES = [(32, 32, 128, 128), (32, 32, 384, 128), (32, 32, 256, 256),
 # H100 SXM datasheet: FP32 (no tensor cores), dense TF32 and HBM3 rates
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor cores
 PEAK_BYTES = 3.35e12
 FUSED_SITES = 82        # fused sites of one flagship or UNCSN++ eval forward
 # FIR sites of one UNCSN++ eval forward: (mode, H, W, C) -> count
@@ -337,6 +364,28 @@ INCEPTION_BATCH = 128    # the extractor's batch
 KERNEL_REL_TOL = 1e-4   # gn_silu_conv3x3: reordered f32 sums, K <= 9*512
 FIR_REL_TOL = 1e-5      # fir2: <= 16 f32 products, summed in another order
 FORWARD_REL_TOL = 1e-3  # card vs CPU, the whole network or sampler
+# bf16 kernel vs its plain version, of max |plain|: both sum in f32 and
+# round the output once (and gn_silu_conv3x3 its SiLU once), so f32
+# reordering and the card's exp may flip a rounding: an output element by
+# one bf16 ulp (2^-8 of itself), a SiLU value by one ulp of its product
+BF16_REL_TOL = 1e-2
+# phase 13: a bf16 network, card vs CPU (and a bf16 train step's losses and
+# gradients), of max |CPU|: every conv rounds its output to bf16 and a
+# flipped rounding travels through the layers, as the CPU tests' port vs
+# JAX bar (tests/test_torch_bf16.py, measured 0.7-0.9e-2 there)
+BF16_FORWARD_REL_TOL = 3e-2
+# phase 13: the bf16 forward against the card's own f32 one from the same
+# weights, of max |f32|: reported; a path left in f32, or a mode run on the
+# wrong dtype, is off by far more or not at all
+BF16_VS_F32_REL_TOL = 0.1
+# phase 13c: a bf16 train step's moves that may differ card vs CPU (a
+# gradient near zero in bf16 flips sign), of the elements held
+BF16_MOVES_DIFFER = 1e-3
+BF16_FLAGS = ("--config.tpu.compute_dtype", "bfloat16",
+              "--config.tpu.norm_dtype", "bfloat16",
+              "--config.tpu.ema_dtype", "bfloat16",
+              "--config.tpu.adam_mu_dtype", "bfloat16")
+BF16_TRAIN_ITERS = 2        # 13c: steps 0..2, the third timed
 # the published layouts (phases 3b, 5c, 5d, 6b, 7d)
 DEEPEST = os.path.join(CONFIGS, "vp", "CIFAR10", "ddpmpp_fid_st_deepest.py")
 CELEBA64 = os.path.join(CONFIGS, "vp", "CELEBA", "uddpmpp_nll_st.py")
@@ -360,6 +409,7 @@ PUBLISHED_LAYOUTS = (
     ("no_auxiliary", FLAGSHIP, {"auxiliary_resblock": False},
      [0.01 * 999.0, 0.6 * 999.0]))
 DEEPEST_TRAIN_ITERS = 2     # phase 7d: steps 0..2 (the first two untimed)
+DEEPEST_STEP_RES_BLOCKS = 2  # phase 6b: of the published 8 per level
 # phase 7d: batch 128 in one micro-batch, as published, fits the card's
 # 80 GB with little to spare (PERF.md): the phase frees the cache first
 PARAM_MOVE_TOL = 0.05   # card vs CPU, a parameter's move in one step, x lr
@@ -452,8 +502,8 @@ PROFILE_ITERS = 11          # 10d: steps 0..11, the eleventh (10) traced
 EXPORT_BATCH = 8            # 11: the artifact's batch
 EXPORT_DPM_STEPS = 50       # 11: 'dpm_solver' steps served
 EXPORT_PC_STEPS = 32        # 11b: UNCSN++'s 'pc' N, cut from 1,000
-EXPORT_SEEDS = (0, 1)       # 11a (and 12b); 11b takes the first alone
-TIMED_CALLS = 10            # calls per time_ms / graph_ms reading
+EXPORT_SEEDS = (0,)         # 11a, 11b and 12b (two, before phase 13 needed the time)
+TIMED_CALLS = 5             # calls per time_ms / graph_ms reading
 EXPORT_REL_TOL = 1e-5       # 11: replay vs live, of max |x|
 EXPORT_ODE_REL_TOL = 1e-3   # 11: 'ode' (adaptive steps follow the rounding)
 EXPORT_MAX_MOVED = 1e-3     # 11: uint8 positions that may differ (by 1)
@@ -540,26 +590,33 @@ def _bound(flops, bytes_, peak=PEAK_FP32_FLOPS):
                                      else "bytes")
 
 
-def gn_conv_bound(n, h, w, c, o, groups):
+def gn_conv_bound(n, h, w, c, o, groups, bf16=False):
   """Every input read once, the output written once, 2*9*C flops per
   output element at the dense TF32 peak (the card's tensor-core rate for
-  f32 inputs): ``(bound_ms, bound_by)``. Beside it the same with the flops
+  f32 inputs; with ``bf16`` the dense bf16 peak and 2-byte x, w, b and
+  output): ``(bound_ms, bound_by)``. Beside it the same with the flops
   taken three times, the kernel's own 3xTF32 scheme, and the flops once on
   the FP32 pipe, the bound of the kernel's earlier FMA form."""
   flops = 2 * n * h * w * c * o * 9
-  bytes_ = 4 * (n * h * w * (c + o) + 9 * c * o + o + 2 * c + 2 * n * groups)
+  es = 2 if bf16 else 4
+  bytes_ = es * (n * h * w * (c + o) + 9 * c * o + o) + 4 * (
+      2 * c + 2 * n * groups)
+  if bf16:
+    bound, bound_by = _bound(flops, bytes_, PEAK_BF16_FLOPS)
+    return bound, bound_by, None, None
   bound, bound_by = _bound(flops, bytes_, PEAK_TF32_FLOPS)
   return (bound, bound_by, _bound(3 * flops, bytes_, PEAK_TF32_FLOPS)[0],
           _bound(flops, bytes_)[0])
 
 
-def fir_bound(mode, n, h, w, c, taps):
-  """The input read once, the output written once, (T/2)^2 (up) or T^2
-  (down) multiply-adds per output element."""
+def fir_bound(mode, n, h, w, c, taps, bf16=False):
+  """The input read once, the output written once (2 bytes each with
+  ``bf16``), (T/2)^2 (up) or T^2 (down) multiply-adds per output element
+  on the FP32 pipe."""
   oh, ow = (2 * h, 2 * w) if mode == "up" else (h // 2, w // 2)
   macs = (taps // 2) ** 2 if mode == "up" else taps ** 2
   return _bound(2 * macs * n * oh * ow * c,
-                4 * (n * c * (h * w + oh * ow) + taps))
+                (2 if bf16 else 4) * n * c * (h * w + oh * ow) + 4 * taps)
 
 
 def load_config(path, **model_overrides):
@@ -1041,13 +1098,17 @@ def _fir_sites(model):
 
 
 def phase_train_step(name, config, want_fir, want_bwd, forwards=1,
-                     weights=None):
+                     weights=None, tol=FORWARD_REL_TOL, in_l2=False):
   """One train step at full width and batch 2 on the card and on a CPU copy
   with the same weights and draws. ``want_fir`` / ``want_bwd``: fir2's
   forward and adjoint launches per shape in one step (UNCSN++, the
   deepest model) or {}; ``forwards``: the network's forwards per step (2
   for the mixed loss, one per half), each with the last one's FIR
-  sites; ``weights``: a state_dict for both (the seed's otherwise)."""
+  sites; ``weights``: a state_dict for both (the seed's otherwise);
+  ``tol``: the losses' and gradients' bar; ``in_l2`` (a bf16 step): the
+  gradients held in L2 over all tensors and the moves by the share of
+  elements that differ, as a bf16 backward rounds every layer's cotangent
+  and a small tensor's largest gradient may move by more than ``tol``."""
   import torch
   from soft_truncation_tpu_torch.data import get_data_scaler
   from soft_truncation_tpu_torch.models import create_model
@@ -1080,40 +1141,53 @@ def phase_train_step(name, config, want_fir, want_bwd, forwards=1,
 
   loss_err = (got.cpu() - want).abs().max().item()
   loss_scale = want.abs().max().item()
-  floor = 1e-6 * max(m.abs().max().item() for m in cpu_state.optimizer.mu)
+  floor = 1e-6 * max(m.abs().max().item()
+                     for m in cpu_state.optimizer.mu)
   grad_err, param_err, moves = 0.0, 0.0, []
+  sq_err = sq_norm = 0.0
+  differ = kept = 0
   for m_gpu, m_cpu, p_gpu, p_cpu, p0 in zip(
       gpu_state.optimizer.mu, cpu_state.optimizer.mu,
       gpu_state.optimizer.params, cpu_state.optimizer.params, start):
+    m_gpu, m_cpu = m_gpu.float(), m_cpu.float()  # a bf16 mu
     scale = max(m_cpu.abs().max().item(), floor)
     grad_err = max(grad_err, (m_gpu.cpu() - m_cpu).abs().max().item() / scale)
+    sq_err += (m_gpu.cpu() - m_cpu).square().sum().item()
+    sq_norm += m_cpu.square().sum().item()
     # each element's move from the shared start, where the gradient is
     # above the bar its card and CPU values are held to (so its sign, and
     # Adam's first step of ~lr times that sign, agree)
-    keep = m_cpu.abs() > FORWARD_REL_TOL * scale
+    keep = m_cpu.abs() > tol * scale
     moved = p_cpu.detach() - p0
-    param_err = max(param_err, ((p_gpu.detach().cpu() - p0) - moved)[keep]
-                    .abs().max().item() if keep.any() else 0.0)
+    diff = ((p_gpu.detach().cpu() - p0) - moved)[keep].abs()
+    param_err = max(param_err, diff.max().item() if keep.any() else 0.0)
+    differ += int((diff > PARAM_MOVE_TOL * config.optim.lr).sum())
+    kept += int(keep.sum())
     moves.append(moved[keep].abs())
   moves = torch.cat(moves)
   lr = config.optim.lr
+  grad_l2 = math.sqrt(sq_err / max(sq_norm, 1e-30))
   log(f"train step {name}: losses {want.tolist()} max_abs_diff {loss_err}; "
-      f"gradients max error {grad_err:.3e} of each tensor's max |g|; "
+      f"gradients max error {grad_err:.3e} of each tensor's max |g|, "
+      f"{grad_l2:.3e} in L2 over all; {differ} of {kept} moves differ; "
       f"parameters' moves max_abs_diff {param_err:.3e} over "
       f"{moves.numel()} of {sum(p.numel() for p in start)} elements, median "
       f"move {moves.median().item():.3e} (lr {lr}); fir2 launches forward "
       f"{sum(fir_fwd.values())} backward "
       f"{sum(fir_bwd.values())}")
-  if not (torch.isfinite(got).all() and loss_err <= FORWARD_REL_TOL
-          * loss_scale):
+  if not (torch.isfinite(got).all() and loss_err <= tol * loss_scale):
     raise AssertionError(f"{name}: card losses disagree with CPU: "
                          f"{got.tolist()} vs {want.tolist()}")
-  if grad_err > FORWARD_REL_TOL:
+  if (grad_l2 if in_l2 else grad_err) > tol:
     raise AssertionError(f"{name}: card gradients disagree with CPU by "
-                         f"{grad_err} of a tensor's max |g|")
+                         f"{grad_err} of a tensor's max |g|, {grad_l2} in "
+                         f"L2")
   # Adam's first step moves each element by ~lr: a bar of 0.05 lr fails a
-  # missing, halved or sign-flipped update
-  if param_err > PARAM_MOVE_TOL * lr or moves.median().item() < 0.5 * lr:
+  # missing, halved or sign-flipped update (in_l2: on more than
+  # BF16_MOVES_DIFFER of the elements)
+  if ((differ > BF16_MOVES_DIFFER * kept if in_l2
+       else param_err > PARAM_MOVE_TOL * lr)
+      or moves.median().item() < 0.5 * lr):
     raise AssertionError(f"{name}: the parameters' moves differ by "
                          f"{param_err} > {PARAM_MOVE_TOL} lr, or the median "
                          f"move {moves.median().item()} is under lr / 2")
@@ -2897,6 +2971,7 @@ def replay_server(artifact, params) -> int:
                                                       make_server)
   torch.backends.cudnn.allow_tf32 = False
   torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
   torch.backends.cudnn.deterministic = True
   t0 = time.perf_counter()
   service = SamplingService.from_artifact(artifact, params)
@@ -2950,12 +3025,14 @@ def _ask(child, cmd=None):
 
 
 def phase_export(name, config, params, requests, sites, fir_sites,
-                 workdir):
+                 workdir, profile=True):
   """11a / 11b (module docstring): export on the card, replay in a fresh
   subprocess over HTTP, hold it against the live service. Returns the
   replay's launches per shape of both kernels and its score
   evaluations, and its answer to each request (uint8 samples, nfe,
-  samples before quantisation)."""
+  samples before quantisation). ``profile``: time and trace
+  EXPORT_PROFILE_EVALS evaluations of the replay and of eager, and hold
+  their kernels per evaluation together (11a)."""
   import numpy as np
   import torch
   from soft_truncation_tpu_torch.sample.sampling import score_of
@@ -2971,6 +3048,10 @@ def phase_export(name, config, params, requests, sites, fir_sites,
   nodes = collections.Counter(
       str(n.target) for p in exported.programs.values()
       for n in p.graph.nodes if n.op == "call_function")
+  op_dtypes = collections.Counter(
+      f"{n.target}:{str(n.meta['val'].dtype).split('.')[-1]}"
+      for p in exported.programs.values() for n in p.graph.nodes
+      if n.op == "call_function" and "soft_truncation" in str(n.target))
   export.save_artifact(exported, export.artifact_meta(config, shape,
                                                       exported), artifact)
   export.save_params_npz(params, npz)
@@ -2998,7 +3079,7 @@ def phase_export(name, config, params, requests, sites, fir_sites,
       log(f"replay {name}: {json.dumps(req)} nfe {replayed[-1][1]} wall_s "
           f"{time.perf_counter() - t0:.3f}")
     counts = _ask(child, {"cmd": "counts"})
-    replay_profile = _ask(child, {"cmd": "profile"})
+    replay_profile = _ask(child, {"cmd": "profile"}) if profile else None
     child.stdin.write(json.dumps({"cmd": "quit"}) + "\n")
     child.stdin.flush()
     child.wait(timeout=120)
@@ -3017,7 +3098,7 @@ def phase_export(name, config, params, requests, sites, fir_sites,
                              r.get("dpm_steps")) for r in requests]
   t = torch.full((EXPORT_BATCH,), 0.5, device=DEVICE)
   eager_profile = _eval_profile(score_of(config, live.sde, live.model, True),
-                                live.prior(0, 0), t)
+                                live.prior(0, 0), t) if profile else None
   for req, (r8, r_nfe), (l8, l_nfe), rf, (lf, _) in zip(
       requests, replayed, live_served, replay_floats, live_runs):
     method = req.get("method", config.sampling.method)
@@ -3056,12 +3137,16 @@ def phase_export(name, config, params, requests, sites, fir_sites,
          "graph_dtype_assert_and_cast_nodes": (
              nodes["aten._assert_tensor_metadata.default"]
              + nodes["aten.to.dtype"]),
+         "operator_nodes_by_dtype": dict(op_dtypes),
          "artifact_bytes": os.path.getsize(artifact),
          "load_s": hello["load_s"], "evals": evals,
          "gn_silu_conv3x3_per_eval": sum(gn.values()) / evals,
          "fir2_per_eval": sum(firs.values()) / evals,
          "replay": replay_profile, "eager": eager_profile}
   emit(row)
+  if not profile:
+    return gn, firs, evals, [(r8, nfe, rf) for (r8, nfe), rf in
+                             zip(replayed, replay_floats)]
   rk, ek = replay_profile["kernels_per_eval"], eager_profile[
       "kernels_per_eval"]
   if abs(rk - ek) > EXPORT_KERNELS_REL * ek:
@@ -3086,6 +3171,7 @@ def _relaunched(rows, launched, units, per_key, shape_of):
 def _held(name, shape, got, want, tol):
   import torch
   torch.cuda.synchronize()
+  got, want = got.float(), want.float()
   err = (got - want).abs().max().item()
   scale = want.abs().max().item()
   if not (torch.isfinite(got).all() and err <= tol * scale):
@@ -3094,12 +3180,14 @@ def _held(name, shape, got, want, tol):
   return err, scale
 
 
-def kernels_gn(launches_by_shape, evals, n, listed=()):
+def kernels_gn(launches_by_shape, evals, n, listed=(), bf16=False):
   """gn_silu_conv3x3 vs plain vs library at every shape a main path
   launched it at (and the ``listed`` shapes), at that path's batch ``n``:
   N=8 for the serve phases, N=128 for the FID phase's sampler. The caller
   runs it under inference_mode, where the wrapper calls the kernel
-  directly."""
+  directly. With ``bf16`` the kernel's bf16 mode (x, w, b in bf16, as a
+  bf16 model's fused site casts them) against the bf16 plain version and
+  the library chain in bf16, channels-last."""
   import torch
   import torch.nn.functional as F
   from soft_truncation_tpu_torch.ops import gn_conv
@@ -3107,6 +3195,7 @@ def kernels_gn(launches_by_shape, evals, n, listed=()):
   shapes = sorted(set(launches_by_shape) | set(listed), reverse=True)
   gen = torch.Generator(DEVICE).manual_seed(0)
   rows = []
+  name = "gn_silu_conv3x3_bf16" if bf16 else "gn_silu_conv3x3"
   for (h, w, c, o) in shapes:
     groups = min(c // 4, 32)
     x = torch.randn(n, h, w, c, generator=gen, device=DEVICE)
@@ -3114,31 +3203,37 @@ def kernels_gn(launches_by_shape, evals, n, listed=()):
     beta = torch.randn(c, generator=gen, device=DEVICE)
     wgt = torch.randn(3, 3, c, o, generator=gen, device=DEVICE)
     b = torch.randn(o, generator=gen, device=DEVICE)
-    w_oihw = wgt.permute(3, 2, 0, 1).contiguous()
+    if bf16:
+      x, wgt, b = (t.bfloat16() for t in (x, wgt, b))
+    w_oihw = wgt.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
     mean, rsqrt = gn_conv.gn_stats(x, groups)
     args = (x, mean, rsqrt, gamma, beta, wgt, b, groups)
     # split once per weight value, as the model's DDPMConv keeps it
     split = gn_conv.weight_operand(wgt)
-    err, scale = _held("gn_silu_conv3x3", (n, h, w, c, o),
+    err, scale = _held(name, (n, h, w, c, o),
                        gn_conv.gn_silu_conv3x3(*args, w_split=split),
-                       gn_conv.gn_silu_conv3x3_plain(*args), KERNEL_REL_TOL)
+                       gn_conv.gn_silu_conv3x3_plain(*args),
+                       BF16_REL_TOL if bf16 else KERNEL_REL_TOL)
+    g_lib, b_lib = gamma.to(x.dtype), beta.to(x.dtype)
 
     def library():
       return F.conv2d(F.silu(F.group_norm(x.permute(0, 3, 1, 2), groups,
-                                          gamma, beta, 1e-6)),
+                                          g_lib, b_lib, 1e-6)),
                       w_oihw, b, padding=1)
 
     def kernel():
       return gn_conv.gn_silu_conv3x3(*args, w_split=split)
 
     bound, bound_by, bound_3x, bound_fp32 = gn_conv_bound(n, h, w, c, o,
-                                                         groups)
+                                                         groups, bf16)
     launches = launches_by_shape.get((h, w, c, o), 0)
-    plan = gn_conv.launch_plan(n, h, w, c, o, groups, gn_conv._sms(x.device))
+    plan = gn_conv.launch_plan(n, h, w, c, o, groups, gn_conv._sms(x.device),
+                               bf16=bf16)
     # kernel and library interleaved, issued (A, B, A, B) then on the device
     ab = [time_ms(f) for f in (kernel, library) * 2]
     ab_dev = [graph_ms(f) for f in (kernel, library) * 2]
-    row = {"kernel": "gn_silu_conv3x3", "shape_nhwc_o": [n, h, w, c, o],
+    row = {"kernel": name, "shape_nhwc_o": [n, h, w, c, o],
            "groups": groups, "grid": list(plan.grid), "splits": plan.splits,
            "max_abs_err": err, "max_abs_plain": scale,
            "kernel_ms": (ab[0] + ab[2]) / 2,
@@ -3150,10 +3245,11 @@ def kernels_gn(launches_by_shape, evals, n, listed=()):
            "ab_kernel_device_ms": [ab_dev[0], ab_dev[2]],
            "ab_library_device_ms": [ab_dev[1], ab_dev[3]],
            "bound_ms": bound, "bound_by": bound_by,
-           "bound_3xtf32_ms": bound_3x, "bound_fp32_pipe_ms": bound_fp32,
            "launches": launches,
            "launches_per_forward": launches / evals}
-    log(f"gn_silu_conv3x3 {(n, h, w, c, o)}: grid {plan.grid} (O tiles, M "
+    if not bf16:
+      row.update(bound_3xtf32_ms=bound_3x, bound_fp32_pipe_ms=bound_fp32)
+    log(f"{name} {(n, h, w, c, o)}: grid {plan.grid} (O tiles, M "
         f"tiles, split-K {plan.splits}), {plan.smem} B shared memory")
     emit(row)
     rows.append(row)
@@ -3189,7 +3285,7 @@ def _fir_library(mode, x, k, gain=1.0):
   from soft_truncation_tpu_torch.ops import fir
 
   c = x.shape[-1]
-  taps = torch.tensor(fir.fir2_taps(k, gain, mode), dtype=torch.float32,
+  taps = torch.tensor(fir.fir2_taps(k, gain, mode), dtype=x.dtype,
                       device=x.device)
   T = taps.shape[0]
   pad0, pad1 = fir.fir2_pads(T, mode)
@@ -3206,29 +3302,35 @@ def _fir_library(mode, x, k, gain=1.0):
                                     groups=c)
 
 
-def kernels_fir(fir_launched, units, batch, per_key):
+def kernels_fir(fir_launched, units, batch, per_key, bf16=False):
   """fir2 (up and down) vs plain vs library at every shape of
   ``fir_launched`` ((mode, H, W, C) -> launches over ``units`` forwards or
-  steps), at ``batch``, T=4."""
+  steps), at ``batch``, T=4; with ``bf16`` the bf16 mode against the bf16
+  plain version and cuDNN's depthwise call in bf16."""
   import torch
   from soft_truncation_tpu_torch.ops import fir
 
   gen = torch.Generator(DEVICE).manual_seed(0)
   rows = []
+  tol = BF16_REL_TOL if bf16 else FIR_REL_TOL
+  suffix = "_bf16" if bf16 else ""
   for (mode, h, w, c) in sorted(fir_launched):
     x = torch.randn(batch, h, w, c, generator=gen, device=DEVICE)
+    if bf16:
+      x = x.bfloat16()
     wrapper, plain = ((fir.fir_upsample2, fir.fir_upsample2_plain)
                       if mode == "up" else
                       (fir.fir_downsample2, fir.fir_downsample2_plain))
     shape = (mode, batch, h, w, c)
     with torch.inference_mode():
       want = plain(x, FIR_KERNEL)
-      err, scale = _held(f"fir_{mode}sample2", shape,
-                         wrapper(x, FIR_KERNEL), want, FIR_REL_TOL)
+      err, scale = _held(f"fir_{mode}sample2{suffix}", shape,
+                         wrapper(x, FIR_KERNEL), want, tol)
       library = _fir_library(mode, x, FIR_KERNEL)
-      _held(f"the library {mode}sample", shape,
-            library().permute(0, 2, 3, 1), want, FIR_REL_TOL)
-      bound, bound_by = fir_bound(mode, batch, h, w, c, len(FIR_KERNEL))
+      _held(f"the library {mode}sample{suffix}", shape,
+            library().permute(0, 2, 3, 1), want, tol)
+      bound, bound_by = fir_bound(mode, batch, h, w, c, len(FIR_KERNEL),
+                                  bf16)
       launches = fir_launched[(mode, h, w, c)]
       # interleaved, three rounds: the wrapper (which calls the kernel
       # directly where autograd records nothing), the same call through the
@@ -3241,7 +3343,8 @@ def kernels_fir(fir_launched, units, batch, per_key):
 
       ab = [time_ms(f) for f in (lambda: wrapper(x, FIR_KERNEL),
                                  through_function, library) * 3]
-      row = {"kernel": f"fir_{mode}sample2", "shape_nhwc": [batch, h, w, c],
+      row = {"kernel": f"fir_{mode}sample2{suffix}",
+             "shape_nhwc": [batch, h, w, c],
              "taps": len(FIR_KERNEL), "max_abs_err": err,
              "max_abs_plain": scale, "kernel_ms": sum(ab[0::3]) / 3,
              "device_ms": graph_ms(lambda: wrapper(x, FIR_KERNEL)),
@@ -3262,19 +3365,23 @@ def kernels_fir(fir_launched, units, batch, per_key):
   return rows
 
 
-def kernels_fir_backward(bwd_launched, steps, batch):
+def kernels_fir_backward(bwd_launched, steps, batch, bf16=False):
   """The adjoint (``fir2_backward``: fir2 in the other mode, taps reversed)
   at every cotangent shape the train phase launched it at, at the
   ``batch`` it launched it at, held
   against torch.autograd.grad of the plain forward; its plain version is
   the plain resample in the launched mode, its library call the one
-  PyTorch call of that resample."""
+  PyTorch call of that resample. With ``bf16``: the bf16 mode on a bf16
+  cotangent."""
   import torch
   from soft_truncation_tpu_torch.ops import fir
 
   gen = torch.Generator(DEVICE).manual_seed(1)
   k_rev = tuple(reversed(FIR_KERNEL))
   rows = []
+  dtype = torch.bfloat16 if bf16 else torch.float32
+  tol = BF16_REL_TOL if bf16 else FIR_REL_TOL
+  name = "fir2_backward_bf16" if bf16 else "fir2_backward"
   for (mode, h, w, c) in sorted(bwd_launched):
     # the forward this adjoint belongs to, and its input's shape
     fwd, gain = ("down", 1.0 / 4.0) if mode == "up" else ("up", 4.0)
@@ -3282,9 +3389,9 @@ def kernels_fir_backward(bwd_launched, steps, batch):
                else (batch, h // 2, w // 2, c))
     fwd_plain = (fir.fir_upsample2_plain if fwd == "up"
                  else fir.fir_downsample2_plain)
-    x = torch.randn(x_shape, generator=gen, device=DEVICE,
-                    requires_grad=True)
-    ybar = torch.randn(batch, h, w, c, generator=gen, device=DEVICE)
+    x = torch.randn(x_shape, generator=gen, device=DEVICE).to(
+        dtype).requires_grad_()
+    ybar = torch.randn(batch, h, w, c, generator=gen, device=DEVICE).to(dtype)
     (want,) = torch.autograd.grad(fwd_plain(x, FIR_KERNEL), x, ybar)
     shape = (mode, batch, h, w, c)
     with torch.inference_mode():
@@ -3294,14 +3401,14 @@ def kernels_fir_backward(bwd_launched, steps, batch):
       def plain():
         return fir._fir2_plain(ybar, k_rev, gain, mode)
 
-      err, scale = _held("fir2_backward", shape, kernel(), want,
-                         FIR_REL_TOL)
+      err, scale = _held(name, shape, kernel(), want, tol)
       library = _fir_library(mode, ybar, k_rev, gain)
       _held(f"the library adjoint of {fwd}sample", shape,
-            library().permute(0, 2, 3, 1), want, FIR_REL_TOL)
-      bound, bound_by = fir_bound(mode, batch, h, w, c, len(FIR_KERNEL))
+            library().permute(0, 2, 3, 1), want, tol)
+      bound, bound_by = fir_bound(mode, batch, h, w, c, len(FIR_KERNEL),
+                                  bf16)
       launches = bwd_launched[(mode, h, w, c)]
-      row = {"kernel": "fir2_backward", "adjoint_of": f"fir_{fwd}sample2",
+      row = {"kernel": name, "adjoint_of": f"fir_{fwd}sample2",
              "launched_mode": mode, "shape_nhwc": [batch, h, w, c],
              "taps": len(FIR_KERNEL), "max_abs_err": err,
              "max_abs_plain": scale, "kernel_ms": time_ms(kernel),
@@ -3314,49 +3421,57 @@ def kernels_fir_backward(bwd_launched, steps, batch):
     rows.append(row)
   # no config downsamples an odd size; its adjoint launches the upsample
   # sized one row and column past 2x the cotangent
-  x = torch.randn(8, 33, 31, 64, generator=gen, device=DEVICE,
-                  requires_grad=True)
-  ybar = torch.randn(8, 16, 15, 64, generator=gen, device=DEVICE)
+  x = torch.randn(8, 33, 31, 64, generator=gen, device=DEVICE).to(
+      dtype).requires_grad_()
+  ybar = torch.randn(8, 16, 15, 64, generator=gen, device=DEVICE).to(dtype)
   (want,) = torch.autograd.grad(fir.fir_downsample2_plain(x, FIR_KERNEL), x,
                                 ybar)
   (got,) = torch.autograd.grad(fir.fir_downsample2(x, FIR_KERNEL), x, ybar)
-  err, scale = _held("fir2_backward of an odd-sized downsample",
-                     tuple(x.shape), got, want, FIR_REL_TOL)
+  err, scale = _held(f"{name} of an odd-sized downsample",
+                     tuple(x.shape), got, want, tol)
   log(f"fir2_backward of the downsample of {tuple(x.shape)}: max_abs_err "
       f"{err} max|autograd of plain| {scale}")
   return rows
 
 
-def gn_jvp_bound(n, h, w, c, o, groups):
-  """The tangent's bound: the primal's flops once at the dense TF32 rate,
-  or its bytes (x and dx, the stats and their tangents, gamma, beta, w in,
-  the tangent out), whichever is longer."""
+def gn_jvp_bound(n, h, w, c, o, groups, bf16=False):
+  """The tangent's bound: the primal's flops once at the dense TF32 rate
+  (bf16: the dense bf16 rate), or its bytes (x and dx, the stats and their
+  tangents, gamma, beta, w in, the tangent out; x, dx, w and the tangent in
+  2 bytes with ``bf16``), whichever is longer."""
   flops = 2 * n * h * w * c * o * 9
-  bytes_ = 4 * (n * h * w * (2 * c + o) + 9 * c * o + 2 * c + 4 * n * groups)
-  return _bound(flops, bytes_, PEAK_TF32_FLOPS)
+  es = 2 if bf16 else 4
+  bytes_ = es * (n * h * w * (2 * c + o) + 9 * c * o) + 4 * (
+      2 * c + 4 * n * groups)
+  return _bound(flops, bytes_, PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS)
 
 
-def kernels_gn_jvp(jvp_launched, evals):
+def kernels_gn_jvp(jvp_launched, evals, bf16=False):
   """gn_silu_conv3x3's tangent kernel at every shape the likelihood phases
   launched it at, batch LIKELIHOOD_BATCH: against gn_silu_conv3x3_jvp_plain,
   which is held against torch.func.jvp of the plain chain; timed beside
   that plain version and one library call, torch.func.jvp of GroupNorm ->
   SiLU -> cuDNN conv (TF32 off; it computes the primal too), kernel and
-  library interleaved A B A B, issued and on the device."""
+  library interleaved A B A B, issued and on the device. With ``bf16``
+  the bf16 tangent mode, its plain version against torch.func.jvp of the
+  bf16 plain chain, the library chain in bf16 channels-last."""
   import torch
   import torch.nn.functional as F
   from soft_truncation_tpu_torch.ops import gn_conv
 
   gen = torch.Generator(DEVICE).manual_seed(3)
   rows = []
+  tol = BF16_REL_TOL if bf16 else KERNEL_REL_TOL
+  name = "gn_silu_conv3x3_jvp_bf16" if bf16 else "gn_silu_conv3x3_jvp"
+  dtype = torch.bfloat16 if bf16 else torch.float32
   for (h, w, c, o) in sorted(jvp_launched, reverse=True):
     n, groups = LIKELIHOOD_BATCH, min(c // 4, 32)
-    x, dx = (torch.randn(n, h, w, c, generator=gen, device=DEVICE)
+    x, dx = (torch.randn(n, h, w, c, generator=gen, device=DEVICE).to(dtype)
              for _ in range(2))
     gamma, beta = (torch.randn(c, generator=gen, device=DEVICE)
                    for _ in range(2))
-    wgt = torch.randn(3, 3, c, o, generator=gen, device=DEVICE)
-    b = torch.randn(o, generator=gen, device=DEVICE)
+    wgt = torch.randn(3, 3, c, o, generator=gen, device=DEVICE).to(dtype)
+    b = torch.randn(o, generator=gen, device=DEVICE).to(dtype)
     (mean, rsqrt), (dmean, drsqrt) = torch.func.jvp(
         lambda v: gn_conv.gn_stats(v, groups), (x,), (dx,))
     args = (x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, wgt, groups)
@@ -3367,33 +3482,35 @@ def kernels_gn_jvp(jvp_launched, evals):
         lambda v: gn_conv.gn_silu_conv3x3_plain(
             v, *gn_conv.gn_stats(v, groups), gamma, beta, wgt, b, groups),
         (x,), (dx,))
-    _held("gn_silu_conv3x3_jvp_plain vs torch.func.jvp of the plain chain",
-          shape, plain, chain, KERNEL_REL_TOL)
-    err, scale = _held("gn_silu_conv3x3 tangent", shape,
+    _held(f"{name} plain vs torch.func.jvp of the plain chain",
+          shape, plain, chain, tol)
+    err, scale = _held(f"{name} kernel", shape,
                        gn_conv.gn_silu_conv3x3_jvp(*args, w_split=split),
-                       plain, KERNEL_REL_TOL)
+                       plain, tol)
+    # NCHW contiguous: group_norm's forward-mode rule views its input
     w_oihw = wgt.permute(3, 2, 0, 1).contiguous()
     xc, dxc = (t.permute(0, 3, 1, 2).contiguous() for t in (x, dx))
+    g_lib, b_lib = gamma.to(dtype), beta.to(dtype)
 
     def library():
       return torch.func.jvp(
-          lambda v: F.conv2d(F.silu(F.group_norm(v, groups, gamma, beta,
+          lambda v: F.conv2d(F.silu(F.group_norm(v, groups, g_lib, b_lib,
                                                  1e-6)), w_oihw, b,
                              padding=1), (xc,), (dxc,))
 
     _held("the library jvp", shape, library()[1].permute(0, 2, 3, 1),
-          plain, KERNEL_REL_TOL)
+          plain, tol)
 
     def kernel():
       return gn_conv.gn_silu_conv3x3_jvp(*args, w_split=split)
 
-    bound, bound_by = gn_jvp_bound(n, h, w, c, o, groups)
+    bound, bound_by = gn_jvp_bound(n, h, w, c, o, groups, bf16)
     plan = gn_conv.launch_plan(n, h, w, c, o, groups, gn_conv._sms(x.device),
-                               tangent=True)
+                               tangent=True, bf16=bf16)
     ab = [time_ms(f) for f in (kernel, library) * 2]
     ab_dev = [graph_ms(f) for f in (kernel, library) * 2]
     launches = jvp_launched[(h, w, c, o)]
-    row = {"kernel": "gn_silu_conv3x3_jvp", "shape_nhwc_o": list(shape),
+    row = {"kernel": name, "shape_nhwc_o": list(shape),
            "groups": groups, "grid": list(plan.grid), "splits": plan.splits,
            "smem": plan.smem, "max_abs_err": err, "max_abs_plain": scale,
            "kernel_ms": (ab[0] + ab[2]) / 2,
@@ -3411,38 +3528,40 @@ def kernels_gn_jvp(jvp_launched, evals):
   return rows
 
 
-def kernels_fir_jvp(jvp_launched, evals):
+def kernels_fir_jvp(jvp_launched, evals, bf16=False):
   """fir2's tangent (its jvp rule: the same resample of the tangent, one
   more launch) at every shape the UNCSN++ likelihood phase launched it at,
   batch LIKELIHOOD_BATCH: the launch the rule makes, held against
   torch.func.jvp of the plain version and timed beside it and the library
-  call on the tangent."""
+  call on the tangent; with ``bf16`` on bf16 tensors."""
   import torch
   from soft_truncation_tpu_torch.ops import fir
 
   gen = torch.Generator(DEVICE).manual_seed(4)
   rows = []
+  dtype = torch.bfloat16 if bf16 else torch.float32
+  suffix = "_bf16" if bf16 else ""
   for (mode, h, w, c) in sorted(jvp_launched):
     x, dx = (torch.randn(LIKELIHOOD_BATCH, h, w, c, generator=gen,
-                         device=DEVICE) for _ in range(2))
+                         device=DEVICE).to(dtype) for _ in range(2))
     wrapper, plain = ((fir.fir_upsample2, fir.fir_upsample2_plain)
                       if mode == "up" else
                       (fir.fir_downsample2, fir.fir_downsample2_plain))
     shape = (mode, LIKELIHOOD_BATCH, h, w, c)
     _, want = torch.func.jvp(lambda v: plain(v, FIR_KERNEL), (x,), (dx,))
     _, got = torch.func.jvp(lambda v: wrapper(v, FIR_KERNEL), (x,), (dx,))
-    err, scale = _held(f"fir_{mode}sample2 tangent", shape, got, want,
-                       FIR_REL_TOL)
+    err, scale = _held(f"fir_{mode}sample2{suffix} tangent", shape, got,
+                       want, BF16_REL_TOL if bf16 else FIR_REL_TOL)
 
     def kernel():  # the launch the jvp rule makes
       return fir._resample(dx, FIR_KERNEL, 1.0, mode, wrapper, "jvp")
 
     library = _fir_library(mode, dx, FIR_KERNEL)
     bound, bound_by = fir_bound(mode, LIKELIHOOD_BATCH, h, w, c,
-                                len(FIR_KERNEL))
+                                len(FIR_KERNEL), bf16)
     ab = [time_ms(f) for f in (kernel, library) * 2]
     launches = jvp_launched[(mode, h, w, c)]
-    row = {"kernel": f"fir_{mode}sample2_jvp",
+    row = {"kernel": f"fir_{mode}sample2_jvp{suffix}",
            "shape_nhwc": [LIKELIHOOD_BATCH, h, w, c], "taps": len(FIR_KERNEL),
            "max_abs_err": err, "max_abs_plain": scale,
            "kernel_ms": (ab[0] + ab[2]) / 2, "device_ms": graph_ms(kernel),
@@ -3690,6 +3809,7 @@ def replay_ranks(artifact, params, requests, out) -> int:
   from soft_truncation_tpu_torch.serve.server import SamplingService
   torch.backends.cudnn.allow_tf32 = False
   torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
   torch.backends.cudnn.deterministic = True
   t0 = time.perf_counter()
   service = SamplingService.from_artifact(artifact, params)
@@ -3787,6 +3907,302 @@ def phase_mesh_replay(config, params, requests, one_process, sites,
   return ({tuple(k): v for k, v in ranks[0]["gn"]}, ranks[0]["evals"], per)
 
 
+# --- phase 13: bf16 compute (the four dtype knobs) --------------------------
+
+
+def bf16_config(path, all_knobs=False, **model_overrides):
+  """A published config at init_scale 0.1 with ``tpu.compute_dtype``
+  bfloat16 (with ``all_knobs``, the other three dtype knobs too)."""
+  config = load_config(path, init_scale=0.1, **model_overrides)
+  for knob, value in zip(BF16_FLAGS[0::2], BF16_FLAGS[1::2]):
+    if all_knobs or knob.endswith("compute_dtype"):
+      config.tpu[knob.split(".")[-1]] = value
+  return config
+
+
+def _bf16_launches():
+  """The bf16 launches so far: gn_silu_conv3x3's primal and tangent, and
+  fir2's forward, adjoint and tangent (both wrappers)."""
+  from soft_truncation_tpu_torch.ops import fir, gn_conv
+  firs = (fir.fir_upsample2, fir.fir_downsample2)
+  return {"gn": gn_conv.gn_silu_conv3x3.bf16_launches,
+          "gn_jvp": gn_conv.gn_silu_conv3x3.bf16_jvp_launches,
+          "fir": sum(w.bf16_launches for w in firs),
+          "fir_backward": sum(w.bf16_backward_launches for w in firs),
+          "fir_jvp": sum(w.bf16_jvp_launches for w in firs)}
+
+
+class _Resamples:
+  """While entered, counts every fir2 call (``ops/fir.py::_resample``: one
+  launch on the card) by (tally, dtype, mode, H, W, C): with
+  ``tpu.norm_dtype`` float32 a BigGAN block's norm gives f32, and a
+  residual input pyramid is f32, so a bf16 model's FIR sites take both
+  dtypes, as JAX's do."""
+
+  def __enter__(self):
+    from soft_truncation_tpu_torch.ops import fir
+    self.fir, self.resample = fir, fir._resample
+    self.calls = collections.Counter()
+
+    def recorded(x, k, gain, mode, wrapper, tally, out_hw=None):
+      self.calls[(tally, str(x.dtype).split(".")[-1], mode)
+                 + tuple(x.shape[1:])] += 1
+      return self.resample(x, k, gain, mode, wrapper, tally, out_hw)
+
+    fir._resample = recorded
+    return self
+
+  def __exit__(self, *exc):
+    self.fir._resample = self.resample
+
+  def of(self, tally, dtype="bfloat16"):
+    """(mode, H, W, C) -> calls of ``tally`` in ``dtype``."""
+    return {key[2:]: k for key, k in self.calls.items()
+            if key[:2] == (tally, dtype)}
+
+
+def _per_sample_err(got, want):
+  """Each sample's max |got - want| and max |want|, in f32."""
+  got, want = got.float().cpu(), want.float().cpu()
+  return ((got - want).abs().flatten(1).amax(1),
+          want.abs().flatten(1).amax(1))
+
+
+def phase_bf16_forward(name, path, labels, want_fir):
+  """13a: the full-width bf16 eval forward at batch 2, card vs CPU and vs
+  the card's own f32 forward from the same weights; every fused site
+  launches the bf16 primal mode once and every FIR site the bf16 fir2.
+  Returns the fused launches per shape, the bf16 FIR launches per shape
+  and the weights."""
+  import torch
+  from soft_truncation_tpu_torch.models import create_model
+
+  config = bf16_config(path)
+  cpu_model = create_model(config, "cpu", seed=0)
+  gpu_model = create_model(config, DEVICE, seed=0)
+  f32_model = create_model(load_config(path, init_scale=0.1), DEVICE, seed=0)
+  gen = torch.Generator("cpu").manual_seed(1)
+  x = torch.randn(len(labels), 32, 32, 3, generator=gen)
+  labels = torch.tensor(labels)
+  with torch.inference_mode():
+    with _Resamples() as cpu_calls:
+      want = cpu_model(x, labels)
+    sites = collections.Counter(cpu_model.fused_sites())
+    fir_sites = collections.Counter(cpu_model.fir_sites())
+    _reset_launch_counts()
+    with _Resamples() as calls:
+      got = gpu_model(x.to(DEVICE), labels.to(DEVICE))
+      torch.cuda.synchronize()
+    launched, fir_launched = _launch_counts()
+    bf16 = _bf16_launches()
+    f32 = f32_model(x.to(DEVICE), labels.to(DEVICE))
+  fir_bf16 = calls.of("forward")
+  err, scale = _per_sample_err(got, want)
+  err32, scale32 = _per_sample_err(got, f32)
+  log(f"bf16 forward {name}: output {got.dtype} (f32 model's {f32.dtype}); "
+      f"card vs CPU per sample max_abs_diff {err.tolist()} max|out| "
+      f"{scale.tolist()}; vs the card's f32 forward {err32.tolist()} max|f32|"
+      f" {scale32.tolist()}; bf16 launches {bf16} ({sum(fir_bf16.values())}"
+      f" of {sum(fir_sites.values())} FIR sites take bf16, the CPU's "
+      f"{sum(cpu_calls.of('forward').values())})")
+  if got.dtype != want.dtype or not (
+      torch.isfinite(got).all() and (err <= BF16_FORWARD_REL_TOL
+                                     * scale).all()):
+    raise AssertionError(f"{name}: the bf16 card forward disagrees with the "
+                         f"CPU: {err.tolist()} vs {scale.tolist()}")
+  if not (err32 <= BF16_VS_F32_REL_TOL * scale32).all():
+    raise AssertionError(f"{name}: the bf16 forward is {err32.tolist()} "
+                         f"from the f32 one ({scale32.tolist()})")
+  if (launched != dict(sites) or sum(sites.values()) != FUSED_SITES
+      or bf16["gn"] != FUSED_SITES):
+    raise AssertionError(f"{name}: expected {FUSED_SITES} fused sites each "
+                         f"launching the bf16 mode once; sites "
+                         f"{dict(sites)}, launches {launched}, bf16 {bf16}")
+  if (fir_launched != dict(fir_sites) or dict(fir_sites) != want_fir
+      or bf16["fir"] != sum(fir_bf16.values())
+      or fir_bf16 != cpu_calls.of("forward")):
+    raise AssertionError(f"{name}: expected FIR sites {want_fir}, each "
+                         f"launching fir2 once, in bf16 where the CPU's "
+                         f"input is bf16 ({cpu_calls.of('forward')}); "
+                         f"launches {fir_launched}, bf16 {fir_bf16}, "
+                         f"counted {bf16}")
+  return launched, fir_bf16, cpu_model.state_dict()
+
+
+def phase_bf16_likelihood(name, path, params, sites, fir_sites):
+  """13b: one function evaluation of the probability-flow ODE with its
+  Hutchinson divergence (likelihood/likelihood.py::get_ode_fn) of the bf16
+  model at LIKELIHOOD_BATCH on the card, each fused site launching the
+  bf16 tangent mode and each FIR site the bf16 fir2 tangent once; the same
+  evaluation at batch 2 card vs CPU (t = 0.5, the SDE's scalars in
+  float64). Returns the tangent launches per shape (gn, fir2 in bf16)."""
+  import torch
+  from soft_truncation_tpu_torch.likelihood import get_ode_fn
+  from soft_truncation_tpu_torch.models import create_model
+  from soft_truncation_tpu_torch.sde import get_sde
+
+  config = bf16_config(path)
+  sde = _scalars_in_float64(get_sde(config))
+  gen = torch.Generator("cpu").manual_seed(3)
+  models = {}
+  for device in ("cpu", DEVICE):
+    models[device] = create_model(config, device, seed=0)
+    models[device].load_state_dict(params)
+
+  def evaluate(device, batch):
+    x = torch.randn(batch, 32, 32, 3, generator=gen)
+    eps = torch.randint(0, 2, x.shape, generator=gen).float() * 2 - 1
+    ode_fn = get_ode_fn(config, sde, models[device], eps.to(device))
+    flat = torch.cat([x.reshape(-1), torch.zeros(batch)]).to(device)
+    with torch.no_grad():
+      return ode_fn(0.5, flat), x.numel()
+
+  _reset_launch_counts()
+  with _Resamples() as calls:
+    out, _ = evaluate(DEVICE, LIKELIHOOD_BATCH)
+    torch.cuda.synchronize()
+  jvp, fir_jvp = _jvp_launch_counts()
+  bf16 = _bf16_launches()
+  fir_bf16 = calls.of("jvp")
+  state = gen.get_state()
+  with _Resamples() as cpu_calls:
+    want, n = evaluate("cpu", CHECK_BATCH)
+  gen.set_state(state)
+  got, _ = evaluate(DEVICE, CHECK_BATCH)
+  errs = [((got[a:b].cpu() - want[a:b]).abs().max().item(),
+           want[a:b].abs().max().item())
+          for a, b in ((0, n), (n, n + CHECK_BATCH))]
+  log(f"bf16 likelihood {name}: one function evaluation at batch "
+      f"{LIKELIHOOD_BATCH}, bf16 launches {bf16}; card vs CPU at batch "
+      f"{CHECK_BATCH}: drift, divergence max_abs_diff / max {errs}")
+  if not torch.isfinite(out).all() or any(
+      e > BF16_FORWARD_REL_TOL * s for e, s in errs):
+    raise AssertionError(f"{name}: the bf16 ODE function disagrees with the"
+                         f" CPU: {errs}")
+  if (jvp != sites or fir_jvp != fir_sites
+      or bf16["gn_jvp"] != sum(sites.values())
+      or bf16["fir_jvp"] != sum(fir_bf16.values())
+      or fir_bf16 != cpu_calls.of("jvp")):
+    raise AssertionError(f"{name}: expected each fused site's bf16 tangent "
+                         f"and each FIR site's tangent once, in bf16 where "
+                         f"the CPU's is ({cpu_calls.of('jvp')}): {jvp}, "
+                         f"{fir_jvp} vs {sites}, {fir_sites}; bf16 {fir_bf16}"
+                         f", counted {bf16}")
+  return jvp, fir_bf16
+
+
+def phase_bf16_train():
+  """13c: UNCSN++ with the four dtype knobs on: one train step at full
+  width and batch 2 card vs CPU (the bf16 bar), then the CLI trainer at
+  batch 128, steps 0..BF16_TRAIN_ITERS, each fir2 launch and adjoint in
+  the bf16 mode where the step's CPU run takes bf16 there; ms per step and
+  peak memory in its JSON line, beside phase 7's f32 run. Returns the
+  train phase's (steps, bf16 forward and adjoint launches per shape,
+  batch)."""
+  with _Resamples() as check:  # the CPU step's and the card's, equal
+    phase_train_step("uncsnpp_bf16", bf16_config(UNCSNPP, all_knobs=True),
+                     UNCSNPP_FIR_SITES, UNCSNPP_FIR_BWD_SITES,
+                     tol=BF16_FORWARD_REL_TOL, in_l2=True)
+  _reset_launch_counts()
+  with _Resamples() as calls:
+    steps, fwd, bwd, batch, workdir = phase_train(
+        "uncsnpp_bf16", UNCSNPP, UNCSNPP_FIR_SITES, UNCSNPP_FIR_BWD_SITES,
+        BF16_TRAIN_ITERS, False, BF16_FLAGS)
+  shutil.rmtree(workdir, ignore_errors=True)
+  bf16 = _bf16_launches()
+  fwd16, bwd16 = calls.of("forward"), calls.of("backward")
+  per_step = {t: sum(check.of(t).values()) // 2
+              for t in ("forward", "backward")}
+  log(f"bf16 train uncsnpp: {steps} steps, bf16 launches {bf16}: "
+      f"{sum(fwd16.values()) / steps:g} of {sum(fwd.values()) / steps:g} "
+      f"fir2 and {sum(bwd16.values()) / steps:g} of "
+      f"{sum(bwd.values()) / steps:g} adjoint launches per step in bf16")
+  if (bf16["fir"] != sum(fwd16.values()) or bf16["gn"]
+      or bf16["fir_backward"] != sum(bwd16.values())
+      or sum(fwd16.values()) != per_step["forward"] * steps
+      or sum(bwd16.values()) != per_step["backward"] * steps
+      or not fwd16 or not bwd16):
+    raise AssertionError(f"uncsnpp_bf16: the bf16 fir2 launches {fwd16}, "
+                         f"{bwd16} (counted {bf16}) are not the CPU step's "
+                         f"{per_step} x {steps} steps")
+  return steps, fwd16, bwd16, batch
+
+
+def phase_bf16_serve(params, sites, workdir):
+  """13d: the bf16 flagship exported at batch 8 (bf16 operator nodes,
+  pre-cast weight inputs) and written out, its artifact and params npz
+  replayed (``SamplingService.from_artifact``, in this process: 11a holds
+  the replay in a fresh process) and held bit for bit against the live bf16
+  service on one 'dpm_solver' request; every replayed evaluation launches
+  the bf16 primal mode at each fused site. Returns the replay's launches
+  per shape and its evaluations."""
+  import numpy as np
+  import torch
+  from soft_truncation_tpu_torch.serve import export
+  from soft_truncation_tpu_torch.serve.server import SamplingService
+
+  config = bf16_config(FLAGSHIP)
+  request = (EXPORT_BATCH, 0, "dpm_solver", EXPORT_DPM_STEPS)
+  artifact = os.path.join(workdir, "flagship_bf16" + export.EXTENSION)
+  npz = os.path.join(workdir, "flagship_bf16.params.npz")
+  t0 = time.perf_counter()
+  exported, shape = export.export_sampler(config, params, EXPORT_BATCH,
+                                          DEVICE)
+  export_s = time.perf_counter() - t0
+  op_dtypes = collections.Counter(
+      f"{n.target}:{str(n.meta['val'].dtype).split('.')[-1]}"
+      for p in exported.programs.values() for n in p.graph.nodes
+      if n.op == "call_function" and "soft_truncation" in str(n.target))
+  meta = export.artifact_meta(config, shape, exported)
+  export.save_artifact(exported, meta, artifact)
+  export.save_params_npz(params, npz)
+  del exported
+  t0 = time.perf_counter()
+  replay = SamplingService.from_artifact(artifact, npz, DEVICE)
+  load_s = time.perf_counter() - t0
+  live = SamplingService(config, params, batch=EXPORT_BATCH, device=DEVICE)
+  runs = {}
+  for side, service in (("replay", replay), ("live", live)):
+    floats = _stash_floats(service)
+    evals = _count_evaluations(service)
+    _reset_launch_counts()
+    samples, nfe = service.sample(*request)
+    torch.cuda.synchronize()
+    launched, _ = _launch_counts()
+    runs[side] = (samples, nfe, floats[0][0], evals[0], launched,
+                  _bf16_launches())
+  r8, r_nfe, rf, r_evals, r_gn, r_bf16 = runs["replay"]
+  l8, l_nfe, lf = runs["live"][:3]
+  err = float(np.abs(rf - lf).max())
+  log(f"bf16 serve flagship: export {export_s:.2f} s, load {load_s:.2f} s, "
+      f"compute_dtype {meta['compute_dtype']}, {len(meta['cast_params'])} "
+      f"pre-cast weight inputs, operator nodes {dict(op_dtypes)}; "
+      f"dpm_solver nfe {r_nfe} replayed vs {l_nfe} live, max_abs_diff {err}"
+      f" max|x| {float(np.abs(lf).max())}, uint8 equal "
+      f"{bool(np.array_equal(r8, l8))}; replay bf16 launches {r_bf16} over "
+      f"{r_evals} evaluations")
+  if (meta["compute_dtype"] != "bfloat16" or not op_dtypes
+      or any(not k.endswith(":bfloat16") for k in op_dtypes)):
+    raise AssertionError(f"flagship_bf16: the exported operator nodes' "
+                         f"dtypes are {dict(op_dtypes)}, expected bfloat16")
+  if not (r_nfe == l_nfe and err == 0.0 and np.array_equal(r8, l8)):
+    raise AssertionError(f"flagship_bf16: the replay is not bit for bit the "
+                         f"live service: nfe {r_nfe} vs {l_nfe}, max_abs_diff"
+                         f" {err}")
+  want = {s: k * r_evals for s, k in sites.items()}
+  if (not r_evals or dict(r_gn) != want
+      or r_bf16["gn"] != sum(want.values())):
+    raise AssertionError(f"flagship_bf16: the replay's launches {r_gn} "
+                         f"(bf16 {r_bf16}) are not the sites x {r_evals} "
+                         f"evaluations in bf16")
+  emit({"export": "flagship_bf16", "batch": EXPORT_BATCH,
+        "export_s": export_s, "load_s": load_s, "evals": r_evals,
+        "artifact_bytes": os.path.getsize(artifact),
+        "operator_nodes_by_dtype": dict(op_dtypes),
+        "pre_cast_inputs": len(meta["cast_params"])})
+  return r_gn, r_evals
+
+
 def main() -> int:
   try:
     import torch
@@ -3805,6 +4221,7 @@ def main() -> int:
     return 2
   torch.backends.cudnn.allow_tf32 = False
   torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
   torch.backends.cudnn.deterministic = True
   kind = torch.cuda.get_device_name(0)
   t_all = time.perf_counter()
@@ -3862,9 +4279,12 @@ def main() -> int:
   def times(sites, k):
     return {s: n * k for s, n in sites.items()}
 
+  # its card-vs-CPU step at a cut depth (the same widths, shapes and FIR
+  # sites): the CPU's step of all 8 res-blocks per level took ~65 s
   phase("train step deepest", phase_train_step, "deepest",
-        load_config(DEEPEST, init_scale=0.1), times(d_fir, 2),
-        times(adjoint_sites(d_fir), 2), 2)
+        load_config(DEEPEST, init_scale=0.1,
+                    num_res_blocks=DEEPEST_STEP_RES_BLOCKS),
+        times(d_fir, 2), times(adjoint_sites(d_fir), 2), 2)
   gc.collect()
   torch.cuda.empty_cache()
   d_steps, d_fwd, d_bwd, d_batch, d_workdir = phase(
@@ -3951,7 +4371,7 @@ def main() -> int:
   ux_gn, ux_fir, ux_evals, _ = phase(
       "export uncsnpp", phase_export, "uncsnpp",
       load_config(UNCSNPP, init_scale=0.1, num_scales=EXPORT_PC_STEPS),
-      u_params, own[:1] + dpm[:1], u_sites, u_fir_sites, export_dir)
+      u_params, own[:1] + dpm[:1], u_sites, u_fir_sites, export_dir, False)
   log(f"phases 11a-11b: {time.perf_counter() - t_11:.1f} s")
 
   # phase 12: the 2-D (data, space) mesh
@@ -3966,8 +4386,29 @@ def main() -> int:
                         load_config(FLAGSHIP, init_scale=0.1), flag_params,
                         own + dpm, x_replayed, sites, export_dir))
   mr_gn, mr_evals, mr_batch = replayed
-  shutil.rmtree(export_dir, ignore_errors=True)
   log(f"phases 12a-12b: {time.perf_counter() - t_12:.1f} s")
+
+  # phase 13: bf16 compute (the four dtype knobs)
+  t_13 = time.perf_counter()
+  gc.collect()
+  torch.cuda.empty_cache()
+  b_gn, _, b_params = phase("bf16 forward flagship", phase_bf16_forward,
+                            "flagship", FLAGSHIP, [0.01 * 999.0, 0.6 * 999.0],
+                            {})
+  ub_gn, ub_fir, ub_params = phase("bf16 forward uncsnpp", phase_bf16_forward,
+                                   "uncsnpp", UNCSNPP, [0.01, 50.0],
+                                   UNCSNPP_FIR_SITES)
+  b_jvp, _ = phase("bf16 likelihood flagship", phase_bf16_likelihood,
+                   "flagship", FLAGSHIP, b_params, sites, {})
+  ub_jvp, ub_fir_jvp = phase("bf16 likelihood uncsnpp",
+                             phase_bf16_likelihood, "uncsnpp", UNCSNPP,
+                             ub_params, u_sites, u_fir_sites)
+  bt_steps, bt_fwd, bt_bwd, bt_batch = phase("bf16 train uncsnpp",
+                                             phase_bf16_train)
+  phase("bf16 serve flagship", phase_bf16_serve, b_params, sites,
+        export_dir)
+  shutil.rmtree(export_dir, ignore_errors=True)
+  log(f"phases 13a-13d: {time.perf_counter() - t_13:.1f} s")
 
   gn_launched = collections.Counter(launched) + collections.Counter(
       u_launched)
@@ -4037,6 +4478,18 @@ def main() -> int:
   mesh_bwd_rows = kernels_fir_backward(mesh_bwd, mesh_steps, mesh_batch)
   with torch.inference_mode():
     mesh_gn_rows = kernels_gn(mr_gn, mr_evals, mr_batch)
+    # phase 13's bf16 modes, at the serving batch (the forwards') and the
+    # likelihood's and the trainer's batches
+    bf16_gn_rows = kernels_gn(collections.Counter(b_gn) + collections.Counter(
+        ub_gn), 2, SERVE_BATCH, bf16=True)
+  bf16_fir_rows = kernels_fir(ub_fir, 1, SERVE_BATCH, "launches_per_forward",
+                              bf16=True)
+  bf16_train_rows = kernels_fir(bt_fwd, bt_steps, bt_batch,
+                                "launches_per_step", bf16=True)
+  bf16_bwd_rows = kernels_fir_backward(bt_bwd, bt_steps, bt_batch, bf16=True)
+  bf16_jvp_rows = kernels_gn_jvp(collections.Counter(b_jvp)
+                                 + collections.Counter(ub_jvp), 2, bf16=True)
+  bf16_fir_jvp_rows = kernels_fir_jvp(ub_fir_jvp, 1, bf16=True)
   log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 
   fir_src = "soft_truncation_tpu_torch/csrc/fir2.cu"
@@ -4180,7 +4633,41 @@ def main() -> int:
                     f"flagship exported for {MESH_REPLAY_RANKS} ranks at "
                     f"batch {EXPORT_BATCH} (batch {mr_batch} per rank), "
                     "replayed under torch.distributed.run (counted inside "
-                    "the operator)", "launches_per_forward")]
+                    "the operator)", "launches_per_forward"),
+      _kernel_entry("gn_silu_conv3x3_bf16", gn_src,
+                    "soft_truncation_tpu/ops/pallas/gn_conv.py:74",
+                    bf16_gn_rows, f"one bf16 flagship or UNCSN++ eval "
+                    f"forward (tpu.compute_dtype bfloat16) at batch "
+                    f"{SERVE_BATCH}", "launches_per_forward"),
+      _kernel_entry("gn_silu_conv3x3_jvp_bf16", gn_src,
+                    "soft_truncation_tpu/ops/pallas/gn_conv.py:74",
+                    bf16_jvp_rows, f"one bf16 function evaluation of the "
+                    f"likelihood ODE at batch {LIKELIHOOD_BATCH}",
+                    "launches_per_evaluation"),
+      *(_kernel_entry(f"fir_{mode}sample2_bf16", fir_src, fir_fwd,
+                      [r for r in bf16_fir_rows
+                       if r["kernel"] == f"fir_{mode}sample2_bf16"],
+                      f"one bf16 UNCSN++ eval forward at batch "
+                      f"{SERVE_BATCH}", "launches_per_forward")
+        for mode in ("up", "down")),
+      *(_kernel_entry(f"fir_{mode}sample2_bf16_train", fir_src, fir_fwd,
+                      [r for r in bf16_train_rows
+                       if r["kernel"] == f"fir_{mode}sample2_bf16"],
+                      f"one UNCSN++ train step with the four dtype knobs "
+                      f"bfloat16 at batch {TRAIN_BATCH}", "launches_per_step")
+        for mode in ("up", "down")),
+      _kernel_entry("fir2_backward_bf16", fir_src,
+                    "soft_truncation_tpu/ops/pallas/fir.py:212",
+                    bf16_bwd_rows, f"one UNCSN++ train step with the four "
+                    f"dtype knobs bfloat16 at batch {TRAIN_BATCH}",
+                    "launches_per_step"),
+      *(_kernel_entry(f"fir_{mode}sample2_jvp_bf16", fir_src, fir_fwd,
+                      [r for r in bf16_fir_jvp_rows
+                       if r["kernel"] == f"fir_{mode}sample2_jvp_bf16"],
+                      f"one bf16 UNCSN++ function evaluation of the "
+                      f"likelihood ODE at batch {LIKELIHOOD_BATCH}",
+                      "launches_per_evaluation")
+        for mode in ("up", "down"))]
   emit({"kernels": entries})
   for entry in entries:
     log(f"{entry['name']} ({entry['per']}): issued {entry['ms']:.4f} ms vs "

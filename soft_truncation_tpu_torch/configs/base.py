@@ -25,7 +25,13 @@ no config file sets any of its knobs, and the port reads them so:
   * ``donate_state``, ``steps_per_dispatch``, ``compilation_cache_dir``:
     no GPU meaning (eager PyTorch), not carried;
   * ``compute_dtype``, ``norm_dtype``, ``ema_dtype``, ``adam_mu_dtype``:
-    float32 only, their default, not carried;
+    'float32' (the default) or 'bfloat16', read through :func:`tpu_dtype`
+    (any other value raises): the NCSN++ family's convs, NINs and Denses
+    (and its fused sites' kernel mode) compute in ``compute_dtype``, its
+    GroupNorms' outputs are ``norm_dtype`` (``models/ncsnpp.py``); the EMA
+    shadow is stored in ``ema_dtype`` (``models/ema.py``) and Adam's first
+    moment in ``adam_mu_dtype`` (``losses/losses.Optimizer``). The legacy
+    networks read none of them, as in JAX;
   * ``rng_impl`` / ``dropout_bits``: torch's generator, masks with
     ``bits=32`` semantics, not carried.
 """
@@ -96,8 +102,26 @@ _CIFAR10 = dict(
         weight_decay=0.0, optimizer="Adam", lr=2e-4, beta1=0.9, eps=1e-8,
         warmup=5000, grad_clip=1.0, num_micro_batch=1, amsgrad=False),
     tpu=dict(mesh_shape=(), remat=False, remat_policy="full",
-             fid_resize="host", activation_dtype=""),
+             fid_resize="host", activation_dtype="",
+             compute_dtype="float32", norm_dtype="float32",
+             ema_dtype="float32", adam_mu_dtype="float32"),
 )
+
+# the tpu section's dtype knobs and the values the port takes for them
+DTYPE_KNOBS = ("compute_dtype", "norm_dtype", "ema_dtype", "adam_mu_dtype")
+DTYPES = ("float32", "bfloat16")
+
+
+def tpu_dtype(config, key: str) -> str:
+  """``config.tpu.<key>``, one of :data:`DTYPE_KNOBS`: 'float32' (also
+  where the config has no such key) or 'bfloat16'; any other value
+  raises."""
+  if key not in DTYPE_KNOBS:
+    raise KeyError(f"tpu.{key} is not a dtype knob")
+  value = config.get("tpu", {}).get(key, "float32")
+  if value not in DTYPES:
+    raise ValueError(f"tpu.{key} must be one of {DTYPES}, not {value!r}")
+  return value
 
 
 

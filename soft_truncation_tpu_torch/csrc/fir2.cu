@@ -1,5 +1,5 @@
-// 2x FIR up- or down-sampling of an NHWC float32 tensor, forward, in one
-// pass over both spatial axes.
+// 2x FIR up- or down-sampling of an NHWC float32 or bfloat16 tensor,
+// forward, in one pass over both spatial axes.
 //
 // Replaces the TPU kernel soft_truncation_tpu/ops/pallas/fir.py::
 // _resample_pallas (:137), reached through fir_upsample2_pallas and
@@ -35,9 +35,17 @@
 //     quad row), x over (column, channel vector), so the only division left
 //     is one 32-bit split of x into column and vector;
 //   * a scalar path (vec = 1) when C % 4 != 0 (the C = 3 pyramid inputs) or
-//     x is not 16-byte aligned; OH and OW are the caller's (2H + 1 where up2
-//     is the adjoint of a down2 of an odd size).
+//     x is not aligned to 4 elements; OH and OW are the caller's (2H + 1
+//     where up2 is the adjoint of a down2 of an odd size);
+//   * bfloat16 (the entry point fir2_bf16, for the up, down, adjoint and
+//     tangent calls of a bf16 model): bf16 in and out, a 4-channel vector
+//     is 8 bytes; the taps and every sum stay f32 and the output is rounded
+//     once, at the store. The TPU kernel computes in x.dtype and so rounds
+//     after every product and sum (soft_truncation_tpu/ops/pallas/fir.py:
+//     123-126); the two differ by a few bf16 ulps of the output. The
+//     bound is the same operations over half the bytes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -51,42 +59,83 @@ struct Table {
   float k[2 * kMaxSlots];
 };
 
+// kVec consecutive channels of T (float or bf16) to and from f32 registers:
+// one 16-byte (f32) or 8-byte (bf16) access for kVec = 4
+template <typename T, int kVec>
+struct Io;
+
+template <>
+struct Io<float, 4> {
+  static __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+template <>
+struct Io<float, 1> {
+  static __device__ __forceinline__ void load(const float* p, float (&v)[1]) {
+    v[0] = *p;
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[1]) {
+    *p = v[0];
+  }
+};
+
+template <>
+struct Io<__nv_bfloat16, 4> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float (&v)[4]) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    const float2 lo =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+    const float2 hi =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+    v[0] = lo.x;
+    v[1] = lo.y;
+    v[2] = hi.x;
+    v[3] = hi.y;
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float (&v)[4]) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 q;
+    q.x = *reinterpret_cast<const unsigned int*>(&lo);
+    q.y = *reinterpret_cast<const unsigned int*>(&hi);
+    *reinterpret_cast<uint2*>(p) = q;
+  }
+};
+
+template <>
+struct Io<__nv_bfloat16, 1> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float (&v)[1]) {
+    v[0] = __bfloat162float(*p);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float (&v)[1]) {
+    *p = __float2bfloat16_rn(v[0]);
+  }
+};
+
 template <int kVec>
-struct Vec;
-template <>
-struct Vec<4> {
-  using T = float4;
-};
-template <>
-struct Vec<1> {
-  using T = float;
-};
-
-__device__ __forceinline__ void axpy(float a, float4 v, float (&acc)[4]) {
-  acc[0] = fmaf(a, v.x, acc[0]);
-  acc[1] = fmaf(a, v.y, acc[1]);
-  acc[2] = fmaf(a, v.z, acc[2]);
-  acc[3] = fmaf(a, v.w, acc[3]);
+__device__ __forceinline__ void axpy(float a, const float (&v)[kVec],
+                                     float (&acc)[kVec]) {
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) acc[i] = fmaf(a, v[i], acc[i]);
 }
 
-__device__ __forceinline__ void axpy(float a, float v, float (&acc)[1]) {
-  acc[0] = fmaf(a, v, acc[0]);
-}
-
-__device__ __forceinline__ void store(float* p, const float (&acc)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(acc[0], acc[1], acc[2],
-                                              acc[3]);
-}
-
-__device__ __forceinline__ void store(float* p, const float (&acc)[1]) {
-  *p = acc[0];
-}
-
-template <int kS, int kVec>
+template <int kS, int kVec, typename T>
 __global__ void __launch_bounds__(kThreads)
-fir2_up_kernel(const float* __restrict__ x, float* __restrict__ out, int H,
-               int W, int C, int OH, int OW, int lo, Table tab) {
-  using V = typename Vec<kVec>::T;
+fir2_up_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W,
+               int C, int OH, int OW, int lo, Table tab) {
   const int cv = C / kVec;
   const int qw = (OW + 1) >> 1;
   const int idx = blockIdx.x * kThreads + threadIdx.x;
@@ -95,7 +144,7 @@ fir2_up_kernel(const float* __restrict__ x, float* __restrict__ out, int H,
   const int c = (idx - j * cv) * kVec;
   const int i = blockIdx.y;
   const int n = blockIdx.z;
-  const float* xn = x + n * H * W * C + c;
+  const T* xn = x + n * H * W * C + c;
 
   float acc[2][2][kVec];
 #pragma unroll
@@ -118,7 +167,8 @@ fir2_up_kernel(const float* __restrict__ x, float* __restrict__ out, int H,
     for (int sy = 0; sy < kS; ++sy) {
       const int iy = i + lo + sy;
       if (iy < 0 || iy >= H) continue;
-      const V val = *reinterpret_cast<const V*>(xn + (iy * W + ix) * C);
+      float val[kVec];
+      Io<T, kVec>::load(xn + (iy * W + ix) * C, val);
       axpy(tab.k[sy], val, col[0]);
       axpy(tab.k[kS + sy], val, col[1]);
     }
@@ -137,16 +187,17 @@ fir2_up_kernel(const float* __restrict__ x, float* __restrict__ out, int H,
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       const int ox = 2 * j + q;
-      if (ox < OW) store(out + ((n * OH + oy) * OW + ox) * C + c, acc[p][q]);
+      if (ox < OW)
+        Io<T, kVec>::store(out + ((n * OH + oy) * OW + ox) * C + c,
+                           acc[p][q]);
     }
   }
 }
 
-template <int kT, int kVec>
+template <int kT, int kVec, typename T>
 __global__ void __launch_bounds__(kThreads)
-fir2_down_kernel(const float* __restrict__ x, float* __restrict__ out, int H,
-                 int W, int C, int OH, int OW, int pad0, Table tab) {
-  using V = typename Vec<kVec>::T;
+fir2_down_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W,
+                 int C, int OH, int OW, int pad0, Table tab) {
   const int cv = C / kVec;
   const int idx = blockIdx.x * kThreads + threadIdx.x;
   if (idx >= OW * cv) return;
@@ -154,7 +205,7 @@ fir2_down_kernel(const float* __restrict__ x, float* __restrict__ out, int H,
   const int c = (idx - ox * cv) * kVec;
   const int oy = blockIdx.y;
   const int n = blockIdx.z;
-  const float* xn = x + n * H * W * C + c;
+  const T* xn = x + n * H * W * C + c;
 
   float acc[kVec];
 #pragma unroll
@@ -170,38 +221,39 @@ fir2_down_kernel(const float* __restrict__ x, float* __restrict__ out, int H,
     for (int ty = 0; ty < kT; ++ty) {
       const int iy = 2 * oy + ty - pad0;
       if (iy < 0 || iy >= H) continue;
-      axpy(tab.k[ty], *reinterpret_cast<const V*>(xn + (iy * W + ix) * C),
-           col);
+      float val[kVec];
+      Io<T, kVec>::load(xn + (iy * W + ix) * C, val);
+      axpy(tab.k[ty], val, col);
     }
 #pragma unroll
     for (int v = 0; v < kVec; ++v) acc[v] = fmaf(tab.k[tx], col[v], acc[v]);
   }
-  store(out + ((n * OH + oy) * OW + ox) * C + c, acc);
+  Io<T, kVec>::store(out + ((n * OH + oy) * OW + ox) * C + c, acc);
 }
 
-template <int kVec>
-void launch_up(int S, dim3 grid, cudaStream_t s, const float* x, float* out,
-               int H, int W, int C, int OH, int OW, int lo, const Table& t) {
+template <int kVec, typename T>
+void launch_up(int S, dim3 grid, cudaStream_t s, const T* x, T* out, int H,
+               int W, int C, int OH, int OW, int lo, const Table& t) {
   switch (S) {
-#define FIR2_UP(S_)                                                   \
-  case S_:                                                            \
-    fir2_up_kernel<S_, kVec><<<grid, kThreads, 0, s>>>(x, out, H, W, C, \
-                                                       OH, OW, lo, t); \
+#define FIR2_UP(S_)                                                      \
+  case S_:                                                               \
+    fir2_up_kernel<S_, kVec, T><<<grid, kThreads, 0, s>>>(x, out, H, W, C, \
+                                                          OH, OW, lo, t); \
     break;
     FIR2_UP(1) FIR2_UP(2) FIR2_UP(3) FIR2_UP(4) FIR2_UP(5)
 #undef FIR2_UP
   }
 }
 
-template <int kVec>
-void launch_down(int T, dim3 grid, cudaStream_t s, const float* x,
-                 float* out, int H, int W, int C, int OH, int OW, int pad0,
+template <int kVec, typename T>
+void launch_down(int taps, dim3 grid, cudaStream_t s, const T* x, T* out,
+                 int H, int W, int C, int OH, int OW, int pad0,
                  const Table& t) {
-  switch (T) {
-#define FIR2_DOWN(T_)                                                   \
-  case T_:                                                              \
-    fir2_down_kernel<T_, kVec><<<grid, kThreads, 0, s>>>(x, out, H, W, C, \
-                                                         OH, OW, pad0, t); \
+  switch (taps) {
+#define FIR2_DOWN(T_)                                                      \
+  case T_:                                                                 \
+    fir2_down_kernel<T_, kVec, T><<<grid, kThreads, 0, s>>>(x, out, H, W, C, \
+                                                            OH, OW, pad0, t); \
     break;
     FIR2_DOWN(1) FIR2_DOWN(2) FIR2_DOWN(3) FIR2_DOWN(4) FIR2_DOWN(5)
     FIR2_DOWN(6) FIR2_DOWN(7) FIR2_DOWN(8)
@@ -222,14 +274,10 @@ struct Fir2Args {
   Table table;  // 2*S (up2) or T (down2) f32 values
 };
 
-// Plain C entry point (loaded with ctypes). x [N,H,W,C] and out
-// [N,OH,OW,C] are contiguous f32 on the current device, both under 2^31
-// elements; ``a`` is a host Fir2Args, copied into the launch's parameters;
-// ``vec`` is 4 (C % 4 == 0 and x 16-byte aligned) or 1. Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// arguments it does not take.
-extern "C" int fir2_f32(const float* x, float* out, const Fir2Args* a,
-                        int vec, void* stream) {
+namespace {
+
+template <typename T>
+int fir2(const T* x, T* out, const Fir2Args* a, int vec, void* stream) {
   const int N = a->N, H = a->H, W = a->W, C = a->C, OH = a->OH, OW = a->OW;
   const int up = a->up, len = a->len, base = a->base;
   const int max_len = up ? kMaxSlots : kMaxTaps;
@@ -250,4 +298,22 @@ extern "C" int fir2_f32(const float* x, float* out, const Fir2Args* a,
     else launch_down<1>(len, grid, s, x, out, H, W, C, OH, OW, base, t);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes), one per dtype. x [N,H,W,C] and
+// out [N,OH,OW,C] are contiguous, of the entry point's dtype, on the
+// current device, both under 2^31 elements; ``a`` is a host Fir2Args,
+// copied into the launch's parameters; ``vec`` is 4 (C % 4 == 0 and x
+// aligned to 4 elements) or 1. Each returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for arguments it does not take.
+extern "C" int fir2_f32(const float* x, float* out, const Fir2Args* a,
+                        int vec, void* stream) {
+  return fir2(x, out, a, vec, stream);
+}
+
+extern "C" int fir2_bf16(const __nv_bfloat16* x, __nv_bfloat16* out,
+                         const Fir2Args* a, int vec, void* stream) {
+  return fir2(x, out, a, vec, stream);
 }

@@ -38,6 +38,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from ..configs.base import tpu_dtype
 from ..models.score import get_model_fn, get_score_fn
 from ..parallel import spatial
 from ..sde.core import SDE, VESDE, VPSDE, batch_mul
@@ -85,7 +86,14 @@ def lr_schedule(config) -> Callable[[int], float]:
 
 class Optimizer:
   """Clip -> Adam/AMSGrad/AdamW -> weight decay -> lr, over ``params`` (the
-  model's parameters that require a gradient), updating them in place."""
+  model's parameters that require a gradient), updating them in place.
+
+  ``config.tpu.adam_mu_dtype`` = 'bfloat16' stores the first moment ``mu``
+  in bf16, as optax 0.2.6's ``scale_by_adam(mu_dtype=...)``: the step's
+  moment is ``(1 - b1) g + b1 mu`` in f32, its second term the product of
+  the stored bf16 ``mu`` with b1 in bf16 (JAX's weakly typed scalar takes
+  ``mu``'s dtype), the update reads that f32 moment, and only the stored
+  copy is rounded to bf16, last. ``nu`` (and AMSGrad's max) stay f32."""
 
   def __init__(self, config, params: List[torch.nn.Parameter]):
     o = config.optim
@@ -99,7 +107,8 @@ class Optimizer:
     self.grad_clip = o.grad_clip
     self.schedule = lr_schedule(config)
     self.count = 0
-    self.mu = [torch.zeros_like(p) for p in self.params]
+    self.mu_dtype = getattr(torch, tpu_dtype(config, "adam_mu_dtype"))
+    self.mu = [torch.zeros_like(p, dtype=self.mu_dtype) for p in self.params]
     self.nu = [torch.zeros_like(p) for p in self.params]
     self.nu_max = ([torch.zeros_like(p) for p in self.params]
                    if self.amsgrad else [])
@@ -115,11 +124,17 @@ class Optimizer:
                           self.grad_clip / norm)
       grads = torch._foreach_mul(grads, scale)
     count_inc = self.count + 1
-    torch._foreach_mul_(self.mu, self.b1)
-    torch._foreach_add_(self.mu, grads, alpha=1.0 - self.b1)
+    if self.mu_dtype == torch.float32:
+      mu = self.mu
+      torch._foreach_mul_(mu, self.b1)
+      torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
+    else:
+      b1 = torch.tensor(self.b1, dtype=self.mu_dtype, device=grads[0].device)
+      mu = torch._foreach_mul(grads, 1.0 - self.b1)
+      torch._foreach_add_(mu, torch._foreach_mul(self.mu, b1))
     torch._foreach_mul_(self.nu, self.b2)
     torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - self.b2)
-    mu_hat = torch._foreach_div(self.mu, 1.0 - self.b1 ** count_inc)
+    mu_hat = torch._foreach_div(mu, 1.0 - self.b1 ** count_inc)
     nu_hat = torch._foreach_div(self.nu, 1.0 - self.b2 ** count_inc)
     if self.amsgrad:
       torch._foreach_maximum_(self.nu_max, nu_hat)
@@ -131,6 +146,8 @@ class Optimizer:
       torch._foreach_add_(updates, self.params, alpha=self.weight_decay)
     lr = self.schedule(self.count)
     torch._foreach_add_(self.params, updates, alpha=-lr)
+    if mu is not self.mu:
+      torch._foreach_copy_(self.mu, mu)  # rounded to mu_dtype
     self.count = count_inc
 
   def state_dict(self) -> Dict:

@@ -32,7 +32,7 @@ import logging
 import os
 import sys
 
-from .configs.base import Config, load_config
+from .configs.base import DTYPE_KNOBS, Config, load_config, tpu_dtype
 
 _PREFIX = "--config."
 # keys no config holds, read with ``get`` (as the JAX package reads them),
@@ -116,14 +116,18 @@ def main(argv=None) -> None:
                       help="run on the host instead of the card")
   args, rest = parser.parse_known_args(argv)
   config = apply_overrides(load_config(args.config), rest)
+  for knob in DTYPE_KNOBS:
+    tpu_dtype(config, knob)  # raises on a value the port does not take
   import torch
 
   from . import run_lib
   from .parallel import world_from_env
   main_rank = world_from_env().is_main
-  # f32 model and Inception: no TF32 in the convolutions or the products
+  # f32 model and Inception: no TF32 in the convolutions or the products;
+  # a bf16 model's products sum in f32, as JAX's do (no bf16 reductions)
   torch.backends.cudnn.allow_tf32 = False
   torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
   os.makedirs(args.workdir, exist_ok=True)
   logger = logging.getLogger()
   logger.setLevel("INFO")

@@ -5,8 +5,10 @@ Counterpart of ``soft_truncation_tpu/models/ema.py``: one step
 ``d = min(decay, (1 + n) / (10 + n))`` at the post-increment step ``n``,
 taken in f32 as JAX takes it. The shadow is a dict of copies keyed like the
 model's ``state_dict`` (the frozen Fourier ``W`` included, never moved); it
-is updated in place. The JAX package's ``config.tpu.ema_dtype`` (a bf16
-shadow, a TPU byte diet) is not read.
+is updated in place. ``config.tpu.ema_dtype`` = 'bfloat16' stores the
+shadow in bf16 (:func:`ema_init`'s ``dtype``); the step still runs in f32
+on the upcast shadow and rounds the result once into it, as JAX's
+``ema_update`` casts back to the storage dtype.
 """
 
 from __future__ import annotations
@@ -17,9 +19,13 @@ import numpy as np
 import torch
 
 
-def ema_init(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-  """A copy (not an alias) of every tensor of ``model.state_dict()``."""
-  return {k: v.detach().clone() for k, v in model.state_dict().items()}
+def ema_init(model: torch.nn.Module,
+             dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+  """A copy (not an alias) of every tensor of ``model.state_dict()``, its
+  floating-point tensors in ``dtype``."""
+  return {k: v.detach().to(dtype if v.is_floating_point() else v.dtype,
+                           copy=True)
+          for k, v in model.state_dict().items()}
 
 
 @torch.no_grad()
@@ -30,7 +36,12 @@ def ema_update(ema: Dict[str, torch.Tensor], model: torch.nn.Module,
                  np.float32(1.0 + num_updates) / np.float32(10.0 + num_updates))
   names, params = zip(*((n, p) for n, p in model.named_parameters()
                         if p.requires_grad))
-  shadow = [ema[n] for n in names]
+  stored = [ema[n] for n in names]
+  # a reduced-precision shadow: the step on f32 copies, rounded back once
+  shadow = [e if e.dtype == torch.float32 else e.float() for e in stored]
   diff = torch._foreach_sub(shadow, list(params))
   torch._foreach_mul_(diff, float(np.float32(1.0) - d))
   torch._foreach_sub_(shadow, diff)
+  for e, s in zip(stored, shadow):
+    if e is not s:
+      e.copy_(s)

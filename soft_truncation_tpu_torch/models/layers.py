@@ -10,6 +10,16 @@ view them as NCHW for ``F.conv2d``. Parameters keep PyTorch's layouts (conv
 Flax tree onto them. Inits follow the JAX package's variance-scaling family,
 drawn from an explicit ``torch.Generator`` by ``reset_parameters``.
 
+Compute dtype (``config.tpu.compute_dtype``, the NCSN++ family only, set
+on its modules by ``models/ncsnpp.py``): ``DDPMConv`` and ``Dense`` carry a
+``dtype`` (f32 by default) and cast their input, weight and bias to it per
+call, as Flax's ``dtype=`` does, the parameters staying f32;
+``GroupNorm`` computes its statistics and affine in f32 and casts its
+output once to its ``dtype`` (None: the promotion of the input's dtype
+with f32, Flax's inference from the f32 parameters); attention's products
+read bf16 values into f32 sums, its softmax is f32 and its weights are
+cast to v's dtype (``soft_truncation_tpu/models/layers.py:190-198``).
+
 Under a space axis (``parallel/spatial.py``: each rank holds H/s rows of
 every image) a kxk conv takes k // 2 halo rows on each side (the stride-2
 conv one row from below), GroupNorm sums its statistics over the axis, and
@@ -79,6 +89,7 @@ class DDPMConv(nn.Module):
     self.weight = nn.Parameter(
         torch.empty(out_ch, in_ch, kernel_size, kernel_size))
     self.bias = nn.Parameter(torch.zeros(out_ch))
+    self.dtype = torch.float32  # the compute dtype (module docstring)
     self._derived, self._derived_key = {}, None
     self.traced_operands = None
     self.reset_parameters()
@@ -91,8 +102,11 @@ class DDPMConv(nn.Module):
       self.bias.zero_()
 
   def _once_per_weight(self, name: str, make):
-    """``make()`` once per weight value (a load, an in-place update or a
-    move to another device makes a new one), not once per forward. It runs
+    """``make()`` once per weight value (a load, an in-place update, a move
+    to another device or another tensor put in its place, as
+    ``models/score.py::cast_params_for_eval``'s call does, makes a new
+    one), not once per forward. The cache holds the weight it was made
+    from, so its memory is not reused while the key stands. It runs
     below any ``torch.func`` transform, so that a first forward under
     ``torch.func.jvp`` caches plain tensors, which a kernel can read.
 
@@ -104,49 +118,63 @@ class DDPMConv(nn.Module):
       if self.traced_operands is not None and name in self.traced_operands:
         return self.traced_operands[name]
       return make()
-    key = (self.weight.device, self.weight.data_ptr(), self.weight._version)
-    if self._derived_key != key:
-      self._derived, self._derived_key = {}, key
+    w = self.weight
+    # an inference tensor (a cast made under inference_mode) has no version
+    # counter; it is not updated in place outside inference_mode
+    version = -1 if w.is_inference() else w._version
+    if (self._derived_key is None or self._derived_key[0] is not w
+        or self._derived_key[1] != version):
+      self._derived, self._derived_key = {}, (w, version)
     if name not in self._derived:
       with below_transforms():
         self._derived[name] = make()
     return self._derived[name]
 
   def weight_hwio(self) -> torch.Tensor:
-    """The kernel as ``[kh, kw, I, O]``, the fused kernel's layout."""
+    """The kernel as ``[kh, kw, I, O]`` in the compute dtype, the fused
+    kernel's layout."""
     return self._once_per_weight(
-        "hwio", lambda: self.weight.detach().permute(2, 3, 1, 0).contiguous())
+        "hwio", lambda: self.weight.detach().to(self.dtype).permute(
+            2, 3, 1, 0).contiguous())
 
-  def weight_tf32_split(self):
+  def weight_operand(self):
     """The fused kernel's weight operand, ``ops.gn_conv.weight_operand`` of
-    :meth:`weight_hwio`: padded and split into TF32 hi and lo."""
+    :meth:`weight_hwio`: padded, and split into TF32 hi and lo in f32 (one
+    transposed bf16 tensor in bf16)."""
     return self._once_per_weight(
-        "tf32_split", lambda: weight_operand(self.weight_hwio()))
+        "operand", lambda: weight_operand(self.weight_hwio()))
+
+  def compute_params(self):
+    """The weight and bias in the compute dtype (the same tensors when
+    they are in it already)."""
+    return self.weight.to(self.dtype), self.bias.to(self.dtype)
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     space = spatial.current()
     if space is not None:
       return self._sharded(x, space)
-    x = x.permute(0, 3, 1, 2)
+    w, b = self.compute_params()
+    x = x.to(self.dtype).permute(0, 3, 1, 2)
     if self.stride == 2:
-      y = F.conv2d(F.pad(x, (0, 1, 0, 1)), self.weight, self.bias, stride=2)
+      y = F.conv2d(F.pad(x, (0, 1, 0, 1)), w, b, stride=2)
     else:
-      y = F.conv2d(x, self.weight, self.bias,
-                   padding=self.weight.shape[-1] // 2)
+      y = F.conv2d(x, w, b, padding=w.shape[-1] // 2)
     return y.permute(0, 2, 3, 1)
 
   def _sharded(self, x: torch.Tensor, space) -> torch.Tensor:
     """The conv of this rank's rows: the rows padding would add come from
     the neighbours (zeros past the image's edges)."""
+    w, b = self.compute_params()
+    x = x.to(self.dtype)
     if self.stride == 2:
       if x.shape[1] % 2:  # an even first row, as in the whole image
         raise ValueError(f"a stride-2 conv over a shard of {x.shape[1]} rows")
       x = space.halo(x, 0, 1).permute(0, 3, 1, 2)
-      y = F.conv2d(F.pad(x, (0, 1)), self.weight, self.bias, stride=2)
+      y = F.conv2d(F.pad(x, (0, 1)), w, b, stride=2)
     else:
-      r = self.weight.shape[-1] // 2
-      y = F.conv2d(space.halo(x, r, r).permute(0, 3, 1, 2), self.weight,
-                   self.bias, padding=(0, r))
+      r = w.shape[-1] // 2
+      y = F.conv2d(space.halo(x, r, r).permute(0, 3, 1, 2), w, b,
+                   padding=(0, r))
     return y.permute(0, 2, 3, 1)
 
 
@@ -247,6 +275,7 @@ class Dense(nn.Module):
     self.init_scale = init_scale
     self.weight = nn.Parameter(torch.empty(out_features, in_features))
     self.bias = nn.Parameter(torch.zeros(out_features))
+    self.dtype = torch.float32  # the compute dtype (module docstring)
     self.reset_parameters()
 
   def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -256,7 +285,8 @@ class Dense(nn.Module):
       self.bias.zero_()
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    return F.linear(x, self.weight, self.bias)
+    return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                    self.bias.to(self.dtype))
 
 
 def NIN(in_ch: int, out_ch: int, init_scale: float = 0.1) -> Dense:
@@ -268,8 +298,10 @@ class GroupNorm(nn.Module):
   """GroupNorm over an NHWC tensor, as ``flax.linen.GroupNorm`` computes it.
 
   Statistics in f32 with var = E[x^2] - E[x]^2 clipped at 0, then
-  ``(x - mean) * (rsqrt(var + eps) * weight) + bias``. Under a space axis
-  the sums of x and x^2 per (sample, group) are summed over the axis."""
+  ``(x - mean) * (rsqrt(var + eps) * weight) + bias`` in f32, cast once to
+  ``dtype`` (Flax's ``dtype=``; None, the default: the input's dtype
+  promoted with the f32 parameters'). Under a space axis the sums of x and
+  x^2 per (sample, group) are summed over the axis."""
 
   def __init__(self, num_groups: int, channels: int, eps: float = 1e-6):
     super().__init__()
@@ -277,6 +309,7 @@ class GroupNorm(nn.Module):
     self.eps = eps
     self.weight = nn.Parameter(torch.ones(channels))
     self.bias = nn.Parameter(torch.zeros(channels))
+    self.dtype = None
 
   def reset_parameters(self, generator: Optional[torch.Generator] = None):
     with torch.no_grad():
@@ -299,7 +332,8 @@ class GroupNorm(nn.Module):
     var = (mean2 - mean.square()).clamp_min(0.0)
     mul = torch.rsqrt(var + self.eps) * self.weight.reshape(g, c // g)
     y = (xg - mean) * mul + self.bias.reshape(g, c // g)
-    return y.reshape(n, h, w, c).to(x.dtype)
+    dtype = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+    return y.reshape(n, h, w, c).to(dtype)
 
 
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
@@ -323,16 +357,19 @@ def spatial_attention(q: torch.Tensor, k: torch.Tensor,
   """All-pairs spatial self-attention over an NHWC feature map.
 
   out[b,h,w,:] = sum_ij softmax_ij(q[b,h,w].k[b,i,j] / sqrt(C)) v[b,i,j],
-  with the softmax in f32. ``k`` and ``v`` may hold more rows than ``q``
-  (the whole image's, for a shard's queries)."""
+  with the softmax in f32. Both products sum in f32 (JAX's
+  ``preferred_element_type``) over q, k and v's values; the weights are
+  cast to v's dtype first and the output is in v's dtype. ``k`` and ``v``
+  may hold more rows than ``q`` (the whole image's, for a shard's
+  queries)."""
   b, h, w, c = q.shape
   q = q.reshape(b, h * w, c)
   k = k.reshape(b, -1, c)
   v = v.reshape(b, -1, c)
   logits = torch.bmm(q.float(), k.float().transpose(1, 2)) * (int(c) ** -0.5)
   weights = torch.softmax(logits, dim=-1)
-  out = torch.bmm(weights.to(v.dtype), v)
-  return out.reshape(b, h, w, c)
+  out = torch.bmm(weights.to(v.dtype).float(), v.float())
+  return out.reshape(b, h, w, c).to(v.dtype)
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -28,6 +28,19 @@ rows, sums and gathers as ``models/layers.py`` and ``ops/resample.py``
 say; ``last_fir_sites`` records the shard's shapes. The fused eval sites
 raise there.
 
+Compute dtype (``config.tpu.compute_dtype``, ``norm_dtype``; set on the
+modules by ``models/ncsnpp.py``): a fused site casts as the JAX package's
+does (``soft_truncation_tpu/models/layerspp.py:76-81``): the statistics
+come from ``h`` as it arrives, then ``h``, the conv's weight and its bias
+are cast to the conv's dtype, and the kernel runs in that dtype's mode
+(gamma and beta stay f32). A site takes the fused path in bf16 exactly
+where it does in f32 (``ops.gn_conv.fits`` does not depend on the dtype).
+With ``norm_dtype`` float32 a block's GroupNorm gives f32 from a bf16
+input, so its FIR sites see ``h`` in ``norm_dtype`` and the skip ``x`` in
+the compute dtype; ``ConvResample`` computes in its input's dtype with its
+weight rounded to its own, as JAX's ``upsample_conv_2d`` casts ``w`` to
+``x.dtype``.
+
 ``act_quant`` (``config.tpu.activation_dtype``) makes a block's convs
 ``ops.quant.QConv``s, through ``layers.ddpm_conv``, where the JAX package
 passes it; a fused site ignores it there and here (JAX's
@@ -79,12 +92,12 @@ def _fused_gn_silu_conv(block, h: torch.Tensor, norm: GroupNorm,
   """norm -> SiLU -> conv3x3 as one fused call; records the site's shape.
   No JAX path runs an eval forward under a space axis: there it raises."""
   spatial.refuse("the fused GroupNorm -> SiLU -> conv3x3 eval site")
-  h = h.contiguous()
   g = _groups(h.shape[-1])
-  mean, rsqrt = gn_stats(h, g, eps=norm.eps)
+  mean, rsqrt = gn_stats(h, g, eps=norm.eps)  # of h as it arrives
+  h = h.to(conv.dtype).contiguous()
   out = gn_silu_conv3x3(h, mean, rsqrt, norm.weight, norm.bias,
-                        conv.weight_hwio(), conv.bias, g,
-                        conv.weight_tf32_split() if h.is_cuda else None)
+                        conv.weight_hwio(), conv.bias.to(conv.dtype), g,
+                        conv.weight_operand() if h.is_cuda else None)
   n, hh, ww, c = h.shape
   block.last_fused_sites.append((hh, ww, c, out.shape[-1]))
   return out
@@ -179,6 +192,7 @@ class ConvResample(nn.Module):
     self.fir_kernel = tuple(fir_kernel)
     self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel))
     self.bias = nn.Parameter(torch.zeros(out_ch))
+    self.dtype = torch.float32  # the compute dtype (module docstring)
     self.reset_parameters()
 
   def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -188,12 +202,13 @@ class ConvResample(nn.Module):
       self.bias.zero_()
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    w = self.weight.permute(2, 3, 1, 0)  # HWIO view
+    # HWIO view, rounded to the compute dtype; the resample casts it to x's
+    w = self.weight.to(self.dtype).permute(2, 3, 1, 0)
     if self.up:
       x = upsample_conv_2d(x, w, k=self.fir_kernel)
     else:
       x = conv_downsample_2d(x, w, k=self.fir_kernel)
-    return x + self.bias
+    return x + self.bias.to(self.dtype)
 
 
 class Resample(nn.Module):

@@ -27,6 +27,18 @@ the output pyramid's convs and ``out_conv``; not the resampling convs, the
 combine conv or the NIN / Dense layers, and not the fused eval sites,
 which run ``gn_silu_conv3x3`` unquantized as JAX's do.
 
+``config.tpu.compute_dtype`` / ``norm_dtype`` ('float32' or 'bfloat16',
+``configs/base.py::tpu_dtype``): every conv, NIN, Dense and conv-resample
+computes in ``dtype`` (parameters stay f32 and are cast per call, or once
+per eval function by ``models/score.py::cast_params_for_eval``), and the
+fused sites run the kernels' matching mode; the res-blocks' and attention
+blocks' GroupNorms give ``norm_dtype``, the heads' (``pyr_norm_*``,
+``out_norm``) the promotion of their input with f32, as JAX's
+``nn.GroupNorm`` without ``dtype=``. The time embeddings are f32, the input
+and a residual input pyramid f32 (its conv-resamples compute in their
+input's dtype), ``scale_by_sigma`` divides by f32 sigmas; the output's dtype
+follows, as in JAX (bf16 for the flagship, f32 with ``scale_by_sigma``).
+
 ``config.tpu.remat`` checkpoints every res-block at train, as JAX's
 ``nn.remat`` wraps its block class: ``torch.utils.checkpoint`` without
 re-entry keeps a block's input and recomputes the rest in the backward
@@ -53,8 +65,9 @@ import torch.nn as nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..configs.base import tpu_dtype
 from . import layerspp
-from .layers import (Dense, GroupNorm, ddpm_conv, get_act,
+from .layers import (DDPMConv, Dense, GroupNorm, ddpm_conv, get_act,
                      get_timestep_embedding)
 from .registry import register_model
 
@@ -126,7 +139,9 @@ class NCSNpp(nn.Module):
                embedding_dim: int = 128, sigma_min: float = 0.01,
                sigma_max: float = 50.0, num_scales: int = 1000,
                centered: bool = True, act_quant: Optional[str] = None,
-               remat: bool = False, remat_policy: str = "full"):
+               remat: bool = False, remat_policy: str = "full",
+               dtype: torch.dtype = torch.float32,
+               norm_dtype: torch.dtype = torch.float32):
     super().__init__()
     if remat_policy not in REMAT_POLICIES:
       raise ValueError(f"unknown remat_policy {remat_policy!r}")
@@ -279,6 +294,19 @@ class NCSNpp(nn.Module):
       self.out_norm = GroupNorm(min(ch // 4, 32), ch)
       self.out_conv = ddpm_conv(ch, num_channels, 3, init_scale=init_scale,
                                 act_quant=act_quant)
+    self._set_dtypes(dtype, norm_dtype)
+
+  def _set_dtypes(self, dtype: torch.dtype, norm_dtype: torch.dtype) -> None:
+    """Each conv, NIN, Dense and conv-resample computes in ``dtype``; the
+    blocks' GroupNorms give ``norm_dtype``, the heads' keep None (module
+    docstring)."""
+    self.dtype, self.norm_dtype = dtype, norm_dtype
+    for name, m in self.named_modules():
+      if isinstance(m, (DDPMConv, Dense, layerspp.ConvResample)):
+        m.dtype = dtype
+      elif isinstance(m, GroupNorm) and not name.startswith(
+          ("pyr_norm_", "out_norm")):
+        m.dtype = norm_dtype
 
   def reset_parameters(self, generator: Optional[torch.Generator] = None):
     """Draw every parameter from ``generator`` in module order."""
@@ -427,4 +455,6 @@ class NCSNpp(nn.Module):
         sigma_max=m.sigma_max, num_scales=m.num_scales, centered=d.centered,
         act_quant=config.get("tpu", {}).get("activation_dtype", "") or None,
         remat=config.get("tpu", {}).get("remat", False),
-        remat_policy=config.get("tpu", {}).get("remat_policy", "full"))
+        remat_policy=config.get("tpu", {}).get("remat_policy", "full"),
+        dtype=getattr(torch, tpu_dtype(config, "compute_dtype")),
+        norm_dtype=getattr(torch, tpu_dtype(config, "norm_dtype")))

@@ -11,11 +11,18 @@ Counterpart of ``soft_truncation_tpu/models/score.py``:
   VE / reciprocal VE, continuous: labels = sigma(t) (the model embeds
     log sigma); discrete: labels = round((T-t)*(N-1)). The network's output
     is the score.
+
+A bf16 network (``config.tpu.compute_dtype``): at eval the network runs on
+parameters pre-cast once per eval function (:func:`cast_params_for_eval`);
+the score is promoted to f32 where JAX's is, by the per-example f32 std
+(``batch_mul``, never a 0-dim tensor, which torch would treat as a scalar
+and keep bf16) or, inside the network, by ``scale_by_sigma``; else it
+leaves in the network's output dtype, as in JAX.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -23,14 +30,42 @@ from ..sde.core import (SDE, VESDE, VPSDE, ReciprocalVESDE, SubVPSDE,
                         batch_mul)
 
 
+# parameter names whose modules compute in f32 whatever the model's compute
+# dtype: the GroupNorms (f32 statistics and affine), the Fourier time
+# embedding, the logsnr PosDense (the JAX package's _F32_PARAM_MARKERS);
+# every other leaf (the convs, NINs and Denses) is cast to it per call
+F32_PARAM_MARKERS = ("norm", "fourier", "logsnr", "pos_dense")
+
+
+def cast_params_for_eval(model) -> Optional[Dict[str, torch.Tensor]]:
+  """The counterpart of ``soft_truncation_tpu/models/score.py::
+  cast_params_for_eval``: for a model whose ``dtype`` is not f32, its f32
+  parameters whose names hold none of :data:`F32_PARAM_MARKERS`, cast once
+  to that dtype (detached), to run the network on
+  (``torch.func.functional_call``) in place of casting them on every call:
+  the convs see the same values, so no output bit changes. None for an f32
+  model or a callable that is not one (the exported program's network)."""
+  dtype = getattr(model, "dtype", torch.float32)
+  if not isinstance(model, torch.nn.Module) or dtype == torch.float32:
+    return None
+  return {name: p.detach().to(dtype) for name, p in model.named_parameters()
+          if p.dtype == torch.float32
+          and not any(m in name.lower() for m in F32_PARAM_MARKERS)}
+
+
 def get_model_fn(model, train: bool = False,
                  generator: Optional[torch.Generator] = None) -> Callable:
   """Raw network apply with the train/eval switch; at train the network's
-  dropout draws from ``generator``."""
+  dropout draws from ``generator``, at eval it runs on
+  :func:`cast_params_for_eval`'s parameters where there are any."""
+  cast = None if train else cast_params_for_eval(model)
 
   def model_fn(x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     if train:
       return model(x, labels, train=True, generator=generator)
+    if cast is not None:
+      return torch.func.functional_call(model, cast, (x, labels),
+                                        {"train": False})
     return model(x, labels, train=False)
 
   return model_fn

@@ -12,7 +12,10 @@ stream of a tensor's device.
 Each kernel is also an operator of the ``soft_truncation`` namespace
 (:func:`define_op`), so that ``torch.export`` and the compiler see it as one
 opaque node: a CPU implementation (the kernel's plain version), a CUDA one
-(the launch) and a fake one (the output's shape, dtype and device). Eager
+(the launch) and a fake one (the output's shape, dtype and device). The
+schemas' tensors take any dtype and the fakes return the input's, so a
+bf16 program traces with bf16 nodes and the kernels' checks decide what
+launches (f32 or bf16). Eager
 calls go through the operator too: ``PERF.md`` gives the dispatcher's cost
 per call on the card's host, a few microseconds.
 """

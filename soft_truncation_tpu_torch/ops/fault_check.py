@@ -259,6 +259,7 @@ def main(argv=None) -> int:
     return 2
   torch.backends.cudnn.allow_tf32 = False
   torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
   torch.backends.cudnn.deterministic = True
   if args.cmd == "forward-once":
     result = forward_once(args.ref)

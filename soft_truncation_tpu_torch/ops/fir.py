@@ -1,4 +1,5 @@
-"""2x FIR up/down-sampling (NHWC) for Hopper, with its adjoint.
+"""2x FIR up/down-sampling (NHWC) for Hopper, in float32 or bfloat16, with
+its adjoint.
 
 Counterpart of ``soft_truncation_tpu/ops/pallas/fir.py``: the separable
 polyphase resampler that ``ops/resample.py::upsample_2d`` /
@@ -9,6 +10,14 @@ the JAX package's ``_fir2_op``, computed on the host in float64 once per
 the kernel's tap table as a ready ctypes array: a call on the card touches
 no numpy. The resample itself is one hand-written CUDA kernel
 (``csrc/fir2.cu``) that sums over both axes in one pass.
+
+It takes f32 or bf16 ``x`` and returns the same dtype (a bf16 model's
+resamples, its adjoints and its tangents: ``config.tpu.compute_dtype``).
+In bf16 the taps and the sums stay f32 and the output is rounded once; the
+plain version computes in f32 from the bf16 input and rounds at the end,
+as the kernel does. The TPU kernel computes in ``x.dtype``, rounding after
+every tap, so a bf16 result differs from JAX's by a few bf16 ulps. Any
+other dtype raises.
 
 :func:`fir_upsample2` / :func:`fir_downsample2` launch the kernel for CUDA
 tensors and take the plain versions, :func:`fir_upsample2_plain` /
@@ -48,7 +57,9 @@ Each wrapper counts its forward launches in ``.launches`` and, per input
 (in the other mode) in ``.backward_launches`` and, per cotangent
 ``(H, W, C)``, in ``.backward_launches_by_shape``; its tangents'
 launches in ``.jvp_launches`` and, per tangent ``(H, W, C)``, in
-``.jvp_launches_by_shape``.
+``.jvp_launches_by_shape``. The bf16 launches of each kind are counted
+again in ``.bf16_launches``, ``.bf16_backward_launches`` and
+``.bf16_jvp_launches``.
 """
 
 from __future__ import annotations
@@ -206,10 +217,14 @@ def _down2_axis(x, k: np.ndarray, pad0: int, dim: int, M: int):
 
 
 def _fir2_plain(x, k, gain: float, mode: str, out_hw=None):
+  """The resample in f32 (from a bf16 ``x`` as well; f64 stays f64), in
+  ``x``'s dtype."""
   plan = _plan(_taps_key(k), float(gain), mode)
   oh, ow = _check(tuple(x.shape), plan, mode, out_hw)
   f = _up2_axis if mode == "up" else _down2_axis
-  return f(f(x, plan.taps, plan.pad0, 1, oh), plan.taps, plan.pad0, 2, ow)
+  xs = x.to(torch.promote_types(x.dtype, torch.float32))
+  out = f(f(xs, plan.taps, plan.pad0, 1, oh), plan.taps, plan.pad0, 2, ow)
+  return out.to(x.dtype)
 
 
 def fir_upsample2_plain(x, k: Sequence[float], gain: float = 1.0):
@@ -260,18 +275,19 @@ def _launch_args(k, gain: float, mode: str, shape: tuple, out_hw):
 
 
 def _launch(x, k, gain: float, mode: str, out_hw, device: torch.device):
-  """One launch of the fir2 kernel on the CUDA tensor ``x``."""
-  if x.dtype != torch.float32:
+  """One launch of the fir2 kernel on the CUDA tensor ``x``: its f32 or
+  its bf16 entry point."""
+  if x.dtype not in (torch.float32, torch.bfloat16):
     raise NotImplementedError(
-        f"the fir2 kernel takes float32 only (x is {x.dtype}); bfloat16 "
-        "is listed in ROADMAP.md Queue 2")
+        f"the fir2 kernel takes float32 or bfloat16, not {x.dtype}")
   if not x.is_contiguous():
     raise ValueError("x must be contiguous")
   out_shape, args = _launch_args(k, gain, mode, tuple(x.shape), out_hw)
   out = x.new_empty(out_shape)
-  vec = 4 if out_shape[3] % 4 == 0 and x.data_ptr() % 16 == 0 else 1
-  err = launch(_kernel_fn(), device, x.data_ptr(), out.data_ptr(),
-               ctypes.addressof(args), vec)
+  vec = 4 if (out_shape[3] % 4 == 0
+              and x.data_ptr() % (4 * x.element_size()) == 0) else 1
+  err = launch(_kernel_fn(x.dtype == torch.bfloat16), device, x.data_ptr(),
+               out.data_ptr(), ctypes.addressof(args), vec)
   if err != 0:
     raise RuntimeError(f"fir2 launch failed: cudaError {err}")
   return out
@@ -294,6 +310,8 @@ def _resample_cuda(x, k, gain: float, mode: str, wrapper, tally: str,
   out = _launch(x, k, gain, mode, out_hw, x.device)
   total, by_shape = _TALLIES[tally]
   setattr(wrapper, total, getattr(wrapper, total) + 1)
+  if x.dtype == torch.bfloat16:
+    setattr(wrapper, f"bf16_{total}", getattr(wrapper, f"bf16_{total}") + 1)
   _count(getattr(wrapper, by_shape), tuple(x.shape[1:]))
   return out
 
@@ -420,7 +438,7 @@ def _fir2(x, k, gain: float, mode: str, wrapper):
 
 
 def fir_upsample2(x, k: Sequence[float], gain: float = 1.0):
-  """2x FIR upsample of NHWC float32 ``x`` with the separable kernel ``k``
+  """2x FIR upsample of NHWC f32 or bf16 ``x`` with the separable kernel ``k``
   (1-D, <= 8 taps): [N, H, W, C] -> [N, 2H, 2W, C]. A CUDA tensor launches
   the kernel; a CPU tensor takes :func:`fir_upsample2_plain`.
   Differentiable in both modes: the backward is the exact adjoint, the
@@ -429,7 +447,7 @@ def fir_upsample2(x, k: Sequence[float], gain: float = 1.0):
 
 
 def fir_downsample2(x, k: Sequence[float], gain: float = 1.0):
-  """2x FIR downsample of NHWC float32 ``x`` with the separable kernel
+  """2x FIR downsample of NHWC f32 or bf16 ``x`` with the separable kernel
   ``k`` (1-D, <= 8 taps): [N, H, W, C] -> [N, H/2, W/2, C] for even sizes.
   A CUDA tensor launches the kernel; a CPU tensor takes
   :func:`fir_downsample2_plain`. Differentiable in both modes, as
@@ -438,11 +456,12 @@ def fir_downsample2(x, k: Sequence[float], gain: float = 1.0):
 
 
 def reset_launch_counts() -> None:
-  """Set both wrappers' launch counts (forward, backward and tangent, total
-  and per shape) to zero."""
+  """Set both wrappers' launch counts (forward, backward and tangent, total,
+  bf16 and per shape) to zero."""
   for wrapper in (fir_upsample2, fir_downsample2):
     for total, by_shape in _TALLIES.values():
       setattr(wrapper, total, 0)
+      setattr(wrapper, f"bf16_{total}", 0)
       setattr(wrapper, by_shape, {})
 
 
@@ -450,8 +469,9 @@ reset_launch_counts()
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
-  fn = load_library(_KERNEL).fir2_f32
+def _kernel_fn(bf16: bool = False):
+  lib = load_library(_KERNEL)
+  fn = lib.fir2_bf16 if bf16 else lib.fir2_f32
   fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
   fn.restype = ctypes.c_int
   return fn

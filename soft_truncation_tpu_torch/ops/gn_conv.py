@@ -1,17 +1,25 @@
-"""Fused GroupNorm-apply + SiLU + 3x3 conv (NHWC), for Hopper, with its
-forward-mode derivative.
+"""Fused GroupNorm-apply + SiLU + 3x3 conv (NHWC), for Hopper, in float32
+or bfloat16, with its forward-mode derivative.
 
 Counterpart of ``soft_truncation_tpu/ops/pallas/gn_conv.py``. The GroupNorm
 statistics (:func:`gn_stats`) stay plain torch ops, as the JAX package
 leaves them to XLA; the rest, ``conv3x3(SiLU(x*scale + shift), zero pad) +
 b`` with the fold of stats and affine into ``scale, shift``, is one
 hand-written CUDA kernel (``csrc/gn_silu_conv3x3.cu``): an implicit GEMM on
-the tensor cores in 3xTF32, with split-K where the tiles alone would leave
-SMs idle. The normalised slab never reaches device memory.
+the tensor cores, in 3xTF32 for f32 inputs and in one bf16 product for
+bf16 ones, with split-K where the tiles alone would leave SMs idle. The
+normalised slab never reaches device memory.
+
+bfloat16 (``config.tpu.compute_dtype``): x, w and b in bf16, as the JAX
+package's fused site casts them, the statistics, gamma and beta in f32.
+The fold and SiLU run in f32 and are rounded once to bf16 before the
+products (the TPU kernel rounds SiLU to ``w.dtype``), the sums stay f32,
+the bias is added in f32 and the output is rounded to bf16 at the store;
+the plain versions round at the same places. Any other dtype raises.
 
 :func:`gn_silu_conv3x3` launches the kernel for CUDA tensors and takes the
 plain version, :func:`gn_silu_conv3x3_plain`, only for CPU tensors. The
-kernel's tiling (:func:`launch_plan`) and its operand split
+kernel's tiling (:func:`launch_plan`) and its weight operand
 (:func:`tf32_split`, :func:`weight_operand`) are plain Python here, so the
 CPU tests can replay its arithmetic.
 
@@ -104,11 +112,14 @@ def gn_silu_conv3x3_plain(x, mean, rsqrt, gamma, beta, w, b,
   """Plain torch version: GroupNorm apply, SiLU, zero pad, conv2d.
 
   Same arguments and result as :func:`gn_silu_conv3x3`. The CPU path of
-  the model and the reference the kernel is held against on the card."""
+  the model and the reference the kernel is held against on the card.
+  Computed in f32; SiLU is rounded to ``w``'s dtype before the conv and
+  the output to ``x``'s, where the kernel rounds (bf16: once each)."""
   _check(x, mean, rsqrt, gamma, beta, w, b, groups)
   scale, shift = _fold(mean, rsqrt, gamma, beta, groups)
   act = F.silu(x.float() * scale[:, None, None, :] + shift[:, None, None, :])
-  act = F.pad(act.permute(0, 3, 1, 2), (1, 1, 1, 1))  # NCHW, zeros
+  act = F.pad(act.to(w.dtype).float().permute(0, 3, 1, 2),
+              (1, 1, 1, 1))  # NCHW, zeros
   out = F.conv2d(act, w.float().permute(3, 2, 0, 1), b.float())
   return out.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
@@ -133,8 +144,10 @@ def gn_silu_conv3x3_jvp_plain(x, dx, mean, dmean, rsqrt, drsqrt, gamma,
   ``a = x*scale + shift``, ``da = dx*scale + x*dscale + dshift``,
   ``dscale = drsqrt_g * gamma``, ``dshift = -(dmean_g*scale +
   mean_g*dscale)`` and ``SiLU'(a) = s(1 + a(1 - s))``, s = sigmoid(a).
-  Written out from that formula; the CPU path of the tangent and the
-  reference the tangent kernel is held against on the card."""
+  Written out from that formula, in f32, with ``SiLU'(a) * da`` rounded to
+  ``w``'s dtype and the output to ``x``'s (bf16: the tangent of the bf16
+  primal chain); the CPU path of the tangent and the reference the tangent
+  kernel is held against on the card."""
   _check(x, mean, rsqrt, gamma, beta, w, w.new_empty(w.shape[-1]), groups)
   _check_tangents(x, dx, dmean, drsqrt, groups)
   scale, shift = _fold(mean, rsqrt, gamma, beta, groups)
@@ -151,8 +164,8 @@ def gn_silu_conv3x3_jvp_plain(x, dx, mean, dmean, rsqrt, drsqrt, gamma,
   da = (dx.float() * per_channel(scale) + xf * per_channel(dscale)
         + per_channel(dshift))
   s = torch.sigmoid(a)
-  act = F.pad((s * (1.0 + a * (1.0 - s)) * da).permute(0, 3, 1, 2),
-              (1, 1, 1, 1))
+  act = F.pad((s * (1.0 + a * (1.0 - s)) * da).to(w.dtype).float()
+              .permute(0, 3, 1, 2), (1, 1, 1, 1))
   out = F.conv2d(act, w.float().permute(3, 2, 0, 1))
   return out.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
@@ -170,9 +183,26 @@ class LaunchPlan(NamedTuple):
   smem: int     # dynamic shared memory, bytes
 
 
+def smem_bytes(hp: int, cp: int, slots: int, groups: int, streams: int,
+               bf16: bool = False) -> int:
+  """The kernel's dynamic shared memory for ``hp`` halo pixels (the
+  ``.cu``'s ``smem_bytes``): the raw halo ring(s) of x's dtype, the
+  activated tile (f32: tf32 hi and lo; bf16: one, rows of BK + 8), the B
+  ring (f32: hi and lo [BK][BN + 8]; bf16: [BN][BK + 8]), then gamma,
+  beta, the stats and the row offsets in 4-byte words."""
+  if bf16:
+    tiles = 2 * 2 * streams * hp * BK + 2 * (hp + 1) * (BK + 8) + (
+        2 * 2 * BN * (BK + 8))
+  else:
+    tiles = 4 * (2 * streams * hp * BK + 2 * (hp + 1) * (BK + 4)
+                 + 4 * BK * (BN + 8))
+  return tiles + 4 * (2 * cp + 2 * streams * slots * groups + 3 * BM)
+
+
 @functools.lru_cache(maxsize=None)
 def launch_plan(n: int, h: int, w: int, c: int, o: int, groups: int,
-                sms: int = H100_SMS, tangent: bool = False) -> LaunchPlan:
+                sms: int = H100_SMS, tangent: bool = False,
+                bf16: bool = False) -> LaunchPlan:
   """The kernel's grid for one shape: blocks of BM // W whole pixel rows
   (flattened across images) x BN output channels and, where they are
   fewer than the blocks the SMs hold at once (BLOCKS_PER_SM each, fewer
@@ -180,17 +210,16 @@ def launch_plan(n: int, h: int, w: int, c: int, o: int, groups: int,
   chunks so that about that many blocks run, in one wave. Split s takes
   chunks [s * chunks // S, (s + 1) * chunks // S), all 9 taps of each.
   The tangent mode stages the halo rows of x and of its tangent, and the
-  stats' tangents: twice the raw A tile and twice the stats."""
+  stats' tangents: twice the raw A tile and twice the stats. The bf16 mode
+  stages half the bytes (:func:`smem_bytes`), so more blocks may fit an SM
+  and its splits may differ from the f32 plan's."""
   cp, op = _padded(c, o)
   rows = BM // w
   tiles = -(-(n * h) // rows) * (op // BN)
   chunks = cp // BK
   slots = min(n, -(-(rows + 2) // h) + 1)
   hp = (rows + 2) * (w + 2)  # halo pixels
-  streams = 2 if tangent else 1
-  smem = 4 * (2 * streams * hp * BK + 2 * (hp + 1) * (BK + 4)
-              + 4 * BK * (BN + 8) + 2 * cp + 2 * streams * slots * groups
-              + 3 * BM)
+  smem = smem_bytes(hp, cp, slots, groups, 2 if tangent else 1, bf16)
   resident = max(1, min(BLOCKS_PER_SM, _SM_SMEM // (smem + 1024)))
   splits = max(1, min(round(resident * sms / tiles), chunks))
   return LaunchPlan(cp, op, n * h * w, rows,
@@ -201,7 +230,10 @@ def launch_plan(n: int, h: int, w: int, c: int, o: int, groups: int,
 def fits(n: int, h: int, w: int, c: int, o: int, groups: int) -> bool:
   """Whether the kernel takes this shape in both modes: rows of at most BM
   pixels, and each mode's tile within a block's shared memory. The
-  models route any other site to the plain chain, decided per shape."""
+  models route any other site to the plain chain, decided per shape. The
+  answer holds for both dtypes: the bf16 tiles are smaller than the f32
+  ones and take the same C (a multiple of 4), so a site's route does not
+  depend on the compute dtype."""
   return w <= BM and all(
       launch_plan(n, h, w, c, o, groups, tangent=tangent).smem <= _MAX_SMEM
       for tangent in (False, True))
@@ -226,50 +258,67 @@ def _padded(c: int, o: int):
 
 
 def weight_operand(w: torch.Tensor):
-  """The HWIO weights as the kernel reads them: [9*Cp, Op] (tap-major rows
-  of Cp channels, zero padding), split into TF32 ``(hi, lo)``. A caller
-  that launches the kernel on one weight value many times computes this
-  once and passes it as ``w_split`` (``DDPMConv.weight_tf32_split``)."""
+  """The HWIO weights as the kernel reads them: for f32 ``w``, [9*Cp, Op]
+  (tap-major rows of Cp channels, zero padding) split into TF32
+  ``(hi, lo)``; for bf16 ``w``, the one tensor ``(wt,)``, the same values
+  as bf16 [Op, 9*Cp] (output channel major, K contiguous). A caller that
+  launches the kernel on one weight value many times computes this once
+  and passes it as ``w_split`` (``DDPMConv.weight_operand``)."""
   c, o = w.shape[2], w.shape[3]
   cp, op = _padded(c, o)
-  wp = w.new_zeros((9, cp, op), dtype=torch.float32)
+  wp = w.new_zeros((9, cp, op), dtype=_kernel_dtype(w.dtype, "w"))
   wp[:, :c, :o] = w.reshape(9, c, o)
+  if wp.dtype == torch.bfloat16:
+    return (wp.reshape(9 * cp, op).t().contiguous(),)
   return tf32_split(wp.reshape(9 * cp, op))
 
 
+def _kernel_dtype(dtype: torch.dtype, name: str) -> torch.dtype:
+  """``dtype`` if the kernel has a mode for it (f32, bf16), else raise."""
+  if dtype not in (torch.float32, torch.bfloat16):
+    raise NotImplementedError(f"the gn_silu_conv3x3 kernel takes float32 or "
+                              f"bfloat16, not {dtype} ({name})")
+  return dtype
+
+
 def _kernel_operands(name, x, tensors, w, groups, w_split, tangent):
-  """Check what the kernel takes (f32, contiguous, 16-byte chunks of x, W,
-  shared memory) and return its launch plan and weight operand."""
+  """Check what the kernel takes (f32 or bf16 x and weights, f32 affine;
+  contiguous; 4-channel chunks of x; W; shared memory) and return its
+  launch plan and weight operand (``w_lo`` None in bf16)."""
+  dtype = _kernel_dtype(x.dtype, "x")
   for tname, t in tensors:
-    if t.dtype != torch.float32:
-      raise NotImplementedError(
-          f"{name} kernel takes float32 only ({tname} is {t.dtype}); "
-          f"bfloat16 is listed in ROADMAP.md Queue 2")
+    want = torch.float32 if tname in ("gamma", "beta") else dtype
+    if t.dtype != want:
+      raise NotImplementedError(f"the {name} kernel's {dtype} mode takes "
+                                f"{tname} in {want}, not {t.dtype}")
     if not t.is_contiguous():
       raise ValueError(f"{tname} must be contiguous")
   n, h, wd, c = x.shape
   o = w.shape[-1]
-  if c % 4 or any(t.data_ptr() % 16 for tname, t in tensors
-                  if tname in ("x", "dx")):
-    raise NotImplementedError(f"the {name} kernel copies 16-byte chunks: "
+  if c % 4 or any(t.data_ptr() % (4 * t.element_size())
+                  for tname, t in tensors if tname in ("x", "dx")):
+    raise NotImplementedError(f"the {name} kernel copies 4-channel chunks: "
                               f"C = {c} must be a multiple of 4 and x (and "
-                              f"dx) 16-byte aligned")
+                              f"dx) aligned to 4 elements")
   if wd > BM:
     raise NotImplementedError(f"the {name} kernel takes rows of at most "
                               f"{BM} pixels, not W = {wd}")
-  plan = launch_plan(n, h, wd, c, o, groups, _sms(x.device), tangent)
+  bf16 = dtype == torch.bfloat16
+  plan = launch_plan(n, h, wd, c, o, groups, _sms(x.device), tangent, bf16)
   if plan.smem > _MAX_SMEM:
     raise NotImplementedError(f"{name}: a tile of {plan.rows} rows of {wd} "
                               f"pixels, {c} channels and {groups} groups "
                               f"exceeds shared memory")
   if w_split is None:
     w_split = weight_operand(w)
-  w_hi, w_lo = w_split
-  if (w_hi.shape != (9 * plan.cp, plan.op) or w_lo.shape != w_hi.shape
-      or w_hi.device != x.device or w_lo.device != x.device):
-    raise ValueError(f"w_split must be two [{9 * plan.cp}, {plan.op}] "
-                     f"tensors on {x.device}, from weight_operand(w)")
-  return plan, w_hi, w_lo
+  shape = (plan.op, 9 * plan.cp) if bf16 else (9 * plan.cp, plan.op)
+  if (len(w_split) != (1 if bf16 else 2)
+      or any(t.shape != shape or t.dtype != dtype or t.device != x.device
+             for t in w_split)):
+    raise ValueError(f"w_split must be {'one' if bf16 else 'two'} {dtype} "
+                     f"{list(shape)} tensor(s) on {x.device}, from "
+                     f"weight_operand(w)")
+  return plan, w_split[0], None if bf16 else w_split[1]
 
 
 def _count(counts: dict, key) -> None:
@@ -288,21 +337,45 @@ def _primal_cuda(x, mean, rsqrt, gamma, beta, w, b, groups: int, w_split):
   mean = mean.float().contiguous()
   rsqrt = rsqrt.float().contiguous()
   out = x.new_empty((n, h, wd, o))
-  ws = x.new_empty((plan.splits, plan.m, o)) if plan.splits > 1 else None
-  err = launch(_kernel_fn(), x.device, x.data_ptr(), mean.data_ptr(),
+  ws = _workspace(x, plan, o)
+  bf16 = x.dtype == torch.bfloat16
+  err = launch(_kernel_fn(bf16), x.device, x.data_ptr(), mean.data_ptr(),
                rsqrt.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-               w_hi.data_ptr(), w_lo.data_ptr(), b.data_ptr(), out.data_ptr(),
-               0 if ws is None else ws.data_ptr(), n, h, wd, c, o, groups,
-               plan.cp, plan.op, plan.rows, plan.splits, plan.slots)
+               w_hi.data_ptr(), _ptr(w_lo), b.data_ptr(), out.data_ptr(),
+               _ptr(ws), n, h, wd, c, o, groups, plan.cp, plan.op, plan.rows,
+               plan.splits, plan.slots)
   if err != 0:
     raise RuntimeError(f"gn_silu_conv3x3 launch failed: cudaError {err}")
   gn_silu_conv3x3.launches += 1
+  gn_silu_conv3x3.bf16_launches += bf16
   _count(gn_silu_conv3x3.launches_by_shape, (h, wd, c, o))
   return out
 
 
+def _workspace(x, plan: LaunchPlan, o: int):
+  """The split-K partial sums' f32 workspace, or None without split-K."""
+  if plan.splits == 1:
+    return None
+  return x.new_empty((plan.splits, plan.m, o), dtype=torch.float32)
+
+
+def _ptr(t) -> int:
+  return 0 if t is None else t.data_ptr()
+
+
 def _split_pair(w_hi, w_lo):
-  return None if w_hi is None else (w_hi, w_lo)
+  """The operator's two optional weight tensors as ``w_split``: (hi, lo)
+  in f32, (wt,) in bf16 (``w_lo`` None)."""
+  if w_hi is None:
+    return None
+  return (w_hi,) if w_lo is None else (w_hi, w_lo)
+
+
+def _split_args(w_split):
+  """``w_split`` as the operator's ``(w_hi, w_lo)``."""
+  if w_split is None:
+    return None, None
+  return tuple(w_split) + (None,) * (2 - len(w_split))
 
 
 def _fake_out(x, w):
@@ -336,8 +409,7 @@ def _primal(x, mean, rsqrt, gamma, beta, w, b, groups: int, w_split):
   """The operator: the plain version for a CPU tensor, one launch for a
   CUDA tensor, an opaque node while tracing."""
   _on_cpu_or_cuda(x)
-  w_hi, w_lo = w_split if w_split is not None else (None, None)
-  return _OP(x, mean, rsqrt, gamma, beta, w, b, groups, w_hi, w_lo)
+  return _OP(x, mean, rsqrt, gamma, beta, w, b, groups, *_split_args(w_split))
 
 
 def _jvp_cuda(x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, w,
@@ -354,17 +426,18 @@ def _jvp_cuda(x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, w,
   o = w.shape[-1]
   stats = [t.float().contiguous() for t in (mean, dmean, rsqrt, drsqrt)]
   out = x.new_empty((n, h, wd, o))
-  ws = x.new_empty((plan.splits, plan.m, o)) if plan.splits > 1 else None
-  err = launch(_jvp_kernel_fn(), x.device, x.data_ptr(), dx.data_ptr(),
+  ws = _workspace(x, plan, o)
+  bf16 = x.dtype == torch.bfloat16
+  err = launch(_jvp_kernel_fn(bf16), x.device, x.data_ptr(), dx.data_ptr(),
                *(t.data_ptr() for t in stats), gamma.data_ptr(),
-               beta.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(),
-               out.data_ptr(), 0 if ws is None else ws.data_ptr(), n, h, wd,
-               c, o, groups, plan.cp, plan.op, plan.rows, plan.splits,
-               plan.slots)
+               beta.data_ptr(), w_hi.data_ptr(), _ptr(w_lo), out.data_ptr(),
+               _ptr(ws), n, h, wd, c, o, groups, plan.cp, plan.op, plan.rows,
+               plan.splits, plan.slots)
   if err != 0:
     raise RuntimeError(f"gn_silu_conv3x3 tangent launch failed: cudaError "
                        f"{err}")
   gn_silu_conv3x3.jvp_launches += 1
+  gn_silu_conv3x3.bf16_jvp_launches += bf16
   _count(gn_silu_conv3x3.jvp_launches_by_shape, (h, wd, c, o))
   return out
 
@@ -395,15 +468,15 @@ def gn_silu_conv3x3_jvp(x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, w,
   """The tangent of :func:`gn_silu_conv3x3` (see
   :func:`gn_silu_conv3x3_jvp_plain`): a CUDA tensor launches the kernel in
   its tangent mode and counts the launch in
-  ``gn_silu_conv3x3.jvp_launches`` and, per ``(H, W, C, O)``, in
+  ``gn_silu_conv3x3.jvp_launches`` (a bf16 one also in
+  ``.bf16_jvp_launches``) and, per ``(H, W, C, O)``, in
   ``gn_silu_conv3x3.jvp_launches_by_shape``; a CPU tensor takes the plain
   version (both through the operator
   ``soft_truncation::gn_silu_conv3x3_jvp``). ``w_split`` as for
   :func:`gn_silu_conv3x3`."""
   _on_cpu_or_cuda(x)
-  w_hi, w_lo = w_split if w_split is not None else (None, None)
   return _JVP_OP(x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, w, groups,
-                 w_hi, w_lo)
+                 *_split_args(w_split))
 
 
 class _GnSiluConv3x3(torch.autograd.Function):
@@ -446,9 +519,11 @@ def gn_silu_conv3x3(x, mean, rsqrt, gamma, beta, w, b, groups: int = 32,
 
   x: [N, H, W, C]; mean/rsqrt: [N, G] per-(sample, group) statistics
   (rsqrt = 1/sqrt(var + eps)); gamma/beta: [C]; w: [3, 3, C, O]; b: [O].
+  x, w and b in f32 or all three in bf16 (mean, rsqrt, gamma and beta f32).
   Returns [N, H, W, O] in x's dtype. A CUDA tensor launches the kernel
-  and counts the launch in ``gn_silu_conv3x3.launches`` and, per
-  ``(H, W, C, O)``, in ``gn_silu_conv3x3.launches_by_shape``; a CPU tensor
+  and counts the launch in ``gn_silu_conv3x3.launches`` (a bf16 one also
+  in ``.bf16_launches``) and, per ``(H, W, C, O)``, in
+  ``gn_silu_conv3x3.launches_by_shape``; a CPU tensor
   takes the plain version (both through the operator
   ``soft_truncation::gn_silu_conv3x3``, which ``torch.export`` keeps as one
   node). Forward and forward mode only: under
@@ -464,11 +539,13 @@ def gn_silu_conv3x3(x, mean, rsqrt, gamma, beta, w, b, groups: int = 32,
 
 
 def reset_launch_counts() -> None:
-  """Set the kernel's launch counts, primal and tangent (total and per
-  shape), to zero."""
+  """Set the kernel's launch counts, primal and tangent (total, bf16 and
+  per shape), to zero."""
   gn_silu_conv3x3.launches = 0
+  gn_silu_conv3x3.bf16_launches = 0
   gn_silu_conv3x3.launches_by_shape = {}
   gn_silu_conv3x3.jvp_launches = 0
+  gn_silu_conv3x3.bf16_jvp_launches = 0
   gn_silu_conv3x3.jvp_launches_by_shape = {}
 
 
@@ -481,8 +558,9 @@ def _sms(device: torch.device) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
-  fn = load_library(_KERNEL).gn_silu_conv3x3_tf32x3
+def _kernel_fn(bf16: bool = False):
+  lib = load_library(_KERNEL)
+  fn = lib.gn_silu_conv3x3_bf16 if bf16 else lib.gn_silu_conv3x3_tf32x3
   fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
                  + [ctypes.c_void_p])
   fn.restype = ctypes.c_int
@@ -490,8 +568,10 @@ def _kernel_fn():
 
 
 @functools.lru_cache(maxsize=None)
-def _jvp_kernel_fn():
-  fn = load_library(_KERNEL).gn_silu_conv3x3_jvp_tf32x3
+def _jvp_kernel_fn(bf16: bool = False):
+  lib = load_library(_KERNEL)
+  fn = (lib.gn_silu_conv3x3_jvp_bf16 if bf16
+        else lib.gn_silu_conv3x3_jvp_tf32x3)
   fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 11
                  + [ctypes.c_void_p])
   fn.restype = ctypes.c_int

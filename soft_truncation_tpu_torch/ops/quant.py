@@ -9,7 +9,11 @@ the upcast e4m3 copy. Weights, biases, norms and the optimizer stay f32.
 
 The convolutions themselves are ``torch.nn.functional.conv2d`` and its
 ``torch.nn.grad`` helpers, as the JAX package's are ``lax.conv`` outside
-any Pallas call; run them in f32 with TF32 off, as the rest of the port.
+any Pallas call; run them in f32 with TF32 off, as the rest of the port,
+or in the compute dtype (``config.tpu.compute_dtype`` = 'bfloat16'): as
+the JAX package's ``fp8_conv(..., compute_dtype)``, the input and weight
+come in that dtype, the e4m3 copy is upcast to it, the output and both
+gradients are in it, and dx reads the e5m2-rounded cotangent in it.
 
 :func:`round_e4m3` / :func:`round_e5m2` round f32 to the nearest value of
 the 8-bit format (ties to even) and return it in f32, as ml_dtypes'
@@ -119,7 +123,8 @@ class _Fp8Conv(torch.autograd.Function):
 
   @staticmethod
   def forward(ctx, x, w, stride, pads):
-    x8 = round_e4m3(x)
+    # x and w in the compute dtype; e4m3's values are exact in f32 and bf16
+    x8 = round_e4m3(x.float()).to(x.dtype)
     ctx.stride, ctx.pads, ctx.x_shape = stride, pads, x.shape
     # the values are e4m3's (NaN past its range), so this cast is exact
     ctx.save_for_backward(x8.to(torch.float8_e4m3fn), w)
@@ -128,10 +133,11 @@ class _Fp8Conv(torch.autograd.Function):
   @staticmethod
   def backward(ctx, g):
     x8, w = ctx.saved_tensors
-    xp = F.pad(x8.float(), ctx.pads)
+    xp = F.pad(x8.to(w.dtype), ctx.pads)
     dx = dw = None
     if ctx.needs_input_grad[0]:
-      dxp = torch.nn.grad.conv2d_input(xp.shape, w, round_e5m2(g),
+      dxp = torch.nn.grad.conv2d_input(xp.shape, w,
+                                       round_e5m2(g.float()).to(g.dtype),
                                        stride=ctx.stride)
       left, right, top, bottom = ctx.pads
       h, w_ = ctx.x_shape[-2:]
@@ -147,7 +153,9 @@ def fp8_conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
 
   The forward convolves ``round_e4m3(x)``; the backward gives dx from the
   e5m2-rounded cotangent and dw from the raw cotangent against the saved
-  e4m3 copy, as the JAX package's ``fp8_conv`` custom VJP does."""
+  e4m3 copy, as the JAX package's ``fp8_conv`` custom VJP does. ``x`` and
+  ``w`` come in one dtype, the compute dtype (f32 or bf16), which the
+  output and the gradients take."""
   xc = x.permute(0, 3, 1, 2)
   pads = _pads(padding, xc.shape[-2:], w.shape[-2:], stride)
   return _Fp8Conv.apply(xc, w, stride, pads).permute(0, 2, 3, 1)
@@ -170,4 +178,5 @@ class QConv(DDPMConv):
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     spatial.refuse("an fp8 conv (tpu.activation_dtype)")
     padding = ((0, 1), (0, 1)) if self.stride == 2 else "SAME"
-    return fp8_conv(x, self.weight, self.stride, padding) + self.bias
+    w, b = self.compute_params()
+    return fp8_conv(x.to(self.dtype), w, self.stride, padding) + b

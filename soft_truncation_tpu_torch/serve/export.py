@@ -30,6 +30,14 @@ operands (``operands``: the HWIO weight and its TF32 hi / lo split) as
 inputs, which :class:`ExportedScore` prepares once per params load, so
 one artifact serves every checkpoint with the same parameter tree.
 
+A bf16 model (``config.tpu.compute_dtype``): the parameters that
+``models/score.py::cast_params_for_eval`` casts are inputs in bf16, cast
+once per params load (the meta names them, under ``cast_params``, and the
+dtype, under ``compute_dtype``), so the graph holds no cast of them; each
+fused conv's operands are its bf16 HWIO weight and the kernel's one bf16
+operand, and the operator nodes run the kernels' bf16 modes. The replay
+takes and returns what the live service does.
+
 Artifact = one file::
 
     STTORCH1 | u32 meta length | meta JSON (utf-8) | torch.export payloads
@@ -127,13 +135,16 @@ class Program(NamedTuple):
 class Exported(NamedTuple):
   """What :func:`export_sampler` returns and :func:`load_artifact` reads:
   the programs by name, their specs, the state_dict names they take (in
-  order) and the convs whose weight operands they take after them."""
+  order) and the convs whose weight operands they take after them, and
+  the compute dtype with the names of the inputs pre-cast to it."""
   programs: Dict[str, Any]   # name -> torch.export.ExportedProgram
   specs: Tuple[Program, ...]
   params: Tuple[str, ...]
   operands: Tuple[str, ...]
   device_type: str
   num_devices: int = 1  # the ranks the batch is split over
+  compute_dtype: str = "float32"
+  cast: Tuple[str, ...] = ()
 
 
 def _methods_continuous(config) -> Dict[str, bool]:
@@ -178,11 +189,29 @@ def operand_convs(model) -> List[str]:
   return names
 
 
-def conv_operands(weight: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-  """(hwio, hi, lo) of an OIHW conv weight, as ``DDPMConv`` derives them
-  for the fused kernel (``weight_hwio``, ``weight_tf32_split``)."""
-  hwio = weight.detach().permute(2, 3, 1, 0).contiguous()
+def conv_operands(weight: torch.Tensor,
+                  dtype: torch.dtype = torch.float32
+                  ) -> Tuple[torch.Tensor, ...]:
+  """The HWIO weight in ``dtype`` and the kernel's operand of it (f32: hi
+  and lo; bf16: one tensor) of an OIHW conv weight, as ``DDPMConv``
+  derives them for the fused kernel (``weight_hwio``,
+  ``weight_operand``)."""
+  hwio = weight.detach().to(dtype).permute(2, 3, 1, 0).contiguous()
   return (hwio,) + tuple(weight_operand(hwio))
+
+
+def operands_per_conv(dtype: torch.dtype) -> int:
+  """How many inputs :func:`conv_operands` gives per conv."""
+  return 2 if dtype == torch.bfloat16 else 3
+
+
+def program_inputs(state: Dict[str, torch.Tensor], names, convs,
+                   dtype: torch.dtype, cast) -> List[torch.Tensor]:
+  """The programs' weight inputs from a state_dict: its tensors ``names``,
+  those in ``cast`` cast to ``dtype``, then each of ``convs``' operands."""
+  cast = set(cast)
+  return [state[n].to(dtype) if n in cast else state[n] for n in names] + [
+      t for c in convs for t in conv_operands(state[f"{c}.weight"], dtype)]
 
 
 class _ScoreProgram(torch.nn.Module):
@@ -197,6 +226,8 @@ class _ScoreProgram(torch.nn.Module):
     self._config, self._sde = config, sde
     self.names, self.convs = list(names), list(convs)
     self._continuous = continuous
+    self._per_conv = operands_per_conv(getattr(model, "dtype",
+                                               torch.float32))
 
   def forward(self, x, t, *tensors):
     from ..models.score import get_score_fn
@@ -204,9 +235,10 @@ class _ScoreProgram(torch.nn.Module):
     k = len(self.names)
     state = dict(zip(self.names, tensors[:k]))
     convs = [model.get_submodule(name) for name in self.convs]
+    per = self._per_conv
     for i, conv in enumerate(convs):
-      hwio, hi, lo = tensors[k + 3 * i:k + 3 * i + 3]
-      conv.traced_operands = {"hwio": hwio, "tf32_split": (hi, lo)}
+      hwio, *operand = tensors[k + per * i:k + per * (i + 1)]
+      conv.traced_operands = {"hwio": hwio, "operand": tuple(operand)}
 
     def network(x, labels, train=False):
       return torch.func.functional_call(model, state, (x, labels),
@@ -276,8 +308,10 @@ def export_sampler(config, params: Dict[str, torch.Tensor],
   state = model.state_dict()
   any_program = next(iter(programs.values()))
   names, convs = tuple(any_program.names), tuple(any_program.convs)
-  tensors = [state[n] for n in names] + [
-      t for c in convs for t in conv_operands(state[f"{c}.weight"])]
+  from ..models.score import cast_params_for_eval
+  dtype = getattr(model, "dtype", torch.float32)  # the legacy networks: f32
+  cast = tuple(sorted(cast_params_for_eval(model) or ()))
+  tensors = program_inputs(state, names, convs, dtype, cast)
   device = tensors[0].device
   exported = {}
   with torch.no_grad():
@@ -288,7 +322,8 @@ def export_sampler(config, params: Dict[str, torch.Tensor],
       program.example_inputs = None  # the weights: not in the artifact
       exported[spec.name] = program
   return Exported(exported, tuple(programs), names, convs, device.type,
-                  devices), (whole,) + tuple(shape[1:])
+                  devices, str(dtype).split(".")[-1],
+                  cast), (whole,) + tuple(shape[1:])
 
 
 def artifact_meta(config, shape, exported: Exported) -> Dict[str, Any]:
@@ -314,6 +349,8 @@ def artifact_meta(config, shape, exported: Exported) -> Dict[str, Any]:
       "programs": [spec._asdict() for spec in exported.specs],
       "params": list(exported.params),
       "operands": list(exported.operands),
+      "compute_dtype": exported.compute_dtype,
+      "cast_params": list(exported.cast),
       "draws": DRAWS,
       "device_type": exported.device_type,
       "num_devices": exported.num_devices,
@@ -375,7 +412,9 @@ def load_artifact(path: str, device=None) -> Tuple[Exported, Dict[str, Any]]:
       specs.append(spec)
   return Exported(programs, tuple(specs), tuple(meta["params"]),
                   tuple(meta["operands"]), want,
-                  int(meta.get("num_devices", 1))), meta
+                  int(meta.get("num_devices", 1)),
+                  meta.get("compute_dtype", "float32"),
+                  tuple(meta.get("cast_params", ()))), meta
 
 
 def _flat_call(program) -> Callable:
@@ -427,9 +466,9 @@ class ExportedScore:
     # dense weight transposed in place would take another GEMM order)
     state = {n: params[n].to(self.device, torch.float32).contiguous()
              for n in exported.params}
-    self.inputs = [state[n] for n in exported.params] + [
-        t for c in exported.operands
-        for t in conv_operands(state[f"{c}.weight"])]
+    self.inputs = program_inputs(state, exported.params, exported.operands,
+                                 getattr(torch, exported.compute_dtype),
+                                 exported.cast)
     self.batch = int(meta["sample_shape"][0]) // exported.num_devices
     self._modules = {(s.batch, s.continuous): _flat_call(
         exported.programs[s.name]) for s in exported.specs}

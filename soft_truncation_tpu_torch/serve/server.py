@@ -375,10 +375,14 @@ def main(argv=None):
   p.add_argument("--port", type=int, default=8000)
   p.add_argument("--max-num", type=int, default=4096,
                  help="per-request sample-count cap")
-  args = p.parse_args(argv)
-  # f32 model: no TF32 in the convolutions, and the same bytes per seed
+  args, overrides = p.parse_known_args(argv)
+  if args.artifact and overrides:
+    p.error(f"an artifact carries its config: {overrides} not taken")
+  # f32 model: no TF32 in the convolutions, and the same bytes per seed; a
+  # bf16 model's products sum in f32, as JAX's do
   torch.backends.cudnn.allow_tf32 = False
   torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
   torch.backends.cudnn.deterministic = True
   logging.basicConfig(level=logging.INFO)
   device = "cpu" if args.cpu else "cuda"
@@ -392,7 +396,8 @@ def main(argv=None):
       return
   else:
     from ..configs.base import load_config
-    config = load_config(args.config)
+    from ..main import apply_overrides
+    config = apply_overrides(load_config(args.config), overrides)
     params = from_jax_params(load_params_npz(args.params))
     service = SamplingService(config, params, batch=args.batch,
                               device=device, max_num=args.max_num)

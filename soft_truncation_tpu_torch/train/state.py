@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..configs.base import tpu_dtype
 from ..losses.losses import Optimizer, get_optimizer
 from ..models.ema import ema_init
 
@@ -50,10 +51,13 @@ class TrainState:
 
 
 def init_train_state(config, model: torch.nn.Module) -> TrainState:
-  """Step 0, a fresh optimizer over ``model`` and an EMA copy of it."""
+  """Step 0, a fresh optimizer over ``model`` and an EMA copy of it, in
+  ``config.tpu.ema_dtype``."""
+  ema_dtype = getattr(torch, tpu_dtype(config, "ema_dtype"))
   return TrainState(step=0, model=model,
                     optimizer=get_optimizer(config, model),
-                    ema=ema_init(model), ema_rate=float(config.model.ema_rate))
+                    ema=ema_init(model, ema_dtype),
+                    ema_rate=float(config.model.ema_rate))
 
 
 def param_count(model: torch.nn.Module) -> int:

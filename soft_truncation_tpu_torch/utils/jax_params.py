@@ -3,7 +3,9 @@
 ``load_params_npz`` reads the path-keyed npz that
 ``soft_truncation_tpu/serve/export.py::save_params_npz`` writes (also the
 ``.params.npz`` of ``tools/export_sampler.py``) back into the nested Flax
-parameter tree, with numpy only. ``from_jax_params`` maps that tree onto
+parameter tree, with numpy and torch only (a bfloat16 leaf, such as an EMA
+shadow saved with ``tpu.ema_dtype`` 'bfloat16', becomes a bf16 tensor,
+bit for bit). ``from_jax_params`` maps that tree onto
 the port's state_dict by path: the port's modules carry the Flax names, so
 ``down_0_0/conv0/kernel`` becomes ``down_0_0.conv0.weight``.
 ``to_jax_params`` and ``save_params_npz`` go the other way: a port
@@ -23,15 +25,17 @@ import torch
 _DTYPES_KEY = "__dtypes__"
 
 
-def _bfloat16_to_float32(bits: np.ndarray) -> np.ndarray:
-  return (bits.astype(np.uint32) << 16).view(np.float32)
+def _bfloat16_tensor(bits: np.ndarray) -> torch.Tensor:
+  """uint16 bits as the bf16 tensor they encode."""
+  return torch.from_numpy(bits.astype(np.uint16).view(np.int16).copy()).view(
+      torch.bfloat16)
 
 
 def load_params_npz(path: str) -> Dict[str, Any]:
   """Rebuild the nested-dict parameter tree from a params npz.
 
-  bfloat16 leaves (stored as uint16 bits) come back as float32; other
-  extended dtypes raise."""
+  bfloat16 leaves (stored as uint16 bits) come back as bf16 tensors, the
+  others as numpy arrays; other extended dtypes raise."""
   params: Dict[str, Any] = {}
   with np.load(path) as f:
     ext_dtypes = (json.loads(bytes(f[_DTYPES_KEY]).decode("utf-8"))
@@ -48,7 +52,7 @@ def load_params_npz(path: str) -> Dict[str, Any]:
         if ext_dtypes[name] != "bfloat16":
           raise ValueError(f"{name}: dtype {ext_dtypes[name]} is not "
                            "supported by the port")
-        leaf = _bfloat16_to_float32(leaf)
+        leaf = _bfloat16_tensor(leaf)
       node[keys[-1]] = leaf
   return params
 
@@ -80,15 +84,18 @@ def from_jax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
   ``var`` onto ``running_mean`` / ``running_var``. A leaf of any other kind
   raises; load the result with ``model.load_state_dict(sd)`` (strict),
   which raises on any port parameter left unset or any leaf without one.
+  Leaves that are bf16 tensors stay bf16 (a bf16 EMA shadow lands as one);
+  arrays become f32 tensors.
   """
   sd = {}
   for path, leaf in _flatten(tree):
-    a = np.asarray(leaf, dtype=np.float32)
+    a = (leaf if isinstance(leaf, torch.Tensor) and leaf.dtype ==
+         torch.bfloat16 else torch.tensor(np.asarray(leaf, dtype=np.float32)))
     *mods, name = path
     if name == "kernel" and a.ndim == 4:
-      a, name = a.transpose(3, 2, 0, 1), "weight"
+      a, name = a.permute(3, 2, 0, 1), "weight"
     elif name == "kernel" and a.ndim == 2:
-      a, name = a.T, "weight"
+      a, name = a.t(), "weight"
     elif name == "scale" and a.ndim == 1:
       name = "weight"
     elif name == "embedding" and a.ndim == 2 and mods[-1:] == ["embed"]:
@@ -100,7 +107,7 @@ def from_jax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     elif name not in ("bias", "W"):
       raise ValueError(f"no port parameter for leaf {'/'.join(path)} "
                        f"of shape {a.shape}")
-    sd[".".join(mods + [name])] = torch.tensor(a)
+    sd[".".join(mods + [name])] = a.contiguous()
   return sd
 
 

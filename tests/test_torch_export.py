@@ -224,8 +224,9 @@ def test_params_npz_reads_back_through_jax_bit_for_bit(flagship, tmp_path):
       got_leaf.view(np.uint16),
       state[leaf].numpy().astype(ml_dtypes.bfloat16).view(np.uint16))
   back = export.load_params_npz(path)
-  assert back[leaf].dtype == torch.float32
-  torch.testing.assert_close(back[leaf], bf16[leaf].float(), rtol=0, atol=0)
+  assert back[leaf].dtype == torch.bfloat16  # carried as bf16, bit for bit
+  assert torch.equal(back[leaf].view(torch.int16),
+                     bf16[leaf].view(torch.int16))
 
 
 def test_to_jax_params_is_the_inverse_of_from_jax_params(uncsnpp):

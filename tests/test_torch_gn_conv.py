@@ -364,14 +364,14 @@ def test_weight_operands_are_cached_plain_under_jvp():
   made = []
 
   def f(v):
-    made.extend([conv.weight_hwio(), *conv.weight_tf32_split()])
+    made.extend([conv.weight_hwio(), *conv.weight_operand()])
     return v * 2.0
 
   torch.func.jvp(f, (torch.ones(2),), (torch.ones(2),))
-  for t in made + [conv.weight_hwio(), *conv.weight_tf32_split()]:
+  for t in made + [conv.weight_hwio(), *conv.weight_operand()]:
     assert not _functorch.is_functorch_wrapped_tensor(t)
     t.data_ptr()
-  assert conv.weight_tf32_split()[0] is made[1]  # cached once
+  assert conv.weight_operand()[0] is made[1]  # cached once
 
 
 def test_tangent_launch_plan_fits_every_site():

@@ -113,6 +113,19 @@ def test_port_base_holds_the_picard_mesh_and_remat_keys_with_jax_values():
   assert "profile_dir" not in pc.tpu and "profile_dir" not in jc.tpu
 
 
+def test_port_base_holds_the_dtype_knobs_with_jax_values():
+  """The four dtype knobs of ``tpu``, JAX's defaults in every family."""
+  from soft_truncation_tpu.configs.base import default_config as jax_default
+  from soft_truncation_tpu_torch.configs.base import (DTYPE_KNOBS,
+                                                      default_config,
+                                                      tpu_dtype)
+  for family in ("cifar10", "celeba", "lsun", "stl10"):
+    jc, pc = jax_default(family), default_config(family)
+    for knob in DTYPE_KNOBS:
+      assert pc.tpu[knob] == jc.tpu[knob] == "float32", (family, knob)
+      assert tpu_dtype(pc, knob) == "float32"
+
+
 SLICE_6C_MODULES = ("sample/parallel.py", "parallel/__init__.py",
                     "parallel/ddp.py", "utils/profiling.py",
                     "utils/torch_port.py")

@@ -103,8 +103,8 @@ def test_fused_conv_weight_is_transposed_once_per_weight_value():
   conv = DDPMConv(4, 6, 3)
   conv.reset_parameters(gen)
   first = conv.weight_hwio()
-  split = conv.weight_tf32_split()
-  assert conv.weight_hwio() is first and conv.weight_tf32_split() is split
+  split = conv.weight_operand()
+  assert conv.weight_hwio() is first and conv.weight_operand() is split
   assert first.is_contiguous() and first.shape == (3, 3, 4, 6)
   assert torch.equal(first, conv.weight.detach().permute(2, 3, 1, 0))
   assert all(torch.equal(a, b) for a, b in zip(
@@ -115,7 +115,7 @@ def test_fused_conv_weight_is_transposed_once_per_weight_value():
   assert again is not first
   assert torch.equal(again, new.permute(2, 3, 1, 0))
   assert all(torch.equal(a, b) for a, b in zip(
-      conv.weight_tf32_split(), gn_conv.weight_operand(again)))
+      conv.weight_operand(), gn_conv.weight_operand(again)))
 
 
 def _jax_block(kind):
