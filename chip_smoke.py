@@ -297,7 +297,11 @@ Phases; any failure exits non-zero before the last line is printed:
      against its plain version (BF16_REL_TOL) at these paths' shapes and
      batches, timed beside the bf16 library chain (F.group_norm -> F.silu
      -> F.conv2d, channels-last; cuDNN's depthwise bf16 conv for fir2),
-     the bound at the dense bf16 rate or half the bytes.
+     the bound at the dense bf16 rate or half the bytes; the bf16
+     gn_silu_conv3x3 rows (csrc/gn_silu_conv3x3_bf16.cu) also give each
+     kernel's device ms by name (torch.profiler: the conv, and a reduce
+     kernel where there is one), and the ragged shapes hold both bf16
+     entries too.
 TF32 and cuBLAS's reduced-precision bf16 reductions are off throughout.
 Imports torch and the port only, never jax or the JAX package.
 """
@@ -326,7 +330,7 @@ FLAGSHIP = os.path.join(CONFIGS, "vp", "CIFAR10", "ddpmpp_nll_st.py")
 UNCSNPP = os.path.join(CONFIGS, "ve", "CIFAR10", "uncsnpp_st.py")
 DEVICE = "cuda"
 SERVE_BATCH = 8
-KERNELS = ("gn_silu_conv3x3", "fir2")
+KERNELS = ("gn_silu_conv3x3", "gn_silu_conv3x3_bf16", "fir2")
 # the flagship shapes phase 6 must cover: (H, W, C, O)
 LISTED_SHAPES = [(32, 32, 128, 128), (32, 32, 384, 128), (32, 32, 256, 256),
                  (16, 16, 384, 256), (16, 16, 512, 256), (8, 8, 256, 256),
@@ -3180,6 +3184,27 @@ def _held(name, shape, got, want, tol):
   return err, scale
 
 
+def _by_kernel(fn, calls=TIMED_CALLS):
+  """{kernel name: device ms per call of ``fn``} from torch.profiler (the
+  conv and any reduce kernel apart)."""
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(calls):
+      fn()
+    torch.cuda.synchronize()
+  out = {}
+  for evt in prof.key_averages():
+    us = getattr(evt, "self_device_time_total", None)
+    if us is None:
+      us = getattr(evt, "self_cuda_time_total", 0)
+    if us:
+      out[evt.key] = out.get(evt.key, 0.0) + us / 1e3 / calls
+  return out
+
+
 def kernels_gn(launches_by_shape, evals, n, listed=(), bf16=False):
   """gn_silu_conv3x3 vs plain vs library at every shape a main path
   launched it at (and the ``listed`` shapes), at that path's batch ``n``:
@@ -3187,7 +3212,8 @@ def kernels_gn(launches_by_shape, evals, n, listed=(), bf16=False):
   runs it under inference_mode, where the wrapper calls the kernel
   directly. With ``bf16`` the kernel's bf16 mode (x, w, b in bf16, as a
   bf16 model's fused site casts them) against the bf16 plain version and
-  the library chain in bf16, channels-last."""
+  the library chain in bf16, channels-last, and each kernel's device ms
+  by name."""
   import torch
   import torch.nn.functional as F
   from soft_truncation_tpu_torch.ops import gn_conv
@@ -3247,7 +3273,9 @@ def kernels_gn(launches_by_shape, evals, n, listed=(), bf16=False):
            "bound_ms": bound, "bound_by": bound_by,
            "launches": launches,
            "launches_per_forward": launches / evals}
-    if not bf16:
+    if bf16:
+      row["device_ms_by_kernel"] = _by_kernel(kernel)
+    else:
       row.update(bound_3xtf32_ms=bound_3x, bound_fp32_pipe_ms=bound_fp32)
     log(f"{name} {(n, h, w, c, o)}: grid {plan.grid} (O tiles, M "
         f"tiles, split-K {plan.splits}), {plan.smem} B shared memory")
@@ -3259,7 +3287,8 @@ def kernels_gn(launches_by_shape, evals, n, listed=(), bf16=False):
 def kernels_gn_ragged():
   """gn_silu_conv3x3 vs plain at shapes no model reaches: ragged tiles,
   images straddling a tile, C and O off the tile widths, groups of 3 and 4
-  channels."""
+  channels; the bf16 primal and tangent too, and beyond (a row of 100
+  pixels in two tiles, C % 8 != 0, O past 256 with one raw tile)."""
   import torch
   from soft_truncation_tpu_torch.ops import gn_conv
 
@@ -3275,6 +3304,30 @@ def kernels_gn_ragged():
                        gn_conv.gn_silu_conv3x3_plain(*args), KERNEL_REL_TOL)
     log(f"gn_silu_conv3x3 {(n, h, w, c, o)} groups {groups}: max_abs_err "
         f"{err} max|plain| {scale}")
+  for (n, h, w, c, o, groups) in ((3, 5, 7, 36, 20, 12), (2, 4, 4, 16, 16, 4),
+                                  (1, 32, 32, 128, 128, 32),
+                                  (2, 3, 100, 24, 40, 4),
+                                  (3, 1, 1, 8, 300, 4)):
+    x, dx = (torch.randn(n, h, w, c, generator=gen, device=DEVICE).bfloat16()
+             for _ in range(2))
+    gamma, beta = (torch.randn(c, generator=gen, device=DEVICE)
+                   for _ in range(2))
+    wgt = torch.randn(3, 3, c, o, generator=gen, device=DEVICE).bfloat16()
+    b = torch.randn(o, generator=gen, device=DEVICE).bfloat16()
+    mean, rsqrt = gn_conv.gn_stats(x, groups)
+    dmean, drsqrt = (torch.randn(n, groups, generator=gen, device=DEVICE)
+                     for _ in range(2))
+    primal = (x, mean, rsqrt, gamma, beta, wgt, b, groups)
+    tangent = (x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, wgt, groups)
+    for name, fn, plain, args in (
+        ("gn_silu_conv3x3_bf16", gn_conv.gn_silu_conv3x3,
+         gn_conv.gn_silu_conv3x3_plain, primal),
+        ("gn_silu_conv3x3_jvp_bf16", gn_conv.gn_silu_conv3x3_jvp,
+         gn_conv.gn_silu_conv3x3_jvp_plain, tangent)):
+      err, scale = _held(name, (n, h, w, c, o), fn(*args), plain(*args),
+                         BF16_REL_TOL)
+      log(f"{name} {(n, h, w, c, o)} groups {groups}: max_abs_err {err} "
+          f"max|plain| {scale}")
 
 
 def _fir_library(mode, x, k, gain=1.0):
@@ -3523,6 +3576,8 @@ def kernels_gn_jvp(jvp_launched, evals, bf16=False):
            "ab_library_device_ms": [ab_dev[1], ab_dev[3]],
            "bound_ms": bound, "bound_by": bound_by, "launches": launches,
            "launches_per_evaluation": launches / evals}
+    if bf16:
+      row["device_ms_by_kernel"] = _by_kernel(kernel)
     emit(row)
     rows.append(row)
   return rows
@@ -4495,6 +4550,7 @@ def main() -> int:
   fir_src = "soft_truncation_tpu_torch/csrc/fir2.cu"
   fir_fwd = "soft_truncation_tpu/ops/pallas/fir.py:137"
   gn_src = "soft_truncation_tpu_torch/csrc/gn_silu_conv3x3.cu"
+  gn_bf16_src = "soft_truncation_tpu_torch/csrc/gn_silu_conv3x3_bf16.cu"
   step = (f"one UNCSN++ train step at batch {TRAIN_BATCH} (every launch at "
           f"N={t_batch})")
   d_step = (f"one deepest-model train step at batch {TRAIN_BATCH} (the mixed"
@@ -4634,12 +4690,12 @@ def main() -> int:
                     f"batch {EXPORT_BATCH} (batch {mr_batch} per rank), "
                     "replayed under torch.distributed.run (counted inside "
                     "the operator)", "launches_per_forward"),
-      _kernel_entry("gn_silu_conv3x3_bf16", gn_src,
+      _kernel_entry("gn_silu_conv3x3_bf16", gn_bf16_src,
                     "soft_truncation_tpu/ops/pallas/gn_conv.py:74",
                     bf16_gn_rows, f"one bf16 flagship or UNCSN++ eval "
                     f"forward (tpu.compute_dtype bfloat16) at batch "
                     f"{SERVE_BATCH}", "launches_per_forward"),
-      _kernel_entry("gn_silu_conv3x3_jvp_bf16", gn_src,
+      _kernel_entry("gn_silu_conv3x3_jvp_bf16", gn_bf16_src,
                     "soft_truncation_tpu/ops/pallas/gn_conv.py:74",
                     bf16_jvp_rows, f"one bf16 function evaluation of the "
                     f"likelihood ODE at batch {LIKELIHOOD_BATCH}",

@@ -1,7 +1,7 @@
 // Fused GroupNorm-apply -> SiLU -> 3x3 SAME conv, NHWC, forward, as an
-// implicit GEMM on the tensor cores: float32 in 3xTF32, bfloat16 in one bf16
-// product, and the tangent (forward-mode derivative) of each, from the same
-// source.
+// implicit GEMM on the tensor cores in 3xTF32 for float32, and its tangent
+// (forward-mode derivative), from the same source. The bfloat16 modes are
+// gn_silu_conv3x3_bf16.cu.
 //
 // Replaces the TPU kernel soft_truncation_tpu/ops/pallas/gn_conv.py::
 // gn_silu_conv3x3:  out = conv3x3(SiLU(x * scale + shift), zero pad) + b,
@@ -65,26 +65,9 @@
 //     sites, two at the smaller halo tiles), and the activation writes SiLU'(a) * da. The GEMM, its split-K
 //     and the zero halo are the primal's. Its bound is the primal's flops,
 //     or its bytes with dx read as well.
-//   * bfloat16 mode (the template's kBf16; x, dx, w, b and out in bf16, the
-//     stats, gamma and beta in f32, as the JAX package's fused site casts
-//     them): mma.sync.m16n8k16 bf16 x bf16 -> f32, one product per tile
-//     pair, so no hi/lo split. cp.async brings the raw bf16 halo rows in
-//     8-byte pieces (4 channels: the f32 mode's C % 4, so every site the
-//     f32 kernel takes the bf16 one takes too and the route does not
-//     depend on the dtype); the fold, SiLU (or SiLU' times the folded
-//     tangent) run in f32 and round once to bf16 (__float2bfloat16_rn), as
-//     the TPU kernel rounds SiLU to w.dtype before its products. The weights
-//     come as one bf16 operand [Op, 9*Cp] (output channel major, K
-//     contiguous), so a B fragment's two K values are one 32-bit word. Sums
-//     stay f32, split-K partials go through the f32 workspace, the bias is
-//     added in f32 and the output is rounded to bf16 once, at the store.
-//     Its bound: the same FLOP at 989 TFLOP/s dense bf16, or half the bytes.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -102,24 +85,21 @@ constexpr int kCPP = kBK / 4;          // 4-channel pieces per pixel
 constexpr int kAStride = kBK + 4;      // f32: conflict-free A fragment reads
 constexpr int kBStride = kBN + 8;      // f32: conflict-free B fragment reads
 constexpr int kBFloats = kBK * kBStride;  // f32 B tile, per stage, hi or lo
-// bf16: a pixel's (A) or an output channel's (B) 16 K values padded to 24,
-// 12 words, so the 8 rows x 4 words a fragment load touches are 32 banks
-constexpr int kStrideH = kBK + 8;
 constexpr int kMaxSmem = 232448;       // an H100 block's dynamic maximum
 
 struct Params {
-  const void* x;        // [N, H, W, C], f32 or bf16
-  const void* dx;       // [N, H, W, C], tangent mode only
+  const float* x;       // [N, H, W, C]
+  const float* dx;      // [N, H, W, C], tangent mode only
   const float* mean;    // [N, G]
   const float* rsqrt;   // [N, G]
   const float* dmean;   // [N, G], tangent mode only
   const float* drsqrt;  // [N, G], tangent mode only
   const float* gamma;   // [C]
   const float* beta;    // [C]
-  const void* w_hi;     // f32: [9 * Cp, Op] tf32 values; bf16: [Op, 9 * Cp]
-  const void* w_lo;     // f32 only
-  const void* bias;     // [O], x's dtype; null in tangent mode
-  void* out;            // [N, H, W, O], x's dtype
+  const float* w_hi;    // [9 * Cp, Op] tf32 values
+  const float* w_lo;
+  const float* bias;    // [O]; null in tangent mode
+  float* out;           // [N, H, W, O]
   float* ws;            // [splits, M, O] when splits > 1
   int N, H, W, C, O, G, Cp, Op, M, rows, chunks, splits, slots;
 };
@@ -131,12 +111,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
                "l"(src), "r"(src_bytes));
 }
 
@@ -163,15 +137,6 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __device__ __forceinline__ float silu(float u) {
   return u * __frcp_rn(1.f + __expf(-u));
 }
@@ -182,7 +147,7 @@ __device__ __forceinline__ float silu_grad(float u) {
   return s * fmaf(u, 1.f - s, 1.f);
 }
 
-// 4 consecutive channels of x (or dx) as f32, from the raw ring
+// 4 consecutive channels of x (or dx), from the raw ring
 __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
   const float4 q = *reinterpret_cast<const float4*>(p);
   v[0] = q.x;
@@ -191,68 +156,42 @@ __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
   v[3] = q.w;
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 q = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&q.x));
-  const float2 hi = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&q.y));
-  v[0] = lo.x;
-  v[1] = lo.y;
-  v[2] = hi.x;
-  v[3] = hi.y;
-}
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
 // Shared memory, in bytes, each region 16-byte aligned: the raw halo tile
-// ring [2][hp][kBK] of x's dtype (and in tangent mode a second one of dx:
-// ``streams`` rings); the activated tile, f32: [hi, lo][hp + 1][kAStride]
-// tf32 words, bf16: [hp + 1][kStrideH] (row hp stays zero); the B ring,
-// f32: [2][hi, lo][kBK][kBStride], bf16: [2][kBN][kStrideH]; then as f32
-// gamma and beta [Cp] and the stats [2 * streams][slots][G] (mean, rsqrt,
-// then dmean, drsqrt) and, as ints, each GEMM row's base offset per dy
-// [3][kBM]. ops/gn_conv.py::launch_plan computes the same total.
-__host__ __device__ inline int raw_bytes(int hp, int streams, bool bf16) {
-  return streams * 2 * hp * kBK * (bf16 ? 2 : 4);
+// ring [2][hp][kBK] (and in tangent mode a second one of dx: ``streams``
+// rings); the activated tile [hi, lo][hp + 1][kAStride] tf32 words (row hp
+// stays zero); the B ring [2][hi, lo][kBK][kBStride]; then gamma and beta
+// [Cp] and the stats [2 * streams][slots][G] (mean, rsqrt, then dmean,
+// drsqrt) and, as ints, each GEMM row's base offset per dy [3][kBM].
+// ops/gn_conv.py::launch_plan computes the same total.
+__host__ __device__ inline int raw_bytes(int hp, int streams) {
+  return streams * 2 * hp * kBK * 4;
 }
 
-__host__ __device__ inline int act_bytes(int hp, bool bf16) {
-  return bf16 ? (hp + 1) * kStrideH * 2 : 2 * (hp + 1) * kAStride * 4;
+__host__ __device__ inline int act_bytes(int hp) {
+  return 2 * (hp + 1) * kAStride * 4;
 }
 
-__host__ __device__ inline int b_bytes(bool bf16) {
-  return bf16 ? 2 * kBN * kStrideH * 2 : 2 * 2 * kBFloats * 4;
-}
+__host__ __device__ inline int b_bytes() { return 2 * 2 * kBFloats * 4; }
 
 __host__ __device__ inline int smem_bytes(int hp, int Cp, int slots, int G,
-                                          int streams, bool bf16) {
-  return raw_bytes(hp, streams, bf16) + act_bytes(hp, bf16) + b_bytes(bf16) +
+                                          int streams) {
+  return raw_bytes(hp, streams) + act_bytes(hp) + b_bytes() +
          4 * (2 * Cp + 2 * streams * slots * G + 3 * kBM);
 }
 
-template <bool kTangent, bool kBf16>
+template <bool kTangent>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 gn_silu_conv3x3_kernel(const Params p) {
-  using In = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
   constexpr int kStreams = kTangent ? 2 : 1;
-  // the activated tile's row stride in its own elements (tf32 words or
-  // bf16 values)
-  constexpr int kRow = kBf16 ? kStrideH : kAStride;
+  // the activated tile's row stride in tf32 words
+  constexpr int kRow = kAStride;
   extern __shared__ __align__(16) unsigned char smem[];
   const int W2 = p.W + 2;
   const int hp = (p.rows + 2) * W2;  // halo pixels
-  In* raw = reinterpret_cast<In*>(smem);     // [streams][2][hp][kBK]
-  unsigned char* actp = smem + raw_bytes(hp, kStreams, kBf16);
-  unsigned char* bsmp = actp + act_bytes(hp, kBf16);
-  float* sgamma = reinterpret_cast<float*>(bsmp + b_bytes(kBf16));  // [Cp]
+  float* raw = reinterpret_cast<float*>(smem);  // [streams][2][hp][kBK]
+  unsigned char* actp = smem + raw_bytes(hp, kStreams);
+  unsigned char* bsmp = actp + act_bytes(hp);
+  float* sgamma = reinterpret_cast<float*>(bsmp + b_bytes());  // [Cp]
   float* sbeta = sgamma + p.Cp;
   float* smean = sbeta + p.Cp;               // [slots][G]
   float* srsqrt = smean + p.slots * p.G;
@@ -260,8 +199,8 @@ gn_silu_conv3x3_kernel(const Params p) {
   float* sdrsqrt = sdmean + p.slots * p.G;
   int* rowoff = reinterpret_cast<int*>(smean + 2 * kStreams * p.slots * p.G);
   // [3][kBM]
-  const In* x = static_cast<const In*>(p.x);
-  const In* dxp = static_cast<const In*>(p.dx);
+  const float* x = p.x;
+  const float* dxp = p.dx;
 
   const int tid = threadIdx.x;
   const int o0 = blockIdx.x * kBN;
@@ -306,7 +245,7 @@ gn_silu_conv3x3_kernel(const Params p) {
   // copy chunk ch's raw halo tile (and dx's) into ring slot s, 4 channels
   // per copy (zero where no pixel)
   auto load_a = [&](int ch, int s) {
-    In* dst = raw + s * hp * kBK;
+    float* dst = raw + s * hp * kBK;
     const int c0 = ch * kBK;
     for (int i = tid; i < hp * kCPP; i += kThreads) {
       const int pix = i / kCPP;
@@ -317,25 +256,17 @@ gn_silu_conv3x3_kernel(const Params p) {
       const bool ok = row >= 0 && row < NH && sx >= 0 && sx < p.W && c < p.C;
       const size_t off = ok ? ((size_t)row * p.W + sx) * p.C + c : 0;
       const uint32_t d = smem_u32(dst + pix * kBK + (c - c0));
-      if (kBf16) {
-        cp_async8(d, x + off, ok ? 8 : 0);
-        if (kTangent)
-          cp_async8(smem_u32(dst + 2 * hp * kBK + pix * kBK + (c - c0)),
-                    dxp + off, ok ? 8 : 0);
-      } else {
-        cp_async16(d, x + off, ok ? 16 : 0);
-        if (kTangent)
-          cp_async16(smem_u32(dst + 2 * hp * kBK + pix * kBK + (c - c0)),
-                     dxp + off, ok ? 16 : 0);
-      }
+      cp_async16(d, x + off, ok ? 16 : 0);
+      if (kTangent)
+        cp_async16(smem_u32(dst + 2 * hp * kBK + pix * kBK + (c - c0)),
+                   dxp + off, ok ? 16 : 0);
     }
   };
-  // fold, SiLU (or, in tangent mode, SiLU' times the folded tangent) and,
-  // f32: split into tf32 hi and lo; bf16: round once; ring slot s into the
-  // activated tile
+  // fold, SiLU (or, in tangent mode, SiLU' times the folded tangent) and
+  // the split into tf32 hi and lo, ring slot s into the activated tile
   auto activate = [&](int ch, int s) {
-    const In* src = raw + s * hp * kBK;
-    const In* dsrc = src + 2 * hp * kBK;  // tangent mode
+    const float* src = raw + s * hp * kBK;
+    const float* dsrc = src + 2 * hp * kBK;  // tangent mode
     const int c0 = ch * kBK;
     for (int i = tid; i < hp * kCPP; i += kThreads) {
       const int pix = i / kCPP;
@@ -366,59 +297,36 @@ gn_silu_conv3x3_kernel(const Params p) {
           }
         }
       }
-      if (kBf16) {
-        const __nv_bfloat162 lo = __floats2bfloat162_rn(a[0], a[1]);
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(a[2], a[3]);
-        uint2 q;
-        q.x = *reinterpret_cast<const uint32_t*>(&lo);
-        q.y = *reinterpret_cast<const uint32_t*>(&hi);
-        *reinterpret_cast<uint2*>(reinterpret_cast<__nv_bfloat16*>(actp) +
-                                  pix * kStrideH + cc) = q;
-      } else {
-        float* ahi = reinterpret_cast<float*>(actp);
-        const int act = (hp + 1) * kAStride;
-        uint4 hi, lo;
-        hi.x = tf32(a[0]);
-        hi.y = tf32(a[1]);
-        hi.z = tf32(a[2]);
-        hi.w = tf32(a[3]);
-        lo.x = tf32(a[0] - __uint_as_float(hi.x));
-        lo.y = tf32(a[1] - __uint_as_float(hi.y));
-        lo.z = tf32(a[2] - __uint_as_float(hi.z));
-        lo.w = tf32(a[3] - __uint_as_float(hi.w));
-        *reinterpret_cast<uint4*>(ahi + pix * kAStride + cc) = hi;
-        *reinterpret_cast<uint4*>(ahi + act + pix * kAStride + cc) = lo;
-      }
+      float* ahi = reinterpret_cast<float*>(actp);
+      const int act = (hp + 1) * kAStride;
+      uint4 hi, lo;
+      hi.x = tf32(a[0]);
+      hi.y = tf32(a[1]);
+      hi.z = tf32(a[2]);
+      hi.w = tf32(a[3]);
+      lo.x = tf32(a[0] - __uint_as_float(hi.x));
+      lo.y = tf32(a[1] - __uint_as_float(hi.y));
+      lo.z = tf32(a[2] - __uint_as_float(hi.z));
+      lo.w = tf32(a[3] - __uint_as_float(hi.w));
+      *reinterpret_cast<uint4*>(ahi + pix * kAStride + cc) = hi;
+      *reinterpret_cast<uint4*>(ahi + act + pix * kAStride + cc) = lo;
     }
   };
-  // K step (chunk ch, tap) of the weights into B ring slot s: f32, both
-  // halves' [kBK][kBN] slices; bf16, the [kBN][kBK] slice, one 16-byte copy
-  // per thread
+  // K step (chunk ch, tap) of the weights into B ring slot s: both halves'
+  // [kBK][kBN] slices
   auto load_b = [&](int ch, int tap, int s) {
     const int k0 = tap * p.Cp + ch * kBK;
-    if (kBf16) {
-      static_assert(kBN * kBK / 8 == kThreads, "one 16-byte copy a thread");
-      __nv_bfloat16* bh =
-          reinterpret_cast<__nv_bfloat16*>(bsmp) + s * kBN * kStrideH;
-      const int n = tid >> 1;
-      const int k = (tid & 1) * 8;
-      const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(p.w_hi);
-      cp_async16(smem_u32(bh + n * kStrideH + k),
-                 w + (size_t)(o0 + n) * 9 * p.Cp + k0 + k, 16);
-    } else {
-      float* bh = reinterpret_cast<float*>(bsmp) + s * 2 * kBFloats;
-      const float* whi = static_cast<const float*>(p.w_hi);
-      const float* wlo = static_cast<const float*>(p.w_lo);
+    float* bh = reinterpret_cast<float*>(bsmp) + s * 2 * kBFloats;
+    const float* whi = p.w_hi;
+    const float* wlo = p.w_lo;
 #pragma unroll
-      for (int i = 0; i < kBK * kBN / 4 / kThreads; ++i) {
-        const int chunk = tid + i * kThreads;
-        const int k = chunk / (kBN / 4);
-        const int col = (chunk % (kBN / 4)) * 4;
-        const int g = (k0 + k) * p.Op + o0 + col;
-        cp_async16(smem_u32(bh + k * kBStride + col), whi + g, 16);
-        cp_async16(smem_u32(bh + kBFloats + k * kBStride + col), wlo + g,
-                   16);
-      }
+    for (int i = 0; i < kBK * kBN / 4 / kThreads; ++i) {
+      const int chunk = tid + i * kThreads;
+      const int k = chunk / (kBN / 4);
+      const int col = (chunk % (kBN / 4)) * 4;
+      const int g = (k0 + k) * p.Op + o0 + col;
+      cp_async16(smem_u32(bh + k * kBStride + col), whi + g, 16);
+      cp_async16(smem_u32(bh + kBFloats + k * kBStride + col), wlo + g, 16);
     }
   };
 
@@ -429,12 +337,8 @@ gn_silu_conv3x3_kernel(const Params p) {
   const int wm = (warp / kWarpsN) * kWM;
   const int wn = (warp % kWarpsN) * kWN;
 
-  // the zero row (index hp) of the activated tile (both halves in f32)
-  if (kBf16) {
-    __nv_bfloat16* ah = reinterpret_cast<__nv_bfloat16*>(actp);
-    for (int i = tid; i < kStrideH; i += kThreads)
-      ah[hp * kStrideH + i] = __float2bfloat16_rn(0.f);
-  } else {
+  // the zero row (index hp) of the activated tile, both halves
+  {
     float* ahi = reinterpret_cast<float*>(actp);
     const int act = (hp + 1) * kAStride;
     for (int i = tid; i < kAStride; i += kThreads) {
@@ -487,28 +391,7 @@ gn_silu_conv3x3_kernel(const Params p) {
           const int o = rowoff[dy * kBM + wm + mf * 16 + g + 8 * h];
           off[mf][h] = o < 0 ? hp * kRow : o + shift;
         }
-      if (kBf16) {
-        // one k16 product per tile pair; A and B as 32-bit words of two
-        // bf16 values (K contiguous), 12 words per pixel / output channel
-        const uint32_t* A = reinterpret_cast<const uint32_t*>(actp);
-        const uint32_t* B = reinterpret_cast<const uint32_t*>(bsmp) +
-                            (it & 1) * kBN * (kStrideH / 2);
-        uint32_t b[kNF][2];
-#pragma unroll
-        for (int nf = 0; nf < kNF; ++nf) {
-          const int c0 = (wn + nf * 8 + g) * (kStrideH / 2) + t;
-          b[nf][0] = B[c0];
-          b[nf][1] = B[c0 + 4];
-        }
-#pragma unroll
-        for (int mf = 0; mf < kMF; ++mf) {
-          const int i0 = off[mf][0] / 2 + t;
-          const int i1 = off[mf][1] / 2 + t;
-          const uint32_t a[4] = {A[i0], A[i1], A[i0 + 4], A[i1 + 4]};
-#pragma unroll
-          for (int nf = 0; nf < kNF; ++nf) mma_bf16(acc[mf][nf], a, b[nf]);
-        }
-      } else {
+      {
         const int act = (hp + 1) * kAStride;
         const uint32_t* A = reinterpret_cast<const uint32_t*>(actp);
         const uint32_t* Bh = reinterpret_cast<const uint32_t*>(bsmp) +
@@ -553,9 +436,9 @@ gn_silu_conv3x3_kernel(const Params p) {
   const bool direct = p.splits == 1;
   const int pix0 = r0 * p.W;
   const int used = min(p.rows * p.W, p.M - pix0);
-  In* out = static_cast<In*>(p.out);
+  float* out = p.out;
   float* ws = direct ? nullptr : p.ws + (size_t)split * p.M * p.O;
-  const In* bias = static_cast<const In*>(p.bias);
+  const float* bias = p.bias;
 #pragma unroll
   for (int mf = 0; mf < kMF; ++mf)
 #pragma unroll
@@ -569,35 +452,32 @@ gn_silu_conv3x3_kernel(const Params p) {
           if (!direct) {
             ws[i] = acc[mf][nf][e];
           } else {
-            store1(out + i, kTangent ? acc[mf][nf][e]
-                                     : acc[mf][nf][e] + to_float(bias[o]));
+            out[i] = kTangent ? acc[mf][nf][e] : acc[mf][nf][e] + bias[o];
           }
         }
       }
 }
 
-// out = bias (0 where null) + the splits' partial sums, in split order, in
-// f32, rounded to out's dtype once.
-template <typename T>
+// out = bias (0 where null) + the splits' partial sums, in split order.
 __global__ void __launch_bounds__(256)
-splitk_reduce_kernel(const float* __restrict__ ws, const T* __restrict__ bias,
-                     T* __restrict__ out, int MO, int O, int splits) {
+splitk_reduce_kernel(const float* __restrict__ ws,
+                     const float* __restrict__ bias, float* __restrict__ out,
+                     int MO, int O, int splits) {
   const int i = blockIdx.x * 256 + threadIdx.x;
   if (i >= MO) return;
-  float s = bias != nullptr ? to_float(bias[i % O]) : 0.f;
+  float s = bias != nullptr ? bias[i % O] : 0.f;
   for (int k = 0; k < splits; ++k) s += ws[(size_t)k * MO + i];
-  store1(out + i, s);
+  out[i] = s;
 }
 
 // Checks the arguments and launches the conv (and, with splits > 1, the
 // reduce) on ``stream``; in tangent mode bias is null.
-template <bool kTangent, bool kBf16>
+template <bool kTangent>
 int run(Params p, int rows, int splits, int slots, void* stream) {
-  using In = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
   const long long M = (long long)p.N * p.H * p.W;
   const int chunks = p.Cp / kBK;
   const long long smem = smem_bytes((rows + 2) * (p.W + 2), p.Cp, slots,
-                                    p.G, kTangent ? 2 : 1, kBf16);
+                                    p.G, kTangent ? 2 : 1);
   if (p.N < 1 || p.H < 1 || p.W < 1 || p.W > kBM || p.C < 4 || p.C % 4 ||
       p.O < 1 || p.G < 1 || p.C % p.G || p.Cp % kBK || p.Cp < p.C ||
       p.Op % kBN || p.Op < p.O || rows < 1 || rows * p.W > kBM ||
@@ -607,7 +487,7 @@ int run(Params p, int rows, int splits, int slots, void* stream) {
       ((long long)p.N * p.H + rows - 1) / rows > 65535 ||
       (kTangent && (p.dx == nullptr || p.dmean == nullptr ||
                     p.drsqrt == nullptr)) ||
-      (!kTangent && p.bias == nullptr) || (!kBf16 && p.w_lo == nullptr)) {
+      (!kTangent && p.bias == nullptr) || p.w_lo == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // The shared-memory attribute holds for the current device only, so it is
@@ -620,7 +500,7 @@ int run(Params p, int rows, int splits, int slots, void* stream) {
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device >= kMaxDevices || !configured[device]) {
-    err = cudaFuncSetAttribute(gn_silu_conv3x3_kernel<kTangent, kBf16>,
+    err = cudaFuncSetAttribute(gn_silu_conv3x3_kernel<kTangent>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kMaxSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -635,20 +515,18 @@ int run(Params p, int rows, int splits, int slots, void* stream) {
   const dim3 grid(p.Op / kBN,
                   (unsigned)(((long long)p.N * p.H + rows - 1) / rows),
                   splits);
-  gn_silu_conv3x3_kernel<kTangent, kBf16>
-      <<<grid, kThreads, (size_t)smem, s>>>(p);
+  gn_silu_conv3x3_kernel<kTangent><<<grid, kThreads, (size_t)smem, s>>>(p);
   if (splits > 1) {
     const int MO = (int)M * p.O;
-    splitk_reduce_kernel<In><<<(MO + 255) / 256, 256, 0, s>>>(
-        p.ws, static_cast<const In*>(p.bias), static_cast<In*>(p.out), MO,
-        p.O, splits);
+    splitk_reduce_kernel<<<(MO + 255) / 256, 256, 0, s>>>(p.ws, p.bias, p.out,
+                                                          MO, p.O, splits);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-Params make_params(const void* x, const float* mean, const float* rsqrt,
-                   const float* gamma, const float* beta, const void* w_hi,
-                   const void* w_lo, void* out, float* ws, int N, int H,
+Params make_params(const float* x, const float* mean, const float* rsqrt,
+                   const float* gamma, const float* beta, const float* w_hi,
+                   const float* w_lo, float* out, float* ws, int N, int H,
                    int W, int C, int O, int G, int Cp, int Op) {
   Params p = {};
   p.x = x;
@@ -671,47 +549,18 @@ Params make_params(const void* x, const float* mean, const float* rsqrt,
   return p;
 }
 
-template <bool kBf16>
-int primal(const void* x, const float* mean, const float* rsqrt,
-           const float* gamma, const float* beta, const void* w_hi,
-           const void* w_lo, const void* bias, void* out, float* ws, int N,
-           int H, int W, int C, int O, int G, int Cp, int Op, int rows,
-           int splits, int slots, void* stream) {
-  Params p = make_params(x, mean, rsqrt, gamma, beta, w_hi, w_lo, out, ws, N,
-                         H, W, C, O, G, Cp, Op);
-  p.bias = bias;
-  return run<false, kBf16>(p, rows, splits, slots, stream);
-}
-
-template <bool kBf16>
-int tangent(const void* x, const void* dx, const float* mean,
-            const float* dmean, const float* rsqrt, const float* drsqrt,
-            const float* gamma, const float* beta, const void* w_hi,
-            const void* w_lo, void* out, float* ws, int N, int H, int W,
-            int C, int O, int G, int Cp, int Op, int rows, int splits,
-            int slots, void* stream) {
-  Params p = make_params(x, mean, rsqrt, gamma, beta, w_hi, w_lo, out, ws, N,
-                         H, W, C, O, G, Cp, Op);
-  p.dx = dx;
-  p.dmean = dmean;
-  p.drsqrt = drsqrt;
-  return run<true, kBf16>(p, rows, splits, slots, stream);
-}
-
 }  // namespace
 
-// Plain C entry points (loaded with ctypes). All tensors are contiguous on
-// the current device: x and dx [N,H,W,C], bias [O] and out [N,H,W,O] in the
-// entry point's dtype; mean/rsqrt and dmean/drsqrt [N,G], gamma/beta [C]
-// and ws [splits,N*H*W,O] (unused when splits == 1) in f32. The weights:
-// ``_tf32x3`` takes w_hi/w_lo [9*Cp, Op] (tap-major rows of Cp channels,
-// tf32 values, zero padding), ``_bf16`` one bf16 operand w_hi [Op, 9*Cp]
-// (the same values transposed) and a null w_lo. C % 4 == 0, W <= 128, Cp
+// Plain C entry points (loaded with ctypes). All tensors are contiguous f32
+// on the current device: x and dx [N,H,W,C], bias [O], out [N,H,W,O],
+// mean/rsqrt and dmean/drsqrt [N,G], gamma/beta [C], ws [splits,N*H*W,O]
+// (unused when splits == 1) and the weights w_hi/w_lo [9*Cp, Op] (tap-major
+// rows of Cp channels, tf32 values, zero padding). C % 4 == 0, W <= 128, Cp
 // a multiple of 16 >= C, Op a multiple of 128 >= O; ``rows`` (pixel rows
 // per block) <= 128 / W; ``splits`` <= Cp / 16; ``slots`` >= the images
-// rows + 2 consecutive pixel rows touch; x and dx 16-byte (f32) or 8-byte
-// (bf16) aligned. Each returns cudaGetLastError() after the launches, or
-// cudaErrorInvalidValue for arguments it does not take.
+// rows + 2 consecutive pixel rows touch; x and dx 16-byte aligned. Each
+// returns cudaGetLastError() after the launches, or cudaErrorInvalidValue
+// for arguments it does not take.
 
 // out = conv3x3(SiLU(x * scale + shift), zero pad) + bias
 extern "C" int gn_silu_conv3x3_tf32x3(
@@ -720,19 +569,10 @@ extern "C" int gn_silu_conv3x3_tf32x3(
     const float* bias, float* out, float* ws, int N, int H, int W, int C,
     int O, int G, int Cp, int Op, int rows, int splits, int slots,
     void* stream) {
-  return primal<false>(x, mean, rsqrt, gamma, beta, w_hi, w_lo, bias, out, ws,
-                       N, H, W, C, O, G, Cp, Op, rows, splits, slots, stream);
-}
-
-extern "C" int gn_silu_conv3x3_bf16(
-    const void* x, const float* mean, const float* rsqrt, const float* gamma,
-    const float* beta, const void* w, const void* w_lo_unused,
-    const void* bias, void* out, float* ws, int N, int H, int W, int C,
-    int O, int G, int Cp, int Op, int rows, int splits, int slots,
-    void* stream) {
-  return primal<true>(x, mean, rsqrt, gamma, beta, w, w_lo_unused, bias, out,
-                      ws, N, H, W, C, O, G, Cp, Op, rows, splits, slots,
-                      stream);
+  Params p = make_params(x, mean, rsqrt, gamma, beta, w_hi, w_lo, out, ws, N,
+                         H, W, C, O, G, Cp, Op);
+  p.bias = bias;
+  return run<false>(p, rows, splits, slots, stream);
 }
 
 // out = the tangent of the above for tangents dx, dmean, drsqrt (header)
@@ -742,18 +582,10 @@ extern "C" int gn_silu_conv3x3_jvp_tf32x3(
     const float* beta, const float* w_hi, const float* w_lo, float* out,
     float* ws, int N, int H, int W, int C, int O, int G, int Cp, int Op,
     int rows, int splits, int slots, void* stream) {
-  return tangent<false>(x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, w_hi,
-                        w_lo, out, ws, N, H, W, C, O, G, Cp, Op, rows, splits,
-                        slots, stream);
-}
-
-extern "C" int gn_silu_conv3x3_jvp_bf16(
-    const void* x, const void* dx, const float* mean, const float* dmean,
-    const float* rsqrt, const float* drsqrt, const float* gamma,
-    const float* beta, const void* w, const void* w_lo_unused, void* out,
-    float* ws, int N, int H, int W, int C, int O, int G, int Cp, int Op,
-    int rows, int splits, int slots, void* stream) {
-  return tangent<true>(x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, w,
-                       w_lo_unused, out, ws, N, H, W, C, O, G, Cp, Op, rows,
-                       splits, slots, stream);
+  Params p = make_params(x, mean, rsqrt, gamma, beta, w_hi, w_lo, out, ws, N,
+                         H, W, C, O, G, Cp, Op);
+  p.dx = dx;
+  p.dmean = dmean;
+  p.drsqrt = drsqrt;
+  return run<true>(p, rows, splits, slots, stream);
 }

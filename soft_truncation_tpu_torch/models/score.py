@@ -13,7 +13,9 @@ Counterpart of ``soft_truncation_tpu/models/score.py``:
     is the score.
 
 A bf16 network (``config.tpu.compute_dtype``): at eval the network runs on
-parameters pre-cast once per eval function (:func:`cast_params_for_eval`);
+parameters pre-cast once per eval function (:func:`cast_params_for_eval`),
+loaded as the JAX package applies a tree, as stored
+(:func:`load_eval_params`);
 the score is promoted to f32 where JAX's is, by the per-example f32 std
 (``batch_mul``, never a 0-dim tensor, which torch would treat as a scalar
 and keep bf16) or, inside the network, by ``scale_by_sigma``; else it
@@ -51,6 +53,32 @@ def cast_params_for_eval(model) -> Optional[Dict[str, torch.Tensor]]:
   return {name: p.detach().to(dtype) for name, p in model.named_parameters()
           if p.dtype == torch.float32
           and not any(m in name.lower() for m in F32_PARAM_MARKERS)}
+
+
+def load_eval_params(model: torch.nn.Module,
+                     params: Dict[str, torch.Tensor]) -> None:
+  """Load ``params`` (a state_dict: the EMA shadow, a params npz's) into
+  ``model`` for evaluation, as the JAX package evaluates a parameter tree:
+  as stored. A module whose compute dtype follows its parameters' dtype,
+  a ``GroupNorm`` without a ``dtype`` of its own (as Flax's ``nn.GroupNorm``
+  without ``dtype=``: NCSN++'s heads ``pyr_norm_*`` and ``out_norm``, the
+  legacy networks' norms), takes its parameters in the dtype they are
+  stored in, so that under a bf16 EMA a bf16 input gives a bf16 output
+  there, as in JAX; every other parameter takes the stored values in its
+  own dtype. The other leaves that JAX's ``cast_params_for_eval`` leaves
+  as stored compute the same either way: the blocks' and attention's
+  GroupNorms have their ``dtype`` (``norm_dtype``), and the Fourier
+  embedding (log sigma times W), the legacy norms' affine vectors and
+  embeddings, and LogSNR's PosDense (on no eval path) meet an f32 operand
+  that promotes their bf16 values exactly. An f32 tree changes no bit."""
+  from .layers import GroupNorm
+  for name, module in model.named_modules():
+    if isinstance(module, GroupNorm) and module.dtype is None:
+      for pname, p in module.named_parameters(recurse=False):
+        stored = params.get(f"{name}.{pname}" if name else pname)
+        if stored is not None and stored.dtype != p.dtype:
+          p.data = p.data.to(stored.dtype)
+  model.load_state_dict(params)
 
 
 def get_model_fn(model, train: bool = False,

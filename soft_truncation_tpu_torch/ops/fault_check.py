@@ -7,7 +7,8 @@ Three checks, each a subcommand:
   fresh process, against one CPU forward of the same model: a fault that
   shows only in a process's first launches (uninitialised memory, a race,
   an out-of-bounds read that depends on what ran before) shows here.
-- ``sanitize``: both modes of ``gn_silu_conv3x3`` and ``fir2`` up, down
+- ``sanitize``: both modes of ``gn_silu_conv3x3`` (f32 and bf16) and
+  ``fir2`` up, down
   and adjoint at the flagship's and UNCSN++'s site shapes (batch 2: split-K
   above 1 at every site, and tiles whose rows cross an image boundary at
   the 8x8 and 4x4 ones), once under each of ``compute-sanitizer``'s
@@ -54,6 +55,7 @@ FIR_SHAPES = (("down", 32, 32, 128), ("down", 16, 16, 256),
               ("up", 16, 16, 256))
 BATCH = 2
 STRESS_REL_TOL = 1e-4  # chip_smoke.py's KERNEL_REL_TOL, the looser bar
+STRESS_BF16_REL_TOL = 1e-2  # chip_smoke.py's BF16_REL_TOL
 
 
 def _flagship():
@@ -91,7 +93,7 @@ def forward_once(ref: str) -> dict:
 
 def forwards(runs: int, out: Path) -> dict:
   from ._build import load_library
-  for name in ("gn_silu_conv3x3", "fir2"):
+  for name in ("gn_silu_conv3x3", "gn_silu_conv3x3_bf16", "fir2"):
     load_library(name)
   config, create_model = _flagship()
   x, labels = _inputs()
@@ -180,6 +182,23 @@ def kernels_once(repeat: int = 1, poison: bool = False) -> dict:
       worst[f"gn {h}x{w}x{c}->{o} splits {plan.splits} slots "
             f"{plan.slots}"] = [rel(got, want), rel(dgot, dwant), moved,
                                 dmoved]
+      # the bf16 kernel's two entries (csrc/gn_silu_conv3x3_bf16.cu)
+      xh, dxh, wh, bh = (t.bfloat16() for t in (x, dx, wt, b))
+      hmean, hrsqrt = gn_conv.gn_stats(xh, groups)
+      hplan = gn_conv.launch_plan(BATCH, h, w, c, o, groups,
+                                  gn_conv._sms(x.device), bf16=True)
+      got, moved = launched(lambda: gn_conv.gn_silu_conv3x3(
+          xh, hmean, hrsqrt, gamma, beta, wh, bh, groups))
+      dgot, dmoved = launched(lambda: gn_conv.gn_silu_conv3x3_jvp(
+          xh, dxh, hmean, dmean, hrsqrt, drsqrt, gamma, beta, wh, groups))
+      want = gn_conv.gn_silu_conv3x3_plain(xh, hmean, hrsqrt, gamma, beta,
+                                           wh, bh, groups)
+      dwant = gn_conv.gn_silu_conv3x3_jvp_plain(xh, dxh, hmean, dmean,
+                                                hrsqrt, drsqrt, gamma, beta,
+                                                wh, groups)
+      worst[f"gn bf16 {h}x{w}x{c}->{o} cluster {hplan.splits}"] = [
+          rel(got.float(), want.float()), rel(dgot.float(), dwant.float()),
+          moved, dmoved]
     for mode, h, w, c in FIR_SHAPES:
       x = randn(BATCH, h, w, c)
       f = fir.fir_upsample2 if mode == "up" else fir.fir_downsample2
@@ -205,16 +224,18 @@ def stress(repeat: int, out: Path) -> dict:
   differences (races), without them."""
   t0 = time.perf_counter()
   worst = kernels_once(repeat, poison=True)
+  def bar(key):
+    return STRESS_BF16_REL_TOL if " bf16 " in key else STRESS_REL_TOL
+
   return {"repeat": repeat, "per_shape": worst,
           "failed": [k for k, (e, de, m, dm) in worst.items()
-                     if not (e <= STRESS_REL_TOL and de <= STRESS_REL_TOL)
-                     or m or dm],
+                     if not (e <= bar(k) and de <= bar(k)) or m or dm],
           "seconds": time.perf_counter() - t0}
 
 
 def sanitize(out: Path) -> dict:
   from ._build import load_library
-  for name in ("gn_silu_conv3x3", "fir2"):
+  for name in ("gn_silu_conv3x3", "gn_silu_conv3x3_bf16", "fir2"):
     load_library(name)
   tool_bin = shutil.which("compute-sanitizer") or "/usr/local/cuda/bin/" \
       "compute-sanitizer"

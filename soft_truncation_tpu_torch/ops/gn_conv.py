@@ -5,10 +5,12 @@ Counterpart of ``soft_truncation_tpu/ops/pallas/gn_conv.py``. The GroupNorm
 statistics (:func:`gn_stats`) stay plain torch ops, as the JAX package
 leaves them to XLA; the rest, ``conv3x3(SiLU(x*scale + shift), zero pad) +
 b`` with the fold of stats and affine into ``scale, shift``, is one
-hand-written CUDA kernel (``csrc/gn_silu_conv3x3.cu``): an implicit GEMM on
-the tensor cores, in 3xTF32 for f32 inputs and in one bf16 product for
-bf16 ones, with split-K where the tiles alone would leave SMs idle. The
-normalised slab never reaches device memory.
+hand-written CUDA kernel per dtype: an implicit GEMM on the tensor cores,
+for f32 inputs in 3xTF32 ``mma.sync`` with split-K over launches
+(``csrc/gn_silu_conv3x3.cu``), for bf16 ones in ``wgmma`` with the
+activated operand in registers, TMA-fed weights and split-K across a
+thread-block cluster (``csrc/gn_silu_conv3x3_bf16.cu``). The normalised
+slab never reaches device memory.
 
 bfloat16 (``config.tpu.compute_dtype``): x, w and b in bf16, as the JAX
 package's fused site casts them, the statistics, gamma and beta in f32.
@@ -19,14 +21,15 @@ the plain versions round at the same places. Any other dtype raises.
 
 :func:`gn_silu_conv3x3` launches the kernel for CUDA tensors and takes the
 plain version, :func:`gn_silu_conv3x3_plain`, only for CPU tensors. The
-kernel's tiling (:func:`launch_plan`) and its weight operand
+kernels' tiling (:func:`launch_plan`) and weight operands
 (:func:`tf32_split`, :func:`weight_operand`) are plain Python here, so the
-CPU tests can replay its arithmetic.
+CPU tests can replay their arithmetic; the bf16 kernel reads its operand
+by TMA through a tensor map made once per operand (:func:`_tensor_map`).
 
 Forward mode (``torch.func.jvp``, as the likelihood takes the Hutchinson
 divergence): with tangents of ``x`` and of the stats (gamma, beta, w and b
 held constant), the output's tangent is ``conv3x3(SiLU'(a) * da)``, no
-bias (:func:`gn_silu_conv3x3_jvp_plain` writes it out). The same ``.cu``
+bias (:func:`gn_silu_conv3x3_jvp_plain` writes it out). Each ``.cu``
 file computes it in a tangent mode (:func:`gn_silu_conv3x3_jvp`), and the
 wrapper's ``torch.autograd.Function`` names it as its ``jvp`` rule, so
 under ``torch.func.jvp`` each fused site launches the kernel twice, for
@@ -57,12 +60,23 @@ from ._autodiff import below_transforms, plain, records_derivatives
 from ._build import define_op, launch, load_library, tracing
 
 _KERNEL = "gn_silu_conv3x3"
+_BF16_KERNEL = "gn_silu_conv3x3_bf16"
 _FORWARD_ONLY = ("gn_silu_conv3x3 is forward-only: call it under "
                  "torch.no_grad() or torch.inference_mode()")
 # csrc/gn_silu_conv3x3.cu's tile (BM GEMM rows, BN output channels, BK
 # channels per chunk) and the blocks an SM holds
 BM, BN, BK = 128, 128, 16
 BLOCKS_PER_SM = 2
+# csrc/gn_silu_conv3x3_bf16.cu's tile: BF16_BM GEMM rows, BF16_BK channels
+# per chunk (a 128-byte pixel row), block widths of output channels, the
+# most blocks of a cluster along K
+BF16_BM, BF16_BK = 64, 64
+BF16_BLOCK_N = (64, 128, 256)
+BF16_MAX_SPLITS = 8
+# clusters of 1, 2, 4 and 8 of its blocks the H100's 132 SMs hold at once
+# (cudaOccupancyMaxActiveClusters: its GPCs leave SMs that clusters of 4 or
+# 8 cannot fill), scaled to another SM count
+H100_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15}
 _MAX_SMEM = 232448     # a block's dynamic shared memory, at most
 _SM_SMEM = 233472      # an SM's shared memory, 1 KB of it reserved per block
 H100_SMS = 132
@@ -171,31 +185,41 @@ def gn_silu_conv3x3_jvp_plain(x, dx, mean, dmean, rsqrt, drsqrt, gamma,
 
 
 class LaunchPlan(NamedTuple):
-  """How the kernel tiles one (N, H, W, C, O): see :func:`launch_plan`."""
-  cp: int       # C padded to a multiple of BK
-  op: int       # O padded to a multiple of BN
+  """How a kernel tiles one (N, H, W, C, O): see :func:`launch_plan`."""
+  cp: int       # C padded to a multiple of the chunk (BK; bf16: BF16_BK)
+  op: int       # O padded to a multiple of the block's output channels
   m: int        # N*H*W, the GEMM's rows
-  rows: int     # pixel rows per block: BM // W, its GEMM rows rows * W
+  rows: int     # pixel rows per block (f32: BM // W, its GEMM rows rows * W)
   grid: tuple   # (O tiles, row tiles, splits)
-  chunks: int   # cp / BK, each 9 K steps (one per tap)
+  chunks: int   # cp / chunk, each 9 K steps (one per tap)
   splits: int
-  slots: int    # images the block's rows + 2 halo rows can touch
+  slots: int    # f32: images the block's rows + 2 halo rows can touch
   smem: int     # dynamic shared memory, bytes
+  cols: int = 0       # bf16: pixels of a row per block, min(W, BF16_BM)
+  block_n: int = BN   # output channels per block
+  stages: int = 2     # the weights' ring
+  raws: int = 1       # bf16: raw halo tiles (2: chunk 1 loads beside 0)
 
 
-def smem_bytes(hp: int, cp: int, slots: int, groups: int, streams: int,
-               bf16: bool = False) -> int:
-  """The kernel's dynamic shared memory for ``hp`` halo pixels (the
-  ``.cu``'s ``smem_bytes``): the raw halo ring(s) of x's dtype, the
-  activated tile (f32: tf32 hi and lo; bf16: one, rows of BK + 8), the B
-  ring (f32: hi and lo [BK][BN + 8]; bf16: [BN][BK + 8]), then gamma,
-  beta, the stats and the row offsets in 4-byte words."""
+def smem_bytes(hp: int, streams: int, *, cp: int = 0, slots: int = 0,
+               groups: int = 0, bf16: bool = False, block_n: int = BN,
+               stages: int = 2, raws: int = 1) -> int:
+  """A kernel's dynamic shared memory for ``hp`` halo pixels and
+  ``streams`` raw halo tiles (2 in the tangent mode: x and its tangent).
+  f32 (``csrc/gn_silu_conv3x3.cu``'s ``smem_bytes``): the raw halo ring(s),
+  the activated tile (tf32 hi and lo), the B ring (hi and lo [BK][BN +
+  8]), then gamma, beta (``cp`` each), the stats (``slots`` x ``groups``)
+  and the row offsets in 4-byte words. bf16 (``csrc/
+  gn_silu_conv3x3_bf16.cu``'s): 1 KB to align the base, the weights' ring
+  of ``stages`` x ``block_n`` rows of 128 bytes, two activated tiles of hp
+  + 1 such rows, ``raws`` x ``streams`` raw halo tiles of hp rows, and the
+  mbarriers."""
   if bf16:
-    tiles = 2 * 2 * streams * hp * BK + 2 * (hp + 1) * (BK + 8) + (
-        2 * 2 * BN * (BK + 8))
-  else:
-    tiles = 4 * (2 * streams * hp * BK + 2 * (hp + 1) * (BK + 4)
-                 + 4 * BK * (BN + 8))
+    row = 2 * BF16_BK
+    return (1024 + stages * block_n * row + 2 * (hp + 1) * row
+            + raws * streams * hp * row + 8 * (2 * stages + 4))
+  tiles = 4 * (2 * streams * hp * BK + 2 * (hp + 1) * (BK + 4)
+               + 4 * BK * (BN + 8))
   return tiles + 4 * (2 * cp + 2 * streams * slots * groups + 3 * BM)
 
 
@@ -203,23 +227,26 @@ def smem_bytes(hp: int, cp: int, slots: int, groups: int, streams: int,
 def launch_plan(n: int, h: int, w: int, c: int, o: int, groups: int,
                 sms: int = H100_SMS, tangent: bool = False,
                 bf16: bool = False) -> LaunchPlan:
-  """The kernel's grid for one shape: blocks of BM // W whole pixel rows
-  (flattened across images) x BN output channels and, where they are
-  fewer than the blocks the SMs hold at once (BLOCKS_PER_SM each, fewer
-  where the shared memory does not fit them), split-K over the C / BK
-  chunks so that about that many blocks run, in one wave. Split s takes
-  chunks [s * chunks // S, (s + 1) * chunks // S), all 9 taps of each.
-  The tangent mode stages the halo rows of x and of its tangent, and the
-  stats' tangents: twice the raw A tile and twice the stats. The bf16 mode
-  stages half the bytes (:func:`smem_bytes`), so more blocks may fit an SM
-  and its splits may differ from the f32 plan's."""
+  """The kernel's grid for one shape (``bf16``: :func:`_bf16_plan`).
+
+  f32: blocks of BM // W whole pixel rows (flattened across images) x BN
+  output channels and, where they are fewer than the blocks the SMs hold
+  at once (BLOCKS_PER_SM each, fewer where the shared memory does not fit
+  them), split-K over the C / BK chunks so that about that many blocks
+  run, in one wave; a second kernel sums the splits. Split s takes chunks
+  [s * chunks // S, (s + 1) * chunks // S), all 9 taps of each. The
+  tangent mode stages the halo rows of x and of its tangent, and the
+  stats' tangents: twice the raw A tile and twice the stats."""
+  if bf16:
+    return _bf16_plan(n, h, w, c, o, sms, tangent)
   cp, op = _padded(c, o)
   rows = BM // w
   tiles = -(-(n * h) // rows) * (op // BN)
   chunks = cp // BK
   slots = min(n, -(-(rows + 2) // h) + 1)
   hp = (rows + 2) * (w + 2)  # halo pixels
-  smem = smem_bytes(hp, cp, slots, groups, 2 if tangent else 1, bf16)
+  smem = smem_bytes(hp, 2 if tangent else 1, cp=cp, slots=slots,
+                    groups=groups)
   resident = max(1, min(BLOCKS_PER_SM, _SM_SMEM // (smem + 1024)))
   splits = max(1, min(round(resident * sms / tiles), chunks))
   return LaunchPlan(cp, op, n * h * w, rows,
@@ -227,13 +254,52 @@ def launch_plan(n: int, h: int, w: int, c: int, o: int, groups: int,
                     slots, smem)
 
 
+def _bf16_plan(n: int, h: int, w: int, c: int, o: int, sms: int,
+               tangent: bool) -> LaunchPlan:
+  """The bf16 kernel's grid: blocks of BF16_BM GEMM rows, R = BF16_BM //
+  TW pixel rows of TW = min(W, BF16_BM) pixels (a row's segments of TW
+  beyond), by ``block_n`` output channels, the least of BF16_BLOCK_N
+  that holds O (256 past it: x is activated once per block up to O =
+  256); and, where those blocks leave the SMs mostly idle, a cluster of S
+  blocks along K (1, 2, 4 or 8, at most the C / BF16_BK chunks), doubled
+  while the blocks still fit one wave (one block per SM, and no more
+  clusters than the card holds at once: H100_CLUSTERS). Cluster block s
+  takes chunks [s * chunks // S, (s + 1) * chunks // S) and stores rows
+  [s * BF16_BM // S, (s + 1) * BF16_BM // S) of the sum. The shared memory
+  takes, in this order of preference, 4 stages of the weights' ring and a
+  second raw tile, 3 stages and a second raw tile, then 4 or 3 stages and
+  one raw tile."""
+  cols = min(w, BF16_BM)
+  rows = BF16_BM // cols
+  cp, op = _bf16_padded(c, o)
+  block_n = min(op, BF16_BLOCK_N[-1])
+  chunks = cp // BF16_BK
+  grid_m = -(-(n * h) // rows) * -(-w // cols)
+  tiles = grid_m * (op // block_n)
+  splits = 1
+  while (2 * splits <= min(BF16_MAX_SPLITS, chunks)
+         and 2 * splits * tiles <= sms
+         and tiles <= H100_CLUSTERS[2 * splits] * sms // H100_SMS):
+    splits *= 2
+  hp = (rows + 2) * (cols + 2)
+  streams = 2 if tangent else 1
+  smem, stages, raws = next(
+      (size, stages, raws) for stages, raws in ((4, 2), (3, 2), (4, 1), (3, 1))
+      for size in [smem_bytes(hp, streams, bf16=True, block_n=block_n,
+                              stages=stages, raws=raws)]
+      if size <= _MAX_SMEM)
+  return LaunchPlan(cp, op, n * h * w, rows, (op // block_n, grid_m, splits),
+                    chunks, splits, 0, smem, cols, block_n, stages, raws)
+
+
 def fits(n: int, h: int, w: int, c: int, o: int, groups: int) -> bool:
-  """Whether the kernel takes this shape in both modes: rows of at most BM
+  """Whether the kernels take this shape in both modes: rows of at most BM
   pixels, and each mode's tile within a block's shared memory. The
   models route any other site to the plain chain, decided per shape. The
-  answer holds for both dtypes: the bf16 tiles are smaller than the f32
-  ones and take the same C (a multiple of 4), so a site's route does not
-  depend on the compute dtype."""
+  answer holds for both dtypes: the bf16 kernel takes the same C (a
+  multiple of 4) and W, and its tiles, at most 3 x 66 halo pixels of 64
+  channels beside 3 stages of 256 x 64 weights, fit wherever W <= BM, so
+  a site's route does not depend on the compute dtype."""
   return w <= BM and all(
       launch_plan(n, h, w, c, o, groups, tangent=tangent).smem <= _MAX_SMEM
       for tangent in (False, True))
@@ -253,20 +319,32 @@ def tf32_split(t: torch.Tensor):
 
 
 def _padded(c: int, o: int):
-  """C and O padded to the kernel's chunk (BK) and tile (BN) widths."""
+  """C and O padded to the f32 kernel's chunk (BK) and tile (BN) widths."""
   return -(-c // BK) * BK, -(-o // BN) * BN
+
+
+def _bf16_padded(c: int, o: int):
+  """C and O padded to the bf16 kernel's chunk (BF16_BK) and to a multiple
+  of its block's output channels (the least of BF16_BLOCK_N that holds O,
+  the largest past it)."""
+  block_n = next((b for b in BF16_BLOCK_N if o <= b), BF16_BLOCK_N[-1])
+  return -(-c // BF16_BK) * BF16_BK, -(-o // block_n) * block_n
 
 
 def weight_operand(w: torch.Tensor):
   """The HWIO weights as the kernel reads them: for f32 ``w``, [9*Cp, Op]
   (tap-major rows of Cp channels, zero padding) split into TF32
   ``(hi, lo)``; for bf16 ``w``, the one tensor ``(wt,)``, the same values
-  as bf16 [Op, 9*Cp] (output channel major, K contiguous). A caller that
-  launches the kernel on one weight value many times computes this once
-  and passes it as ``w_split`` (``DDPMConv.weight_operand``)."""
+  as bf16 [Op, 9*Cp] (output channel major, K contiguous; Cp and Op the
+  bf16 kernel's, :func:`_bf16_padded`), the rows its TMA boxes read. A
+  caller that launches the kernel on one weight value many times computes
+  this once and passes it as ``w_split`` (``DDPMConv.weight_operand``); the
+  bf16 kernel's tensor map of it is made once per operand too
+  (:func:`_tensor_map`)."""
   c, o = w.shape[2], w.shape[3]
-  cp, op = _padded(c, o)
-  wp = w.new_zeros((9, cp, op), dtype=_kernel_dtype(w.dtype, "w"))
+  dtype = _kernel_dtype(w.dtype, "w")
+  cp, op = (_bf16_padded if dtype == torch.bfloat16 else _padded)(c, o)
+  wp = w.new_zeros((9, cp, op), dtype=dtype)
   wp[:, :c, :o] = w.reshape(9, c, o)
   if wp.dtype == torch.bfloat16:
     return (wp.reshape(9 * cp, op).t().contiguous(),)
@@ -337,13 +415,19 @@ def _primal_cuda(x, mean, rsqrt, gamma, beta, w, b, groups: int, w_split):
   mean = mean.float().contiguous()
   rsqrt = rsqrt.float().contiguous()
   out = x.new_empty((n, h, wd, o))
-  ws = _workspace(x, plan, o)
   bf16 = x.dtype == torch.bfloat16
-  err = launch(_kernel_fn(bf16), x.device, x.data_ptr(), mean.data_ptr(),
-               rsqrt.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-               w_hi.data_ptr(), _ptr(w_lo), b.data_ptr(), out.data_ptr(),
-               _ptr(ws), n, h, wd, c, o, groups, plan.cp, plan.op, plan.rows,
-               plan.splits, plan.slots)
+  if bf16:
+    err = launch(_bf16_kernel_fn(False), x.device, x.data_ptr(),
+                 mean.data_ptr(), rsqrt.data_ptr(), gamma.data_ptr(),
+                 beta.data_ptr(), _tensor_map_of(w_hi, plan), b.data_ptr(),
+                 out.data_ptr(), *_bf16_ints(n, h, wd, c, o, groups, plan))
+  else:
+    ws = _workspace(x, plan, o)
+    err = launch(_kernel_fn(), x.device, x.data_ptr(), mean.data_ptr(),
+                 rsqrt.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                 w_hi.data_ptr(), w_lo.data_ptr(), b.data_ptr(),
+                 out.data_ptr(), _ptr(ws), n, h, wd, c, o, groups, plan.cp,
+                 plan.op, plan.rows, plan.splits, plan.slots)
   if err != 0:
     raise RuntimeError(f"gn_silu_conv3x3 launch failed: cudaError {err}")
   gn_silu_conv3x3.launches += 1
@@ -352,8 +436,15 @@ def _primal_cuda(x, mean, rsqrt, gamma, beta, w, b, groups: int, w_split):
   return out
 
 
+def _bf16_ints(n, h, w, c, o, groups, plan: LaunchPlan):
+  """The bf16 entry points' int arguments after the tensors."""
+  return (n, h, w, c, o, groups, plan.cp, plan.op, plan.rows, plan.cols,
+          plan.block_n, plan.splits, plan.stages, plan.raws)
+
+
 def _workspace(x, plan: LaunchPlan, o: int):
-  """The split-K partial sums' f32 workspace, or None without split-K."""
+  """The f32 kernel's split-K partial sums' workspace, or None without
+  split-K."""
   if plan.splits == 1:
     return None
   return x.new_empty((plan.splits, plan.m, o), dtype=torch.float32)
@@ -426,13 +517,20 @@ def _jvp_cuda(x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, w,
   o = w.shape[-1]
   stats = [t.float().contiguous() for t in (mean, dmean, rsqrt, drsqrt)]
   out = x.new_empty((n, h, wd, o))
-  ws = _workspace(x, plan, o)
   bf16 = x.dtype == torch.bfloat16
-  err = launch(_jvp_kernel_fn(bf16), x.device, x.data_ptr(), dx.data_ptr(),
-               *(t.data_ptr() for t in stats), gamma.data_ptr(),
-               beta.data_ptr(), w_hi.data_ptr(), _ptr(w_lo), out.data_ptr(),
-               _ptr(ws), n, h, wd, c, o, groups, plan.cp, plan.op, plan.rows,
-               plan.splits, plan.slots)
+  if bf16:
+    err = launch(_bf16_kernel_fn(True), x.device, x.data_ptr(),
+                 dx.data_ptr(), *(t.data_ptr() for t in stats),
+                 gamma.data_ptr(), beta.data_ptr(),
+                 _tensor_map_of(w_hi, plan), out.data_ptr(),
+                 *_bf16_ints(n, h, wd, c, o, groups, plan))
+  else:
+    ws = _workspace(x, plan, o)
+    err = launch(_jvp_kernel_fn(), x.device, x.data_ptr(), dx.data_ptr(),
+                 *(t.data_ptr() for t in stats), gamma.data_ptr(),
+                 beta.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(),
+                 out.data_ptr(), _ptr(ws), n, h, wd, c, o, groups, plan.cp,
+                 plan.op, plan.rows, plan.splits, plan.slots)
   if err != 0:
     raise RuntimeError(f"gn_silu_conv3x3 tangent launch failed: cudaError "
                        f"{err}")
@@ -558,9 +656,8 @@ def _sms(device: torch.device) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn(bf16: bool = False):
-  lib = load_library(_KERNEL)
-  fn = lib.gn_silu_conv3x3_bf16 if bf16 else lib.gn_silu_conv3x3_tf32x3
+def _kernel_fn():
+  fn = load_library(_KERNEL).gn_silu_conv3x3_tf32x3
   fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
                  + [ctypes.c_void_p])
   fn.restype = ctypes.c_int
@@ -568,11 +665,50 @@ def _kernel_fn(bf16: bool = False):
 
 
 @functools.lru_cache(maxsize=None)
-def _jvp_kernel_fn(bf16: bool = False):
-  lib = load_library(_KERNEL)
-  fn = (lib.gn_silu_conv3x3_jvp_bf16 if bf16
-        else lib.gn_silu_conv3x3_jvp_tf32x3)
+def _jvp_kernel_fn():
+  fn = load_library(_KERNEL).gn_silu_conv3x3_jvp_tf32x3
   fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 11
                  + [ctypes.c_void_p])
   fn.restype = ctypes.c_int
   return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_kernel_fn(tangent: bool):
+  lib = load_library(_BF16_KERNEL)
+  if tangent:
+    fn, pointers = lib.gn_silu_conv3x3_jvp_bf16, 10
+  else:
+    fn, pointers = lib.gn_silu_conv3x3_bf16, 8
+  fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 14
+                 + [ctypes.c_void_p])
+  fn.restype = ctypes.c_int
+  return fn
+
+
+def _tensor_map_of(wt: torch.Tensor, plan: LaunchPlan) -> int:
+  """The address of the bf16 kernel's tensor map of weight operand ``wt``
+  (boxes of ``plan.block_n`` rows), made at its first launch."""
+  return ctypes.addressof(_tensor_map(wt.data_ptr(), wt.shape[0],
+                                      wt.shape[1], plan.block_n))
+
+
+@functools.lru_cache(maxsize=4096)
+def _tensor_map(ptr: int, rows: int, k: int, block_n: int):
+  """The host copy of the TMA tensor map of the bf16 weight operand at
+  ``ptr`` ([rows, k] bf16, k contiguous), for boxes of 64 x ``block_n``:
+  made once per operand (the map holds its address and shape, nothing of
+  its values, so a key of those stays right for any tensor that reuses
+  them)."""
+  lib = load_library(_BF16_KERNEL)
+  buf = ctypes.create_string_buffer(
+      lib.gn_silu_conv3x3_bf16_tensor_map_bytes())
+  fn = lib.gn_silu_conv3x3_bf16_tensor_map
+  fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_void_p]
+  fn.restype = ctypes.c_int
+  err = fn(ptr, rows, k, block_n, ctypes.addressof(buf))
+  if err != 0:
+    raise RuntimeError(f"gn_silu_conv3x3 bf16: cuTensorMapEncodeTiled "
+                       f"failed ({err})")
+  return buf

@@ -37,6 +37,7 @@ from . import data as datasets
 from .eval import evaluation
 from .likelihood import get_elbo_fn, get_likelihood_fn
 from .models import create_model
+from .models.score import load_eval_params
 from .parallel import ddp
 from .parallel.mesh import first_of_space, local_shape, make_mesh, shard_batch
 from .sample import get_sampling_fn
@@ -150,7 +151,7 @@ def _train(config, workdir, assetdir, world, device):
       # the EMA weights, in an eval copy made at the first use
       if eval_model is None:
         eval_model = _eval_model(config, device)
-      eval_model.load_state_dict(state.ema)
+      load_eval_params(eval_model, state.ema)
     if bpd:
       evaluation.compute_bpd(config, nelbo_fn, nll_fn, eval_model, step=step,
                              report_dir=os.path.join(workdir, "bpd"),
@@ -187,7 +188,7 @@ def evaluate(config, workdir: str, assetdir=None, eval_folder: str = "eval",
   step = state.step
   log.info("score model step: %d", step)
   model = _eval_model(config, device)
-  model.load_state_dict(state.ema)  # evaluation uses the EMA weights
+  load_eval_params(model, state.ema)  # evaluation uses the EMA weights
   del state
 
   results = {}

@@ -303,12 +303,12 @@ def export_sampler(config, params: Dict[str, torch.Tensor],
   if whole % devices:
     raise ValueError(f"batch {whole} does not split over the mesh's "
                      f"{devices} ranks")
+  from ..models.score import cast_params_for_eval, load_eval_params
   model, programs, shape = make_serving_fn(config, whole // devices, device)
-  model.load_state_dict(params)
+  load_eval_params(model, params)
   state = model.state_dict()
   any_program = next(iter(programs.values()))
   names, convs = tuple(any_program.names), tuple(any_program.convs)
-  from ..models.score import cast_params_for_eval
   dtype = getattr(model, "dtype", torch.float32)  # the legacy networks: f32
   cast = tuple(sorted(cast_params_for_eval(model) or ()))
   tensors = program_inputs(state, names, convs, dtype, cast)
@@ -417,6 +417,18 @@ def load_artifact(path: str, device=None) -> Tuple[Exported, Dict[str, Any]]:
                   tuple(meta.get("cast_params", ()))), meta
 
 
+def _param_dtypes(program, names) -> Dict[str, torch.dtype]:
+  """The dtype each state_dict input ``names`` (the user inputs after x and
+  t) of ``program`` was traced with."""
+  from torch.export.graph_signature import InputKind
+  user = [node for node, spec in zip(
+      (n for n in program.graph.nodes if n.op == "placeholder"),
+      program.graph_signature.input_specs)
+          if spec.kind == InputKind.USER_INPUT]
+  return {name: node.meta["val"].dtype
+          for name, node in zip(names, user[2:])}
+
+
 def _flat_call(program) -> Callable:
   """``call(x, t, inputs)``: the program's graph on its inputs in the
   order of its signature (its lifted constants, then x, t and ``inputs``).
@@ -463,8 +475,11 @@ class ExportedScore:
       raise ValueError(f"params lack {len(missing)} of the program's "
                        f"inputs, e.g. {missing[:3]}")
     # contiguous, as a load into the network's own tensors leaves them (a
-    # dense weight transposed in place would take another GEMM order)
-    state = {n: params[n].to(self.device, torch.float32).contiguous()
+    # dense weight transposed in place would take another GEMM order), in
+    # the dtype the programs were traced with (a bf16 EMA's heads: bf16)
+    dtypes = _param_dtypes(exported.programs[exported.specs[0].name],
+                           exported.params)
+    state = {n: params[n].to(self.device, dtypes[n]).contiguous()
              for n in exported.params}
     self.inputs = program_inputs(state, exported.params, exported.operands,
                                  getattr(torch, exported.compute_dtype),
@@ -515,7 +530,8 @@ def _restore_ema(config, model, workdir: Optional[str]) -> bool:
     return False
   state = init_train_state(config, model)
   manager.restore_meta(state)
-  model.load_state_dict(state.ema)
+  from ..models.score import load_eval_params
+  load_eval_params(model, state.ema)
   return True
 
 

@@ -112,8 +112,9 @@ class SamplingService:
                max_num: int = 4096):
     from ..models import create_model
     device = resolve_device(device)
+    from ..models.score import load_eval_params
     model = create_model(config, device)
-    model.load_state_dict(params)
+    load_eval_params(model, params)
     self._setup(config, model, device, batch, max_num, {})
 
   @classmethod

@@ -28,10 +28,20 @@ each relative to the largest value it is held to, and why:
   tiny flagship against JAX's jvp'd drift: 1e-2 of each part's largest
   (the drift mixes the bf16 score with f32 x; measured 1.8e-3 and 1.1e-4);
 - (g) a checkpoint resume with a bf16 EMA and ``mu``: bit for bit;
+- (h) a bf16 EMA applied as stored (``load_eval_params``) under a bf16
+  compute dtype: each head GroupNorm (``pyr_norm_*``, ``out_norm``) of the
+  port on the input JAX's forward gives it, bit for bit Flax's GroupNorm
+  of the stored bf16 parameters on that input (bf16 out: the same f32
+  statistics and affine, one rounding; within the jitted forward XLA may
+  skip a bf16 rounding of the input, ``xla_allow_excess_precision``, so
+  the head is held alone); the whole forward at (c)'s 3e-2;
 - the bf16 export: its fused operator nodes in bf16, its pre-cast weight
   inputs named in the meta, and the replay bit for bit the eager score.
 """
 
+import functools
+
+import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -43,6 +53,7 @@ from jax.experimental.pallas import tpu as pltpu
 from soft_truncation_tpu.losses.losses import get_optimizer as jax_optimizer
 from soft_truncation_tpu.models import layerspp as jax_layerspp
 from soft_truncation_tpu.models.ema import ema_update as jax_ema_update
+from soft_truncation_tpu.models.score import get_model_fn as jax_get_model_fn
 from soft_truncation_tpu.models.score import get_score_fn as jax_get_score_fn
 from soft_truncation_tpu.ops.pallas import fir as jax_fir
 from soft_truncation_tpu.ops.pallas import gn_conv as jax_gn_conv
@@ -54,11 +65,13 @@ from soft_truncation_tpu_torch.losses import get_optimizer
 from soft_truncation_tpu_torch.models import create_model
 from soft_truncation_tpu_torch.models.ema import ema_init, ema_update
 from soft_truncation_tpu_torch.models.score import (cast_params_for_eval,
-                                                    get_model_fn)
+                                                    get_model_fn,
+                                                    load_eval_params)
 from soft_truncation_tpu_torch.ops import fir, gn_conv
 from soft_truncation_tpu_torch.models.score import get_score_fn
 from soft_truncation_tpu_torch.sde import get_sde
 from soft_truncation_tpu_torch.serve import export
+from soft_truncation_tpu_torch.run_lib import _eval_model
 from soft_truncation_tpu_torch.train import (CheckpointManager,
                                              init_train_state,
                                              make_train_step)
@@ -103,7 +116,9 @@ def test_kernels_take_bfloat16_and_refuse_float16():
   float16 raises at the kernel's checks and at the weight operand."""
   x = torch.randn(1, 4, 4, 8)
   w = torch.randn(3, 3, 8, 8)
-  assert gn_conv.weight_operand(w.bfloat16())[0].shape == (128, 9 * 16)
+  # the bf16 kernel's operand: O padded to its 64-wide block, C to its
+  # 64-channel chunk
+  assert gn_conv.weight_operand(w.bfloat16())[0].shape == (64, 9 * 64)
   with pytest.raises(NotImplementedError, match="float16"):
     gn_conv.weight_operand(w.half())
   with pytest.raises(NotImplementedError, match="float16"):
@@ -117,7 +132,7 @@ def test_kernels_take_bfloat16_and_refuse_float16():
     for tangent in (False, True):
       f32, bf16 = (gn_conv.launch_plan(*shape, 32, tangent=tangent, bf16=b)
                    for b in (False, True))
-      assert bf16.smem < f32.smem
+      assert f32.smem <= gn_conv._MAX_SMEM and bf16.smem <= gn_conv._MAX_SMEM
 
 
 # (a) --------------------------------------------------------------------
@@ -233,16 +248,22 @@ CASES = {"flagship": (torch_tiny.FLAGSHIP, BF16),
          "uncsnpp_norm_bf16": (torch_tiny.UNCSNPP, BF16_NORM)}
 
 
-@pytest.fixture(scope="module", params=sorted(CASES))
-def forward_case(request):
-  family, knobs = CASES[request.param]
-  jc, pc, jmodel, params, pmodel = torch_tiny.build(
-      _changes(torch_tiny.SMALL, knobs), family=family)
+@functools.lru_cache(maxsize=None)
+def _small(case):
+  """(jc, pc, jmodel, params, pmodel) of a CASES entry, and its inputs."""
+  family, knobs = CASES[case]
+  built = torch_tiny.build(_changes(torch_tiny.SMALL, knobs), family=family)
   rng = np.random.default_rng(4)
   x = rng.standard_normal((2, 8, 8, 3)).astype(np.float32)
   labels = (np.array([0.1, 0.8], np.float32) * 999.0
             if family == torch_tiny.FLAGSHIP
             else np.array([0.05, 20.0], np.float32))
+  return built, x, labels
+
+
+@pytest.fixture(scope="module", params=sorted(CASES))
+def forward_case(request):
+  (_, _, jmodel, params, pmodel), x, labels = _small(request.param)
   want, want_dtype = _jax_eval_forward(jmodel, params, x, labels)
   return pmodel, x, labels, want, want_dtype
 
@@ -394,6 +415,83 @@ def test_checkpoint_resume_with_bf16_ema_and_mu_is_bit_for_bit(tmp_path):
       assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), k
   for a, b in zip(state.optimizer.mu, resumed.optimizer.mu):
     assert torch.equal(a, b)
+
+
+# (h) --------------------------------------------------------------------
+
+_HEADS = ("pyr_norm_", "out_norm")
+
+
+def _jax_heads_and_forward(jmodel, ema, x, labels):
+  """JAX's eval forward of the tree ``ema`` as stored (``get_model_fn``,
+  its ``cast_params_for_eval``, the fused route in XLA ops), with each head
+  GroupNorm's input and output."""
+  def run(p):
+    heads = {}
+
+    def grab(next_fun, args, kwargs, context):
+      out = next_fun(*args, **kwargs)
+      module = context.module
+      if (isinstance(module, nn.GroupNorm)
+          and module.name.startswith(_HEADS)):
+        heads[module.name] = (args[0], out)
+      return out
+
+    with nn.intercept_methods(grab):
+      out = jax_get_model_fn(jmodel, p, train=False)(x, labels)
+    return out, heads
+
+  with pytest.MonkeyPatch.context() as mp:
+    mp.setattr(jax_layerspp, "_PALLAS_GN_CONV", True)
+    mp.setattr(jax_gn_conv, "gn_silu_conv3x3", _jax_fused)
+    return jax.jit(run)(ema)
+
+
+@pytest.mark.parametrize("case", ["flagship", "uncsnpp"])
+def test_bf16_ema_applied_as_stored_matches_jax(case):
+  """Under ``compute_dtype`` bf16 and a bf16 EMA, the port's evaluation
+  model (``run_lib``'s, loaded by ``load_eval_params``) runs its heads'
+  GroupNorms on the shadow's bf16 parameters, as JAX applies
+  ``state.ema_params``: bf16 in, bf16 out, the same bits."""
+  (_, pc, jmodel, params, pmodel), x, labels = _small(case)
+  ema = ema_init(pmodel, torch.bfloat16)
+  jema = jax.tree.map(lambda p: p.astype(jnp.bfloat16), params)
+  want, heads = _jax_heads_and_forward(jmodel, jema, x, labels)
+  assert heads and all(out.dtype == jnp.bfloat16 for _, out in heads.values())
+  model = _eval_model(pc, "cpu")
+  load_eval_params(model, ema)
+  for name, (jin, _) in heads.items():
+    norm = model.get_submodule(name)
+    assert norm.weight.dtype == norm.bias.dtype == torch.bfloat16, name
+    assert jin.dtype == jnp.bfloat16, name
+    head = nn.GroupNorm(num_groups=norm.num_groups, epsilon=norm.eps)
+    jout = jax.jit(lambda p, v: head.apply({"params": p}, v))(jema[name], jin)
+    with torch.no_grad():
+      got = norm(torch.tensor(np.asarray(jin.astype(jnp.float32))).bfloat16())
+    assert got.dtype == torch.bfloat16 and jout.dtype == jnp.bfloat16, name
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(jout.astype(jnp.float32)),
+                                  err_msg=name)
+  with torch.no_grad():
+    got = get_model_fn(model, train=False)(torch.from_numpy(x),
+                                           torch.from_numpy(labels))
+  assert str(got.dtype).split(".")[-1] == str(want.dtype)
+  assert _rel(got.float().numpy(), want.astype(jnp.float32)) <= 3e-2
+
+
+def test_f32_ema_loads_as_before():
+  """An f32 shadow leaves every parameter f32: the load is
+  ``load_state_dict``'s, bit for bit."""
+  (_, pc, _, _, pmodel), x, labels = _small("uncsnpp")
+  ema = ema_init(pmodel, torch.float32)
+  model, plain_load = _eval_model(pc, "cpu"), _eval_model(pc, "cpu")
+  load_eval_params(model, ema)
+  plain_load.load_state_dict(ema)
+  assert all(p.dtype == torch.float32 for p in model.parameters())
+  with torch.no_grad():
+    args = (torch.from_numpy(x), torch.from_numpy(labels))
+    assert torch.equal(get_model_fn(model)(*args),
+                       get_model_fn(plain_load)(*args))
 
 
 # the exported sampler -----------------------------------------------------

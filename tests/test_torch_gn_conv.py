@@ -17,6 +17,15 @@ at the same bar, and the wrapper's Function (torch.func.jvp, forward_ad
 dual tensors) against it. On the card the tangent kernel is held against
 it by test_tangent_kernel_matches_plain_on_card (marked ``gpu``) and by
 chip_smoke.py.
+
+The bf16 kernel (csrc/gn_silu_conv3x3_bf16.cu: 64-row tiles of whole pixel
+rows or row segments, a halo tile per 64-channel chunk with a zero row,
+split-K across a cluster): bf16_tile replays its per-tap row addresses and
+is held against an im2col of the zero-padded image; a numpy replay of its
+chunks, cluster ranks and rank-order sum is held against the plain version
+at a ragged shape; its launch plan takes every chunk and output row once
+and fits shared memory at every published site shape. Both bf16 entries
+are held on the card by test_bf16_kernels_match_plain_on_card (``gpu``).
 """
 
 import os
@@ -424,3 +433,211 @@ def test_tangent_kernel_matches_plain_on_card():
   assert (tangent - want).abs().max() <= 1e-4 * want.abs().max()
   assert gn_conv.gn_silu_conv3x3.jvp_launches == len(cases) + 1
   assert gn_conv.gn_silu_conv3x3.launches == 1
+
+
+# the bf16 kernel (csrc/gn_silu_conv3x3_bf16.cu) ---------------------------
+
+# every fused site shape (H, W, C, O) of the 33 configs' layouts, as the
+# configs test walks them
+PUBLISHED_SITES = [
+    (4, 4, 256, 256), (4, 4, 512, 256), (8, 8, 256, 256), (8, 8, 512, 256),
+    (8, 8, 512, 512), (8, 8, 1024, 512), (16, 16, 128, 128),
+    (16, 16, 128, 256), (16, 16, 256, 256), (16, 16, 384, 256),
+    (16, 16, 512, 256), (16, 16, 512, 512), (16, 16, 1024, 512),
+    (32, 32, 128, 128), (32, 32, 128, 256), (32, 32, 256, 128),
+    (32, 32, 256, 256), (32, 32, 256, 512), (32, 32, 384, 128),
+    (32, 32, 384, 256), (32, 32, 512, 256), (32, 32, 512, 512),
+    (64, 64, 128, 128)]
+
+
+def bf16_tile(plan, tile, n, h, w, tap):
+  """The bf16 kernel's halo tile and A rows for ``tap`` in M tile ``tile``
+  (blockIdx.y), as csrc/gn_silu_conv3x3_bf16.cu computes them: ``halo``,
+  each of the tile's (rows + 2) x (cols + 2) halo pixels as a flat N*H*W
+  index, -1 where it lies outside x (the kernel writes it 0); ``a_pix``,
+  for GEMM row m its lane's ldmatrix pixel in that tile (its neighbour at
+  dy, dx = divmod(tap, 3)), or hp, the zero row, where the tap leaves the
+  image or the row lies past the tile or past N*H*W; ``out``, row m's
+  output pixel, -1 for none."""
+  segs = -(-w // plan.cols)
+  row0, x0 = tile // segs * plan.rows, tile % segs * plan.cols
+  w2 = plan.cols + 2
+  hp = (plan.rows + 2) * w2
+  pr, pc = np.divmod(np.arange(hp), w2)
+  row, xc = row0 - 1 + pr, x0 - 1 + pc
+  halo = np.where((row >= 0) & (row < n * h) & (xc >= 0) & (xc < w),
+                  row * w + xc, -1)
+  r, j = np.divmod(np.arange(gn_conv.BF16_BM), plan.cols)
+  rows = row0 + r
+  live = (r < plan.rows) & (rows < n * h) & (x0 + j < w)
+  dy, dx = divmod(tap, 3)
+  y = rows % h + dy - 1
+  a_pix = np.where(live & (y >= 0) & (y < h), (r + dy) * w2 + j + dx, hp)
+  return halo, a_pix, np.where(live, rows * w + x0 + j, -1)
+
+
+@pytest.mark.parametrize("n,h,w", [(3, 5, 7), (2, 3, 100), (4, 4, 4)])
+def test_bf16_tile_rows_map_pixels_and_zero_the_halo(n, h, w):
+  """Each GEMM row's source pixel per tap, through the halo tile and its
+  zero row, against an im2col of the zero-padded image: tiles of 9 rows of
+  7 pixels that straddle 5-row images (63 of 64 GEMM rows), a row of 100
+  pixels cut into segments of 64 and 36, and 4x4 images 4 to a tile."""
+  plan = gn_conv.launch_plan(n, h, w, 16, 16, 4, bf16=True)
+  m = n * h * w
+  padded = np.pad(np.arange(m).reshape(n, h, w) + 1,
+                  ((0, 0), (1, 1), (1, 1))) - 1
+  for tap in range(9):
+    dy, dx = divmod(tap, 3)
+    want = padded[:, dy:dy + h, dx:dx + w].reshape(m)
+    seen = np.zeros(m, int)
+    for tile in range(plan.grid[1]):
+      halo, a_pix, out = bf16_tile(plan, tile, n, h, w, tap)
+      got = np.append(halo, -1)[a_pix]  # the zero row reads as -1
+      np.testing.assert_array_equal(got[out >= 0], want[out[out >= 0]])
+      assert (a_pix[out < 0] == len(halo)).all()
+      seen[out[out >= 0]] += 1
+    assert (seen == 1).all()  # every output pixel in exactly one tile
+
+
+def _bf16(a):
+  return torch.from_numpy(a).bfloat16()
+
+
+@pytest.mark.parametrize("tangent", [False, True])
+def test_bf16_kernel_replay_matches_plain(tangent):
+  """numpy replay of the bf16 kernel at a ragged shape (5-pixel rows, 12
+  rows a tile over 3-row images, C = 132: 8-byte copies and a padded last
+  chunk, O = 20 in a 64-wide block, 3 chunks over a cluster of 2): the
+  activated halo tile with its zero row, each tap's rows by bf16_tile, the
+  f32 products of each rank's chunks, the partials summed in rank order
+  plus the bias, one rounding; against the plain version at the bf16 bar
+  (1e-2 of max |plain|: f32 sums in another order, then bf16)."""
+  n, h, w, c, o, groups = 2, 3, 5, 132, 20, 12
+  x, gamma, beta, wgt, b = _inputs(n, h, w, c, o, seed=7)
+  tx, tw, tb = _bf16(x), _bf16(wgt), _bf16(b)
+  g, bt = torch.from_numpy(gamma), torch.from_numpy(beta)
+  plan = gn_conv.launch_plan(n, h, w, c, o, groups, tangent=tangent,
+                             bf16=True)
+  assert plan.splits == 2 and plan.chunks == 3 and c % 8
+  if tangent:
+    tdx = _bf16(x[::-1].copy())
+    (mean, rsqrt), (dmean, drsqrt) = torch.func.jvp(
+        lambda v: gn_conv.gn_stats(v, groups), (tx,), (tdx,))
+    want = gn_conv.gn_silu_conv3x3_jvp_plain(tx, tdx, mean, dmean, rsqrt,
+                                             drsqrt, g, bt, tw, groups)
+    # the activated operand: SiLU'(a) * da, rounded as the kernel rounds it
+    scale, shift = gn_conv._fold(mean, rsqrt, g, bt, groups)
+    cg = c // groups
+    dscale = drsqrt.repeat_interleave(cg, 1) * g
+    dshift = -(dmean.repeat_interleave(cg, 1) * scale
+               + mean.repeat_interleave(cg, 1) * dscale)
+    a = tx.float() * scale[:, None, None] + shift[:, None, None]
+    da = (tdx.float() * scale[:, None, None]
+          + tx.float() * dscale[:, None, None] + dshift[:, None, None])
+    s = torch.sigmoid(a)
+    act = (s * (1 + a * (1 - s)) * da).bfloat16().float()
+    bias = np.zeros(plan.op, np.float32)
+  else:
+    mean, rsqrt = gn_conv.gn_stats(tx, groups)
+    want = gn_conv.gn_silu_conv3x3_plain(tx, mean, rsqrt, g, bt, tw, tb,
+                                         groups)
+    scale, shift = gn_conv._fold(mean, rsqrt, g, bt, groups)
+    u = tx.float() * scale[:, None, None] + shift[:, None, None]
+    act = torch.nn.functional.silu(u).bfloat16().float()
+    bias = np.zeros(plan.op, np.float32)
+    bias[:o] = tb.float().numpy()
+  act_all = np.zeros((n * h * w, plan.cp), np.float32)
+  act_all[:, :c] = act.reshape(n * h * w, c).numpy()
+  (wt,) = gn_conv.weight_operand(tw)
+  wt = wt.float().numpy()
+  assert wt.shape == (plan.op, 9 * plan.cp)
+  got = np.zeros((n * h * w, o), np.float32)
+  ck = gn_conv.BF16_BK
+  for tile in range(plan.grid[1]):
+    partials = []
+    for s in range(plan.splits):
+      acc = np.zeros((gn_conv.BF16_BM, plan.op), np.float32)
+      for ch in split_chunks(plan, s):
+        for tap in range(9):
+          halo, a_pix, out = bf16_tile(plan, tile, n, h, w, tap)
+          tile_act = np.vstack([np.where(halo[:, None] >= 0,
+                                         act_all[np.maximum(halo, 0)], 0),
+                                np.zeros((1, plan.cp), np.float32)])
+          a = tile_act[a_pix, ch * ck:(ch + 1) * ck]
+          k = tap * plan.cp + ch * ck
+          acc += a @ wt[:, k:k + ck].T
+      partials.append(acc)
+    total = np.zeros_like(partials[0])
+    for part in partials:  # rank order
+      total += part
+    total += bias
+    _, _, out = bf16_tile(plan, tile, n, h, w, 0)
+    got[out[out >= 0]] = total[out >= 0, :o]
+  got = torch.from_numpy(got).bfloat16().float().numpy().reshape(n, h, w, o)
+  want = want.float().numpy()
+  assert np.abs(got - want).max() <= 1e-2 * np.abs(want).max()
+
+
+def test_bf16_launch_plan_covers_k_once_and_fits_every_site():
+  """At every fused site shape of the 33 configs (batch 1, 8 and 128, both
+  modes): the route ``fits`` gives is the kernel's; the bf16 plan fits a
+  block's shared memory; its cluster ranks take every 64-channel chunk and
+  every output row exactly once; a cluster of 2, 4 or 8 only where the
+  tiles alone leave most SMs idle, and never more clusters than the H100
+  holds at once."""
+  for h, w, c, o in PUBLISHED_SITES:
+    for n in (1, 8, 128):
+      groups = min(c // 4, 32)
+      assert gn_conv.fits(n, h, w, c, o, groups), (n, h, w, c, o)
+      for tangent in (False, True):
+        plan = gn_conv.launch_plan(n, h, w, c, o, groups, tangent=tangent,
+                                   bf16=True)
+        assert plan.smem <= gn_conv._MAX_SMEM, (n, h, w, c, o, tangent)
+        assert plan.stages in (3, 4) and plan.raws in (1, 2)
+        assert plan.cp % gn_conv.BF16_BK == 0 and plan.op % plan.block_n == 0
+        chunks = [ch for s in range(plan.splits)
+                  for ch in split_chunks(plan, s)]
+        assert chunks == list(range(plan.chunks)), (n, h, w, c, o)
+        per = gn_conv.BF16_BM // plan.splits
+        assert per * plan.splits == gn_conv.BF16_BM
+        tiles = plan.grid[0] * plan.grid[1]
+        assert plan.splits in (1, 2, 4, 8)
+        if plan.splits > 1:
+          assert tiles <= gn_conv.H100_CLUSTERS[plan.splits]
+          assert tiles * plan.splits <= gn_conv.H100_SMS
+
+
+@pytest.mark.gpu
+def test_bf16_kernels_match_plain_on_card():
+  """Both bf16 entries on the card against their plain versions (the bf16
+  bar, 1e-2 of max |plain|): a cluster of 4 at 8x8, tiles that straddle
+  images with C % 8 != 0 and O off the block width, a 100-pixel row in two
+  segments, 32x32 without a split; the same bits twice (no atomics); each
+  launch counted as a bf16 launch."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card: the bf16 gn_silu_conv3x3 kernel has no "
+                "CPU mode")
+  gn_conv.reset_launch_counts()
+  cases = [(8, 8, 8, 256, 256, 32), (3, 5, 7, 36, 20, 12),
+           (2, 3, 100, 24, 40, 4), (2, 32, 32, 128, 128, 32)]
+  for n, h, w, c, o, groups in cases:
+    x, gamma, beta, wgt, b = (torch.from_numpy(a).cuda()
+                              for a in _inputs(n, h, w, c, o, seed=3))
+    x, dx, wgt, b = (t.bfloat16() for t in (x, x.flip(0), wgt, b))
+    (mean, rsqrt), (dmean, drsqrt) = torch.func.jvp(
+        lambda v: gn_conv.gn_stats(v, groups), (x,), (dx,))
+    primal = (x, mean, rsqrt, gamma, beta, wgt, b, groups)
+    tangent = (x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, wgt, groups)
+    for fn, plain, args in ((gn_conv.gn_silu_conv3x3,
+                             gn_conv.gn_silu_conv3x3_plain, primal),
+                            (gn_conv.gn_silu_conv3x3_jvp,
+                             gn_conv.gn_silu_conv3x3_jvp_plain, tangent)):
+      with torch.inference_mode():
+        got, again = fn(*args), fn(*args)
+        want = plain(*args)
+      torch.cuda.synchronize()
+      assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+      err = (got.float() - want.float()).abs().max().item()
+      assert err <= 1e-2 * want.float().abs().max().item(), (n, h, w, c, o)
+  assert gn_conv.gn_silu_conv3x3.bf16_launches == 2 * len(cases)
+  assert gn_conv.gn_silu_conv3x3.bf16_jvp_launches == 2 * len(cases)
