@@ -9,7 +9,9 @@ CIFAR-10 models and on the published layouts beyond them.
 Phases; any failure exits non-zero before the last line is printed:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every kernel of the serving paths (sm_90a), all
-     sources at once, and prints each compiler report;
+     sources at once, and prints each compiler report; the bf16 sources
+     (BF16_KERNELS) build on while phases 3-12 run, and phase 13 waits
+     for them first;
   3. forward: the full-width flagship (DDPM++, init_scale 0.1, batch 2) and
      UNCSN++ (FIR, residual input pyramid, init_scale 0.1, batch 2 at sigma
      labels 0.01 and 50) on the card and on a CPU copy with the same
@@ -106,8 +108,9 @@ Phases; any failure exits non-zero before the last line is printed:
      EMA weights; the workdir is removed after), the Synthetic images (the
      split the JAX package reads for a dataset it does not list, 'train'),
      batch LIKELIHOOD_BATCH, the eval loss, one NELBO and one exact-NLL
-     batch at the published ODE tolerances (rtol = atol = 1e-5, 'correct'
-     mode): finite eval loss, NELBO and NLL bpd, the nfe, the NLL batch's
+     batch at the ODE tolerances rtol = atol = LIKELIHOOD_ODE_TOL (cut from
+     the published 1e-5 for the time limit; 'correct' mode): finite eval
+     loss, NELBO and NLL bpd, the nfe, the NLL batch's
      wall and ms per function evaluation from the log; over the NLL batch
      each fused site launches gn_silu_conv3x3 for the primal and its
      tangent mode for the tangent once per function evaluation (plus the
@@ -182,14 +185,15 @@ Phases; any failure exits non-zero before the last line is printed:
      in JAX), card vs CPU in L2 within the CPU's spread as above, and
      apart from f32.
   10. slice 6c (after 9f), each counted as the main paths are:
-  10a. Picard on the flagship (phase-3 weights): 'picard_dpm' at the
-     config's N = 50 DPM steps in one window (each sweep one network call
-     at batch 400) at tol 0 against the sequential 'dpm_solver' from the
+  10a. Picard on the flagship (phase-3 weights): 'picard_dpm' at N =
+     PICARD_STEPS DPM steps (the config's 50 cut) in one window (each
+     sweep one network call at batch N x 8) at tol 0 against the
+     sequential 'dpm_solver' from the
      same prior (within PICARD_FLAGSHIP_REL_TOL of max |x|), at tol
      PICARD_TOL with its sweeps, nfe, ms per sweep and wall against the
      sequential wall, then served over HTTP twice per seed at
-     PICARD_SERVED_STEPS steps (the same bytes); 82 gn_silu_conv3x3 launches per network call, at batch 400 as
-     at 8;
+     PICARD_SERVED_STEPS steps (the same bytes); 82 gn_silu_conv3x3
+     launches per network call, at batch N x 8 as at 8;
   10b. Picard on UNCSN++ (phase-3 weights): 'picard' at tol 0 on a chain
      cut to N = PICARD_UNCSNPP_STEPS (of 1,000: tol 0 costs up to W x the
      sequential evaluations), window 8, against the sequential 'pc' from
@@ -213,7 +217,7 @@ Phases; any failure exits non-zero before the last line is printed:
      memory, fir2 launches forward (the recompute's included) and adjoint
      per shape; then one
      step without remat, or its out-of-memory error;
-     and phase 8 gains rows for gn_silu_conv3x3 at batch 400 and 64 and
+     and phase 8 gains rows for gn_silu_conv3x3 at batch N x 8 and 64 and
      fir2 at 64 (Picard), fir2 and its adjoint at FFHQ's shapes, batch 16.
   11. slice 6d, the exported sampler (after 10f): first the operators'
      dispatch against the direct launch (host us per call, DISPATCH_CALLS
@@ -225,7 +229,7 @@ Phases; any failure exits non-zero before the last line is printed:
      (``chip_smoke.py --replay-server``, with the port's ``models`` and
      ``configs`` made unimportable) loads the pair (seconds) and serves it
      over HTTP, and the live SamplingService in this process serves the
-     same seeds:
+     same seeds (while the subprocess loads, so its load is contended):
   11a. the flagship: two seeds with its own 'ode' and two with 'dpm_solver'
      at EXPORT_DPM_STEPS steps;
   11b. UNCSN++ with 'pc' at N = EXPORT_PC_STEPS (of 1,000) and
@@ -301,7 +305,14 @@ Phases; any failure exits non-zero before the last line is printed:
      gn_silu_conv3x3 rows (csrc/gn_silu_conv3x3_bf16.cu) also give each
      kernel's device ms by name (torch.profiler: the conv, and a reduce
      kernel where there is one), and the ragged shapes hold both bf16
-     entries too.
+     entries too. The bf16 fir2 rows (csrc/fir2_bf16.cu, its own
+     ``fir2_bf16`` entry in the ``kernels`` line beside the per-path ones)
+     give the route their plan names (TMA-staged bands or direct), the
+     distance from the plain version in bf16 steps (``max_ulps``,
+     ``one_ulp``) and the device ms by kernel name; the ragged shapes of
+     ops/fir_sites.py hold each route within one bf16 step; and every
+     bf16 fir2 launch of 13a-13c took the route its plan names
+     (``_check_bf16_routes``).
 TF32 and cuBLAS's reduced-precision bf16 reductions are off throughout.
 Imports torch and the port only, never jax or the JAX package.
 """
@@ -330,7 +341,8 @@ FLAGSHIP = os.path.join(CONFIGS, "vp", "CIFAR10", "ddpmpp_nll_st.py")
 UNCSNPP = os.path.join(CONFIGS, "ve", "CIFAR10", "uncsnpp_st.py")
 DEVICE = "cuda"
 SERVE_BATCH = 8
-KERNELS = ("gn_silu_conv3x3", "gn_silu_conv3x3_bf16", "fir2")
+KERNELS = ("gn_silu_conv3x3", "gn_silu_conv3x3_bf16", "fir2", "fir2_bf16")
+BF16_KERNELS = ("gn_silu_conv3x3_bf16", "fir2_bf16")  # first launched in 13
 # the flagship shapes phase 6 must cover: (H, W, C, O)
 LISTED_SHAPES = [(32, 32, 128, 128), (32, 32, 384, 128), (32, 32, 256, 256),
                  (16, 16, 384, 256), (16, 16, 512, 256), (8, 8, 256, 256),
@@ -360,6 +372,7 @@ UNCSNPP_FIR_BWD_SITES = {("up", 16, 16, 128): 2, ("up", 8, 8, 256): 2,
 LIKELIHOOD_BATCH = 8     # phase 7b: eval.batch_size of the CLI evaluation
 LIKELIHOOD_CHECK_BATCH = 2  # phase 7b: card vs CPU
 LIKELIHOOD_TIMES = (1e-5, 0.5, 1.0)  # phase 7b: the ODE function's t
+LIKELIHOOD_ODE_TOL = 1e-3  # phase 7b: the NLL's rtol = atol, cut from 1e-5
 FID_SAMPLES = 128        # phase 7c: eval.num_samples, 1 shard
 FID_SHARD = 128          # phase 7c: sampling.batch_size
 FID_DPM_STEPS = 20       # phase 7c: sampling.dpm_steps
@@ -492,6 +505,7 @@ FP8_FLOOR = 1e-5
 PICARD_TOL = 1e-3           # 10a: the base config's sampling.picard_tol
 PICARD_FLAGSHIP_REL_TOL = 1e-4  # 10a: tol = 0 vs sequential, of max |x|
 PICARD_SERVED_STEPS = 10    # 10a: the served request's dpm_steps
+PICARD_STEPS = 25           # 10a: N, the window (of the config's 50 steps)
 # 10b: UNCSN++ 'picard' at tol = 0 on a chain cut from N = 1000 to 32 steps
 # (tol = 0 costs up to W x the sequential evaluations), window 8
 PICARD_UNCSNPP_STEPS, PICARD_UNCSNPP_WINDOW = 32, 8
@@ -504,7 +518,7 @@ DDP_TIMED_ITERS = 1
 DDP_REL_TOL = 1e-5
 PROFILE_ITERS = 11          # 10d: steps 0..11, the eleventh (10) traced
 EXPORT_BATCH = 8            # 11: the artifact's batch
-EXPORT_DPM_STEPS = 50       # 11: 'dpm_solver' steps served
+EXPORT_DPM_STEPS = 20       # 11: 'dpm_solver' steps served (of the config's 50)
 EXPORT_PC_STEPS = 32        # 11b: UNCSN++'s 'pc' N, cut from 1,000
 EXPORT_SEEDS = (0,)         # 11a, 11b and 12b (two, before phase 13 needed the time)
 TIMED_CALLS = 5             # calls per time_ms / graph_ms reading
@@ -701,7 +715,11 @@ def _reset_launch_counts():
 
 
 def phase_build():
-  """Start nvcc for every kernel source at once; print each report."""
+  """Start nvcc for every kernel source at once; wait for the f32 ones and
+  print their reports. The bf16 sources (BF16_KERNELS, the longest
+  builds) go on building meanwhile: returns a callable that waits for
+  them and prints theirs, to be called before anything launches them
+  (phase 13), and before which nothing may load them."""
   from soft_truncation_tpu_torch.ops import _build
 
   def build(name):
@@ -709,11 +727,22 @@ def phase_build():
     _build.load_library(name)
     return time.perf_counter() - t0
 
-  with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
-    seconds = dict(zip(KERNELS, pool.map(build, KERNELS)))
-  for name in KERNELS:
-    log(f"build: {name} in {seconds[name]:.1f} s")
+  def report(name, future):
+    log(f"build: {name} in {future.result():.1f} s")
     log(_build.library_path(name).with_suffix(".log").read_text().strip())
+
+  pool = concurrent.futures.ThreadPoolExecutor(len(KERNELS))
+  futures = {name: pool.submit(build, name) for name in KERNELS}
+  pool.shutdown(wait=False)
+  for name in KERNELS:
+    if name not in BF16_KERNELS:
+      report(name, futures[name])
+
+  def wait_bf16():
+    for name in BF16_KERNELS:
+      report(name, futures[name])
+
+  return wait_bf16
 
 
 def phase_forward(name, config, labels, want_fir):
@@ -1615,8 +1644,10 @@ def phase_likelihood(name, path, workdir, sites, fir_sites, config01,
   """The fourth main path: ``soft_truncation_tpu_torch.main --mode eval``
   on a published config in the train phase's workdir (its rolling
   checkpoint's EMA weights), the Synthetic images, batch
-  LIKELIHOOD_BATCH, one NELBO and one exact-NLL batch at the published ODE
-  tolerances (rtol = atol = 1e-5, 'correct' mode with the residual). The
+  LIKELIHOOD_BATCH, one NELBO and one exact-NLL batch at the ODE tolerances
+  rtol = atol = LIKELIHOOD_ODE_TOL (a depth cut of the published 1e-5,
+  which the CLI's likelihood function is given here; 'correct' mode with
+  the residual). The
   log's eval loss, NELBO and NLL bpd must be finite. Over the NLL batch
   (the counts read before and after it) every fused site launches the
   kernel for the primal and its tangent mode for the tangent once per
@@ -1642,6 +1673,7 @@ def phase_likelihood(name, path, workdir, sites, fir_sites, config01,
   windows, get = [], run_lib.get_likelihood_fn
 
   def counted(*args, **kwargs):
+    kwargs.update(rtol=LIKELIHOOD_ODE_TOL, atol=LIKELIHOOD_ODE_TOL)
     nll_fn = get(*args, **kwargs)
 
     def run(*a, **k):
@@ -1697,7 +1729,8 @@ def phase_likelihood(name, path, workdir, sites, fir_sites, config01,
                            f"for the residual's forward)")
   worst = _ode_and_elbo_card_vs_cpu(name, config01, params)
   nll_wall = float(nll.group(4))
-  summary = {"likelihood": name, "batch": LIKELIHOOD_BATCH, "nfe": nfe,
+  summary = {"likelihood": name, "batch": LIKELIHOOD_BATCH,
+             "ode_tol": LIKELIHOOD_ODE_TOL, "nfe": nfe,
              "nll_bpd_mean": values[4], "nll_bpd_std": values[5],
              "nelbo_bpd_mean": values[2], "eval_loss_mean": values[0],
              "nll_wall_s": nll_wall,
@@ -2351,8 +2384,9 @@ def _check_launches(name, calls, sites, fir_sites):
 
 
 def phase_picard_flagship(sites, params):
-  """10a: 'picard_dpm' on the flagship (phase-3 weights) at its DPM steps
-  N, window N (one block): each sweep one network call at batch N * 8.
+  """10a: 'picard_dpm' on the flagship (phase-3 weights) at N =
+  PICARD_STEPS DPM steps, window N (one block): each sweep one network
+  call at batch N * 8.
   tol = 0 against the sequential 'dpm_solver' from the same prior; tol =
   PICARD_TOL with its sweeps, nfe and wall against the sequential wall;
   then served over HTTP twice per seed (PICARD_SERVED_STEPS steps). Returns the fused launches made at
@@ -2366,6 +2400,7 @@ def phase_picard_flagship(sites, params):
 
   config = load_config(FLAGSHIP, init_scale=0.1)
   config.sampling.picard_window = 0  # one block, served too
+  config.sampling.dpm_steps = PICARD_STEPS
   service = SamplingService(config, params, batch=SERVE_BATCH, device=DEVICE)
   steps = config.sampling.dpm_steps
   prior = service.prior(0, 0)
@@ -3069,6 +3104,12 @@ def phase_export(name, config, params, requests, sites, fir_sites,
        artifact, npz], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
       text=True, cwd=REPO)
   try:
+    # the live service answers the same requests while the subprocess
+    # loads the pair (its requests, timed, come after)
+    live = SamplingService(config, params, batch=EXPORT_BATCH, device=DEVICE)
+    live_runs = _stash_floats(live)
+    live_served = [live.sample(r["num"], r["seed"], r.get("method"),
+                               r.get("dpm_steps")) for r in requests]
     hello = _ask(child)
     url = f"http://127.0.0.1:{hello['port']}"
     meta = _healthz(url)
@@ -3096,10 +3137,6 @@ def phase_export(name, config, params, requests, sites, fir_sites,
   with np.load(counts["floats"]) as f:
     replay_floats = [f[f"arr_{i}"] for i in range(len(requests))]
 
-  live = SamplingService(config, params, batch=EXPORT_BATCH, device=DEVICE)
-  live_runs = _stash_floats(live)
-  live_served = [live.sample(r["num"], r["seed"], r.get("method"),
-                             r.get("dpm_steps")) for r in requests]
   t = torch.full((EXPORT_BATCH,), 0.5, device=DEVICE)
   eager_profile = _eval_profile(score_of(config, live.sde, live.model, True),
                                 live.prior(0, 0), t) if profile else None
@@ -3186,21 +3223,24 @@ def _held(name, shape, got, want, tol):
 
 def _by_kernel(fn, calls=TIMED_CALLS):
   """{kernel name: device ms per call of ``fn``} from torch.profiler (the
-  conv and any reduce kernel apart)."""
+  conv and any reduce kernel apart): the device events of a trace of host
+  and device, as ``_traced`` reads them; empty where the profiler records
+  no device activity."""
   import torch
+  from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
   fn()
   torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
     for _ in range(calls):
       fn()
     torch.cuda.synchronize()
   out = {}
   for evt in prof.key_averages():
-    us = getattr(evt, "self_device_time_total", None)
-    if us is None:
-      us = getattr(evt, "self_cuda_time_total", 0)
-    if us:
+    us = getattr(evt, "self_device_time_total",
+                 getattr(evt, "self_cuda_time_total", 0))
+    if evt.device_type == DeviceType.CUDA and us:
       out[evt.key] = out.get(evt.key, 0.0) + us / 1e3 / calls
   return out
 
@@ -3330,38 +3370,15 @@ def kernels_gn_ragged():
           f"max|plain| {scale}")
 
 
-def _fir_library(mode, x, k, gain=1.0):
-  """One PyTorch call computing the same resample on the channels-last view
-  of ``x``: a depthwise strided conv (down) or transposed conv (up)."""
-  import torch
-  import torch.nn.functional as F
-  from soft_truncation_tpu_torch.ops import fir
-
-  c = x.shape[-1]
-  taps = torch.tensor(fir.fir2_taps(k, gain, mode), dtype=x.dtype,
-                      device=x.device)
-  T = taps.shape[0]
-  pad0, pad1 = fir.fir2_pads(T, mode)
-  xc = x.permute(0, 3, 1, 2)
-  if mode == "down":
-    if pad0 != pad1:
-      raise ValueError(f"one conv2d call takes symmetric pads, not "
-                       f"{(pad0, pad1)}")
-    w = torch.outer(taps.flip(0), taps.flip(0)).expand(c, 1, T, T)
-    w = w.contiguous()
-    return lambda: F.conv2d(xc, w, stride=2, padding=pad0, groups=c)
-  w = torch.outer(taps, taps).expand(c, 1, T, T).contiguous()
-  return lambda: F.conv_transpose2d(xc, w, stride=2, padding=T - 1 - pad0,
-                                    groups=c)
-
-
 def kernels_fir(fir_launched, units, batch, per_key, bf16=False):
   """fir2 (up and down) vs plain vs library at every shape of
   ``fir_launched`` ((mode, H, W, C) -> launches over ``units`` forwards or
-  steps), at ``batch``, T=4; with ``bf16`` the bf16 mode against the bf16
-  plain version and cuDNN's depthwise call in bf16."""
+  steps), at ``batch``, T=4; with ``bf16`` the bf16 kernel
+  (csrc/fir2_bf16.cu) against the bf16 plain version and cuDNN's depthwise
+  call in bf16, with its route, its distance from the plain version in
+  bf16 steps (:func:`_bf16_ulps`) and its device ms by kernel name."""
   import torch
-  from soft_truncation_tpu_torch.ops import fir
+  from soft_truncation_tpu_torch.ops import fir, fir_sites
 
   gen = torch.Generator(DEVICE).manual_seed(0)
   rows = []
@@ -3379,7 +3396,7 @@ def kernels_fir(fir_launched, units, batch, per_key, bf16=False):
       want = plain(x, FIR_KERNEL)
       err, scale = _held(f"fir_{mode}sample2{suffix}", shape,
                          wrapper(x, FIR_KERNEL), want, tol)
-      library = _fir_library(mode, x, FIR_KERNEL)
+      library = fir_sites.library(mode, x, FIR_KERNEL)
       _held(f"the library {mode}sample{suffix}", shape,
             library().permute(0, 2, 3, 1), want, tol)
       bound, bound_by = fir_bound(mode, batch, h, w, c, len(FIR_KERNEL),
@@ -3407,6 +3424,10 @@ def kernels_fir(fir_launched, units, batch, per_key, bf16=False):
              "bound_by": bound_by, "launches": launches,
              "ab_direct_ms": ab[0::3], "ab_function_ms": ab[1::3],
              "ab_library_ms": ab[2::3], per_key: launches / units}
+      if bf16:
+        row.update(_bf16_ulps(wrapper(x, FIR_KERNEL), want, mode, x),
+                   device_ms_by_kernel=_by_kernel(
+                       lambda: wrapper(x, FIR_KERNEL)))
     emit(row)
     rows.append(row)
   direct, function = (sum(sum(r[key]) / len(r[key]) * r[per_key]
@@ -3427,7 +3448,7 @@ def kernels_fir_backward(bwd_launched, steps, batch, bf16=False):
   PyTorch call of that resample. With ``bf16``: the bf16 mode on a bf16
   cotangent."""
   import torch
-  from soft_truncation_tpu_torch.ops import fir
+  from soft_truncation_tpu_torch.ops import fir, fir_sites
 
   gen = torch.Generator(DEVICE).manual_seed(1)
   k_rev = tuple(reversed(FIR_KERNEL))
@@ -3455,7 +3476,7 @@ def kernels_fir_backward(bwd_launched, steps, batch, bf16=False):
         return fir._fir2_plain(ybar, k_rev, gain, mode)
 
       err, scale = _held(name, shape, kernel(), want, tol)
-      library = _fir_library(mode, ybar, k_rev, gain)
+      library = fir_sites.library(mode, ybar, k_rev, gain)
       _held(f"the library adjoint of {fwd}sample", shape,
             library().permute(0, 2, 3, 1), want, tol)
       bound, bound_by = fir_bound(mode, batch, h, w, c, len(FIR_KERNEL),
@@ -3470,6 +3491,9 @@ def kernels_fir_backward(bwd_launched, steps, batch, bf16=False):
              "library_device_ms": graph_ms(library), "bound_ms": bound,
              "bound_by": bound_by, "launches": launches,
              "launches_per_step": launches / steps}
+      if bf16:
+        row.update(_bf16_ulps(kernel(), plain(), mode, ybar),
+                   device_ms_by_kernel=_by_kernel(kernel))
     emit(row)
     rows.append(row)
   # no config downsamples an odd size; its adjoint launches the upsample
@@ -3590,7 +3614,7 @@ def kernels_fir_jvp(jvp_launched, evals, bf16=False):
   torch.func.jvp of the plain version and timed beside it and the library
   call on the tangent; with ``bf16`` on bf16 tensors."""
   import torch
-  from soft_truncation_tpu_torch.ops import fir
+  from soft_truncation_tpu_torch.ops import fir, fir_sites
 
   gen = torch.Generator(DEVICE).manual_seed(4)
   rows = []
@@ -3611,7 +3635,7 @@ def kernels_fir_jvp(jvp_launched, evals, bf16=False):
     def kernel():  # the launch the jvp rule makes
       return fir._resample(dx, FIR_KERNEL, 1.0, mode, wrapper, "jvp")
 
-    library = _fir_library(mode, dx, FIR_KERNEL)
+    library = fir_sites.library(mode, dx, FIR_KERNEL)
     bound, bound_by = fir_bound(mode, LIKELIHOOD_BATCH, h, w, c,
                                 len(FIR_KERNEL), bf16)
     ab = [time_ms(f) for f in (kernel, library) * 2]
@@ -3625,9 +3649,74 @@ def kernels_fir_jvp(jvp_launched, evals, bf16=False):
            "library_device_ms": graph_ms(library), "bound_ms": bound,
            "bound_by": bound_by, "launches": launches,
            "launches_per_evaluation": launches / evals}
+    if bf16:
+      with torch.inference_mode():
+        row.update(_bf16_ulps(kernel(), plain(dx, FIR_KERNEL), mode, dx),
+                   device_ms_by_kernel=_by_kernel(kernel))
     emit(row)
     rows.append(row)
   return rows
+
+
+def _bf16_ulps(got, want, mode, x):
+  """The bf16 fir2 kernel's distance from its plain version, element by
+  element in bf16 steps (ops/fir_sites.py::ulps; BF16_REL_TOL is the bar
+  the rows are held to, the kernel aims at none), and the route its plan
+  names for ``x``."""
+  import torch
+  from soft_truncation_tpu_torch.ops import fir, fir_sites, gn_conv
+  d = fir_sites.ulps(got, want)
+  plan = fir.band_plan(mode, len(FIR_KERNEL), tuple(x.shape),
+                       tuple(got.shape[1:3]),
+                       gn_conv._sms(torch.device(DEVICE)))
+  return {"max_ulps": int(d.max().item()),
+          "one_ulp": int((d == 1).sum().item()), "route": plan.path,
+          "band": plan.band, "grid": plan.grid, "stages": plan.stages}
+
+
+def kernels_fir_bf16_ragged():
+  """The bf16 fir2 kernel against its plain version at the shapes of
+  ops/fir_sites.py's RAGGED (C = 3 and 12, a slab past C, odd sizes,
+  2H + 1, the mesh's halo'd shard rows, T = 2 and 6, images that fill no
+  band, column tiles): the route its plan names and each route forced,
+  within one bf16 step at every element (the plain version's arithmetic,
+  so none is expected), BF16_REL_TOL's bar beside it; first the TMA route
+  from a thread that has launched nothing yet, against the main
+  thread's."""
+  import torch
+  from soft_truncation_tpu_torch.ops import fir, fir_sites
+  gen = torch.Generator(DEVICE).manual_seed(5)
+  # a thread that has launched nothing yet (a server's handler thread) has
+  # no context current for the tensor map's encoding until the entry binds
+  # one: the TMA route from such a thread against the main thread's
+  x = torch.randn(TRAIN_BATCH, 16, 16, 256, generator=gen,
+                  device=DEVICE).bfloat16()
+  want, _ = fir._launch(x, FIR_KERNEL, 1.0, "up", None, x.device, "tma")
+  got = []
+  thread = threading.Thread(target=lambda: got.append(fir._launch(
+      x, FIR_KERNEL, 1.0, "up", None, x.device, "tma")[0]))
+  thread.start()
+  thread.join(timeout=120)
+  torch.cuda.synchronize()
+  if thread.is_alive() or not got or not torch.equal(got[0], want):
+    raise AssertionError("fir2_bf16's TMA route from a fresh thread did not "
+                         "give the main thread's result")
+  log("fir2_bf16: the TMA route from a fresh thread equals the main "
+      "thread's")
+  for mode, n, h, w, c, out_hw, k in fir_sites.RAGGED:
+    x = torch.randn(n, h, w, c, generator=gen, device=DEVICE).bfloat16()
+    row = {"kernel": "fir2_bf16 ragged", "mode": mode,
+           "shape_nhwc": [n, h, w, c], "out_hw": out_hw, "taps": len(k),
+           "plan": fir_sites.held(x, k, 1.0, mode, out_hw),
+           **{path: fir_sites.held(x, k, 1.0, mode, out_hw, path)
+              for path in ("tma", "direct") if path == "direct" or c % 8 == 0}}
+    emit(row)
+    for key in ("plan", "tma", "direct"):
+      if key in row and not (row[key]["finite"]
+                             and row[key]["max_ulps"] <= 1):
+        raise AssertionError(f"fir2_bf16 ({key}) is {row[key]} from its "
+                             f"plain version at {mode} {(n, h, w, c)}, "
+                             f"out_hw {out_hw}, {len(k)} taps")
 
 
 def _kernel_entry(name, source, replaces, rows, per, per_key):
@@ -3763,7 +3852,8 @@ def phase_mesh_train(extra_flags=(), beside=None):
                   flags + ["--config.tpu.mesh_shape", f"({d}, {s})"]))
   # alone and (1, 2) side by side, then (2, 2): all seven processes at
   # once ran the card out of memory beside this process's own tensors
-  # (cuDNN answered CUDNN_STATUS_INTERNAL_ERROR)
+  # (cuDNN answered CUDNN_STATUS_INTERNAL_ERROR), and ``beside``'s ranks
+  # beside alone and (1, 2) failed to load their artifact
   runs = _ddp_runs(specs[:2], CELEBAHQ, worker, "mesh")
   with concurrent.futures.ThreadPoolExecutor(1) as pool:
     beside_result = pool.submit(beside or (lambda: None))
@@ -3977,14 +4067,45 @@ def bf16_config(path, all_knobs=False, **model_overrides):
 
 def _bf16_launches():
   """The bf16 launches so far: gn_silu_conv3x3's primal and tangent, and
-  fir2's forward, adjoint and tangent (both wrappers)."""
+  fir2's forward, adjoint and tangent (both wrappers), and fir2's by the
+  route they took ('fir_tma', 'fir_direct': all three tallies)."""
   from soft_truncation_tpu_torch.ops import fir, gn_conv
   firs = (fir.fir_upsample2, fir.fir_downsample2)
   return {"gn": gn_conv.gn_silu_conv3x3.bf16_launches,
           "gn_jvp": gn_conv.gn_silu_conv3x3.bf16_jvp_launches,
           "fir": sum(w.bf16_launches for w in firs),
           "fir_backward": sum(w.bf16_backward_launches for w in firs),
-          "fir_jvp": sum(w.bf16_jvp_launches for w in firs)}
+          "fir_jvp": sum(w.bf16_jvp_launches for w in firs),
+          **{f"fir_{route}": sum(
+              getattr(w, f"bf16_{route}_{total}") for w in firs
+              for total in ("launches", "backward_launches", "jvp_launches"))
+             for route in ("tma", "direct")}}
+
+
+def _check_bf16_routes(name):
+  """Every bf16 fir2 launch so far (the wrappers' ``bf16_paths``) took the
+  route ``band_plan`` names for its mode, taps, shape and output size;
+  returns the launches per tally ('forward', 'backward', 'jvp') and
+  route."""
+  import torch
+  from soft_truncation_tpu_torch.ops import fir, gn_conv
+  sms = gn_conv._sms(torch.device(DEVICE)) if DEVICE == "cuda" else 132
+  routes, wrong = collections.Counter(), {}
+  for wrapper in (fir.fir_upsample2, fir.fir_downsample2):
+    for key, k in wrapper.bf16_paths.items():
+      tally, mode, taps, shape, out_hw, route = key
+      routes[(tally, route)] += k
+      planned = fir.band_plan(mode, taps, shape, out_hw, sms).path
+      if planned != route:
+        wrong[str(key[:-1])] = (route, planned)
+  log(f"{name}: bf16 fir2 launches by (tally, route) "
+      f"{ {f'{t} {r}': k for (t, r), k in routes.items()} }, each on the "
+      f"route its plan names")
+  if wrong:
+    raise AssertionError(f"{name}: bf16 fir2 launches off their plan's "
+                         f"route (taken, planned): {wrong}")
+  return {tally: sum(k for (t, _), k in routes.items() if t == tally)
+          for tally in ("forward", "backward", "jvp")}
 
 
 class _Resamples:
@@ -4050,6 +4171,7 @@ def phase_bf16_forward(name, path, labels, want_fir):
       torch.cuda.synchronize()
     launched, fir_launched = _launch_counts()
     bf16 = _bf16_launches()
+    routes = _check_bf16_routes(f"bf16 forward {name}")
     f32 = f32_model(x.to(DEVICE), labels.to(DEVICE))
   fir_bf16 = calls.of("forward")
   err, scale = _per_sample_err(got, want)
@@ -4075,6 +4197,7 @@ def phase_bf16_forward(name, path, labels, want_fir):
                          f"{dict(sites)}, launches {launched}, bf16 {bf16}")
   if (fir_launched != dict(fir_sites) or dict(fir_sites) != want_fir
       or bf16["fir"] != sum(fir_bf16.values())
+      or routes["forward"] != bf16["fir"]
       or fir_bf16 != cpu_calls.of("forward")):
     raise AssertionError(f"{name}: expected FIR sites {want_fir}, each "
                          f"launching fir2 once, in bf16 where the CPU's "
@@ -4118,6 +4241,7 @@ def phase_bf16_likelihood(name, path, params, sites, fir_sites):
     torch.cuda.synchronize()
   jvp, fir_jvp = _jvp_launch_counts()
   bf16 = _bf16_launches()
+  routes = _check_bf16_routes(f"bf16 likelihood {name}")
   fir_bf16 = calls.of("jvp")
   state = gen.get_state()
   with _Resamples() as cpu_calls:
@@ -4137,6 +4261,7 @@ def phase_bf16_likelihood(name, path, params, sites, fir_sites):
   if (jvp != sites or fir_jvp != fir_sites
       or bf16["gn_jvp"] != sum(sites.values())
       or bf16["fir_jvp"] != sum(fir_bf16.values())
+      or routes["jvp"] != bf16["fir_jvp"]
       or fir_bf16 != cpu_calls.of("jvp")):
     raise AssertionError(f"{name}: expected each fused site's bf16 tangent "
                          f"and each FIR site's tangent once, in bf16 where "
@@ -4165,6 +4290,7 @@ def phase_bf16_train():
         BF16_TRAIN_ITERS, False, BF16_FLAGS)
   shutil.rmtree(workdir, ignore_errors=True)
   bf16 = _bf16_launches()
+  routes = _check_bf16_routes("bf16 train uncsnpp")
   fwd16, bwd16 = calls.of("forward"), calls.of("backward")
   per_step = {t: sum(check.of(t).values()) // 2
               for t in ("forward", "backward")}
@@ -4176,6 +4302,8 @@ def phase_bf16_train():
       or bf16["fir_backward"] != sum(bwd16.values())
       or sum(fwd16.values()) != per_step["forward"] * steps
       or sum(bwd16.values()) != per_step["backward"] * steps
+      or (routes["forward"], routes["backward"]) != (
+          bf16["fir"], bf16["fir_backward"])
       or not fwd16 or not bwd16):
     raise AssertionError(f"uncsnpp_bf16: the bf16 fir2 launches {fwd16}, "
                          f"{bwd16} (counted {bf16}) are not the CPU step's "
@@ -4290,7 +4418,7 @@ def main() -> int:
     log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
     return result
 
-  phase("build", phase_build)
+  wait_bf16 = phase("build", phase_build)
   sites, _, flag_params = phase(
       "forward flagship", phase_forward, "flagship",
       load_config(FLAGSHIP, init_scale=0.1),
@@ -4444,6 +4572,7 @@ def main() -> int:
   log(f"phases 12a-12b: {time.perf_counter() - t_12:.1f} s")
 
   # phase 13: bf16 compute (the four dtype knobs)
+  phase("build bf16", wait_bf16)
   t_13 = time.perf_counter()
   gc.collect()
   torch.cuda.empty_cache()
@@ -4545,9 +4674,11 @@ def main() -> int:
   bf16_jvp_rows = kernels_gn_jvp(collections.Counter(b_jvp)
                                  + collections.Counter(ub_jvp), 2, bf16=True)
   bf16_fir_jvp_rows = kernels_fir_jvp(ub_fir_jvp, 1, bf16=True)
+  kernels_fir_bf16_ragged()
   log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 
   fir_src = "soft_truncation_tpu_torch/csrc/fir2.cu"
+  fir_bf16_src = "soft_truncation_tpu_torch/csrc/fir2_bf16.cu"
   fir_fwd = "soft_truncation_tpu/ops/pallas/fir.py:137"
   gn_src = "soft_truncation_tpu_torch/csrc/gn_silu_conv3x3.cu"
   gn_bf16_src = "soft_truncation_tpu_torch/csrc/gn_silu_conv3x3_bf16.cu"
@@ -4700,30 +4831,36 @@ def main() -> int:
                     bf16_jvp_rows, f"one bf16 function evaluation of the "
                     f"likelihood ODE at batch {LIKELIHOOD_BATCH}",
                     "launches_per_evaluation"),
-      *(_kernel_entry(f"fir_{mode}sample2_bf16", fir_src, fir_fwd,
+      *(_kernel_entry(f"fir_{mode}sample2_bf16", fir_bf16_src, fir_fwd,
                       [r for r in bf16_fir_rows
                        if r["kernel"] == f"fir_{mode}sample2_bf16"],
                       f"one bf16 UNCSN++ eval forward at batch "
                       f"{SERVE_BATCH}", "launches_per_forward")
         for mode in ("up", "down")),
-      *(_kernel_entry(f"fir_{mode}sample2_bf16_train", fir_src, fir_fwd,
+      *(_kernel_entry(f"fir_{mode}sample2_bf16_train", fir_bf16_src, fir_fwd,
                       [r for r in bf16_train_rows
                        if r["kernel"] == f"fir_{mode}sample2_bf16"],
                       f"one UNCSN++ train step with the four dtype knobs "
                       f"bfloat16 at batch {TRAIN_BATCH}", "launches_per_step")
         for mode in ("up", "down")),
-      _kernel_entry("fir2_backward_bf16", fir_src,
+      _kernel_entry("fir2_backward_bf16", fir_bf16_src,
                     "soft_truncation_tpu/ops/pallas/fir.py:212",
                     bf16_bwd_rows, f"one UNCSN++ train step with the four "
                     f"dtype knobs bfloat16 at batch {TRAIN_BATCH}",
                     "launches_per_step"),
-      *(_kernel_entry(f"fir_{mode}sample2_jvp_bf16", fir_src, fir_fwd,
+      *(_kernel_entry(f"fir_{mode}sample2_jvp_bf16", fir_bf16_src, fir_fwd,
                       [r for r in bf16_fir_jvp_rows
                        if r["kernel"] == f"fir_{mode}sample2_jvp_bf16"],
                       f"one bf16 UNCSN++ function evaluation of the "
                       f"likelihood ODE at batch {LIKELIHOOD_BATCH}",
                       "launches_per_evaluation")
-        for mode in ("up", "down"))]
+        for mode in ("up", "down")),
+      # the bf16 kernel's whole share of a step: forward and adjoint
+      _kernel_entry("fir2_bf16", fir_bf16_src, fir_fwd,
+                    bf16_train_rows + bf16_bwd_rows, f"one UNCSN++ train "
+                    f"step with the four dtype knobs bfloat16 at batch "
+                    f"{TRAIN_BATCH}: the resamples and their adjoints "
+                    "(fir.py:137 and :212)", "launches_per_step")]
   emit({"kernels": entries})
   for entry in entries:
     log(f"{entry['name']} ({entry['per']}): issued {entry['ms']:.4f} ms vs "

@@ -1,5 +1,5 @@
-// 2x FIR up- or down-sampling of an NHWC float32 or bfloat16 tensor,
-// forward, in one pass over both spatial axes.
+// 2x FIR up- or down-sampling of an NHWC float32 tensor, forward, in one
+// pass over both spatial axes.
 //
 // Replaces the TPU kernel soft_truncation_tpu/ops/pallas/fir.py::
 // _resample_pallas (:137), reached through fir_upsample2_pallas and
@@ -37,15 +37,8 @@
 //   * a scalar path (vec = 1) when C % 4 != 0 (the C = 3 pyramid inputs) or
 //     x is not aligned to 4 elements; OH and OW are the caller's (2H + 1
 //     where up2 is the adjoint of a down2 of an odd size);
-//   * bfloat16 (the entry point fir2_bf16, for the up, down, adjoint and
-//     tangent calls of a bf16 model): bf16 in and out, a 4-channel vector
-//     is 8 bytes; the taps and every sum stay f32 and the output is rounded
-//     once, at the store. The TPU kernel computes in x.dtype and so rounds
-//     after every product and sum (soft_truncation_tpu/ops/pallas/fir.py:
-//     123-126); the two differ by a few bf16 ulps of the output. The
-//     bound is the same operations over half the bytes.
+//   * bfloat16 has a source of its own, fir2_bf16.cu (TMA-staged bands).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -59,8 +52,8 @@ struct Table {
   float k[2 * kMaxSlots];
 };
 
-// kVec consecutive channels of T (float or bf16) to and from f32 registers:
-// one 16-byte (f32) or 8-byte (bf16) access for kVec = 4
+// kVec consecutive float channels to and from registers: one 16-byte
+// access for kVec = 4
 template <typename T, int kVec>
 struct Io;
 
@@ -85,43 +78,6 @@ struct Io<float, 1> {
   }
   static __device__ __forceinline__ void store(float* p, const float (&v)[1]) {
     *p = v[0];
-  }
-};
-
-template <>
-struct Io<__nv_bfloat16, 4> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float (&v)[4]) {
-    const uint2 q = *reinterpret_cast<const uint2*>(p);
-    const float2 lo =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
-    const float2 hi =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
-    v[0] = lo.x;
-    v[1] = lo.y;
-    v[2] = hi.x;
-    v[3] = hi.y;
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p,
-                                               const float (&v)[4]) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-    uint2 q;
-    q.x = *reinterpret_cast<const unsigned int*>(&lo);
-    q.y = *reinterpret_cast<const unsigned int*>(&hi);
-    *reinterpret_cast<uint2*>(p) = q;
-  }
-};
-
-template <>
-struct Io<__nv_bfloat16, 1> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float (&v)[1]) {
-    v[0] = __bfloat162float(*p);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p,
-                                               const float (&v)[1]) {
-    *p = __float2bfloat16_rn(v[0]);
   }
 };
 
@@ -302,18 +258,13 @@ int fir2(const T* x, T* out, const Fir2Args* a, int vec, void* stream) {
 
 }  // namespace
 
-// Plain C entry points (loaded with ctypes), one per dtype. x [N,H,W,C] and
-// out [N,OH,OW,C] are contiguous, of the entry point's dtype, on the
+// Plain C entry point (loaded with ctypes). x [N,H,W,C] and out
+// [N,OH,OW,C] are contiguous float32 on the
 // current device, both under 2^31 elements; ``a`` is a host Fir2Args,
 // copied into the launch's parameters; ``vec`` is 4 (C % 4 == 0 and x
-// aligned to 4 elements) or 1. Each returns cudaGetLastError() after the
+// aligned to 4 elements) or 1. It returns cudaGetLastError() after the
 // launch, or cudaErrorInvalidValue for arguments it does not take.
 extern "C" int fir2_f32(const float* x, float* out, const Fir2Args* a,
                         int vec, void* stream) {
-  return fir2(x, out, a, vec, stream);
-}
-
-extern "C" int fir2_bf16(const __nv_bfloat16* x, __nv_bfloat16* out,
-                         const Fir2Args* a, int vec, void* stream) {
   return fir2(x, out, a, vec, stream);
 }

@@ -11,8 +11,10 @@ Three checks, each a subcommand:
   ``fir2`` up, down
   and adjoint at the flagship's and UNCSN++'s site shapes (batch 2: split-K
   above 1 at every site, and tiles whose rows cross an image boundary at
-  the 8x8 and 4x4 ones), once under each of ``compute-sanitizer``'s
-  memcheck, racecheck, initcheck and synccheck;
+  the 8x8 and 4x4 ones), in f32 and in bf16 (``csrc/fir2_bf16.cu``: the
+  route its plan names, and its TMA and direct routes forced, at batch 2
+  and at the bf16 training step's batch), once under each of
+  ``compute-sanitizer``'s memcheck, racecheck, initcheck and synccheck;
 - ``stress --repeat N``: the same launches N times each, the caching
   allocator filled with NaN before each (an output element or workspace
   row a kernel leaves unwritten comes out NaN), every result bit for bit
@@ -54,6 +56,7 @@ FIR_SHAPES = (("down", 32, 32, 128), ("down", 16, 16, 256),
               ("down", 8, 8, 256), ("up", 4, 4, 256), ("up", 8, 8, 256),
               ("up", 16, 16, 256))
 BATCH = 2
+BF16_FIR_BATCH = 128  # the bf16 training step's: fir2_bf16's TMA route
 STRESS_REL_TOL = 1e-4  # chip_smoke.py's KERNEL_REL_TOL, the looser bar
 STRESS_BF16_REL_TOL = 1e-2  # chip_smoke.py's BF16_REL_TOL
 
@@ -93,7 +96,8 @@ def forward_once(ref: str) -> dict:
 
 def forwards(runs: int, out: Path) -> dict:
   from ._build import load_library
-  for name in ("gn_silu_conv3x3", "gn_silu_conv3x3_bf16", "fir2"):
+  for name in ("gn_silu_conv3x3", "gn_silu_conv3x3_bf16", "fir2",
+               "fir2_bf16"):
     load_library(name)
   config, create_model = _flagship()
   x, labels = _inputs()
@@ -213,6 +217,35 @@ def kernels_once(repeat: int = 1, poison: bool = False) -> dict:
             fir._fir2_plain(xr, (1, 3, 3, 1), 1.0, mode), xr, ybar)
       worst[f"fir2 {mode} {h}x{w}x{c}"] = [rel(got, want),
                                            rel(adj, adj_want), moved, amoved]
+      # the bf16 kernel (csrc/fir2_bf16.cu): its plan's route, then each
+      # route forced, forward and adjoint (the other mode, taps reversed),
+      # at batch 2 and at the training step's batch
+      for n in (BATCH, BF16_FIR_BATCH):
+        xh = randn(n, h, w, c).bfloat16()
+        other, gain = ("down", 4.0) if mode == "up" else ("up", 0.25)
+        yh = randn(n, *fir._fir2_plain(xh, (1, 3, 3, 1), 1.0,
+                                       mode).shape[1:]).bfloat16()
+        for route in (None, "tma", "direct"):
+          def fwd():
+            if route is None:
+              return f(xh, (1, 3, 3, 1))
+            return fir._launch(xh, (1, 3, 3, 1), 1.0, mode, None, xh.device,
+                               route)[0]
+
+          def bwd():
+            if route is None:
+              return fir.fir2_backward(yh, (1, 3, 3, 1), 1.0, mode,
+                                       tuple(xh.shape))
+            return fir._launch(yh, (1, 3, 3, 1), gain, other, (h, w),
+                               yh.device, route)[0]
+
+          got, moved = launched(fwd)
+          adj, amoved = launched(bwd)
+          want = fir._fir2_plain(xh, (1, 3, 3, 1), 1.0, mode)
+          adj_want = fir._fir2_plain(yh, (1, 3, 3, 1), gain, other, (h, w))
+          worst[f"fir2 bf16 {mode} {n}x{h}x{w}x{c} {route or 'plan'}"] = [
+              rel(got.float(), want.float()),
+              rel(adj.float(), adj_want.float()), moved, amoved]
   torch.cuda.synchronize()
   return worst
 
@@ -235,7 +268,8 @@ def stress(repeat: int, out: Path) -> dict:
 
 def sanitize(out: Path) -> dict:
   from ._build import load_library
-  for name in ("gn_silu_conv3x3", "gn_silu_conv3x3_bf16", "fir2"):
+  for name in ("gn_silu_conv3x3", "gn_silu_conv3x3_bf16", "fir2",
+               "fir2_bf16"):
     load_library(name)
   tool_bin = shutil.which("compute-sanitizer") or "/usr/local/cuda/bin/" \
       "compute-sanitizer"

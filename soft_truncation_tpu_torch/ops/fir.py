@@ -8,16 +8,23 @@ polyphase resampler that ``ops/resample.py::upsample_2d`` /
 the JAX package's ``_fir2_op``, computed on the host in float64 once per
 (taps, gain, mode) by the cached launch plan ``_plan``, which also holds
 the kernel's tap table as a ready ctypes array: a call on the card touches
-no numpy. The resample itself is one hand-written CUDA kernel
-(``csrc/fir2.cu``) that sums over both axes in one pass.
+no numpy. The resample itself is one hand-written CUDA kernel: in f32
+``csrc/fir2.cu``, which sums over both axes in one pass; in bf16
+``csrc/fir2_bf16.cu``, whose TMA route stages row bands of the input in
+shared memory (the zero padding from the tensor map's out-of-bounds fill)
+and whose direct route reads each tap from global memory. :func:`band_plan`
+chooses the route from the shape, statically, and lays out the bands; the
+launch arguments carry it.
 
 It takes f32 or bf16 ``x`` and returns the same dtype (a bf16 model's
 resamples, its adjoints and its tangents: ``config.tpu.compute_dtype``).
 In bf16 the taps and the sums stay f32 and the output is rounded once; the
 plain version computes in f32 from the bf16 input and rounds at the end,
-as the kernel does. The TPU kernel computes in ``x.dtype``, rounding after
-every tap, so a bf16 result differs from JAX's by a few bf16 ulps. Any
-other dtype raises.
+as the kernel does, which rounds each product and sum as the plain version
+does (an FMA only where the product is exact, :func:`_exact_products`), so
+the two agree bit for bit. The TPU kernel computes in ``x.dtype``, rounding
+after every tap, so a bf16 result differs from JAX's by a few bf16 ulps.
+Any other dtype raises.
 
 :func:`fir_upsample2` / :func:`fir_downsample2` launch the kernel for CUDA
 tensors and take the plain versions, :func:`fir_upsample2_plain` /
@@ -59,12 +66,16 @@ Each wrapper counts its forward launches in ``.launches`` and, per input
 launches in ``.jvp_launches`` and, per tangent ``(H, W, C)``, in
 ``.jvp_launches_by_shape``. The bf16 launches of each kind are counted
 again in ``.bf16_launches``, ``.bf16_backward_launches`` and
-``.bf16_jvp_launches``.
+``.bf16_jvp_launches``, and by the route they took in ``.bf16_tma_*`` and
+``.bf16_direct_*`` (e.g. ``.bf16_tma_backward_launches``); ``.bf16_paths``
+counts them per (tally, launched mode, taps, x's shape, output's (H, W),
+route), which is what :func:`band_plan` decides the route from.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fractions
 import functools
 import math
 from typing import List, NamedTuple, Sequence, Tuple
@@ -74,9 +85,25 @@ import torch
 
 from ._autodiff import below_transforms, plain, records_derivatives
 from ._build import define_op, launch, load_library, tracing
+from .gn_conv import _sms
 
 _KERNEL = "fir2"
+_KERNEL_BF16 = "fir2_bf16"
 MAX_TAPS = 8
+# the bf16 TMA route (csrc/fir2_bf16.cu): a band's channels (one 128-byte
+# pixel row), the block's threads, its blocks an SM (its launch bounds) and
+# its dynamic shared memory at two an SM, the swizzle's period, the ring's
+# deepest, TMA's largest box dimension, and the bytes a launch moves below
+# which the direct route runs (the launch and one memory round trip are all
+# there is to time)
+SLAB = 64
+BAND_THREADS = 256
+BAND_BLOCKS_PER_SM = 2
+BAND_MAX_SMEM = 114688
+BAND_ALIGN = 1024
+BAND_MAX_STAGES = 4
+BAND_MAX_BOX = 256
+TMA_MIN_BYTES = 1 << 20
 
 
 def _phase_taps_up2(T: int, pad0: int) -> Tuple[List, List]:
@@ -150,6 +177,118 @@ def _plan(k: Tuple[float, ...], gain: float, mode: str) -> _Plan:
     base, length, values = pad0, T, taps[::-1]
   table = (ctypes.c_float * len(values))(*values.tolist())
   return _Plan(taps, T, pad0, pad1, int(mode == "up"), length, base, table)
+
+
+def _up2_span(T: int) -> Tuple[int, int]:
+  """Up2's first input offset ``lo`` and the span ``S`` of offsets its two
+  phases read (_up2_phase_table's ``lo`` and table width)."""
+  offsets = [o for phase in _phase_taps_up2(T, fir2_pads(T, "up")[0])
+             for _, o in phase]
+  return min(offsets), max(offsets) - min(offsets) + 1
+
+
+class BandPlan(NamedTuple):
+  """How the bf16 kernel takes one resample (:func:`band_plan`). A unit is
+  an output pixel (down) or 2x2 output quad (up); a band is ``band`` =
+  (images, unit rows, unit columns) of the output over SLAB channels, and
+  its box the input it reads, zero outside the image."""
+  path: str        # 'tma' or 'direct'
+  scale: int       # input rows (columns) a unit row (column) moves: 2 or 1
+  origin: int      # unit 0's first input row and column: -pad0 or lo
+  halo: int        # box rows past scale x unit rows: T - 2 or S - 1
+  units: Tuple[int, int]          # the output's unit rows, unit columns
+  band: Tuple[int, int, int]      # images, unit rows, unit columns
+  box: Tuple[int, int, int, int]  # images, input rows, columns, channels
+  tiles: Tuple[int, int, int, int]  # bands along images, rows, columns, slabs
+  grid: int        # blocks, persistent: at most BAND_BLOCKS_PER_SM an SM
+  stages: int      # the ring's stages, each a box
+  stage_bytes: int
+  smem: int        # a block's dynamic shared memory
+
+
+@functools.lru_cache(maxsize=None)
+def band_plan(mode: str, T: int, shape: tuple, out_hw: tuple,
+              sms: int = 132) -> BandPlan:
+  """The bf16 kernel's plan for x of ``shape`` (NHWC) resampled to
+  ``out_hw`` with T taps on a card of ``sms`` SMs: its route, statically
+  from the shape ('direct' where C % 8 != 0, which a tensor map cannot
+  stride, or the launch moves under TMA_MIN_BYTES; else 'tma'), and the TMA
+  route's bands. A band takes about BAND_THREADS units x 8-channel pieces
+  (a thread's two unit columns each): whole images where they are small,
+  rows cut at 32 output columns (down) or 64 quads (up) into column tiles,
+  each with its own halo, and as many ring stages (2..4) as two blocks an
+  SM leave room for."""
+  n, h, w, c = shape
+  oh, ow = out_hw
+  if mode == "up":
+    origin, span = _up2_span(T)
+    scale, halo, cap = 1, span - 1, 64
+    units = ((oh + 1) // 2, (ow + 1) // 2)
+  else:
+    scale, halo, cap = 2, T - 2, 32
+    origin = -fir2_pads(T, mode)[0]
+    units = (oh, ow)
+  ur, uc = units
+  cols = min(uc + uc % 2, cap)
+  rows = min(ur, max(1, BAND_THREADS // (4 * cols)))
+  images = (min(n, max(1, BAND_THREADS // (4 * cols * ur))) if rows == ur
+            else 1)
+
+  def stage_bytes(images, rows, cols):
+    box = images * (scale * rows + halo) * (scale * cols + halo) * 2 * SLAB
+    return -(-box // BAND_ALIGN) * BAND_ALIGN
+
+  room = BAND_MAX_SMEM - BAND_ALIGN
+  while 2 * stage_bytes(images, rows, cols) > room:
+    if images > 1:
+      images //= 2
+    elif rows > 1:
+      rows -= 1
+    else:
+      cols -= 2
+  stage = stage_bytes(images, rows, cols)
+  stages = min(BAND_MAX_STAGES, room // stage)
+  tiles = (-(-n // images), -(-ur // rows), -(-uc // cols), -(-c // SLAB))
+  moved = 2 * n * c * (h * w + oh * ow)
+  return BandPlan(
+      "direct" if c % 8 or moved < TMA_MIN_BYTES else "tma", scale, origin,
+      halo, units, (images, rows, cols),
+      (images, scale * rows + halo, scale * cols + halo, SLAB), tiles,
+      min(math.prod(tiles), BAND_BLOCKS_PER_SM * sms), stages, stage,
+      BAND_ALIGN + stages * stage)
+
+
+def band_starts(plan: BandPlan):
+  """Each band of ``plan`` in the order the kernel's blocks walk them (slabs
+  fastest): its first (image, unit row, unit column, channel) and its box's
+  first (image, input row, input column, channel), negative where the box
+  starts in the padding."""
+  images, rows, cols = plan.band
+  _, tr, tc, slabs = plan.tiles
+  for tile in range(math.prod(plan.tiles)):
+    slab, rest = tile % slabs, tile // slabs
+    cb, rest = rest % tc, rest // tc
+    rb, nb = rest % tr, rest // tr
+    first = (nb * images, rb * rows, cb * cols, slab * SLAB)
+    yield first, (first[0], first[1] * plan.scale + plan.origin,
+                  first[2] * plan.scale + plan.origin, first[3])
+
+
+def _exact_products(taps: np.ndarray) -> bool:
+  """Whether every f32 tap times any bf16 value is exact in f32 (the tap's
+  significand within 16 bits, its lowest bit at 2^-16 or above: a bf16 has
+  8 significant bits, the lowest at 2^-133 or above), so that the bf16
+  kernel may take one FMA a tap in its H pass and still round as the plain
+  version does (fir2_bf16.cu's axpy). True for [1, 3, 3, 1] at the gains
+  the models and their adjoints use."""
+  for tap in taps.astype(np.float64):
+    scaled = fractions.Fraction(float(tap)) * 2 ** 16
+    if scaled.denominator != 1:
+      return False
+    n = abs(scaled.numerator)
+    if n and (n // (n & -n)).bit_length() > 16:
+      return False
+  return True
 
 
 def _taps_key(k) -> Tuple[float, ...]:
@@ -260,37 +399,71 @@ class _Args(ctypes.Structure):
                   ("table", ctypes.c_float * 10)]
 
 
+class _Bf16Args(ctypes.Structure):
+  """fir2_bf16.cu's ``Fir2Bf16Args``: ``_Args`` with the taps and the band
+  plan (:class:`BandPlan`)."""
+  _fields_ = [(name, ctypes.c_int) for name in (
+      "N", "H", "W", "C", "OH", "OW", "up", "T", "len", "base", "unit_rows",
+      "unit_cols", "images", "rows", "cols", "box_rows", "box_cols", "row0",
+      "col0", "tiles_n", "tiles_r", "tiles_c", "slabs", "tiles", "stages",
+      "stage_bytes", "smem", "grid", "fma_h")] + [
+          ("table", ctypes.c_float * 10)]
+
+
 @functools.lru_cache(maxsize=None)
-def _launch_args(k, gain: float, mode: str, shape: tuple, out_hw):
+def _launch_args(k, gain: float, mode: str, shape: tuple, out_hw,
+                 sms: int = 0):
   """Per (taps, gain, mode, x's shape, out_hw), checked once: the output's
-  shape and the kernel's ``_Args``."""
+  shape, the f32 kernel's ``_Args`` and, given the card's ``sms``, the bf16
+  kernel's ``_Bf16Args`` and its :class:`BandPlan`."""
   plan = _plan(k, gain, mode)
   oh, ow = _check(shape, plan, mode, out_hw)
   n, h, w, c = shape
   if max(n * h * w * c, n * oh * ow * c) >= 2 ** 31:
     raise ValueError(f"the fir2 kernel indexes in 32 bits: x of shape "
                      f"{shape} is too large")
-  return (n, oh, ow, c), _Args(n, h, w, c, oh, ow, plan.up, plan.length,
-                               plan.base, (ctypes.c_float * 10)(*plan.table))
+  table = (ctypes.c_float * 10)(*plan.table)
+  f32 = _Args(n, h, w, c, oh, ow, plan.up, plan.length, plan.base, table)
+  if not sms:
+    return (n, oh, ow, c), f32, None, None
+  band = band_plan(mode, plan.T, shape, (oh, ow), sms)
+  bf16 = _Bf16Args(n, h, w, c, oh, ow, plan.up, plan.T, plan.length,
+                   plan.base, *band.units, *band.band, *band.box[1:3],
+                   band.origin, band.origin, *band.tiles,
+                   math.prod(band.tiles), band.stages, band.stage_bytes,
+                   band.smem, band.grid, _exact_products(plan.taps), table)
+  return (n, oh, ow, c), f32, bf16, band
 
 
-def _launch(x, k, gain: float, mode: str, out_hw, device: torch.device):
-  """One launch of the fir2 kernel on the CUDA tensor ``x``: its f32 or
-  its bf16 entry point."""
+def _launch(x, k, gain: float, mode: str, out_hw, device: torch.device,
+            path=None):
+  """One launch of the fir2 kernel on the CUDA tensor ``x``: its f32 entry
+  point, or its bf16 one by the route :func:`band_plan` names (``path``,
+  'tma' or 'direct', overrides it: for timing both). Returns the output and
+  the route taken (None in f32): 'direct' where x is not 16-byte aligned,
+  whatever the plan."""
   if x.dtype not in (torch.float32, torch.bfloat16):
     raise NotImplementedError(
         f"the fir2 kernel takes float32 or bfloat16, not {x.dtype}")
   if not x.is_contiguous():
     raise ValueError("x must be contiguous")
-  out_shape, args = _launch_args(k, gain, mode, tuple(x.shape), out_hw)
+  bf16 = x.dtype == torch.bfloat16
+  out_shape, f32, args, band = _launch_args(
+      k, gain, mode, tuple(x.shape), out_hw, _sms(device) if bf16 else 0)
   out = x.new_empty(out_shape)
-  vec = 4 if (out_shape[3] % 4 == 0
-              and x.data_ptr() % (4 * x.element_size()) == 0) else 1
-  err = launch(_kernel_fn(x.dtype == torch.bfloat16), device, x.data_ptr(),
-               out.data_ptr(), ctypes.addressof(args), vec)
+  c, ptr = out_shape[3], x.data_ptr()
+  if not bf16:
+    route, path, args = 4 if c % 4 == 0 and ptr % 16 == 0 else 1, None, f32
+  elif (path or band.path) == "tma" and ptr % 16 == 0:
+    route, path = 0, "tma"
+  else:
+    route, path = next(v for v in (8, 4, 1)
+                       if c % v == 0 and ptr % (2 * v) == 0), "direct"
+  err = launch(_kernel_fn(bf16), device, ptr, out.data_ptr(),
+               ctypes.addressof(args), route)
   if err != 0:
     raise RuntimeError(f"fir2 launch failed: cudaError {err}")
-  return out
+  return out, path
 
 
 def _count(counts: dict, key) -> None:
@@ -307,11 +480,14 @@ def _resample_cuda(x, k, gain: float, mode: str, wrapper, tally: str,
   """One launch of the kernel on the CUDA tensor ``x``, counted on
   ``wrapper`` as a ``tally`` ('forward', 'backward' or 'jvp') launch: the
   operator's CUDA implementation."""
-  out = _launch(x, k, gain, mode, out_hw, x.device)
+  out, path = _launch(x, k, gain, mode, out_hw, x.device)
   total, by_shape = _TALLIES[tally]
   setattr(wrapper, total, getattr(wrapper, total) + 1)
-  if x.dtype == torch.bfloat16:
-    setattr(wrapper, f"bf16_{total}", getattr(wrapper, f"bf16_{total}") + 1)
+  if path:
+    for name in (f"bf16_{total}", f"bf16_{path}_{total}"):
+      setattr(wrapper, name, getattr(wrapper, name) + 1)
+    _count(wrapper.bf16_paths, (tally, mode, len(k), x.shape,
+                                out.shape[1:3], path))
   _count(getattr(wrapper, by_shape), tuple(x.shape[1:]))
   return out
 
@@ -457,12 +633,14 @@ def fir_downsample2(x, k: Sequence[float], gain: float = 1.0):
 
 def reset_launch_counts() -> None:
   """Set both wrappers' launch counts (forward, backward and tangent, total,
-  bf16 and per shape) to zero."""
+  bf16 by route and per shape) to zero."""
   for wrapper in (fir_upsample2, fir_downsample2):
     for total, by_shape in _TALLIES.values():
-      setattr(wrapper, total, 0)
-      setattr(wrapper, f"bf16_{total}", 0)
+      for name in (total, f"bf16_{total}", f"bf16_tma_{total}",
+                   f"bf16_direct_{total}"):
+        setattr(wrapper, name, 0)
       setattr(wrapper, by_shape, {})
+    wrapper.bf16_paths = {}
 
 
 reset_launch_counts()
@@ -470,8 +648,8 @@ reset_launch_counts()
 
 @functools.lru_cache(maxsize=None)
 def _kernel_fn(bf16: bool = False):
-  lib = load_library(_KERNEL)
-  fn = lib.fir2_bf16 if bf16 else lib.fir2_f32
+  fn = (load_library(_KERNEL_BF16).fir2_bf16 if bf16
+        else load_library(_KERNEL).fir2_f32)
   fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
   fn.restype = ctypes.c_int
   return fn

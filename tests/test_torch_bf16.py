@@ -12,7 +12,11 @@ each relative to the largest value it is held to, and why:
 - (b) the bf16 ``fir2`` plain (up, down) and its adjoint against JAX's
   kernel in interpret mode and JAX's VJP of it: 2e-2. The port sums in f32
   and rounds once; JAX computes in bf16, rounding each of the 2 x T
-  products and sums per axis, so a result may sit a few bf16 ulps away;
+  products and sums per axis, so a result may sit a few bf16 ulps away.
+  The same for the replay of the bf16 kernel's TMA route (each band from
+  its zero-filled box, ``test_torch_fir._band_replay``), which is held to
+  the plain version in f32 at rtol = atol = 1e-5 as well; and the bf16
+  launch arguments carry ``band_plan`` field for field;
 - (c) the tiny flagship and UNCSN++ with ``compute_dtype='bfloat16'`` (and
   once with ``norm_dtype`` as well), the port's eval forward against JAX's
   from the same weights, JAX's fused sites taking the kernel's arithmetic:
@@ -40,6 +44,7 @@ each relative to the largest value it is held to, and why:
 """
 
 import functools
+import math
 
 import flax.linen as nn
 import jax
@@ -209,6 +214,75 @@ def test_bf16_fir2_and_adjoint_match_jax(mode):
   got_bar = fir.fir2_backward(ty, k, 1.0, mode, tuple(x.shape))
   assert got_bar.dtype == torch.bfloat16
   assert _rel(got_bar.float(), want_bar.astype(jnp.float32)) <= 2e-2
+
+
+@pytest.mark.parametrize("mode", ["up", "down"])
+def test_bf16_band_replay_matches_jax_kernel_and_plain(mode):
+  """The bf16 kernel's bands, forward and adjoint, at the shapes of the test
+  above (its JAX programs, compiled there), against JAX's kernel and VJP in
+  interpret mode and the plain version in f32."""
+  from test_torch_fir import _band_replay
+  rng = np.random.default_rng(3)
+  k = (1, 3, 3, 1)
+  x = rng.standard_normal((2, 8, 8, 8)).astype(np.float32)
+  jx, tx = _bf16(x)
+  jax_fn = (jax_fir.fir_upsample2_pallas if mode == "up"
+            else jax_fir.fir_downsample2_pallas)
+  want = jax_fn(jx, k, interpret=True)
+  got = _band_replay(tx.float().numpy(), k, 1.0, mode)
+  assert _rel(got, want.astype(jnp.float32)) <= 2e-2
+  np.testing.assert_allclose(
+      got, fir._fir2_plain(tx.float(), k, 1.0, mode).numpy(), rtol=1e-5,
+      atol=1e-5)
+  ybar = rng.standard_normal(want.shape).astype(np.float32)
+  jy, ty = _bf16(ybar)
+  k_rev = tuple(reversed(k))
+  other, gain = ("down", 4.0) if mode == "up" else ("up", 0.25)
+  want_bar = (jax_fir.fir_downsample2_pallas(jy, k_rev, 4.0, interpret=True)
+              if mode == "up" else
+              jax_fir.fir_upsample2_pallas(jy, k_rev, 0.25, interpret=True))
+  got_bar = _band_replay(ty.float().numpy(), k_rev, gain, other,
+                         tuple(x.shape[1:3]))
+  assert _rel(got_bar, want_bar.astype(jnp.float32)) <= 2e-2
+  np.testing.assert_allclose(
+      got_bar, fir._fir2_plain(ty.float(), k_rev, gain, other,
+                               tuple(x.shape[1:3])).numpy(),
+      rtol=1e-5, atol=1e-5)
+
+
+def test_bf16_launch_args_carry_the_band_plan():
+  """The bf16 launch arguments (fir2_bf16.cu's Fir2Bf16Args) hold the band
+  plan the wrapper's launch takes, and the f32 ones none; the route counts
+  start at zero."""
+  k = (1.0, 3.0, 3.0, 1.0)
+  for mode, shape, out_hw in (("down", (128, 32, 32, 256), (16, 16)),
+                              ("up", (3, 5, 7, 72), (11, 15))):
+    out_shape, f32, args, plan = fir._launch_args(k, 1.0, mode, shape,
+                                                  out_hw, 132)
+    assert plan is fir.band_plan(mode, 4, shape, out_hw, 132)
+    assert out_shape == (shape[0], *out_hw, shape[3])
+    taps = fir._plan(k, 1.0, mode)
+    assert (args.T, args.len, args.base) == (4, taps.length, taps.base)
+    assert (args.unit_rows, args.unit_cols) == plan.units
+    assert (args.images, args.rows, args.cols) == plan.band
+    assert (args.box_rows, args.box_cols) == plan.box[1:3]
+    assert args.row0 == args.col0 == plan.origin
+    assert (args.tiles_n, args.tiles_r, args.tiles_c, args.slabs) == (
+        plan.tiles)
+    assert args.tiles == math.prod(plan.tiles)
+    assert (args.stages, args.stage_bytes, args.smem, args.grid) == (
+        plan.stages, plan.stage_bytes, plan.smem, plan.grid)
+    assert args.fma_h == fir._exact_products(taps.taps) == 1
+    table = list(taps.table)
+    assert list(args.table)[:len(table)] == list(f32.table)[:len(table)] == (
+        table)
+    assert fir._launch_args(k, 1.0, mode, shape, out_hw)[2:] == (None, None)
+  fir.reset_launch_counts()
+  for wrapper in (fir.fir_upsample2, fir.fir_downsample2):
+    for total in ("launches", "backward_launches", "jvp_launches"):
+      for route in ("", "tma_", "direct_"):
+        assert getattr(wrapper, f"bf16_{route}{total}") == 0
+    assert wrapper.bf16_paths == {}
 
 
 # (c) --------------------------------------------------------------------

@@ -1,15 +1,23 @@
 """The port's FIR resampling (soft_truncation_tpu_torch/ops/fir.py and
 ops/resample.py) against the JAX package's, on the CPU.
 
-The CUDA kernel (csrc/fir2.cu) runs only on the card: chip_smoke.py holds it
-against its plain version there, and ``test_kernel_matches_plain_on_card``
-does when a card is present. Here the plain versions are held against the
-Pallas kernel in interpret mode and the lax path, and a numpy replay of the
-kernel's index arithmetic (fir2.cu's quads of up2 over the launch plan's
-phase table, its per-output taps of down2) against JAX, at
+The CUDA kernels (csrc/fir2.cu in f32, csrc/fir2_bf16.cu in bf16) run only
+on the card: chip_smoke.py holds them against their plain version there,
+and the ``gpu`` tests (here, and the bf16 kernel's in
+tests/test_torch_fir_gpu.py, which imports no JAX) do when a card is
+present. Here the plain
+versions are held against the Pallas kernel in interpret mode and the lax
+path, and numpy replays of the kernels' index arithmetic against JAX, at
 rtol = atol = 1e-5 as tests/test_pallas_fir.py: the same f32 products,
-summed in another order.
+summed in another order. The replays: fir2.cu's quads of up2 over the
+launch plan's phase table and its per-output taps of down2; and the bf16
+kernel's TMA route over ``band_plan``, each band computed from its box
+alone (zero where the box lies outside the image, as TMA fills it), H sums
+then W sums, on bf16 input. ``band_plan``'s invariants are asserted at the
+models' shapes and ragged ones, with no JAX program.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -163,6 +171,201 @@ def test_quad_upsample_replay_one_row_past_2x(k):
   np.testing.assert_allclose(plain.numpy(), want, **TOL)
 
 
+def _box(x, start, extent):
+  """x[start : start + extent] on every axis, zero outside x: a box as TMA
+  fills it."""
+  out = np.zeros(extent, np.float32)
+  src = tuple(slice(max(s, 0), min(s + e, L))
+              for s, e, L in zip(start, extent, x.shape))
+  dst = tuple(slice(a.start - s, a.stop - s) for a, s in zip(src, start))
+  if all(a.stop > a.start for a in src):
+    out[dst] = x[src]
+  return out
+
+
+def _band_replay(x, k, gain, mode, out_hw=None):
+  """numpy replay of fir2_bf16.cu's TMA route over ``band_plan``: each band
+  summed from its box alone, H then W (product, then sum, in f32), the
+  units past the output dropped."""
+  taps = fir._plan(fir._taps_key(k), gain, mode)
+  table = np.array(taps.table[:], np.float32)
+  n, h, w, c = x.shape
+  oh, ow = out_hw or (fir._out_size(h, taps.T, mode),
+                      fir._out_size(w, taps.T, mode))
+  plan = fir.band_plan(mode, taps.T, x.shape, (oh, ow))
+  _, rows, cols = plan.band
+  out = np.zeros((n, oh, ow, c), np.float32)
+  for (n0, u0, v0, c0), start in fir.band_starts(plan):
+    box = _box(x, start, plan.box)
+    if mode == "down":
+      kf = table[:taps.T]
+      hs = sum(kf[t] * box[:, t:t + 2 * rows:2] for t in range(taps.T))
+      band = sum(kf[t] * hs[:, :, t:t + 2 * cols:2] for t in range(taps.T))
+      parts = [(band, 1, 0, 0)]
+    else:
+      coef = table.reshape(2, taps.length)
+      hs = [sum(coef[p, s] * box[:, s:s + rows] for s in range(taps.length))
+            for p in (0, 1)]
+      parts = [(sum(coef[q, s] * hs[p][:, :, s:s + cols]
+                    for s in range(taps.length)), 2, p, q)
+               for p in (0, 1) for q in (0, 1)]
+    for part, step, p, q in parts:
+      assert part.shape == (plan.box[0], rows, cols, plan.box[3])
+      ys = np.arange(rows)[:, None] + u0
+      xs = np.arange(cols)[None, :] + v0
+      ys, xs = ys * step + p + 0 * xs, xs * step + q + 0 * ys
+      keep = (ys < oh) & (xs < ow)
+      for i in range(min(plan.box[0], n - n0)):
+        sel = part[i][keep][:, :c - c0]
+        out[n0 + i, ys[keep], xs[keep], c0:c0 + sel.shape[-1]] = sel
+  return out
+
+
+def _bf16_values(x):
+  """x rounded to bf16, as f32 (what the bf16 kernel reads)."""
+  return torch.from_numpy(x).bfloat16().float().numpy()
+
+
+@pytest.mark.parametrize("k", sorted(KERNELS))
+@pytest.mark.parametrize("mode", ["up", "down"])
+def test_band_replay_matches_jax_and_plain(k, mode):
+  """The bf16 TMA route's bands (C = 8: one slab, channels past C zero)
+  against JAX's lax path and the plain version on bf16 input, in f32
+  before the rounding (SHAPES' second shape: no new compile)."""
+  x = _bf16_values(_x(SHAPES[1], seed=10))
+  got = _band_replay(x, KERNELS[k], 2.0, mode)
+  np.testing.assert_allclose(got, _jax_resample(x, KERNELS[k], 2.0, mode,
+                                                "lax"), **TOL)
+  plain = fir._fir2_plain(torch.from_numpy(x), KERNELS[k], 2.0, mode)
+  np.testing.assert_allclose(got, plain.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("k", sorted(KERNELS))
+def test_band_replay_one_row_past_2x(k):
+  """The bands of up2 sized 2H+1 x 2W+1 (as the quad replay above): the
+  last unit row's second output row is dropped and its box reads zeros
+  past the input."""
+  x = _bf16_values(_x((2, 5, 7, 3), seed=9))
+  xp = np.zeros((2, 6, 8, 3), np.float32)
+  xp[:, :5, :7] = x
+  want = _jax_resample(xp, KERNELS[k], 2.0, "up", "lax")[:, :11, :15]
+  got = _band_replay(x, KERNELS[k], 2.0, "up", out_hw=(11, 15))
+  np.testing.assert_allclose(got, want, **TOL)
+  plain = fir._fir2_plain(torch.from_numpy(x), KERNELS[k], 2.0, "up",
+                          (11, 15))
+  np.testing.assert_allclose(got, plain.numpy(), **TOL)
+
+
+# (mode, taps, x's shape, out_hw): the bf16 UNCSN++ step's and eval
+# forward's shapes (forward, adjoint), the mesh's halo'd shard rows at
+# CelebA-HQ 256^2, FFHQ 1024^2's widest levels (column tiles), odd sizes,
+# 2H + 1, T = 2, 6 and 8, slabs past C, C that takes no tensor map
+PLAN_CASES = [
+    ("down", 4, (128, 32, 32, 128), None),
+    ("down", 4, (128, 16, 16, 256), None),
+    ("down", 4, (128, 8, 8, 256), None), ("down", 4, (128, 32, 32, 256), None),
+    ("up", 4, (128, 4, 4, 256), None), ("up", 4, (128, 8, 8, 256), None),
+    ("up", 4, (128, 16, 16, 256), None), ("up", 4, (128, 16, 16, 128), None),
+    ("up", 4, (8, 4, 4, 256), None), ("down", 4, (8, 32, 32, 128), None),
+    ("down", 4, (2, 68, 128, 128), None), ("up", 4, (2, 34, 64, 256), None),
+    ("down", 4, (1, 1024, 1024, 32), None), ("up", 4, (1, 512, 512, 64), None),
+    ("up", 4, (3, 5, 7, 72), (11, 15)), ("down", 4, (5, 33, 31, 64), None),
+    ("up", 2, (7, 3, 3, 8), None), ("down", 6, (3, 20, 150, 16), None),
+    ("up", 6, (1, 6, 140, 64), (13, 281)), ("down", 8, (2, 64, 64, 64), None),
+    ("up", 8, (2, 9, 300, 24), None), ("up", 4, (2, 5, 7, 3), None),
+    ("down", 4, (2, 9, 7, 12), None)]
+
+
+@pytest.mark.parametrize("mode,T,shape,out_hw", PLAN_CASES)
+def test_band_plan_invariants(mode, T, shape, out_hw):
+  """Every output unit lies in exactly one band, every tap of every unit a
+  band's threads sum (its unit columns in pairs) inside its box, boxes and
+  shared memory within TMA's and the card's limits, the grid persistent,
+  16-byte global strides on the TMA route, and the route: direct where
+  C % 8 != 0, TMA at the training step's shapes."""
+  n, h, w, c = shape
+  out_hw = out_hw or (fir._out_size(h, T, mode), fir._out_size(w, T, mode))
+  plan = fir.band_plan(mode, T, shape, out_hw, 132)
+  assert plan is fir.band_plan(mode, T, shape, out_hw, 132)
+  ur, uc = plan.units
+  assert (ur, uc) == ((out_hw[0] + 1) // 2, (out_hw[1] + 1) // 2) if (
+      mode == "up") else out_hw
+  images, rows, cols = plan.band
+  assert cols % 2 == 0 and min(images, rows, cols) >= 1
+  assert max(plan.box[:3]) <= fir.BAND_MAX_BOX and plan.box[3] == fir.SLAB
+  assert plan.box[1:3] == (plan.scale * rows + plan.halo,
+                           plan.scale * cols + plan.halo)
+  box_bytes = math.prod(plan.box) * 2
+  assert plan.stage_bytes >= box_bytes and plan.stage_bytes % 1024 == 0
+  assert 2 <= plan.stages <= fir.BAND_MAX_STAGES
+  assert plan.smem == fir.BAND_ALIGN + plan.stages * plan.stage_bytes
+  assert plan.smem <= fir.BAND_MAX_SMEM
+  assert 1 <= plan.grid <= min(math.prod(plan.tiles),
+                               fir.BAND_BLOCKS_PER_SM * 132)
+  if mode == "up":
+    lo, span = fir._up2_span(T)
+    reads = [lo + s for s in range(span)]
+  else:
+    pad0 = fir.fir2_pads(T, mode)[0]
+    reads = [t - pad0 for t in range(T)]
+  cover = np.zeros((n, ur, uc, -(-c // fir.SLAB)), np.int32)
+  for (n0, u0, v0, c0), (b0, y0, x0, ch0) in fir.band_starts(plan):
+    assert (b0, ch0) == (n0, c0) and c0 % fir.SLAB == 0
+    cover[n0:n0 + images, u0:u0 + rows, v0:v0 + cols, c0 // fir.SLAB] += 1
+    for u in (u0, u0 + rows - 1):  # the band's first and last units
+      for i in (plan.scale * u + r for r in reads):
+        assert y0 <= i < y0 + plan.box[1], (u, i, y0)
+    for v in (v0, v0 + cols - 1):
+      for i in (plan.scale * v + r for r in reads):
+        assert x0 <= i < x0 + plan.box[2], (v, i, x0)
+  assert (cover == 1).all()
+  if c % 8:
+    assert plan.path == "direct"
+  if n == 128:
+    assert plan.path == "tma"
+  if plan.path == "tma":
+    assert all(s % 16 == 0 for s in (2 * c, 2 * w * c, 2 * h * w * c))
+
+
+@pytest.mark.parametrize("k,gain,exact", [
+    ([1., 3., 3., 1.], 1.0, True), ([1., 3., 3., 1.], 4.0, True),
+    ([1., 3., 3., 1.], 0.25, True), ([1., 1.], 1.0, True),
+    ([1., 3., 3., 1.], 2.0, False), (KERNELS["len6"], 1.0, False)])
+def test_exact_products_decides_the_fma(k, gain, exact):
+  """The bf16 kernel's H pass takes an FMA only where every tap times every
+  bf16 value is exact in f32 (so it rounds as the plain version's product
+  and sum do): checked against float64 products over bf16 values from the
+  smallest subnormal up to 2^126, both signs (past it a product may
+  overflow, to inf either way)."""
+  bits = np.arange(1, 0x7E80, 7, dtype=np.uint32) << 16
+  v = np.concatenate([bits, bits | 0x80000000]).view(np.float32).astype(
+      np.float64)
+  for mode in ("up", "down"):
+    taps = fir._plan(tuple(k), gain, mode).taps
+    assert fir._exact_products(taps) == exact
+    products = [np.float32(t) * v.astype(np.float32) for t in taps]
+    same = all(np.array_equal(p.astype(np.float64), float(t) * v)
+               for p, t in zip(products, taps.astype(np.float64)))
+    assert same == exact, (mode, taps)
+
+
+def test_band_replay_matches_plain_at_ragged_shapes():
+  """The bands at the plan cases that cut bands across images, rows and
+  column tiles, with odd sizes, 2H + 1, T = 2, 6 and a second slab partly
+  past C, against the plain version on bf16 input (no JAX program)."""
+  taps = {2: [1., 1.], 4: [1., 3., 3., 1.], 6: KERNELS["len6"],
+          8: [1., 2., 3., 4., 4., 3., 2., 1.]}
+  for mode, T, shape, out_hw in [
+      ("up", 4, (3, 5, 7, 72), (11, 15)), ("down", 4, (5, 33, 31, 8), None),
+      ("up", 2, (7, 3, 3, 8), None), ("down", 6, (3, 20, 150, 8), None),
+      ("up", 6, (1, 6, 140, 8), (13, 281)), ("down", 8, (2, 24, 64, 8), None),
+      ("down", 4, (2, 68, 40, 8), None)]:
+    x = _bf16_values(_x(shape, seed=11))
+    got = _band_replay(x, taps[T], 1.0, mode, out_hw)
+    plain = fir._fir2_plain(torch.from_numpy(x), taps[T], 1.0, mode, out_hw)
+    np.testing.assert_allclose(got, plain.numpy(), err_msg=str(shape), **TOL)
+
+
 @pytest.mark.parametrize("mode", ["up", "down"])
 def test_launch_plan_holds_taps_and_pads_and_refuses_the_same(mode):
   """The cached plan returns fir2_taps / fir2_pads' values and a kernel
@@ -295,3 +498,4 @@ def test_kernel_matches_plain_on_card():
         err = (got - want).abs().max().item()
         assert err <= 1e-5 * want.abs().max().item(), (h, c, k, wrapper)
   assert fir.fir_upsample2.launches == fir.fir_downsample2.launches == 15
+
