@@ -9,9 +9,10 @@ CIFAR-10 models and on the published layouts beyond them.
 Phases; any failure exits non-zero before the last line is printed:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every kernel of the serving paths (sm_90a), all
-     sources at once, and prints each compiler report; the bf16 sources
-     (BF16_KERNELS) build on while phases 3-12 run, and phase 13 waits
-     for them first;
+     sources at once, and prints each compiler report; the f32 tangent's
+     source (JVP_KERNELS) builds on while phases 3-7c run, and phase 7b
+     waits for it first; the bf16 sources (BF16_KERNELS) build on while
+     phases 3-12 run, and phase 13 waits for them first;
   3. forward: the full-width flagship (DDPM++, init_scale 0.1, batch 2) and
      UNCSN++ (FIR, residual input pyramid, init_scale 0.1, batch 2 at sigma
      labels 0.01 and 50) on the card and on a CPU copy with the same
@@ -128,7 +129,10 @@ Phases; any failure exits non-zero before the last line is printed:
      forward), and both tangents at every shape phase 7b launched them at
      (N=8; gn_silu_conv3x3's against gn_silu_conv3x3_jvp_plain, which is
      held against torch.func.jvp of the plain chain, its library call
-     torch.func.jvp of the library chain), with its time as issued from
+     torch.func.jvp of the library chain; the f32 tangent,
+     csrc/gn_silu_conv3x3_jvp.cu, with its plan, the same bits in
+     repeated calls and its device ms by kernel name, where no reduce
+     kernel may appear), with its time as issued from
      the host (``kernel_ms``, the
      `kernels` line's ``ms``) and on the device alone (``device_ms``,
      replayed from a CUDA graph), the plain version's, one library call's
@@ -341,7 +345,9 @@ FLAGSHIP = os.path.join(CONFIGS, "vp", "CIFAR10", "ddpmpp_nll_st.py")
 UNCSNPP = os.path.join(CONFIGS, "ve", "CIFAR10", "uncsnpp_st.py")
 DEVICE = "cuda"
 SERVE_BATCH = 8
-KERNELS = ("gn_silu_conv3x3", "gn_silu_conv3x3_bf16", "fir2", "fir2_bf16")
+KERNELS = ("gn_silu_conv3x3", "gn_silu_conv3x3_jvp", "gn_silu_conv3x3_bf16",
+           "fir2", "fir2_bf16")
+JVP_KERNELS = ("gn_silu_conv3x3_jvp",)  # first launched in 7b
 BF16_KERNELS = ("gn_silu_conv3x3_bf16", "fir2_bf16")  # first launched in 13
 # the flagship shapes phase 6 must cover: (H, W, C, O)
 LISTED_SHAPES = [(32, 32, 128, 128), (32, 32, 384, 128), (32, 32, 256, 256),
@@ -715,11 +721,12 @@ def _reset_launch_counts():
 
 
 def phase_build():
-  """Start nvcc for every kernel source at once; wait for the f32 ones and
-  print their reports. The bf16 sources (BF16_KERNELS, the longest
-  builds) go on building meanwhile: returns a callable that waits for
-  them and prints theirs, to be called before anything launches them
-  (phase 13), and before which nothing may load them."""
+  """Start nvcc for every kernel source at once; wait for the f32 primal
+  ones and print their reports. The f32 tangent's (JVP_KERNELS) and the
+  bf16 sources (BF16_KERNELS, the longest builds) go on building
+  meanwhile: returns a callable that waits for the sources it is given and
+  prints their reports, to be called before anything launches them
+  (phases 7b and 13), and before which nothing may load them."""
   from soft_truncation_tpu_torch.ops import _build
 
   def build(name):
@@ -735,14 +742,14 @@ def phase_build():
   futures = {name: pool.submit(build, name) for name in KERNELS}
   pool.shutdown(wait=False)
   for name in KERNELS:
-    if name not in BF16_KERNELS:
+    if name not in BF16_KERNELS + JVP_KERNELS:
       report(name, futures[name])
 
-  def wait_bf16():
-    for name in BF16_KERNELS:
+  def wait(names):
+    for name in names:
       report(name, futures[name])
 
-  return wait_bf16
+  return wait
 
 
 def phase_forward(name, config, labels, want_fir):
@@ -3327,8 +3334,9 @@ def kernels_gn(launches_by_shape, evals, n, listed=(), bf16=False):
 def kernels_gn_ragged():
   """gn_silu_conv3x3 vs plain at shapes no model reaches: ragged tiles,
   images straddling a tile, C and O off the tile widths, groups of 3 and 4
-  channels; the bf16 primal and tangent too, and beyond (a row of 100
-  pixels in two tiles, C % 8 != 0, O past 256 with one raw tile)."""
+  channels; the bf16 primal and tangent and the f32 tangent too, and
+  beyond (a row of 100 pixels in two tiles, C % 8 != 0, O past 256 with
+  one raw tile)."""
   import torch
   from soft_truncation_tpu_torch.ops import gn_conv
 
@@ -3368,6 +3376,17 @@ def kernels_gn_ragged():
                          BF16_REL_TOL)
       log(f"{name} {(n, h, w, c, o)} groups {groups}: max_abs_err {err} "
           f"max|plain| {scale}")
+    # the f32 tangent on the same shapes (csrc/gn_silu_conv3x3_jvp.cu)
+    tangent = tuple(t.float() for t in tangent[:-1]) + (groups,)
+    got = gn_conv.gn_silu_conv3x3_jvp(*tangent)
+    err, scale = _held("gn_silu_conv3x3_jvp", (n, h, w, c, o), got,
+                       gn_conv.gn_silu_conv3x3_jvp_plain(*tangent),
+                       KERNEL_REL_TOL)
+    if not torch.equal(gn_conv.gn_silu_conv3x3_jvp(*tangent), got):
+      raise AssertionError(f"gn_silu_conv3x3_jvp at {(n, h, w, c, o)}: "
+                           "other bits in a second call")
+    log(f"gn_silu_conv3x3_jvp {(n, h, w, c, o)} groups {groups}: "
+        f"max_abs_err {err} max|plain| {scale}")
 
 
 def kernels_fir(fir_launched, units, batch, per_key, bf16=False):
@@ -3529,7 +3548,10 @@ def kernels_gn_jvp(jvp_launched, evals, bf16=False):
   which is held against torch.func.jvp of the plain chain; timed beside
   that plain version and one library call, torch.func.jvp of GroupNorm ->
   SiLU -> cuDNN conv (TF32 off; it computes the primal too), kernel and
-  library interleaved A B A B, issued and on the device. With ``bf16``
+  library interleaved A B A B, issued and on the device; its device ms by
+  kernel name, in which no split-K reduce kernel may appear. The f32
+  tangent (csrc/gn_silu_conv3x3_jvp.cu) gives its plan and the same bits
+  in two calls. With ``bf16``
   the bf16 tangent mode, its plain version against torch.func.jvp of the
   bf16 plain chain, the library chain in bf16 channels-last."""
   import torch
@@ -3552,7 +3574,8 @@ def kernels_gn_jvp(jvp_launched, evals, bf16=False):
     (mean, rsqrt), (dmean, drsqrt) = torch.func.jvp(
         lambda v: gn_conv.gn_stats(v, groups), (x,), (dx,))
     args = (x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, wgt, groups)
-    split = gn_conv.weight_operand(wgt)
+    # the tangent's operand, made once per weight value as DDPMConv keeps it
+    split = gn_conv.jvp_weight_operand(wgt)
     plain = gn_conv.gn_silu_conv3x3_jvp_plain(*args)
     shape = (n, h, w, c, o)
     _, chain = torch.func.jvp(
@@ -3561,9 +3584,11 @@ def kernels_gn_jvp(jvp_launched, evals, bf16=False):
         (x,), (dx,))
     _held(f"{name} plain vs torch.func.jvp of the plain chain",
           shape, plain, chain, tol)
-    err, scale = _held(f"{name} kernel", shape,
-                       gn_conv.gn_silu_conv3x3_jvp(*args, w_split=split),
-                       plain, tol)
+    got = gn_conv.gn_silu_conv3x3_jvp(*args, w_split=split)
+    err, scale = _held(f"{name} kernel", shape, got, plain, tol)
+    if not torch.equal(gn_conv.gn_silu_conv3x3_jvp(*args, w_split=split),
+                       got):
+      raise AssertionError(f"{name} at {shape}: other bits in a second call")
     # NCHW contiguous: group_norm's forward-mode rule views its input
     w_oihw = wgt.permute(3, 2, 0, 1).contiguous()
     xc, dxc = (t.permute(0, 3, 1, 2).contiguous() for t in (x, dx))
@@ -3589,7 +3614,9 @@ def kernels_gn_jvp(jvp_launched, evals, bf16=False):
     launches = jvp_launched[(h, w, c, o)]
     row = {"kernel": name, "shape_nhwc_o": list(shape),
            "groups": groups, "grid": list(plan.grid), "splits": plan.splits,
-           "smem": plan.smem, "max_abs_err": err, "max_abs_plain": scale,
+           "smem": plan.smem, "block_n": plan.block_n, "stages": plan.stages,
+           "raws": plan.raws, "rows": plan.rows, "cols": plan.cols,
+           "max_abs_err": err, "max_abs_plain": scale, "same_bits": True,
            "kernel_ms": (ab[0] + ab[2]) / 2,
            "device_ms": (ab_dev[0] + ab_dev[2]) / 2,
            "plain_ms": time_ms(
@@ -3600,8 +3627,10 @@ def kernels_gn_jvp(jvp_launched, evals, bf16=False):
            "ab_library_device_ms": [ab_dev[1], ab_dev[3]],
            "bound_ms": bound, "bound_by": bound_by, "launches": launches,
            "launches_per_evaluation": launches / evals}
-    if bf16:
-      row["device_ms_by_kernel"] = _by_kernel(kernel)
+    row["device_ms_by_kernel"] = _by_kernel(kernel)
+    if any("reduce" in k for k in row["device_ms_by_kernel"]):
+      raise AssertionError(f"{name} at {shape}: a reduce kernel beside the "
+                           f"conv: {row['device_ms_by_kernel']}")
     emit(row)
     rows.append(row)
   return rows
@@ -4418,7 +4447,7 @@ def main() -> int:
     log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
     return result
 
-  wait_bf16 = phase("build", phase_build)
+  wait_build = phase("build", phase_build)
   sites, _, flag_params = phase(
       "forward flagship", phase_forward, "flagship",
       load_config(FLAGSHIP, init_scale=0.1),
@@ -4481,6 +4510,7 @@ def main() -> int:
       UNCSNPP_FIR_BWD_SITES)
   fid_launched, fid_evals, _ = phase("fid flagship", phase_fid, f_workdir,
                                      sites)
+  phase("build f32 tangent", wait_build, JVP_KERNELS)
   f_jvp, _, f_lik_evals, _ = phase(
       "likelihood flagship", phase_likelihood, "flagship", FLAGSHIP,
       f_workdir, sites, {}, load_config(FLAGSHIP, init_scale=0.1),
@@ -4572,7 +4602,7 @@ def main() -> int:
   log(f"phases 12a-12b: {time.perf_counter() - t_12:.1f} s")
 
   # phase 13: bf16 compute (the four dtype knobs)
-  phase("build bf16", wait_bf16)
+  phase("build bf16", wait_build, BF16_KERNELS)
   t_13 = time.perf_counter()
   gc.collect()
   torch.cuda.empty_cache()
@@ -4681,6 +4711,7 @@ def main() -> int:
   fir_bf16_src = "soft_truncation_tpu_torch/csrc/fir2_bf16.cu"
   fir_fwd = "soft_truncation_tpu/ops/pallas/fir.py:137"
   gn_src = "soft_truncation_tpu_torch/csrc/gn_silu_conv3x3.cu"
+  gn_jvp_src = "soft_truncation_tpu_torch/csrc/gn_silu_conv3x3_jvp.cu"
   gn_bf16_src = "soft_truncation_tpu_torch/csrc/gn_silu_conv3x3_bf16.cu"
   step = (f"one UNCSN++ train step at batch {TRAIN_BATCH} (every launch at "
           f"N={t_batch})")
@@ -4709,7 +4740,7 @@ def main() -> int:
       _kernel_entry("fir2_backward", fir_src,
                     "soft_truncation_tpu/ops/pallas/fir.py:212", bwd_rows,
                     step, "launches_per_step"),
-      _kernel_entry("gn_silu_conv3x3_jvp", gn_src,
+      _kernel_entry("gn_silu_conv3x3_jvp", gn_jvp_src,
                     "soft_truncation_tpu/ops/pallas/gn_conv.py:74",
                     gn_jvp_rows, f"one function evaluation of the NLL or "
                     f"NELBO at batch {LIKELIHOOD_BATCH}",

@@ -32,8 +32,12 @@ no config file sets any of its knobs, and the port reads them so:
     shadow is stored in ``ema_dtype`` (``models/ema.py``) and Adam's first
     moment in ``adam_mu_dtype`` (``losses/losses.Optimizer``). The legacy
     networks read none of them, as in JAX;
-  * ``rng_impl`` / ``dropout_bits``: torch's generator, masks with
-    ``bits=32`` semantics, not carried.
+  * ``dropout_bits`` (0, JAX's default) and ``rng_impl``
+    ('threefry2x32'): the NCSN++ res-blocks' dropout draws packed masks of
+    :func:`tpu_dropout_bits` bits (``models/dropout.py``), resolved as JAX
+    resolves them: 0 (or 'auto') is 8 under a threefry ``rng_impl``, 32
+    under any other; 8, 16 or 32 as given. The draws themselves come from
+    torch's generator whatever ``rng_impl`` names.
 """
 
 from __future__ import annotations
@@ -104,7 +108,8 @@ _CIFAR10 = dict(
     tpu=dict(mesh_shape=(), remat=False, remat_policy="full",
              fid_resize="host", activation_dtype="",
              compute_dtype="float32", norm_dtype="float32",
-             ema_dtype="float32", adam_mu_dtype="float32"),
+             ema_dtype="float32", adam_mu_dtype="float32",
+             rng_impl="threefry2x32", dropout_bits=0),
 )
 
 # the tpu section's dtype knobs and the values the port takes for them
@@ -123,6 +128,21 @@ def tpu_dtype(config, key: str) -> str:
     raise ValueError(f"tpu.{key} must be one of {DTYPES}, not {value!r}")
   return value
 
+
+def tpu_dropout_bits(config) -> int:
+  """The res-blocks' dropout mask bits, ``config.tpu.dropout_bits``
+  resolved as ``soft_truncation_tpu/models/ncsnpp.py::from_config``
+  resolves it: 0 or 'auto' (the default) is 8 where ``tpu.rng_impl``
+  names a threefry generator (also where the config has no such key), 32
+  otherwise; any other value as given (32 where there is no ``tpu``
+  section)."""
+  tpu = config.get("tpu", None)
+  if tpu is None:
+    return 32
+  raw = tpu.get("dropout_bits", 32)
+  if raw in (0, "auto"):
+    return 8 if "threefry" in str(tpu.get("rng_impl", "threefry2x32")) else 32
+  return int(raw)
 
 
 def _derive(base, changes, drop=None):

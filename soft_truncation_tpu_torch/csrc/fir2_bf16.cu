@@ -77,10 +77,9 @@
 // box for each of two blocks an SM, down-mode) beside ~130 instructions
 // an output pixel.
 
-#include <cuda.h>  // CUtensorMap and its enums (libcuda is not linked)
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -364,57 +363,6 @@ struct Fir2Bf16Args {
 
 namespace {
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "{\n.reg .b64 state;\n"
-      "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n" ::"r"(
-          bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// wait until the barrier's phase with this parity has completed; the
-// thread is suspended meanwhile (up to the hint, 10 ms, per try). A load
-// that never lands traps after kMaxTries tries, rather than hang the card.
-constexpr int kMaxTries = 2000;
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  int tries = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity), "r"(10000000)
-        : "memory");
-    if (!done && ++tries == kMaxTries) __trap();
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
 // The 8 channels of piece g of staged pixel ``pix`` (128-byte swizzle: the
 // piece's 16 bytes sit at piece g ^ (pix % 8) of the pixel's row)
 __device__ __forceinline__ void load_piece(const unsigned char* stage,
@@ -620,50 +568,13 @@ fir2_band_kernel(const __grid_constant__ CUtensorMap map,
   }
 }
 
-// cuTensorMapEncodeTiled, through the CUDA runtime's entry-point query
-// (libcuda is not linked)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* sym = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &sym, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(sym);
-  }
-  return fn;
-}
-
 template <bool kUp, int kT, bool kFma>
 int launch_band(const CUtensorMap& map, __nv_bfloat16* out,
                 const Fir2Bf16Args& a, cudaStream_t stream) {
   auto kernel = fir2_band_kernel<kUp, kT, kFma>;
-  // the attribute holds for the current device only: set it once per
-  // device (and per instantiation), at every launch past kMaxDevices
-  constexpr int kMaxDevices = 64;
-  static bool configured[kMaxDevices] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  static bool configured[kMaxDevices] = {};  // per instantiation
+  const cudaError_t err = allow_smem(kernel, kMaxBandSmem, configured);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (device >= kMaxDevices || !configured[device]) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxBandSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (device < kMaxDevices) configured[device] = true;
-  }
   kernel<<<a.grid, kBandThreads, a.smem, stream>>>(map, out, a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -718,8 +629,6 @@ int fir2_band(const __nv_bfloat16* x, __nv_bfloat16* out,
               const Fir2Bf16Args& a, cudaStream_t stream) {
   if (!plan_ok(a) || reinterpret_cast<uintptr_t>(x) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap map;
   const cuuint64_t dims[4] = {(cuuint64_t)a.C, (cuuint64_t)a.W,
                               (cuuint64_t)a.H, (cuuint64_t)a.N};
@@ -729,25 +638,16 @@ int fir2_band(const __nv_bfloat16* x, __nv_bfloat16* out,
   const cuuint32_t box[4] = {(cuuint32_t)kSlab, (cuuint32_t)a.box_cols,
                              (cuuint32_t)a.box_rows, (cuuint32_t)a.images};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  auto encode_x = [&]() {
+  // hopper.cuh binds the device's primary context where this thread has
+  // none (a server's handler thread)
+  const int r = encode_in_context([&](EncodeTiled encode) {
     return encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                   const_cast<__nv_bfloat16*>(x), dims, strides, box, elem,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  };
-  CUresult r = encode_x();
-  if (r == CUDA_ERROR_INVALID_CONTEXT) {
-    // the encoding is a driver call and needs a context current to this
-    // thread: one that has launched nothing yet (a server's handler thread)
-    // has none until the runtime binds the device's primary context
-    int device = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err == cudaSuccess) err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    r = encode_x();
-  }
-  if (r != CUDA_SUCCESS) return static_cast<int>(r);
+  });
+  if (r != 0) return r;
   if (a.fma_h)
     return a.up ? launch_band_taps<true, true>(map, out, a, stream)
                 : launch_band_taps<false, true>(map, out, a, stream);

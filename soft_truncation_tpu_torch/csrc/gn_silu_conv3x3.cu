@@ -1,6 +1,6 @@
 // Fused GroupNorm-apply -> SiLU -> 3x3 SAME conv, NHWC, forward, as an
-// implicit GEMM on the tensor cores in 3xTF32 for float32, and its tangent
-// (forward-mode derivative), from the same source. The bfloat16 modes are
+// implicit GEMM on the tensor cores in 3xTF32 for float32. Its tangent
+// (forward-mode derivative) is gn_silu_conv3x3_jvp.cu, the bfloat16 modes
 // gn_silu_conv3x3_bf16.cu.
 //
 // Replaces the TPU kernel soft_truncation_tpu/ops/pallas/gn_conv.py::
@@ -45,7 +45,8 @@
 //     A, or A in registers) in swizzled shared-memory layouts written by TMA
 //     or matched by hand, three products per tile pair, and the shifted tap
 //     views above would have to become TMA boxes; mma.sync kept this first
-//     tensor-core form small. wgmma is listed as a follow-up in ROADMAP.md.
+//     tensor-core form small. The tangent's redesign took wgmma
+//     (gn_silu_conv3x3_jvp.cu); this primal's is a follow-up in ROADMAP.md.
 //   * Split-K: where the tiles are fewer than the blocks the SMs hold at
 //     once (every site of the models at batch 8; ops/gn_conv.py::
 //     launch_plan), blockIdx.z takes a contiguous range of the 16-channel
@@ -53,18 +54,6 @@
 //     workspace; a second small kernel sums the splits in a fixed order and
 //     adds the bias. No atomics, so the result is the same bits run after
 //     run.
-//   * Tangent mode (the second entry point, the template's kTangent): for
-//     tangents dx, dmean, drsqrt of x and the stats (gamma, beta, w, b held
-//     constant, as the likelihood holds them), the output's tangent is
-//     conv3x3(SiLU'(a) * da, zero pad), no bias, where a = x*scale + shift,
-//     da = dx*scale + x*dscale + dshift, dscale = drsqrt_g * gamma and
-//     dshift = -(dmean_g*scale + mean_g*dscale), and SiLU'(a) = s(1 + a(1 -
-//     s)) with s = sigmoid(a). Only the A tile's prologue differs: cp.async
-//     brings the halo rows of x and of dx (a second ring of the same shape,
-//     which doubles the raw A-side shared memory: one block per SM at most
-//     sites, two at the smaller halo tiles), and the activation writes SiLU'(a) * da. The GEMM, its split-K
-//     and the zero halo are the primal's. Its bound is the primal's flops,
-//     or its bytes with dx read as well.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,16 +78,13 @@ constexpr int kMaxSmem = 232448;       // an H100 block's dynamic maximum
 
 struct Params {
   const float* x;       // [N, H, W, C]
-  const float* dx;      // [N, H, W, C], tangent mode only
   const float* mean;    // [N, G]
   const float* rsqrt;   // [N, G]
-  const float* dmean;   // [N, G], tangent mode only
-  const float* drsqrt;  // [N, G], tangent mode only
   const float* gamma;   // [C]
   const float* beta;    // [C]
   const float* w_hi;    // [9 * Cp, Op] tf32 values
   const float* w_lo;
-  const float* bias;    // [O]; null in tangent mode
+  const float* bias;    // [O]
   float* out;           // [N, H, W, O]
   float* ws;            // [splits, M, O] when splits > 1
   int N, H, W, C, O, G, Cp, Op, M, rows, chunks, splits, slots;
@@ -141,13 +127,7 @@ __device__ __forceinline__ float silu(float u) {
   return u * __frcp_rn(1.f + __expf(-u));
 }
 
-// d/du SiLU(u) = s (1 + u (1 - s)), s = sigmoid(u)
-__device__ __forceinline__ float silu_grad(float u) {
-  const float s = __frcp_rn(1.f + __expf(-u));
-  return s * fmaf(u, 1.f - s, 1.f);
-}
-
-// 4 consecutive channels of x (or dx), from the raw ring
+// 4 consecutive channels of x, from the raw ring
 __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
   const float4 q = *reinterpret_cast<const float4*>(p);
   v[0] = q.x;
@@ -157,14 +137,13 @@ __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
 }
 
 // Shared memory, in bytes, each region 16-byte aligned: the raw halo tile
-// ring [2][hp][kBK] (and in tangent mode a second one of dx: ``streams``
-// rings); the activated tile [hi, lo][hp + 1][kAStride] tf32 words (row hp
-// stays zero); the B ring [2][hi, lo][kBK][kBStride]; then gamma and beta
-// [Cp] and the stats [2 * streams][slots][G] (mean, rsqrt, then dmean,
-// drsqrt) and, as ints, each GEMM row's base offset per dy [3][kBM].
-// ops/gn_conv.py::launch_plan computes the same total.
-__host__ __device__ inline int raw_bytes(int hp, int streams) {
-  return streams * 2 * hp * kBK * 4;
+// ring [2][hp][kBK]; the activated tile [hi, lo][hp + 1][kAStride] tf32
+// words (row hp stays zero); the B ring [2][hi, lo][kBK][kBStride]; then
+// gamma and beta [Cp] and the stats [2][slots][G] (mean, rsqrt) and, as
+// ints, each GEMM row's base offset per dy [3][kBM]. ops/gn_conv.py::
+// launch_plan computes the same total.
+__host__ __device__ inline int raw_bytes(int hp) {
+  return 2 * hp * kBK * 4;
 }
 
 __host__ __device__ inline int act_bytes(int hp) {
@@ -173,34 +152,29 @@ __host__ __device__ inline int act_bytes(int hp) {
 
 __host__ __device__ inline int b_bytes() { return 2 * 2 * kBFloats * 4; }
 
-__host__ __device__ inline int smem_bytes(int hp, int Cp, int slots, int G,
-                                          int streams) {
-  return raw_bytes(hp, streams) + act_bytes(hp) + b_bytes() +
-         4 * (2 * Cp + 2 * streams * slots * G + 3 * kBM);
+__host__ __device__ inline int smem_bytes(int hp, int Cp, int slots,
+                                          int G) {
+  return raw_bytes(hp) + act_bytes(hp) + b_bytes() +
+         4 * (2 * Cp + 2 * slots * G + 3 * kBM);
 }
 
-template <bool kTangent>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 gn_silu_conv3x3_kernel(const Params p) {
-  constexpr int kStreams = kTangent ? 2 : 1;
   // the activated tile's row stride in tf32 words
   constexpr int kRow = kAStride;
   extern __shared__ __align__(16) unsigned char smem[];
   const int W2 = p.W + 2;
   const int hp = (p.rows + 2) * W2;  // halo pixels
-  float* raw = reinterpret_cast<float*>(smem);  // [streams][2][hp][kBK]
-  unsigned char* actp = smem + raw_bytes(hp, kStreams);
+  float* raw = reinterpret_cast<float*>(smem);  // [2][hp][kBK]
+  unsigned char* actp = smem + raw_bytes(hp);
   unsigned char* bsmp = actp + act_bytes(hp);
   float* sgamma = reinterpret_cast<float*>(bsmp + b_bytes());  // [Cp]
   float* sbeta = sgamma + p.Cp;
   float* smean = sbeta + p.Cp;               // [slots][G]
   float* srsqrt = smean + p.slots * p.G;
-  float* sdmean = srsqrt + p.slots * p.G;    // tangent mode
-  float* sdrsqrt = sdmean + p.slots * p.G;
-  int* rowoff = reinterpret_cast<int*>(smean + 2 * kStreams * p.slots * p.G);
+  int* rowoff = reinterpret_cast<int*>(smean + 2 * p.slots * p.G);
   // [3][kBM]
   const float* x = p.x;
-  const float* dxp = p.dx;
 
   const int tid = threadIdx.x;
   const int o0 = blockIdx.x * kBN;
@@ -222,10 +196,6 @@ gn_silu_conv3x3_kernel(const Params p) {
     const int src = n * p.G + i % p.G;
     smean[i] = n < p.N ? p.mean[src] : 0.f;
     srsqrt[i] = n < p.N ? p.rsqrt[src] : 0.f;
-    if (kTangent) {
-      sdmean[i] = n < p.N ? p.dmean[src] : 0.f;
-      sdrsqrt[i] = n < p.N ? p.drsqrt[src] : 0.f;
-    }
   }
   for (int m = tid; m < kBM; m += kThreads) {
     const int r = m / p.W;
@@ -242,8 +212,8 @@ gn_silu_conv3x3_kernel(const Params p) {
   }
 
   const int cg = p.C / p.G;
-  // copy chunk ch's raw halo tile (and dx's) into ring slot s, 4 channels
-  // per copy (zero where no pixel)
+  // copy chunk ch's raw halo tile into ring slot s, 4 channels per copy
+  // (zero where no pixel)
   auto load_a = [&](int ch, int s) {
     float* dst = raw + s * hp * kBK;
     const int c0 = ch * kBK;
@@ -257,16 +227,12 @@ gn_silu_conv3x3_kernel(const Params p) {
       const size_t off = ok ? ((size_t)row * p.W + sx) * p.C + c : 0;
       const uint32_t d = smem_u32(dst + pix * kBK + (c - c0));
       cp_async16(d, x + off, ok ? 16 : 0);
-      if (kTangent)
-        cp_async16(smem_u32(dst + 2 * hp * kBK + pix * kBK + (c - c0)),
-                   dxp + off, ok ? 16 : 0);
     }
   };
-  // fold, SiLU (or, in tangent mode, SiLU' times the folded tangent) and
-  // the split into tf32 hi and lo, ring slot s into the activated tile
+  // fold, SiLU and the split into tf32 hi and lo, ring slot s into the
+  // activated tile
   auto activate = [&](int ch, int s) {
     const float* src = raw + s * hp * kBK;
-    const float* dsrc = src + 2 * hp * kBK;  // tangent mode
     const int c0 = ch * kBK;
     for (int i = tid; i < hp * kCPP; i += kThreads) {
       const int pix = i / kCPP;
@@ -278,8 +244,6 @@ gn_silu_conv3x3_kernel(const Params p) {
       if (row >= 0 && row < NH && sx >= 0 && sx < p.W && c0 + cc < p.C) {
         float vv[4];
         load4(src + pix * kBK + cc, vv);
-        float dv[4] = {0.f, 0.f, 0.f, 0.f};
-        if (kTangent) load4(dsrc + pix * kBK + cc, dv);
         const int slot = row / p.H - n_first;
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -287,14 +251,7 @@ gn_silu_conv3x3_kernel(const Params p) {
           const int g = slot * p.G + c / cg;
           const float sc = __fmul_rn(srsqrt[g], sgamma[c]);
           const float sh = __fsub_rn(sbeta[c], __fmul_rn(smean[g], sc));
-          const float u = fmaf(vv[e], sc, sh);
-          if (kTangent) {
-            const float dsc = __fmul_rn(sdrsqrt[g], sgamma[c]);
-            const float dsh = -fmaf(sdmean[g], sc, __fmul_rn(smean[g], dsc));
-            a[e] = silu_grad(u) * fmaf(dv[e], sc, fmaf(vv[e], dsc, dsh));
-          } else {
-            a[e] = silu(u);
-          }
+          a[e] = silu(fmaf(vv[e], sc, sh));
         }
       }
       float* ahi = reinterpret_cast<float*>(actp);
@@ -452,7 +409,7 @@ gn_silu_conv3x3_kernel(const Params p) {
           if (!direct) {
             ws[i] = acc[mf][nf][e];
           } else {
-            out[i] = kTangent ? acc[mf][nf][e] : acc[mf][nf][e] + bias[o];
+            out[i] = acc[mf][nf][e] + bias[o];
           }
         }
       }
@@ -471,13 +428,12 @@ splitk_reduce_kernel(const float* __restrict__ ws,
 }
 
 // Checks the arguments and launches the conv (and, with splits > 1, the
-// reduce) on ``stream``; in tangent mode bias is null.
-template <bool kTangent>
+// reduce) on ``stream``.
 int run(Params p, int rows, int splits, int slots, void* stream) {
   const long long M = (long long)p.N * p.H * p.W;
   const int chunks = p.Cp / kBK;
   const long long smem = smem_bytes((rows + 2) * (p.W + 2), p.Cp, slots,
-                                    p.G, kTangent ? 2 : 1);
+                                    p.G);
   if (p.N < 1 || p.H < 1 || p.W < 1 || p.W > kBM || p.C < 4 || p.C % 4 ||
       p.O < 1 || p.G < 1 || p.C % p.G || p.Cp % kBK || p.Cp < p.C ||
       p.Op % kBN || p.Op < p.O || rows < 1 || rows * p.W > kBM ||
@@ -485,22 +441,19 @@ int run(Params p, int rows, int splits, int slots, void* stream) {
       smem > kMaxSmem || M * p.C >= (1LL << 31) ||
       M * p.O * splits >= (1LL << 31) ||
       ((long long)p.N * p.H + rows - 1) / rows > 65535 ||
-      (kTangent && (p.dx == nullptr || p.dmean == nullptr ||
-                    p.drsqrt == nullptr)) ||
-      (!kTangent && p.bias == nullptr) || p.w_lo == nullptr) {
+      p.bias == nullptr || p.w_lo == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // The shared-memory attribute holds for the current device only, so it is
-  // set once per device (and per mode: one flag table per instantiation);
-  // a process that launches on a second card sets it there too. Past
-  // kMaxDevices it is set at every launch.
+  // set once per device; a process that launches on a second card sets it
+  // there too. Past kMaxDevices it is set at every launch.
   constexpr int kMaxDevices = 64;
   static bool configured[kMaxDevices] = {};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device >= kMaxDevices || !configured[device]) {
-    err = cudaFuncSetAttribute(gn_silu_conv3x3_kernel<kTangent>,
+    err = cudaFuncSetAttribute(gn_silu_conv3x3_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kMaxSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -515,7 +468,7 @@ int run(Params p, int rows, int splits, int slots, void* stream) {
   const dim3 grid(p.Op / kBN,
                   (unsigned)(((long long)p.N * p.H + rows - 1) / rows),
                   splits);
-  gn_silu_conv3x3_kernel<kTangent><<<grid, kThreads, (size_t)smem, s>>>(p);
+  gn_silu_conv3x3_kernel<<<grid, kThreads, (size_t)smem, s>>>(p);
   if (splits > 1) {
     const int MO = (int)M * p.O;
     splitk_reduce_kernel<<<(MO + 255) / 256, 256, 0, s>>>(p.ws, p.bias, p.out,
@@ -551,16 +504,16 @@ Params make_params(const float* x, const float* mean, const float* rsqrt,
 
 }  // namespace
 
-// Plain C entry points (loaded with ctypes). All tensors are contiguous f32
-// on the current device: x and dx [N,H,W,C], bias [O], out [N,H,W,O],
-// mean/rsqrt and dmean/drsqrt [N,G], gamma/beta [C], ws [splits,N*H*W,O]
+// Plain C entry point (loaded with ctypes). All tensors are contiguous f32
+// on the current device: x [N,H,W,C], bias [O], out [N,H,W,O],
+// mean/rsqrt [N,G], gamma/beta [C], ws [splits,N*H*W,O]
 // (unused when splits == 1) and the weights w_hi/w_lo [9*Cp, Op] (tap-major
 // rows of Cp channels, tf32 values, zero padding). C % 4 == 0, W <= 128, Cp
 // a multiple of 16 >= C, Op a multiple of 128 >= O; ``rows`` (pixel rows
 // per block) <= 128 / W; ``splits`` <= Cp / 16; ``slots`` >= the images
-// rows + 2 consecutive pixel rows touch; x and dx 16-byte aligned. Each
-// returns cudaGetLastError() after the launches, or cudaErrorInvalidValue
-// for arguments it does not take.
+// rows + 2 consecutive pixel rows touch; x 16-byte aligned. It returns
+// cudaGetLastError() after the launches, or cudaErrorInvalidValue for
+// arguments it does not take.
 
 // out = conv3x3(SiLU(x * scale + shift), zero pad) + bias
 extern "C" int gn_silu_conv3x3_tf32x3(
@@ -572,20 +525,5 @@ extern "C" int gn_silu_conv3x3_tf32x3(
   Params p = make_params(x, mean, rsqrt, gamma, beta, w_hi, w_lo, out, ws, N,
                          H, W, C, O, G, Cp, Op);
   p.bias = bias;
-  return run<false>(p, rows, splits, slots, stream);
-}
-
-// out = the tangent of the above for tangents dx, dmean, drsqrt (header)
-extern "C" int gn_silu_conv3x3_jvp_tf32x3(
-    const float* x, const float* dx, const float* mean, const float* dmean,
-    const float* rsqrt, const float* drsqrt, const float* gamma,
-    const float* beta, const float* w_hi, const float* w_lo, float* out,
-    float* ws, int N, int H, int W, int C, int O, int G, int Cp, int Op,
-    int rows, int splits, int slots, void* stream) {
-  Params p = make_params(x, mean, rsqrt, gamma, beta, w_hi, w_lo, out, ws, N,
-                         H, W, C, O, G, Cp, Op);
-  p.dx = dx;
-  p.dmean = dmean;
-  p.drsqrt = drsqrt;
-  return run<true>(p, rows, splits, slots, stream);
+  return run(p, rows, splits, slots, stream);
 }

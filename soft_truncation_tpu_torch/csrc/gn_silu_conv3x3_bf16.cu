@@ -84,11 +84,10 @@
 // bound on 3 warps beside the products, and each block's fixed cost
 // (launch, the first chunk's copy and activation, the epilogue).
 
-#include <cuda.h>  // CUtensorMap and its enums (libcuda is not linked)
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
 #include <string.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -142,120 +141,6 @@ __host__ __device__ inline int smem_bytes(int hp, int bn, int stages,
 }
 __host__ __device__ inline int partial_bytes(int bn) {
   return kBM * (bn + 8) * 4;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile(
-      "{\n.reg .b64 state;\n"
-      "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "{\n.reg .b64 state;\n"
-      "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n" ::"r"(
-          bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// wait until the barrier's phase with this parity has completed; the
-// thread is suspended meanwhile (up to the hint, 10 ms, per try), so waiting
-// warps leave the schedulers to the warps that work
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity), "r"(10000000)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
-               : "memory");
-}
-
-// keeps the compiler from moving accumulator reads or writes across a
-// wgmma fence or wait
-template <int kRegs>
-__device__ __forceinline__ void fence_operands(float (&d)[kRegs]) {
-#pragma unroll
-  for (int i = 0; i < kRegs; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// wgmma's shared-memory descriptor of a K-major B tile with the 128-byte
-// swizzle: 8-row groups 1024 bytes apart (stride byte offset), the leading
-// byte offset unused for a swizzled K-major operand (1), base offset 0 (the
-// tile is 1024-aligned); a k16 step within the 64-wide tile adds 32 bytes.
-__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
 }
 
 // D[64 x kN] += A[64 x 16] (registers, ldmatrix fragments) x B[16 x kN]
@@ -343,33 +228,6 @@ struct Wgmma<128> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
   }
 };
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::
-          : "memory");
-}
-
-// 4 f32 of cluster block `rank`'s shared memory at this block's address
-__device__ __forceinline__ float4 ld_cluster4(uint32_t addr, uint32_t rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote)
-               : "r"(addr), "r"(rank));
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(remote)
-               : "memory");
-  return v;
-}
 
 // 1 / (1 + e^-u) by the hardware's approximate exponential and reciprocal
 // (a few f32 ulps; the activation is rounded to bf16): 0 for u -> -inf
@@ -791,33 +649,6 @@ gn_silu_conv3x3_bf16_kernel(const __grid_constant__ CUtensorMap wmap,
   if (p.splits > 1) cluster_sync();  // no block leaves while read
 }
 
-// cuTensorMapEncodeTiled, through the CUDA runtime's entry-point query
-// (libcuda is not linked)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* sym = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &sym, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(sym);
-  }
-  return fn;
-}
-
 template <bool kTangent, int kBN>
 int launch_bn(const CUtensorMap& map, const Params& p, int grid_y,
               cudaStream_t stream) {
@@ -825,19 +656,9 @@ int launch_bn(const CUtensorMap& map, const Params& p, int grid_y,
   const int smem = smem_bytes(p.hp, kBN, p.stages, kTangent ? 2 : 1, p.raws);
   if (smem > kMaxSmem || partial_bytes(kBN) > ring_bytes(kBN, p.stages))
     return static_cast<int>(cudaErrorInvalidValue);
-  // the attribute holds for the current device only: set it once per
-  // device (and per instantiation), at every launch past kMaxDevices
-  constexpr int kMaxDevices = 64;
-  static bool configured[kMaxDevices] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  static bool configured[kMaxDevices] = {};  // per instantiation
+  cudaError_t err = allow_smem(kernel, kMaxSmem, configured);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (device >= kMaxDevices || !configured[device]) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (device < kMaxDevices) configured[device] = true;
-  }
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(p.O > 0 ? (unsigned)((p.O + kBN - 1) / kBN) : 1u,
                         (unsigned)grid_y, (unsigned)p.splits);
@@ -937,25 +758,17 @@ Params make_params(const void* x, const float* mean, const float* rsqrt,
 
 // Writes the 128-byte tensor map of the weight operand ``w`` ([rows, k]
 // bf16, k contiguous) for boxes of 64 x box_n into ``map_out``; returns 0,
-// or a CUresult / cudaError code.
+// or a CUresult / cudaError code. It binds the device's primary context
+// where the calling thread has none (hopper.cuh).
 extern "C" int gn_silu_conv3x3_bf16_tensor_map(const void* w, int rows, int k,
                                                int box_n, void* map_out) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   if (w == nullptr || rows < 1 || k < kBK || k % kBK || box_n < 1 ||
       box_n > 256 || rows % box_n)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map;
-  const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)k * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_n};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(
-      &map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return static_cast<int>(r);
+  const int r = k_major_map(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, rows, k,
+                            box_n, &map);
+  if (r != 0) return r;
   memcpy(map_out, &map, sizeof(map));
   return 0;
 }

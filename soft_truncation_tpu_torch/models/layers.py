@@ -38,7 +38,7 @@ import torch.nn.functional as F
 
 from ..ops._autodiff import below_transforms
 from ..ops._build import tracing
-from ..ops.gn_conv import weight_operand
+from ..ops.gn_conv import jvp_weight_operand, weight_operand
 from ..parallel import spatial
 from .dropout import Dropout
 
@@ -143,6 +143,16 @@ class DDPMConv(nn.Module):
     transposed bf16 tensor in bf16)."""
     return self._once_per_weight(
         "operand", lambda: weight_operand(self.weight_hwio()))
+
+  def jvp_weight_operand(self):
+    """The fused kernel's tangent's weight operand, ``ops.gn_conv.
+    jvp_weight_operand`` of :meth:`weight_hwio`: in f32 padded, transposed
+    to output-channel rows and split into TF32 hi and lo; in bf16 the
+    primal's, :meth:`weight_operand`."""
+    if self.dtype == torch.bfloat16:
+      return self.weight_operand()
+    return self._once_per_weight(
+        "jvp_operand", lambda: jvp_weight_operand(self.weight_hwio()))
 
   def compute_params(self):
     """The weight and bias in the compute dtype (the same tensors when

@@ -97,7 +97,8 @@ def _fused_gn_silu_conv(block, h: torch.Tensor, norm: GroupNorm,
   h = h.to(conv.dtype).contiguous()
   out = gn_silu_conv3x3(h, mean, rsqrt, norm.weight, norm.bias,
                         conv.weight_hwio(), conv.bias.to(conv.dtype), g,
-                        conv.weight_operand() if h.is_cuda else None)
+                        conv.weight_operand() if h.is_cuda else None,
+                        conv.jvp_weight_operand if h.is_cuda else None)
   n, hh, ww, c = h.shape
   block.last_fused_sites.append((hh, ww, c, out.shape[-1]))
   return out
@@ -264,7 +265,7 @@ class ResnetBlockDDPMpp(nn.Module):
   def __init__(self, act: Callable, in_ch: int, out_ch: Optional[int] = None,
                temb_dim: Optional[int] = None, dropout: float = 0.1,
                skip_rescale: bool = False, init_scale: float = 0.0,
-               act_quant: Optional[str] = None):
+               act_quant: Optional[str] = None, dropout_bits: int = 32):
     super().__init__()
     out_ch = out_ch or in_ch
     self.act = act
@@ -274,7 +275,7 @@ class ResnetBlockDDPMpp(nn.Module):
     self.temb_proj = (Dense(temb_dim, out_ch) if temb_dim is not None
                       else None)
     self.norm1 = GroupNorm(_groups(out_ch), out_ch)
-    self.dropout = Dropout(dropout)
+    self.dropout = Dropout(dropout, dropout_bits)
     self.conv1 = ddpm_conv(out_ch, out_ch, 3, init_scale=init_scale,
                            act_quant=act_quant)
     self.shortcut = NIN(in_ch, out_ch) if in_ch != out_ch else None
@@ -317,7 +318,7 @@ class ResnetBlockBigGANpp(nn.Module):
                down: bool = False, dropout: float = 0.1, fir: bool = False,
                fir_kernel: Sequence[float] = (1, 3, 3, 1),
                skip_rescale: bool = True, init_scale: float = 0.0,
-               act_quant: Optional[str] = None):
+               act_quant: Optional[str] = None, dropout_bits: int = 32):
     super().__init__()
     out_ch = out_ch or in_ch
     self.act = act
@@ -329,7 +330,7 @@ class ResnetBlockBigGANpp(nn.Module):
     self.temb_proj = (Dense(temb_dim, out_ch) if temb_dim is not None
                       else None)
     self.norm1 = GroupNorm(_groups(out_ch), out_ch)
-    self.dropout = Dropout(dropout)
+    self.dropout = Dropout(dropout, dropout_bits)
     self.conv1 = ddpm_conv(out_ch, out_ch, 3, init_scale=init_scale,
                            act_quant=act_quant)
     self.shortcut = (ddpm_conv(in_ch, out_ch, 1, act_quant=act_quant)

@@ -65,7 +65,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..configs.base import tpu_dtype
+from ..configs.base import tpu_dropout_bits, tpu_dtype
 from . import layerspp
 from .layers import (DDPMConv, Dense, GroupNorm, ddpm_conv, get_act,
                      get_timestep_embedding)
@@ -140,7 +140,7 @@ class NCSNpp(nn.Module):
                sigma_max: float = 50.0, num_scales: int = 1000,
                centered: bool = True, act_quant: Optional[str] = None,
                remat: bool = False, remat_policy: str = "full",
-               dtype: torch.dtype = torch.float32,
+               dropout_bits: int = 32, dtype: torch.dtype = torch.float32,
                norm_dtype: torch.dtype = torch.float32):
     super().__init__()
     if remat_policy not in REMAT_POLICIES:
@@ -191,12 +191,12 @@ class NCSNpp(nn.Module):
         return layerspp.ResnetBlockDDPMpp(
             act, in_ch, out_ch, temb_dim=temb_dim, dropout=dropout,
             skip_rescale=skip_rescale, init_scale=init_scale,
-            act_quant=act_quant)
+            act_quant=act_quant, dropout_bits=dropout_bits)
       return layerspp.ResnetBlockBigGANpp(
           act, in_ch, out_ch, temb_dim=temb_dim, up=up, down=down,
           dropout=dropout, fir=fir, fir_kernel=fir_kernel,
           skip_rescale=skip_rescale, init_scale=init_scale,
-          act_quant=act_quant)
+          act_quant=act_quant, dropout_bits=dropout_bits)
 
     def attn_block(ch):
       return layerspp.AttnBlockpp(ch, skip_rescale=skip_rescale,
@@ -456,5 +456,6 @@ class NCSNpp(nn.Module):
         act_quant=config.get("tpu", {}).get("activation_dtype", "") or None,
         remat=config.get("tpu", {}).get("remat", False),
         remat_policy=config.get("tpu", {}).get("remat_policy", "full"),
+        dropout_bits=tpu_dropout_bits(config),
         dtype=getattr(torch, tpu_dtype(config, "compute_dtype")),
         norm_dtype=getattr(torch, tpu_dtype(config, "norm_dtype")))

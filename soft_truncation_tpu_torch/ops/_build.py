@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
 compiled with ``nvcc`` for ``sm_90a`` (Hopper) into
 ``build/torch_kernels/lib<name>-<hash>.so`` at the root of the checkout,
-named by a hash of the source and flags, and loaded with ``ctypes``. The
+named by a hash of the source, of every header under ``csrc/``
+(``*.cuh``, which a source may include: ``hopper.cuh``) and of the flags,
+and loaded with ``ctypes``. The
 compiler's report (``-Xptxas -v``: registers, shared memory, spills) is
 kept beside it as ``.log``. Importing this module needs neither ``nvcc``
 nor a card. :func:`launch` calls a loaded entry point on the current
@@ -51,11 +53,15 @@ def _nvcc() -> str:
                      "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path(name: str) -> Path:
-  """Where the library for ``csrc/<name>.cu`` lives once built."""
-  src = (_CSRC / f"{name}.cu").read_bytes()
-  digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-  return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+def library_path(name: str, csrc: Path = _CSRC) -> Path:
+  """Where the library for ``csrc/<name>.cu`` lives once built: named by
+  a hash of the source, the headers beside it and the flags, so that an
+  edit of any of them builds it anew."""
+  digest = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+  for header in sorted(csrc.glob("*.cuh")):
+    digest.update(header.name.encode() + b"\0" + header.read_bytes())
+  digest.update(" ".join(NVCC_FLAGS).encode())
+  return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 @functools.lru_cache(maxsize=None)

@@ -7,8 +7,9 @@ Three checks, each a subcommand:
   fresh process, against one CPU forward of the same model: a fault that
   shows only in a process's first launches (uninitialised memory, a race,
   an out-of-bounds read that depends on what ran before) shows here.
-- ``sanitize``: both modes of ``gn_silu_conv3x3`` (f32 and bf16) and
-  ``fir2`` up, down
+- ``sanitize``: both modes of ``gn_silu_conv3x3`` (f32 and bf16; the f32
+  tangent, ``csrc/gn_silu_conv3x3_jvp.cu``, also at the likelihood's
+  batch 8, clusters of up to 8 along K) and ``fir2`` up, down
   and adjoint at the flagship's and UNCSN++'s site shapes (batch 2: split-K
   above 1 at every site, and tiles whose rows cross an image boundary at
   the 8x8 and 4x4 ones), in f32 and in bf16 (``csrc/fir2_bf16.cu``: the
@@ -56,6 +57,9 @@ FIR_SHAPES = (("down", 32, 32, 128), ("down", 16, 16, 256),
               ("down", 8, 8, 256), ("up", 4, 4, 256), ("up", 8, 8, 256),
               ("up", 16, 16, 256))
 BATCH = 2
+JVP_BATCH = 8  # the likelihood's eval.batch_size: the f32 tangent's clusters
+KERNELS = ("gn_silu_conv3x3", "gn_silu_conv3x3_jvp", "gn_silu_conv3x3_bf16",
+           "fir2", "fir2_bf16")
 BF16_FIR_BATCH = 128  # the bf16 training step's: fir2_bf16's TMA route
 STRESS_REL_TOL = 1e-4  # chip_smoke.py's KERNEL_REL_TOL, the looser bar
 STRESS_BF16_REL_TOL = 1e-2  # chip_smoke.py's BF16_REL_TOL
@@ -96,8 +100,7 @@ def forward_once(ref: str) -> dict:
 
 def forwards(runs: int, out: Path) -> dict:
   from ._build import load_library
-  for name in ("gn_silu_conv3x3", "gn_silu_conv3x3_bf16", "fir2",
-               "fir2_bf16"):
+  for name in KERNELS:
     load_library(name)
   config, create_model = _flagship()
   x, labels = _inputs()
@@ -183,9 +186,25 @@ def kernels_once(repeat: int = 1, poison: bool = False) -> dict:
       dwant = gn_conv.gn_silu_conv3x3_jvp_plain(x, dx, mean, dmean, rsqrt,
                                                 drsqrt, gamma, beta, wt,
                                                 groups)
+      jplan = gn_conv.launch_plan(BATCH, h, w, c, o, groups,
+                                  gn_conv._sms(x.device), tangent=True)
       worst[f"gn {h}x{w}x{c}->{o} splits {plan.splits} slots "
-            f"{plan.slots}"] = [rel(got, want), rel(dgot, dwant), moved,
-                                dmoved]
+            f"{plan.slots}, tangent cluster {jplan.splits} block_n "
+            f"{jplan.block_n}"] = [rel(got, want), rel(dgot, dwant), moved,
+                                   dmoved]
+      # the f32 tangent at the likelihood's batch
+      x8, dx8 = randn(JVP_BATCH, h, w, c), randn(JVP_BATCH, h, w, c)
+      mean8, rsqrt8 = gn_conv.gn_stats(x8, groups)
+      dmean8, drsqrt8 = randn(JVP_BATCH, groups), randn(JVP_BATCH, groups)
+      args8 = (x8, dx8, mean8, dmean8, rsqrt8, drsqrt8, gamma, beta, wt,
+               groups)
+      jplan = gn_conv.launch_plan(JVP_BATCH, h, w, c, o, groups,
+                                  gn_conv._sms(x.device), tangent=True)
+      dgot, dmoved = launched(lambda: gn_conv.gn_silu_conv3x3_jvp(*args8))
+      worst[f"gn tangent N={JVP_BATCH} {h}x{w}x{c}->{o} cluster "
+            f"{jplan.splits} block_n {jplan.block_n}"] = [
+          0.0, rel(dgot, gn_conv.gn_silu_conv3x3_jvp_plain(*args8)), 0,
+          dmoved]
       # the bf16 kernel's two entries (csrc/gn_silu_conv3x3_bf16.cu)
       xh, dxh, wh, bh = (t.bfloat16() for t in (x, dx, wt, b))
       hmean, hrsqrt = gn_conv.gn_stats(xh, groups)
@@ -268,8 +287,7 @@ def stress(repeat: int, out: Path) -> dict:
 
 def sanitize(out: Path) -> dict:
   from ._build import load_library
-  for name in ("gn_silu_conv3x3", "gn_silu_conv3x3_bf16", "fir2",
-               "fir2_bf16"):
+  for name in KERNELS:
     load_library(name)
   tool_bin = shutil.which("compute-sanitizer") or "/usr/local/cuda/bin/" \
       "compute-sanitizer"

@@ -9,8 +9,9 @@ hand-written CUDA kernel per dtype: an implicit GEMM on the tensor cores,
 for f32 inputs in 3xTF32 ``mma.sync`` with split-K over launches
 (``csrc/gn_silu_conv3x3.cu``), for bf16 ones in ``wgmma`` with the
 activated operand in registers, TMA-fed weights and split-K across a
-thread-block cluster (``csrc/gn_silu_conv3x3_bf16.cu``). The normalised
-slab never reaches device memory.
+thread-block cluster (``csrc/gn_silu_conv3x3_bf16.cu``); the f32 tangent
+is that design in 3xTF32 ``wgmma`` (``csrc/gn_silu_conv3x3_jvp.cu``). The
+normalised slab never reaches device memory.
 
 bfloat16 (``config.tpu.compute_dtype``): x, w and b in bf16, as the JAX
 package's fused site casts them, the statistics, gamma and beta in f32.
@@ -23,15 +24,19 @@ the plain versions round at the same places. Any other dtype raises.
 plain version, :func:`gn_silu_conv3x3_plain`, only for CPU tensors. The
 kernels' tiling (:func:`launch_plan`) and weight operands
 (:func:`tf32_split`, :func:`weight_operand`) are plain Python here, so the
-CPU tests can replay their arithmetic; the bf16 kernel reads its operand
-by TMA through a tensor map made once per operand (:func:`_tensor_map`).
+CPU tests can replay their arithmetic; the f32 tangent's plan is
+:func:`_jvp_plan` and its operand :func:`jvp_weight_operand`. The bf16
+kernel and the f32 tangent read their operands by TMA through tensor maps
+made once per operand (:func:`_tensor_map`).
 
 Forward mode (``torch.func.jvp``, as the likelihood takes the Hutchinson
 divergence): with tangents of ``x`` and of the stats (gamma, beta, w and b
 held constant), the output's tangent is ``conv3x3(SiLU'(a) * da)``, no
-bias (:func:`gn_silu_conv3x3_jvp_plain` writes it out). Each ``.cu``
-file computes it in a tangent mode (:func:`gn_silu_conv3x3_jvp`), and the
-wrapper's ``torch.autograd.Function`` names it as its ``jvp`` rule, so
+bias (:func:`gn_silu_conv3x3_jvp_plain` writes it out). A kernel computes
+it for each dtype (:func:`gn_silu_conv3x3_jvp`: f32 in
+``csrc/gn_silu_conv3x3_jvp.cu``, bf16 in the bf16 source's tangent mode),
+and the wrapper's ``torch.autograd.Function`` names it as its ``jvp`` rule,
+so
 under ``torch.func.jvp`` each fused site launches the kernel twice, for
 the primal and for the tangent. There is no reverse-mode rule: the
 Function's backward refuses, as the JAX package has no VJP for its kernel.
@@ -61,6 +66,7 @@ from ._build import define_op, launch, load_library, tracing
 
 _KERNEL = "gn_silu_conv3x3"
 _BF16_KERNEL = "gn_silu_conv3x3_bf16"
+_JVP_KERNEL = "gn_silu_conv3x3_jvp"
 _FORWARD_ONLY = ("gn_silu_conv3x3 is forward-only: call it under "
                  "torch.no_grad() or torch.inference_mode()")
 # csrc/gn_silu_conv3x3.cu's tile (BM GEMM rows, BN output channels, BK
@@ -73,6 +79,11 @@ BLOCKS_PER_SM = 2
 BF16_BM, BF16_BK = 64, 64
 BF16_BLOCK_N = (64, 128, 256)
 BF16_MAX_SPLITS = 8
+# csrc/gn_silu_conv3x3_jvp.cu's tile (the f32 tangent): JVP_BM GEMM rows,
+# JVP_BK channels per chunk (a 128-byte f32 pixel row), the bf16 kernel's
+# block widths and clusters
+JVP_BM, JVP_BK = 64, 32
+JVP_BLOCK_M = (64, 128)  # GEMM rows per block; 128 with block_n <= 128
 # clusters of 1, 2, 4 and 8 of its blocks the H100's 132 SMs hold at once
 # (cudaOccupancyMaxActiveClusters: its GPCs leave SMs that clusters of 4 or
 # 8 cannot fill), scaled to another SM count
@@ -186,7 +197,8 @@ def gn_silu_conv3x3_jvp_plain(x, dx, mean, dmean, rsqrt, drsqrt, gamma,
 
 class LaunchPlan(NamedTuple):
   """How a kernel tiles one (N, H, W, C, O): see :func:`launch_plan`."""
-  cp: int       # C padded to a multiple of the chunk (BK; bf16: BF16_BK)
+  cp: int       # C padded to a multiple of the chunk (BK; bf16: BF16_BK;
+  #               the f32 tangent: JVP_BK)
   op: int       # O padded to a multiple of the block's output channels
   m: int        # N*H*W, the GEMM's rows
   rows: int     # pixel rows per block (f32: BM // W, its GEMM rows rows * W)
@@ -195,18 +207,33 @@ class LaunchPlan(NamedTuple):
   splits: int
   slots: int    # f32: images the block's rows + 2 halo rows can touch
   smem: int     # dynamic shared memory, bytes
-  cols: int = 0       # bf16: pixels of a row per block, min(W, BF16_BM)
+  cols: int = 0       # bf16 and the f32 tangent: pixels of a row per
+  #                     block, min(W, 64)
   block_n: int = BN   # output channels per block
   stages: int = 2     # the weights' ring
-  raws: int = 1       # bf16: raw halo tiles (2: chunk 1 loads beside 0)
+  raws: int = 1       # bf16 and the f32 tangent: raw halo tiles (2: chunk
+  #                     1 loads beside 0)
+  block_m: int = 0    # the f32 tangent: GEMM rows per block (JVP_BLOCK_M)
+
+
+def jvp_smem_bytes(hp: int, block_n: int, stages: int, raws: int) -> int:
+  """The f32 tangent's dynamic shared memory (``csrc/
+  gn_silu_conv3x3_jvp.cu``'s ``smem_bytes``) for ``hp`` halo pixels: 1 KB
+  to align the base, the weights' ring of ``stages`` x (hi, lo) x
+  ``block_n`` rows of 128 bytes, two activated tiles of hp + 1 such rows,
+  ``raws`` x (x, dx) raw halo tiles of hp rows, and the mbarriers."""
+  row = 4 * JVP_BK
+  return (1024 + stages * 2 * block_n * row + 2 * (hp + 1) * row
+          + raws * 2 * hp * row + 8 * (2 * stages + 4))
 
 
 def smem_bytes(hp: int, streams: int, *, cp: int = 0, slots: int = 0,
                groups: int = 0, bf16: bool = False, block_n: int = BN,
                stages: int = 2, raws: int = 1) -> int:
   """A kernel's dynamic shared memory for ``hp`` halo pixels and
-  ``streams`` raw halo tiles (2 in the tangent mode: x and its tangent).
-  f32 (``csrc/gn_silu_conv3x3.cu``'s ``smem_bytes``): the raw halo ring(s),
+  ``streams`` raw halo tiles (2 in the bf16 tangent mode: x and its
+  tangent). f32 (``csrc/gn_silu_conv3x3.cu``'s ``smem_bytes``, the primal;
+  ``streams`` 1): the raw halo ring,
   the activated tile (tf32 hi and lo), the B ring (hi and lo [BK][BN +
   8]), then gamma, beta (``cp`` each), the stats (``slots`` x ``groups``)
   and the row offsets in 4-byte words. bf16 (``csrc/
@@ -227,31 +254,108 @@ def smem_bytes(hp: int, streams: int, *, cp: int = 0, slots: int = 0,
 def launch_plan(n: int, h: int, w: int, c: int, o: int, groups: int,
                 sms: int = H100_SMS, tangent: bool = False,
                 bf16: bool = False) -> LaunchPlan:
-  """The kernel's grid for one shape (``bf16``: :func:`_bf16_plan`).
+  """The kernel's grid for one shape (``bf16``: :func:`_bf16_plan`; the
+  f32 ``tangent``: :func:`_jvp_plan`).
 
-  f32: blocks of BM // W whole pixel rows (flattened across images) x BN
-  output channels and, where they are fewer than the blocks the SMs hold
-  at once (BLOCKS_PER_SM each, fewer where the shared memory does not fit
-  them), split-K over the C / BK chunks so that about that many blocks
-  run, in one wave; a second kernel sums the splits. Split s takes chunks
-  [s * chunks // S, (s + 1) * chunks // S), all 9 taps of each. The
-  tangent mode stages the halo rows of x and of its tangent, and the
-  stats' tangents: twice the raw A tile and twice the stats."""
+  The f32 primal: blocks of BM // W whole pixel rows (flattened across
+  images) x BN output channels and, where they are fewer than the blocks
+  the SMs hold at once (BLOCKS_PER_SM each, fewer where the shared memory
+  does not fit them), split-K over the C / BK chunks so that about that
+  many blocks run, in one wave; a second kernel sums the splits. Split s
+  takes chunks [s * chunks // S, (s + 1) * chunks // S), all 9 taps of
+  each."""
   if bf16:
     return _bf16_plan(n, h, w, c, o, sms, tangent)
+  if tangent:
+    return _jvp_plan(n, h, w, c, o, sms)
   cp, op = _padded(c, o)
   rows = BM // w
   tiles = -(-(n * h) // rows) * (op // BN)
   chunks = cp // BK
   slots = min(n, -(-(rows + 2) // h) + 1)
   hp = (rows + 2) * (w + 2)  # halo pixels
-  smem = smem_bytes(hp, 2 if tangent else 1, cp=cp, slots=slots,
-                    groups=groups)
+  smem = smem_bytes(hp, 1, cp=cp, slots=slots, groups=groups)
   resident = max(1, min(BLOCKS_PER_SM, _SM_SMEM // (smem + 1024)))
   splits = max(1, min(round(resident * sms / tiles), chunks))
   return LaunchPlan(cp, op, n * h * w, rows,
                     (op // BN, -(-(n * h) // rows), splits), chunks, splits,
                     slots, smem)
+
+
+def _cluster_splits(tiles: int, chunks: int, sms: int) -> int:
+  """The cluster along K of the bf16 kernel and the f32 tangent: 1, 2, 4
+  or 8 blocks (at most ``chunks``), doubled while the blocks still fit one
+  wave (one block per SM, and no more clusters than the card holds at
+  once: H100_CLUSTERS)."""
+  splits = 1
+  while (2 * splits <= min(BF16_MAX_SPLITS, chunks)
+         and 2 * splits * tiles <= sms
+         and tiles <= H100_CLUSTERS[2 * splits] * sms // H100_SMS):
+    splits *= 2
+  return splits
+
+
+# the f32 tangent's time per block in us (H100, 700 W), as fitted to the
+# card's times of every (rows, columns) shape at the flagship's 13 tangent
+# site shapes (PERF.md): a fixed part (launch, the first chunk, the
+# epilogue), then per 32-channel chunk one part per halo pixel activated,
+# one per output column (the weights' bytes) and one per product (rows x
+# columns)
+JVP_COST_US = (7.86, 0.0245, 0.0211, 0.000213)
+
+
+def _jvp_plan(n: int, h: int, w: int, c: int, o: int, sms: int,
+              block_m: int = 0, block_n: int = 0) -> LaunchPlan:
+  """The f32 tangent's grid (``csrc/gn_silu_conv3x3_jvp.cu``), the bf16
+  kernel's tiling in f32: blocks of ``block_m`` GEMM rows (JVP_BLOCK_M), R
+  = block_m // TW pixel rows of TW = min(W, 64) pixels (a row's segments
+  of TW beyond), by ``block_n`` output channels (the least of BF16_BLOCK_N
+  that holds O, 256 past it, or a half or a quarter of that; 128 rows
+  take at most 128 channels), and a cluster along K as
+  :func:`_cluster_splits` sizes it, over the C / JVP_BK chunks. Of the
+  shapes whose tiles fit shared memory it takes the one whose blocks
+  (tiles x cluster, in waves of ``sms``) take the least time by
+  JVP_COST_US (ties to more rows, then to the wider); ``block_m`` and
+  ``block_n`` force a shape. At batch 8 the 32x32 and 8x8 sites take 128
+  x 128, the 16x16 ones with O = 256 64 x 128, the 4x4 ones 64 x 64. The
+  shared memory
+  takes, in this order of preference, 4 or 3 stages of the weights' ring
+  with a second raw tile, 4 or 3 with one, then 2 with two or one (the
+  partial tile must fit the ring: 128 rows need 3 stages at 128
+  channels). Tiles of 64 x 64 fit any shape (at most 3 x 66 halo
+  pixels), so a plan always fits."""
+  cp, op = _jvp_padded(c, o)
+  chunks = cp // JVP_BK
+  cols = min(w, JVP_BM)
+  nominal = min(op, BF16_BLOCK_N[-1])
+  best = None
+  for bm in (block_m,) if block_m else JVP_BLOCK_M[::-1]:
+    rows = bm // cols
+    grid_m = -(-(n * h) // rows) * -(-w // cols)
+    hp = (rows + 2) * (cols + 2)
+    for bn in (block_n,) if block_n else (nominal, nominal // 2,
+                                          nominal // 4):
+      if bn < BF16_BLOCK_N[0] or op % bn or (bm > JVP_BM and bn > 128):
+        continue
+      fitting = [(stages, raws, size)
+                 for stages, raws in ((4, 2), (3, 2), (4, 1), (3, 1), (2, 2),
+                                      (2, 1))
+                 for size in [jvp_smem_bytes(hp, bn, stages, raws)]
+                 if size <= _MAX_SMEM
+                 and bm * (bn + 8) * 4 <= stages * 2 * bn * 4 * JVP_BK]
+      if not fitting:
+        continue
+      tiles = grid_m * (op // bn)
+      splits = _cluster_splits(tiles, chunks, sms)
+      fixed, per_pixel, per_column, per_product = JVP_COST_US
+      cost = -(-tiles * splits // sms) * (fixed + -(-chunks // splits) * (
+          per_pixel * hp + per_column * bn + per_product * bm * bn))
+      if best is None or cost < best[0]:
+        best = (cost, LaunchPlan(cp, op, n * h * w, rows,
+                                 (op // bn, grid_m, splits), chunks, splits,
+                                 0, fitting[0][2], cols, bn, *fitting[0][:2],
+                                 bm))
+  return best[1]
 
 
 def _bf16_plan(n: int, h: int, w: int, c: int, o: int, sms: int,
@@ -276,11 +380,7 @@ def _bf16_plan(n: int, h: int, w: int, c: int, o: int, sms: int,
   chunks = cp // BF16_BK
   grid_m = -(-(n * h) // rows) * -(-w // cols)
   tiles = grid_m * (op // block_n)
-  splits = 1
-  while (2 * splits <= min(BF16_MAX_SPLITS, chunks)
-         and 2 * splits * tiles <= sms
-         and tiles <= H100_CLUSTERS[2 * splits] * sms // H100_SMS):
-    splits *= 2
+  splits = _cluster_splits(tiles, chunks, sms)
   hp = (rows + 2) * (cols + 2)
   streams = 2 if tangent else 1
   smem, stages, raws = next(
@@ -299,7 +399,8 @@ def fits(n: int, h: int, w: int, c: int, o: int, groups: int) -> bool:
   answer holds for both dtypes: the bf16 kernel takes the same C (a
   multiple of 4) and W, and its tiles, at most 3 x 66 halo pixels of 64
   channels beside 3 stages of 256 x 64 weights, fit wherever W <= BM, so
-  a site's route does not depend on the compute dtype."""
+  a site's route does not depend on the compute dtype; the f32 tangent's
+  plan fits any shape (:func:`_jvp_plan`)."""
   return w <= BM and all(
       launch_plan(n, h, w, c, o, groups, tangent=tangent).smem <= _MAX_SMEM
       for tangent in (False, True))
@@ -321,6 +422,13 @@ def tf32_split(t: torch.Tensor):
 def _padded(c: int, o: int):
   """C and O padded to the f32 kernel's chunk (BK) and tile (BN) widths."""
   return -(-c // BK) * BK, -(-o // BN) * BN
+
+
+def _jvp_padded(c: int, o: int):
+  """C and O padded to the f32 tangent's chunk (JVP_BK) and to a multiple
+  of its nominal block (as :func:`_bf16_padded`), which its smaller block
+  divides too."""
+  return -(-c // JVP_BK) * JVP_BK, _bf16_padded(c, o)[1]
 
 
 def _bf16_padded(c: int, o: int):
@@ -351,6 +459,26 @@ def weight_operand(w: torch.Tensor):
   return tf32_split(wp.reshape(9 * cp, op))
 
 
+def jvp_weight_operand(w: torch.Tensor):
+  """The HWIO weights as the tangent's kernel reads them: for f32 ``w``,
+  [Op, 9*Cp] (output channel major, K = tap-major rows of Cp channels
+  contiguous, zero padding; Cp and Op :func:`_jvp_padded`'s) split into
+  TF32 ``(hi, lo)``, the rows the f32 tangent's TMA boxes read; for bf16
+  ``w`` the primal's operand, :func:`weight_operand` (the bf16 source's
+  tangent mode reads the same). A caller that differentiates one weight
+  value many times computes this once and passes it to
+  :func:`gn_silu_conv3x3_jvp` as ``w_split`` (``DDPMConv.
+  jvp_weight_operand``); the tensor maps of it are made once per operand
+  too (:func:`_tensor_map`)."""
+  if _kernel_dtype(w.dtype, "w") == torch.bfloat16:
+    return weight_operand(w)
+  c, o = w.shape[2], w.shape[3]
+  cp, op = _jvp_padded(c, o)
+  wp = w.new_zeros((9, cp, op))
+  wp[:, :c, :o] = w.reshape(9, c, o)
+  return tuple(t.t().contiguous() for t in tf32_split(wp.reshape(9 * cp, op)))
+
+
 def _kernel_dtype(dtype: torch.dtype, name: str) -> torch.dtype:
   """``dtype`` if the kernel has a mode for it (f32, bf16), else raise."""
   if dtype not in (torch.float32, torch.bfloat16):
@@ -362,7 +490,8 @@ def _kernel_dtype(dtype: torch.dtype, name: str) -> torch.dtype:
 def _kernel_operands(name, x, tensors, w, groups, w_split, tangent):
   """Check what the kernel takes (f32 or bf16 x and weights, f32 affine;
   contiguous; 4-channel chunks of x; W; shared memory) and return its
-  launch plan and weight operand (``w_lo`` None in bf16)."""
+  launch plan and weight operand (``w_lo`` None in bf16): for the f32
+  ``tangent`` :func:`jvp_weight_operand`'s, else :func:`weight_operand`'s."""
   dtype = _kernel_dtype(x.dtype, "x")
   for tname, t in tensors:
     want = torch.float32 if tname in ("gamma", "beta") else dtype
@@ -387,15 +516,17 @@ def _kernel_operands(name, x, tensors, w, groups, w_split, tangent):
     raise NotImplementedError(f"{name}: a tile of {plan.rows} rows of {wd} "
                               f"pixels, {c} channels and {groups} groups "
                               f"exceeds shared memory")
+  make = jvp_weight_operand if tangent else weight_operand
   if w_split is None:
-    w_split = weight_operand(w)
-  shape = (plan.op, 9 * plan.cp) if bf16 else (9 * plan.cp, plan.op)
+    w_split = make(w)
+  k_major = bf16 or tangent
+  shape = (plan.op, 9 * plan.cp) if k_major else (9 * plan.cp, plan.op)
   if (len(w_split) != (1 if bf16 else 2)
       or any(t.shape != shape or t.dtype != dtype or t.device != x.device
              for t in w_split)):
     raise ValueError(f"w_split must be {'one' if bf16 else 'two'} {dtype} "
                      f"{list(shape)} tensor(s) on {x.device}, from "
-                     f"weight_operand(w)")
+                     f"{make.__name__}(w)")
   return plan, w_split[0], None if bf16 else w_split[1]
 
 
@@ -420,7 +551,7 @@ def _primal_cuda(x, mean, rsqrt, gamma, beta, w, b, groups: int, w_split):
     err = launch(_bf16_kernel_fn(False), x.device, x.data_ptr(),
                  mean.data_ptr(), rsqrt.data_ptr(), gamma.data_ptr(),
                  beta.data_ptr(), _tensor_map_of(w_hi, plan), b.data_ptr(),
-                 out.data_ptr(), *_bf16_ints(n, h, wd, c, o, groups, plan))
+                 out.data_ptr(), *_plan_ints(n, h, wd, c, o, groups, plan))
   else:
     ws = _workspace(x, plan, o)
     err = launch(_kernel_fn(), x.device, x.data_ptr(), mean.data_ptr(),
@@ -436,8 +567,9 @@ def _primal_cuda(x, mean, rsqrt, gamma, beta, w, b, groups: int, w_split):
   return out
 
 
-def _bf16_ints(n, h, w, c, o, groups, plan: LaunchPlan):
-  """The bf16 entry points' int arguments after the tensors."""
+def _plan_ints(n, h, w, c, o, groups, plan: LaunchPlan):
+  """The int arguments after the tensors of the entry points planned in
+  64-channel (bf16) or 32-channel (the f32 tangent) chunks."""
   return (n, h, w, c, o, groups, plan.cp, plan.op, plan.rows, plan.cols,
           plan.block_n, plan.splits, plan.stages, plan.raws)
 
@@ -523,14 +655,13 @@ def _jvp_cuda(x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, w,
                  dx.data_ptr(), *(t.data_ptr() for t in stats),
                  gamma.data_ptr(), beta.data_ptr(),
                  _tensor_map_of(w_hi, plan), out.data_ptr(),
-                 *_bf16_ints(n, h, wd, c, o, groups, plan))
+                 *_plan_ints(n, h, wd, c, o, groups, plan))
   else:
-    ws = _workspace(x, plan, o)
     err = launch(_jvp_kernel_fn(), x.device, x.data_ptr(), dx.data_ptr(),
                  *(t.data_ptr() for t in stats), gamma.data_ptr(),
-                 beta.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(),
-                 out.data_ptr(), _ptr(ws), n, h, wd, c, o, groups, plan.cp,
-                 plan.op, plan.rows, plan.splits, plan.slots)
+                 beta.data_ptr(), _tensor_map_of(w_hi, plan),
+                 _tensor_map_of(w_lo, plan), out.data_ptr(),
+                 *_plan_ints(n, h, wd, c, o, groups, plan), plan.block_m)
   if err != 0:
     raise RuntimeError(f"gn_silu_conv3x3 tangent launch failed: cudaError "
                        f"{err}")
@@ -570,8 +701,9 @@ def gn_silu_conv3x3_jvp(x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, w,
   ``.bf16_jvp_launches``) and, per ``(H, W, C, O)``, in
   ``gn_silu_conv3x3.jvp_launches_by_shape``; a CPU tensor takes the plain
   version (both through the operator
-  ``soft_truncation::gn_silu_conv3x3_jvp``). ``w_split`` as for
-  :func:`gn_silu_conv3x3`."""
+  ``soft_truncation::gn_silu_conv3x3_jvp``). ``w_split`` is
+  ``jvp_weight_operand(w)`` where the caller keeps it per weight value
+  (the tangent's operand: in bf16 the primal's)."""
   _on_cpu_or_cuda(x)
   return _JVP_OP(x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, w, groups,
                  *_split_args(w_split))
@@ -582,15 +714,16 @@ class _GnSiluConv3x3(torch.autograd.Function):
   backward that refuses (module docstring)."""
 
   @staticmethod
-  def forward(x, mean, rsqrt, gamma, beta, w, b, groups, w_split):
+  def forward(x, mean, rsqrt, gamma, beta, w, b, groups, w_split,
+              jvp_split):
     return _primal(x, mean, rsqrt, gamma, beta, w, b, groups, w_split)
 
   @staticmethod
   def setup_context(ctx, inputs, output):
-    x, mean, rsqrt, gamma, beta, w, _, groups, w_split = inputs
+    x, mean, rsqrt, gamma, beta, w, _, groups, _, jvp_split = inputs
     ctx.set_materialize_grads(False)  # a constant's tangent stays None
     ctx.save_for_forward(x, mean, rsqrt, gamma, beta, w)
-    ctx.groups, ctx.w_split = groups, w_split
+    ctx.groups, ctx.jvp_split = groups, jvp_split
 
   @staticmethod
   def jvp(ctx, dx, dmean, drsqrt, dgamma, dbeta, dw, db, *_):
@@ -599,7 +732,8 @@ class _GnSiluConv3x3(torch.autograd.Function):
                                 "and b constant")
     x, mean, rsqrt, gamma, beta, w = map(plain, ctx.saved_tensors)
     tangents = [None if t is None else plain(t) for t in (dx, dmean, drsqrt)]
-    w_split = ctx.w_split and tuple(map(plain, ctx.w_split))
+    w_split = ctx.jvp_split() if callable(ctx.jvp_split) else ctx.jvp_split
+    w_split = w_split and tuple(map(plain, w_split))
     with below_transforms():
       dx, dmean, drsqrt = (torch.zeros_like(p) if t is None else t
                            for t, p in zip(tangents, (x, mean, rsqrt)))
@@ -612,7 +746,7 @@ class _GnSiluConv3x3(torch.autograd.Function):
 
 
 def gn_silu_conv3x3(x, mean, rsqrt, gamma, beta, w, b, groups: int = 32,
-                    w_split=None) -> torch.Tensor:
+                    w_split=None, jvp_split=None) -> torch.Tensor:
   """``conv3x3(silu((x - mean_g) * rsqrt_g * gamma + beta), SAME) + b``.
 
   x: [N, H, W, C]; mean/rsqrt: [N, G] per-(sample, group) statistics
@@ -627,12 +761,14 @@ def gn_silu_conv3x3(x, mean, rsqrt, gamma, beta, w, b, groups: int = 32,
   node). Forward and forward mode only: under
   ``torch.func.jvp`` the tangent is :func:`gn_silu_conv3x3_jvp`, and a
   backward through the call raises. ``w_split`` is ``weight_operand(w)``
-  where the caller keeps it per weight value; without it the kernel's call
-  splits ``w`` itself. The CPU path does not read it.
+  where the caller keeps it per weight value, and ``jvp_split``
+  ``jvp_weight_operand(w)`` (or a callable that returns it, called at the
+  first tangent), the tangent's; without them each kernel's call splits
+  ``w`` itself. The CPU path reads neither.
   """
   if records_derivatives():
     return _GnSiluConv3x3.apply(x, mean, rsqrt, gamma, beta, w, b, groups,
-                                w_split)
+                                w_split, jvp_split)
   return _primal(x, mean, rsqrt, gamma, beta, w, b, groups, w_split)
 
 
@@ -666,8 +802,8 @@ def _kernel_fn():
 
 @functools.lru_cache(maxsize=None)
 def _jvp_kernel_fn():
-  fn = load_library(_KERNEL).gn_silu_conv3x3_jvp_tf32x3
-  fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 11
+  fn = load_library(_JVP_KERNEL).gn_silu_conv3x3_jvp_tf32x3
+  fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 15
                  + [ctypes.c_void_p])
   fn.restype = ctypes.c_int
   return fn
@@ -687,28 +823,32 @@ def _bf16_kernel_fn(tangent: bool):
 
 
 def _tensor_map_of(wt: torch.Tensor, plan: LaunchPlan) -> int:
-  """The address of the bf16 kernel's tensor map of weight operand ``wt``
-  (boxes of ``plan.block_n`` rows), made at its first launch."""
+  """The address of the tensor map of weight operand ``wt`` (bf16: the
+  bf16 kernel's; f32: one half of the f32 tangent's) for boxes of
+  ``plan.block_n`` rows, made at its first launch."""
   return ctypes.addressof(_tensor_map(wt.data_ptr(), wt.shape[0],
-                                      wt.shape[1], plan.block_n))
+                                      wt.shape[1], plan.block_n,
+                                      wt.dtype == torch.bfloat16))
 
 
 @functools.lru_cache(maxsize=4096)
-def _tensor_map(ptr: int, rows: int, k: int, block_n: int):
-  """The host copy of the TMA tensor map of the bf16 weight operand at
-  ``ptr`` ([rows, k] bf16, k contiguous), for boxes of 64 x ``block_n``:
+def _tensor_map(ptr: int, rows: int, k: int, block_n: int, bf16: bool):
+  """The host copy of the TMA tensor map of the K-major weight operand at
+  ``ptr`` ([rows, k], k contiguous; bf16 for the bf16 kernel, else f32
+  for the f32 tangent), for boxes of 128 bytes of K by ``block_n`` rows:
   made once per operand (the map holds its address and shape, nothing of
   its values, so a key of those stays right for any tensor that reuses
-  them)."""
-  lib = load_library(_BF16_KERNEL)
+  them). The entry binds the device's primary context where the calling
+  thread has none."""
+  lib = load_library(_BF16_KERNEL if bf16 else _JVP_KERNEL)
+  prefix = "gn_silu_conv3x3_bf16" if bf16 else "gn_silu_conv3x3_jvp"
   buf = ctypes.create_string_buffer(
-      lib.gn_silu_conv3x3_bf16_tensor_map_bytes())
-  fn = lib.gn_silu_conv3x3_bf16_tensor_map
+      getattr(lib, f"{prefix}_tensor_map_bytes")())
+  fn = getattr(lib, f"{prefix}_tensor_map")
   fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                  ctypes.c_void_p]
   fn.restype = ctypes.c_int
   err = fn(ptr, rows, k, block_n, ctypes.addressof(buf))
   if err != 0:
-    raise RuntimeError(f"gn_silu_conv3x3 bf16: cuTensorMapEncodeTiled "
-                       f"failed ({err})")
+    raise RuntimeError(f"{prefix}: cuTensorMapEncodeTiled failed ({err})")
   return buf

@@ -14,9 +14,16 @@ bar, which a 1xTF32 replay fails.
 Forward mode: gn_silu_conv3x3_jvp_plain (the tangent, written out) is held
 against torch.func.jvp of the plain chain and jax.jvp of the JAX reference
 at the same bar, and the wrapper's Function (torch.func.jvp, forward_ad
-dual tensors) against it. On the card the tangent kernel is held against
-it by test_tangent_kernel_matches_plain_on_card (marked ``gpu``) and by
-chip_smoke.py.
+dual tensors) against it. The f32 tangent's kernel (csrc/
+gn_silu_conv3x3_jvp.cu: the bf16 kernel's 64-row tiles, halo tile and
+cluster split-K over 32-channel chunks, 3xTF32 wgmma): a numpy replay of
+its tiles, taps, cluster ranks and products (the activated tangent split
+into TF32 hi and lo against the weights' hi and lo) is held against
+jax.jvp of the JAX reference at the f32 bar, which a 1xTF32 replay fails;
+its plan fits shared memory and takes every chunk once at every site. On
+the card the tangent kernel is held against the plain version by
+test_tangent_kernel_matches_plain_on_card (marked ``gpu``),
+tests/test_torch_gn_conv_gpu.py and chip_smoke.py.
 
 The bf16 kernel (csrc/gn_silu_conv3x3_bf16.cu: 64-row tiles of whole pixel
 rows or row segments, a halo tile per 64-channel chunk with a zero row,
@@ -364,8 +371,10 @@ def test_wrapper_jvp_takes_the_tangent_rule(monkeypatch):
 
 
 def test_weight_operands_are_cached_plain_under_jvp():
-  """DDPMConv's cached HWIO weights and TF32 split, made in a forward under
-  torch.func.jvp, are plain tensors with storage (the kernels read them)."""
+  """DDPMConv's cached HWIO weights, TF32 split and the tangent's TF32
+  split, made in a forward under torch.func.jvp, are plain tensors with
+  storage (the kernels read them), made once per weight value; the
+  tangent's is jvp_weight_operand's, the primal's in bf16."""
   from torch._C import _functorch
   from soft_truncation_tpu_torch.models.layers import DDPMConv
   conv = DDPMConv(16, 8)
@@ -373,33 +382,205 @@ def test_weight_operands_are_cached_plain_under_jvp():
   made = []
 
   def f(v):
-    made.extend([conv.weight_hwio(), *conv.weight_operand()])
+    made.extend([conv.weight_hwio(), *conv.weight_operand(),
+                 *conv.jvp_weight_operand()])
     return v * 2.0
 
   torch.func.jvp(f, (torch.ones(2),), (torch.ones(2),))
-  for t in made + [conv.weight_hwio(), *conv.weight_operand()]:
+  for t in made + [conv.weight_hwio(), *conv.weight_operand(),
+                   *conv.jvp_weight_operand()]:
     assert not _functorch.is_functorch_wrapped_tensor(t)
     t.data_ptr()
   assert conv.weight_operand()[0] is made[1]  # cached once
+  assert conv.jvp_weight_operand()[1] is made[4]
+  for got, want in zip(made[3:], gn_conv.jvp_weight_operand(made[0])):
+    assert torch.equal(got, want) and got.shape == (64, 9 * 32)
+  with torch.no_grad():
+    conv.weight.add_(1.0)  # a new weight value: new operands
+  assert conv.jvp_weight_operand()[0] is not made[3]
+  conv.dtype = torch.bfloat16
+  assert conv.jvp_weight_operand() is conv.weight_operand()
+
+
+# the flagship's fused site shapes (H, W, C, O) at batch 8 and the ragged
+# shapes ops/gn_conv_sites.py checks on the card, with ``fits``' answer on
+# each before the f32 tangent's redesign: all take the kernels
+FLAGSHIP_SITES = [(32, 32, 128, 128), (32, 32, 256, 128), (32, 32, 384, 128),
+                  (32, 32, 256, 256), (16, 16, 256, 256), (16, 16, 512, 256),
+                  (16, 16, 384, 256), (16, 16, 128, 256), (16, 16, 128, 128),
+                  (8, 8, 256, 256), (8, 8, 512, 256), (4, 4, 256, 256),
+                  (4, 4, 512, 256)]
+RAGGED = [(3, 5, 7, 36, 20, 12), (2, 4, 4, 16, 16, 4), (1, 32, 32, 128, 128, 32),
+          (2, 3, 100, 24, 40, 4), (1, 3, 3, 8, 300, 4), (5, 2, 2, 12, 8, 3),
+          (3, 1, 1, 8, 300, 4)]
+
+
+def _site_cases():
+  return ([(8,) + s + (min(s[2] // 4, 32),) for s in FLAGSHIP_SITES]
+          + RAGGED + [(1, 64, 64, 128, 128, 32), (1, 8, 128, 1024, 1024, 32)])
+
+
+# the block shape (GEMM rows, output channels) the f32 tangent's plan takes
+# at each flagship site at batch 8: the fastest of the shapes the card
+# timed there (PERF.md)
+JVP_SHAPES = {(32, 32): (128, 128), (16, 16): (64, 128), (8, 8): (128, 128),
+              (4, 4): (64, 64)}
 
 
 def test_tangent_launch_plan_fits_every_site():
-  """The tangent mode stages x's and dx's halo rows and the stats'
-  tangents beside the primal's tiles: its shared memory still fits a block
-  at every site of the two models (batch 8)."""
-  sites = [(32, 32, 128, 128), (32, 32, 384, 128), (32, 32, 256, 256),
-           (32, 32, 256, 128), (16, 16, 512, 256), (16, 16, 384, 256),
-           (16, 16, 256, 256), (16, 16, 128, 256), (16, 16, 128, 128),
-           (8, 8, 512, 256), (8, 8, 256, 256), (4, 4, 512, 256),
-           (4, 4, 256, 256)]
-  for h, w, c, o in sites:
-    primal = gn_conv.launch_plan(8, h, w, c, o, min(c // 4, 32))
-    plan = gn_conv.launch_plan(8, h, w, c, o, min(c // 4, 32), tangent=True)
-    assert plan.smem <= gn_conv._MAX_SMEM, (h, w, c, o)
-    raw = 2 * (plan.rows + 2) * (w + 2) * gn_conv.BK * 4
-    stats = 2 * plan.slots * min(c // 4, 32) * 4
-    assert plan.smem - primal.smem == raw + stats
-    assert 1 <= plan.splits <= plan.chunks
+  """The f32 tangent's plan (csrc/gn_silu_conv3x3_jvp.cu) at the flagship's
+  13 site shapes, the ragged ones and W = 64 and 128: within a block's
+  shared memory (its own formula, 227 KB), the block's rows within 64 or
+  128 GEMM rows (128 with at most 128 channels) and its partial tile
+  within the ring it takes over, its cluster ranks take every 32-channel
+  chunk and every output row once, a cluster of 2, 4 or 8 only where the
+  tiles alone leave most SMs idle; the flagship's sites take the block
+  shapes the card timed fastest; and ``fits`` still takes each of these
+  shapes."""
+  for n, h, w, c, o, groups in _site_cases():
+    shape = (n, h, w, c, o)
+    assert gn_conv.fits(n, h, w, c, o, groups), shape
+    plan = gn_conv.launch_plan(n, h, w, c, o, groups, tangent=True)
+    hp = (plan.rows + 2) * (plan.cols + 2)
+    assert plan.smem == gn_conv.jvp_smem_bytes(hp, plan.block_n,
+                                               plan.stages, plan.raws)
+    assert plan.smem <= gn_conv._MAX_SMEM == 232448, shape
+    assert plan.block_m in gn_conv.JVP_BLOCK_M, shape
+    assert plan.block_m == 64 or plan.block_n <= 128, shape
+    assert plan.cols == min(w, 64) and plan.rows == plan.block_m // plan.cols
+    assert plan.stages in (2, 3, 4) and plan.raws in (1, 2)
+    assert plan.cp % gn_conv.JVP_BK == 0 and plan.op % plan.block_n == 0
+    assert plan.cp >= c and plan.op >= o
+    assert plan.block_m * (plan.block_n + 8) * 4 <= (
+        plan.stages * 2 * plan.block_n * 128), shape
+    chunks = [ch for s in range(plan.splits) for ch in split_chunks(plan, s)]
+    assert chunks == list(range(plan.chunks)), shape
+    assert plan.splits in (1, 2, 4, 8)
+    assert (plan.block_m // plan.splits) * plan.splits == plan.block_m
+    tiles = plan.grid[0] * plan.grid[1]
+    if plan.splits > 1:
+      assert tiles <= gn_conv.H100_CLUSTERS[plan.splits], shape
+      assert tiles * plan.splits <= gn_conv.H100_SMS, shape
+    assert plan.grid[1] == -(-(n * h) // plan.rows) * -(-w // plan.cols)
+    if n == 8 and (h, w) in JVP_SHAPES and (h, w, c, o) in FLAGSHIP_SITES:
+      want = JVP_SHAPES[(h, w)]
+      if (h, w, o) == (16, 16, 128):
+        want = (64, 64)
+      assert (plan.block_m, plan.block_n) == want, shape
+  # a shape forced on the plan: the same invariants
+  plan = gn_conv._jvp_plan(8, 16, 16, 256, 256, gn_conv.H100_SMS,
+                           block_m=128, block_n=64)
+  assert (plan.block_m, plan.block_n, plan.rows) == (128, 64, 8)
+  assert plan.grid == (4, 16, 2) and plan.smem <= gn_conv._MAX_SMEM
+
+
+def _jvp_replay(x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, wgt, groups,
+                passes, block_m=0):
+  """numpy replay of csrc/gn_silu_conv3x3_jvp.cu: per M tile (bf16_tile's
+  addressing: the halo tile with its zero row, each tap's rows) and per
+  cluster rank, the rank's 32-channel chunks in order and the 9 taps of
+  each, the activated tangent SiLU'(a) * da split into TF32 hi and lo
+  against jvp_weight_operand's hi and lo in f32 (``passes`` 3: lo*hi +
+  hi*lo + hi*hi; 1: hi*hi), then the ranks' partials summed in rank
+  order; ``block_m`` forces the block's GEMM rows."""
+  n, h, w, c = x.shape
+  o = wgt.shape[-1]
+  plan = (gn_conv._jvp_plan(n, h, w, c, o, gn_conv.H100_SMS, block_m=block_m)
+          if block_m else gn_conv.launch_plan(n, h, w, c, o, groups,
+                                              tangent=True))
+  scale, shift = gn_conv._fold(mean, rsqrt, gamma, beta, groups)
+  cg = c // groups
+  dscale = drsqrt.repeat_interleave(cg, 1) * gamma
+  dshift = -(dmean.repeat_interleave(cg, 1) * scale
+             + mean.repeat_interleave(cg, 1) * dscale)
+  a = x * scale[:, None, None] + shift[:, None, None]
+  da = (dx * scale[:, None, None] + x * dscale[:, None, None]
+        + dshift[:, None, None])
+  s = torch.sigmoid(a)
+  act = np.zeros((n * h * w, plan.cp), np.float32)
+  act[:, :c] = (s * (1 + a * (1 - s)) * da).reshape(n * h * w, c).numpy()
+  w_hi, w_lo = (t.numpy() for t in gn_conv.jvp_weight_operand(wgt))
+  assert w_hi.shape == (plan.op, 9 * plan.cp)
+  ck = gn_conv.JVP_BK
+  got = np.zeros((n * h * w, o), np.float32)
+  for tile in range(plan.grid[1]):
+    halo, _, out = bf16_tile(plan, tile, n, h, w, 0)
+    tile_act = np.vstack([np.where(halo[:, None] >= 0,
+                                   act[np.maximum(halo, 0)], 0),
+                          np.zeros((1, plan.cp), np.float32)])
+    partials = []
+    for rank in range(plan.splits):
+      acc = np.zeros((plan.block_m, plan.op), np.float32)
+      for ch in split_chunks(plan, rank):
+        for tap in range(9):
+          _, a_pix, _ = bf16_tile(plan, tile, n, h, w, tap)
+          a_hi, a_lo = (t.numpy() for t in gn_conv.tf32_split(
+              torch.from_numpy(tile_act[a_pix, ch * ck:(ch + 1) * ck].copy())))
+          k = slice(tap * plan.cp + ch * ck, tap * plan.cp + (ch + 1) * ck)
+          if passes == 3:
+            acc += a_lo @ w_hi[:, k].T
+            acc += a_hi @ w_lo[:, k].T
+          acc += a_hi @ w_hi[:, k].T
+      partials.append(acc)
+    total = np.zeros_like(partials[0])
+    for part in partials:  # rank order
+      total += part
+    got[out[out >= 0]] = total[out >= 0, :o]
+  return got.reshape(n, h, w, o), plan
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+@pytest.mark.parametrize("n,h,w,c,o,groups,block_m", [
+    (2, 8, 8, 64, 48, 8, 0), (2, 3, 5, 36, 20, 12, 0),
+    (2, 8, 8, 64, 48, 8, 128)])
+def test_jvp_kernel_tf32x3_replay_matches_jax(n, h, w, c, o, groups, block_m,
+                                              passes):
+  """The f32 tangent's kernel arithmetic in its tiles, taps, halo, cluster
+  split and 3xTF32 products meets the f32 bar against jax.jvp of the JAX
+  reference (whose stats move with x); 1xTF32 does not. One shape splits
+  two 32-channel chunks over a cluster of 2 on 8x8 images (in 64-row
+  blocks of one image, and in a 128-row block of both), the other pads
+  C = 36 to two chunks with 12-row tiles of 5-pixel rows over 3-row
+  images and O = 20 in a 64-wide block."""
+  x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta, wgt = _tangent_args(
+      n, h, w, c, o, groups)
+  got, plan = _jvp_replay(x, dx, mean, dmean, rsqrt, drsqrt, gamma, beta,
+                          wgt, groups, passes, block_m)
+  assert plan.splits == 2 and plan.chunks == 2
+  assert plan.block_m == (block_m or 64)
+  _, want = jax.jvp(
+      lambda v: jax_gn_conv.gn_silu_conv3x3_reference(
+          v, jnp.asarray(gamma.numpy()), jnp.asarray(beta.numpy()),
+          jnp.asarray(wgt.numpy()), jnp.zeros(o), groups),
+      (jnp.asarray(x.numpy()),), (jnp.asarray(dx.numpy()),))
+  if passes == 3:
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5)
+  else:
+    assert not np.allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_library_name_follows_the_headers():
+  """A library's name hashes its source and every header beside it, so
+  that an edit of csrc/hopper.cuh builds each library anew."""
+  import shutil
+  import tempfile
+  from pathlib import Path
+  from soft_truncation_tpu_torch.ops import _build
+  with tempfile.TemporaryDirectory() as tmp:
+    csrc = Path(tmp) / "csrc"
+    shutil.copytree(_build._CSRC, csrc)
+    names = ("gn_silu_conv3x3_jvp", "gn_silu_conv3x3_bf16", "fir2_bf16",
+             "fir2")
+    before = {n: _build.library_path(n, csrc) for n in names}
+    assert before == {n: _build.library_path(n) for n in names}
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// an edit\n")
+    after = {n: _build.library_path(n, csrc) for n in names}
+    assert all(after[n] != before[n] for n in names)
+    (csrc / "gn_silu_conv3x3_jvp.cu").write_text("// another source\n")
+    assert _build.library_path("gn_silu_conv3x3_jvp", csrc) != after[
+        "gn_silu_conv3x3_jvp"]
+    assert _build.library_path("fir2", csrc) == after["fir2"]
 
 
 @pytest.mark.gpu
@@ -467,7 +648,7 @@ def bf16_tile(plan, tile, n, h, w, tap):
   row, xc = row0 - 1 + pr, x0 - 1 + pc
   halo = np.where((row >= 0) & (row < n * h) & (xc >= 0) & (xc < w),
                   row * w + xc, -1)
-  r, j = np.divmod(np.arange(gn_conv.BF16_BM), plan.cols)
+  r, j = np.divmod(np.arange(plan.block_m or gn_conv.BF16_BM), plan.cols)
   rows = row0 + r
   live = (r < plan.rows) & (rows < n * h) & (x0 + j < w)
   dy, dx = divmod(tap, 3)

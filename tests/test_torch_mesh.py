@@ -103,6 +103,11 @@ STEPS = {
                                likelihood_weighting=False),
               "optim": dict(num_micro_batch=1, warmup=0, eps=1e-3),
               "data": dict(image_size=256, centered=False),
+              # the Bernoulli masks this case was written with: under the
+              # default 8-bit masks one of its 216 conv_out second moments
+              # lands at 1.05 of the 1e-5 bar (reduction order), against
+              # 0.56 with these; 64px runs the 8-bit masks on the mesh
+              "tpu": dict(dropout_bits=32),
               "model": dict(scale_by_sigma=True, fir=True,
                             fir_kernel=[1, 3, 3, 1], ch_mult=(1, 1, 2, 2),
                             num_res_blocks=1, attn_resolutions=(32,),
