@@ -97,8 +97,10 @@ Phases; any failure exits non-zero before the last line is printed:
      and IS in the log and in report_metrics.npz, every shard, grid and
      feature cache written, the fused sites' launches per shape equal to
      the sites x the sampler's evaluations, no autograd.Function; the same
-     run again must load everything, launch no kernel and report the same
-     numbers bit for bit; the card's resize and Inception features against
+     run again, resumed in a fresh process on a copy of the directory
+     beside phase 7b (``--fid-resume``), must load everything, launch no
+     kernel and report the same numbers bit for bit; the card's resize and
+     Inception features against
      the CPU's (KERNEL_REL_TOL of the largest); sampling and featurising
      images/s, the Inception forward's ms per batch apart from the resize,
      the host's seconds of sqrtm and of KID, a trace of the flagship's eval
@@ -131,8 +133,8 @@ Phases; any failure exits non-zero before the last line is printed:
      held against torch.func.jvp of the plain chain, its library call
      torch.func.jvp of the library chain; the f32 tangent,
      csrc/gn_silu_conv3x3_jvp.cu, with its plan, the same bits in
-     repeated calls and its device ms by kernel name, where no reduce
-     kernel may appear), with its time as issued from
+     repeated calls and its device ms by kernel name, where its own
+     kernel and no other may appear), with its time as issued from
      the host (``kernel_ms``, the
      `kernels` line's ``ms``) and on the device alone (``device_ms``,
      replayed from a CUDA graph), the plain version's, one library call's
@@ -267,9 +269,9 @@ Phases; any failure exits non-zero before the last line is printed:
      halo'd rows), every rank the same space collectives (halo, sum,
      gather, each way; printed per step), and phase 10c's bars on the
      gradients and moves, with DDP_REL_TOL's errors beside them;
-  12b. (beside 12a's (2, 2) run) the flagship exported with
-     ``mesh=(MESH_REPLAY_RANKS,)`` at batch
-     EXPORT_BATCH (programs at EXPORT_BATCH / MESH_REPLAY_RANKS) and
+  12b. the flagship exported with ``mesh=(MESH_REPLAY_RANKS,)`` (beside
+     12a's first two runs) at batch EXPORT_BATCH (programs at
+     EXPORT_BATCH / MESH_REPLAY_RANKS) and, beside 12a's (2, 2) run,
      replayed by ``SamplingService.from_artifact`` on that many gloo ranks
      under ``torch.distributed.run`` (``chip_smoke.py --replay-ranks``:
      rank 0 takes 11a's requests, the others follow), against 11a's
@@ -317,14 +319,57 @@ Phases; any failure exits non-zero before the last line is printed:
      ops/fir_sites.py hold each route within one bf16 step; and every
      bf16 fir2 launch of 13a-13c took the route its plan names
      (``_check_bf16_routes``).
+  14. slice 16, the native input pipeline and K train steps per window
+     (after 13; ``chip_smoke.py --windows`` runs it alone):
+  14a. ``data/native.py``'s batch assembler built with g++ on the card's
+     host; three windows of WINDOW batches of TRAIN_BATCH flagship images
+     (Synthetic, uint8, flipped) assembled into pinned memory, each last
+     batch and the epoch permutation bit for bit the numpy plain version,
+     a float32 batch with dequantization and centering bit for bit too,
+     and the window uploaded (one non_blocking copy) bit for bit on the
+     card; host ms per window, the upload's ms;
+  14b. the CLI trainer with ``--config.data.pipeline native
+     --config.tpu.steps_per_dispatch WINDOW`` on the flagship and UNCSN++
+     as published (batch 128, Synthetic data, TF32 off, cuDNN
+     deterministic), counted as the main paths are: steps 0..WINDOW_ITERS
+     (two windows and a tail of one), the rolling checkpoint every
+     WINDOW_SAVE_FREQ steps, then (UNCSN++; ``--windows``: both) a resume
+     to WINDOW_RESUME_ITERS (a window of two). Held: the log lines at 3,
+     7, 8 and 10 and the
+     checkpoints at the windows crossing their steps (JAX's ``_crossed``),
+     finite losses, one graph replay per window (widths 4, 4, 1; then 2),
+     UNCSN++'s fir2 launches and adjoints per shape equal to its sites x
+     the steps run eagerly (one warm-up step per set of graphs) or captured;
+  14c. from one state and generator, a window of each model at batch
+     128 replayed from the captured graph and run
+     as WINDOW eager ``make_train_step`` calls: the losses, parameters,
+     Adam's moments and the EMA within GRAPH_REL_TOL of each tensor's
+     largest (the largest error printed; bit for bit expected), the
+     generators' states equal; printed for information: ms per step each
+     way, the device's busy share in a traced replay, peak memory;
+  14d. UNCSN++'s fir2 launches and adjoints recorded at capture (24 per
+     step) times the replays, and the kernels by name and count in a
+     traced replay (all 96 of a window's fir2 launches);
+     and phase 8's lines gain the ``*_graph`` entries: fir2 and its
+     adjoint at 14b's shapes and batch (phase 7's rows), with the
+     launches the replays made.
+The kernels phase's readings of kernels by name run at its end in one
+fresh process (``--by-name``: in this process, after the phases before,
+the profiler loses them), in one profiler session split at spin kernels;
+each reading must name the kernel its row launches, TIMED_CALLS times
+(the f32 tangent's: that kernel alone), and none of the port's others, or
+every request is read again in a session of its own, up to
+PROFILER_SESSIONS sessions each, and then the script fails.
 TF32 and cuBLAS's reduced-precision bf16 reductions are off throughout.
 Imports torch and the port only, never jax or the JAX package.
 """
 
 from __future__ import annotations
 
+import atexit
 import collections
 import concurrent.futures
+import copy
 import gc
 import io
 import json
@@ -545,6 +590,12 @@ MESH_TRAIN_ITERS = 1        # 12a: steps 0..1: the first held, both timed
 MESH_SHAPES = ((1, 2), (2, 2))  # 12a: tpu.mesh_shape of the ranked runs
 MESH_REPLAY_RANKS = 2       # 12b: ranks the exported batch is split over
 MESH_REPLAY_REL_TOL = 1e-4  # 12b: vs the one-process replay, of max |x|
+# slice 16 (phase 14)
+WINDOW = 4                  # 14: tpu.steps_per_dispatch
+WINDOW_ITERS = 8            # 14b: steps 0..8: two windows and a tail of 1
+WINDOW_RESUME_ITERS = 10    # 14b: the resume's last step: a window of 2
+WINDOW_SAVE_FREQ = 4        # 14b: training.snapshot_freq_for_preemption
+GRAPH_REL_TOL = 1e-6        # 14c: replayed window vs eager, of max |tensor|
 
 
 def log(msg):
@@ -1273,8 +1324,8 @@ def phase_train(name, path, fir_per_step, fir_bwd_per_step,
   the workdir, which the likelihood phase evaluates and then removes."""
   import torch
   from soft_truncation_tpu_torch import main as port_main
-  from soft_truncation_tpu_torch import run_lib
   from soft_truncation_tpu_torch.ops import fir
+  from soft_truncation_tpu_torch.train import step as step_lib
 
   line = re.compile(r"step: (\d+), training loss mean: (\S+), training "
                     r"loss std: (\S+) \((\S+) steps/s, (\S+) imgs/s\)")
@@ -1287,8 +1338,9 @@ def phase_train(name, path, fir_per_step, fir_bwd_per_step,
           "--config.training.snapshot_freq", "1000000", *flags]
   if DEVICE == "cpu":  # a run on the host, without the card
     argv.append("--cpu")
-  events, make = [], run_lib.make_train_step
-  run_lib.make_train_step = _timed_steps(make, events)
+  # the trainer's windows of one step call make_train_step's step
+  events, make = [], step_lib.make_train_step
+  step_lib.make_train_step = _timed_steps(make, events)
   # the batch of every resample the wrappers launch (and count)
   batches, resample = collections.Counter(), fir._resample
 
@@ -1311,7 +1363,7 @@ def phase_train(name, path, fir_per_step, fir_bwd_per_step,
     with open(os.path.join(workdir, "stdout.txt")) as f:
       logged = [m.groups() for m in map(line.search, f) if m]
   finally:
-    run_lib.make_train_step = make
+    step_lib.make_train_step = make
     fir._resample = resample
   steps = len(events)
   ms = [a.elapsed_time(b) for a, b in events]
@@ -1773,11 +1825,12 @@ def phase_fid(workdir, sites):
   weights (``random_params``) and the pool_3 of the Synthetic test split's
   first FID_SAMPLES images. Checks finite metrics in the log and the
   report, the shards, caches and grids, the fused sites' launches per
-  shape (sites x the sampler's evaluations) and no autograd.Function; a
-  second run in the same directory loads everything, launches no kernel
-  and reports the same metrics bit for bit; then the card's resize and
-  Inception against the CPU's on FID_CHECK_IMAGES samples. Returns the
-  kernel's launches per shape, the sampler's evaluations and a summary."""
+  shape (sites x the sampler's evaluations) and no autograd.Function;
+  then the card's resize and Inception against the CPU's on
+  FID_CHECK_IMAGES samples. The resumed run (:func:`_start_fid_resume`)
+  starts once the first has ended and runs on beside the next phases.
+  Returns the kernel's launches per shape, the sampler's evaluations and a
+  summary."""
   import glob
   import importlib
 
@@ -1854,35 +1907,30 @@ def phase_fid(workdir, sites):
     run_lib.get_sampling_fn = counted
     for name, fn in patched.items():
       setattr(evaluation, name, host_timed(name, fn))
-    walls = []
-    for attempt in range(2):
-      # TF32 on, not this script's setting: the CLI must set its own
-      torch.backends.cudnn.allow_tf32 = True
-      torch.backends.cuda.matmul.allow_tf32 = True
-      _reset_launch_counts()
-      with _FunctionApplies() as applies:
-        t0 = time.perf_counter()
-        port_main.main(argv)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-      if (torch.backends.cudnn.allow_tf32
-          or torch.backends.cuda.matmul.allow_tf32):
-        raise AssertionError("the eval CLI left TF32 on: its Inception and "
-                             "convolutions must run in float32")
-      launched, fir_launched = _launch_counts()
-      with open(history) as f:
-        logged = _fid_log_metrics(f.read())
-      (shard_dir,) = glob.glob(os.path.join(workdir, "fid", "ckpt_*"))
-      with np.load(os.path.join(shard_dir, "report_metrics.npz")) as f:
-        reports.append({k: float(f[k]) for k in f.files})
-      if attempt == 0:
-        first = (dict(launched), fir_launched, applies.count, dict(host_s))
+    # TF32 on, not this script's setting: the CLI must set its own
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    _reset_launch_counts()
+    with _FunctionApplies() as applies:
+      t0 = time.perf_counter()
+      port_main.main(argv)
+      torch.cuda.synchronize()
+      walls = [time.perf_counter() - t0]
+    if (torch.backends.cudnn.allow_tf32
+        or torch.backends.cuda.matmul.allow_tf32):
+      raise AssertionError("the eval CLI left TF32 on: its Inception and "
+                           "convolutions must run in float32")
+    launched, fir_launched = _launch_counts()
+    applies = applies.count
+    with open(history) as f:
+      logged = _fid_log_metrics(f.read())
+    (shard_dir,) = glob.glob(os.path.join(workdir, "fid", "ckpt_*"))
+    with np.load(os.path.join(shard_dir, "report_metrics.npz")) as f:
+      reports.append({k: float(f[k]) for k in f.files})
   finally:
     run_lib.get_sampling_fn = get_sampling_fn
     for name, fn in patched.items():
       setattr(evaluation, name, fn)
-
-  launched, fir_launched, applies, host_s = first
   rounds = -(-FID_SAMPLES // FID_SHARD)
   evals = sum(nfe for nfe, _, _ in shards)
   files = sorted(os.listdir(shard_dir))
@@ -1890,16 +1938,14 @@ def phase_fid(workdir, sites):
                       + [f"samples_{r}.png" for r in range(rounds)]
                       + [f"statistics_{r}.npz" for r in range(rounds)]
                       + ["report_metrics.npz"])
-  log(f"fid: {shard_dir}: {files}; first run {reports[0]}, second run "
-      f"{reports[1]}, log {logged}")
+  log(f"fid: {shard_dir}: {files}; {reports[0]}, log {logged}")
   if set(reports[0]) != {"fid", "kid", "inception_score"} or not all(
       math.isfinite(v) for v in reports[0].values()):
     raise AssertionError(f"FID, KID and IS must all be finite: "
                          f"{reports[0]}")
-  if logged != reports[1] or reports[1] != reports[0]:
-    raise AssertionError(f"the resumed run's metrics {reports[1]} (log "
-                         f"{logged}) differ from the first run's "
-                         f"{reports[0]}")
+  if logged != reports[0]:
+    raise AssertionError(f"the logged metrics {logged} differ from the "
+                         f"report's {reports[0]}")
   if files != want_files:
     raise AssertionError(f"shard directory holds {files}, expected "
                          f"{want_files}")
@@ -1913,9 +1959,7 @@ def phase_fid(workdir, sites):
                          f"expected {want} (sites x {evals} evaluations); "
                          f"fir2 {fir_launched}; {applies} autograd.Function "
                          f"applications")
-  second, second_fir = _launch_counts()
-  if second or second_fir:
-    raise AssertionError(f"the resumed run launched {second} {second_fir}")
+  _start_fid_resume(workdir, argv, reports[0])
 
   # card vs CPU on the first shard's images: the resize, then the network
   with np.load(os.path.join(shard_dir, "samples_0.npz")) as f:
@@ -1976,6 +2020,111 @@ def phase_fid(workdir, sites):
   log(f"fid: {device_line()}")
   return launched, evals, summary
 
+
+
+# the FID phase's resumed run, in a fresh process beside the next phases
+_FID_RESUME = {}
+LINKED_BYTES = 4 * 2 ** 20  # files of the resumed run's copy linked, not copied
+
+
+def _start_fid_resume(workdir, argv, report):
+  """Start the FID phase's resumed run (``chip_smoke.py --fid-resume``):
+  the eval CLI again, in a fresh process as a resumed job runs, in a copy
+  of the first run's workdir beside it (the files over LINKED_BYTES,
+  checkpoints and weights the run only reads, hard-linked; everything
+  else copied, so that nothing it writes reaches the first run's files,
+  which the likelihood phase evaluates next). :func:`_finish_fid_resume`
+  holds it to the first run's ``report``."""
+  copy = workdir.rstrip(os.sep) + "_resumed"
+  shutil.rmtree(copy, ignore_errors=True)
+
+  def place(src, dst):
+    if os.path.getsize(src) > LINKED_BYTES:
+      os.link(src, dst)
+    else:
+      shutil.copy2(src, dst)
+
+  shutil.copytree(workdir, copy, copy_function=place)
+  spec, out = copy + ".json", copy + "_out.json"
+  with open(spec, "w") as f:
+    json.dump([copy, [a.replace(workdir, copy) for a in argv]], f)
+  proc = subprocess.Popen([sys.executable, __file__, "--fid-resume", spec,
+                           out])
+  atexit.register(lambda: proc.poll() is None and proc.kill())
+  _FID_RESUME.update(copy=copy, spec=spec, out=out, proc=proc,
+                     report=report, t0=time.perf_counter())
+
+
+def fid_resume(spec, out) -> int:
+  """The resumed run of :func:`_start_fid_resume`, in this fresh process:
+  TF32 on before it (the CLI must set its own); writes its kernel
+  launches, autograd.Function applications, whether TF32 is still on, its
+  report and its logged metrics to ``out``."""
+  import glob
+
+  import numpy as np
+  import torch
+  sys.path.insert(0, REPO)
+  from soft_truncation_tpu_torch import main as port_main
+  with open(spec) as f:
+    workdir, argv = json.load(f)
+  torch.backends.cudnn.allow_tf32 = True
+  torch.backends.cuda.matmul.allow_tf32 = True
+  _reset_launch_counts()
+  with _FunctionApplies() as applies:
+    t0 = time.perf_counter()
+    port_main.main(argv)
+    if torch.cuda.is_available():
+      torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+  launched, fir_launched = _launch_counts()
+  with open(os.path.join(workdir, "evaluation_history.txt")) as f:
+    logged = _fid_log_metrics(f.read())
+  (shard_dir,) = glob.glob(os.path.join(workdir, "fid", "ckpt_*"))
+  with np.load(os.path.join(shard_dir, "report_metrics.npz")) as f:
+    report = {k: float(f[k]) for k in f.files}
+  with open(out, "w") as f:
+    json.dump({"launches": sum(launched.values())
+                           + sum(fir_launched.values()),
+               "applies": applies.count,
+               "tf32_on": (torch.backends.cudnn.allow_tf32
+                           or torch.backends.cuda.matmul.allow_tf32),
+               "report": report, "logged": logged, "cli_wall_s": wall_s}, f)
+  return 0
+
+
+def _finish_fid_resume():
+  """Wait for the resumed run; it must have loaded everything (no kernel
+  launched, no autograd.Function applied), turned TF32 off and reported
+  the first run's metrics bit for bit, in its report and its log."""
+  run = _FID_RESUME
+  try:
+    if run["proc"].wait(timeout=600) != 0:
+      raise AssertionError(f"the resumed FID run exited "
+                           f"{run['proc'].returncode}")
+    with open(run["out"]) as f:
+      got = json.load(f)
+  finally:
+    if run["proc"].poll() is None:
+      run["proc"].kill()
+    shutil.rmtree(run["copy"], ignore_errors=True)
+    for path in (run["spec"], run["out"]):
+      if os.path.exists(path):
+        os.remove(path)
+  emit({"fid_resumed": "flagship", "launches": got["launches"],
+        "autograd_function_applications": got["applies"],
+        "metrics": got["report"], "cli_wall_s": got["cli_wall_s"],
+        "waited_s": time.perf_counter() - run["t0"]})
+  if got["launches"] or got["applies"]:
+    raise AssertionError(f"the resumed FID run launched {got['launches']} "
+                         f"kernels, {got['applies']} autograd.Function "
+                         "applications")
+  if got["tf32_on"]:
+    raise AssertionError("the resumed eval CLI left TF32 on")
+  if got["report"] != run["report"] or got["logged"] != run["report"]:
+    raise AssertionError(f"the resumed run's metrics {got['report']} (log "
+                         f"{got['logged']}) differ from the first run's "
+                         f"{run['report']}")
 
 # --- the legacy networks and the fp8 knob (phases 9a-9f) ---------------------
 
@@ -3228,28 +3377,234 @@ def _held(name, shape, got, want, tol):
   return err, scale
 
 
-def _by_kernel(fn, calls=TIMED_CALLS):
-  """{kernel name: device ms per call of ``fn``} from torch.profiler (the
-  conv and any reduce kernel apart): the device events of a trace of host
-  and device, as ``_traced`` reads them; empty where the profiler records
-  no device activity."""
+PROFILER_SESSIONS = 3  # by-name readings: sessions tried before failing
+BY_NAME_SPINS = 20      # spin kernels opening and closing a by-name session
+# the port's kernel families: a reading that names one its request did not
+# launch belongs to another request
+PORT_KERNELS = ("gn_silu_conv3x3", "fir2_")
+
+
+def _kernel_events(fn, calls=TIMED_CALLS, warm=True):
+  """{kernel name: (launches, device ms) per call of ``fn``} from a
+  torch.profiler session of the device's activity, the session's wall per
+  call (host clock, synchronised) and the sessions it took. An empty
+  session is taken again, up to PROFILER_SESSIONS; if every one is empty,
+  this raises: a by-name check never passes on an empty answer. ``warm``:
+  one call before the first session."""
   import torch
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
-  fn()
+  if warm:
+    fn()
   torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    for _ in range(calls):
-      fn()
+  for session in range(1, PROFILER_SESSIONS + 1):
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      t0 = time.perf_counter()
+      for _ in range(calls):
+        fn()
+      torch.cuda.synchronize()
+      wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    out = {}
+    for evt in prof.key_averages():
+      us = getattr(evt, "self_device_time_total",
+                   getattr(evt, "self_cuda_time_total", 0))
+      if evt.device_type == DeviceType.CUDA and us:
+        n, ms = out.get(evt.key, (0.0, 0.0))
+        out[evt.key] = (n + evt.count / calls, ms + us / 1e3 / calls)
+    if out:
+      return out, wall_ms, session
+    log(f"profiler session {session} of {PROFILER_SESSIONS}: no device "
+        "activity recorded; taking another")
+  raise AssertionError(f"the profiler recorded no device activity in "
+                       f"{PROFILER_SESSIONS} sessions: no kernel by name")
+
+
+def _fir_names(mode):
+  """The names of fir2's kernels in ``mode``: the banded route's and the
+  direct one's."""
+  return (f"fir2_band_kernel<{str(mode == 'up').lower()},",
+          f"fir2_{mode}_kernel<")
+
+
+def _reads_as(names, expect):
+  """Whether a by-name reading is its request's: a kernel whose name holds
+  one of ``expect``, and none of the port's other kernels."""
+  def mine(k):
+    return any(e in k for e in expect)
+  return any(map(mine, names)) and not any(
+      any(p in k for p in PORT_KERNELS) for k in names if not mine(k))
+
+
+# the kernels phase's readings by name, taken in a fresh process at its
+# end (_take_by_name): in this process, after the phases before it, the
+# profiler loses them (ROADMAP.md, Queue 2 item 9)
+_BY_NAME = []
+
+
+def _by_name_later(row, expect, fn, *args, check=None, **kwargs):
+  """Ask for ``fn(*args, **kwargs)``'s kernels by name (``fn`` a function
+  of the port at module level, the arguments as the row's launch takes
+  them), as ``row["device_ms_by_kernel"]``, then ``check`` of it. The
+  reading must name a kernel holding one of the strings ``expect``
+  (:func:`_reads_as`)."""
+  import torch
+  _BY_NAME.append((row, check, (fn, args, kwargs,
+                                torch.is_inference_mode_enabled(),
+                                tuple(expect))))
+
+
+_BY_NAME_CHILD = {}  # the fresh process of the readings, once started
+
+
+def _start_by_name():
+  """Start the fresh process of the readings (``chip_smoke.py
+  --by-name``): it imports torch and the port and makes its CUDA context
+  while this process times kernels (host work, the card idle), then waits
+  for the requests :func:`_take_by_name` writes."""
+  d = tempfile.mkdtemp(prefix="chip_smoke_by_name_")
+  asked, got = os.path.join(d, "asked.pt"), os.path.join(d, "got.pt")
+  _BY_NAME_CHILD.update(dir=d, asked=asked, got=got, proc=subprocess.Popen(
+      [sys.executable, __file__, "--by-name", asked, got,
+       str(os.getpid())]))
+
+
+def _take_by_name():
+  """Hand every asked-for reading to the fresh process, fill each row's
+  ``device_ms_by_kernel`` (never empty, always its request's kernel), run
+  its check, and print a line for each."""
+  import torch
+  child = _BY_NAME_CHILD
+  try:
+    tmp = child["asked"] + ".tmp"
+    torch.save([req for _, _, req in _BY_NAME], tmp)
+    os.replace(tmp, child["asked"])
+    t0 = time.perf_counter()
+    if child["proc"].wait(timeout=600) != 0:
+      raise AssertionError(f"the by-name readings' process exited "
+                           f"{child['proc'].returncode}")
+    results = torch.load(child["got"], weights_only=False)
+  finally:
+    if child["proc"].poll() is None:
+      child["proc"].kill()
+    shutil.rmtree(child["dir"], ignore_errors=True)
+  log(f"by name: {len(results)} readings in a fresh process, "
+      f"{time.perf_counter() - t0:.1f} s after the requests")
+  if len(results) != len(_BY_NAME):
+    raise AssertionError(f"by name: {len(results)} readings for "
+                         f"{len(_BY_NAME)} requests")
+  for (row, check, req), (names, sessions) in zip(_BY_NAME, results):
+    shape = row.get("shape_nhwc_o", row.get("shape_nhwc"))
+    if not _reads_as(names, req[-1]):  # the child's own check, again
+      raise AssertionError(f"by name: {row['kernel']} at {shape} read "
+                           f"{names}, expected a kernel named {req[-1]}")
+    row["device_ms_by_kernel"] = names
+    emit({"by_name": row["kernel"], "shape": shape, "profiler_sessions":
+          sessions, "device_ms_by_kernel": names})
+    if check is not None:
+      check(names)
+  _BY_NAME.clear()
+
+
+def by_name(asked, got, parent) -> int:
+  """The readings of :func:`_take_by_name`, in this fresh process (each
+  request under inference_mode where it was asked in it). First every
+  request's TIMED_CALLS launches in one profiler session of the device's
+  activity, a spin kernel before each request's and BY_NAME_SPINS before
+  the first and after the last (a session's first or last records can be
+  lost), split at the spins in the order the kernels ran. That split is
+  kept only if it gives one part per request and each part reads as its
+  request's (:func:`_reads_as`) with exactly TIMED_CALLS launches of the
+  expected kernel (each request launches it once a call): a lost spin
+  merges two parts, a lost record leaves a part short. Otherwise each
+  request is read in a session of its own, taken again up to
+  PROFILER_SESSIONS times until it reads as its request's, and then this
+  fails. The process makes its CUDA context and sets up the profiler
+  before the requests come."""
+  import contextlib
+  import torch
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  sys.path.insert(0, REPO)
+  import soft_truncation_tpu_torch.ops  # noqa: F401
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.deterministic = True
+  torch.cuda.init()
+  with profile(activities=[ProfilerActivity.CUDA]):  # the profiler's set-up
+    torch.cuda._sleep(1000)
     torch.cuda.synchronize()
-  out = {}
-  for evt in prof.key_averages():
-    us = getattr(evt, "self_device_time_total",
-                 getattr(evt, "self_cuda_time_total", 0))
-    if evt.device_type == DeviceType.CUDA and us:
-      out[evt.key] = out.get(evt.key, 0.0) + us / 1e3 / calls
-  return out
+  while not os.path.exists(asked):  # the requests, or the script's end
+    if os.getppid() != int(parent):
+      return 2
+    time.sleep(0.05)
+  requests = torch.load(asked, weights_only=False, map_location="cuda")
+
+  def launches(request, calls=1):
+    fn, args, kwargs, inference, _ = request
+    with torch.inference_mode() if inference else contextlib.nullcontext():
+      for _ in range(calls):
+        fn(*args, **kwargs)
+
+  def session(todo):
+    """{kernel name: [launches, device ms per call]} of each request in
+    ``todo``, read in one session and split at the spins."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      for _ in range(BY_NAME_SPINS):
+        torch.cuda._sleep(1000)
+      for request in todo:
+        torch.cuda._sleep(1000)
+        launches(request, TIMED_CALLS)
+      for _ in range(BY_NAME_SPINS):
+        torch.cuda._sleep(1000)
+      torch.cuda.synchronize()
+    parts, spun = [], True
+    for evt in sorted((e for e in prof.events()
+                       if e.device_type == DeviceType.CUDA),
+                      key=lambda e: e.time_range.start):
+      if "spin_kernel" in evt.name:
+        spun = True
+        continue
+      if spun:
+        parts.append({})
+        spun = False
+      n, ms = parts[-1].get(evt.name, (0, 0.0))
+      parts[-1][evt.name] = (n + 1, ms + evt.time_range.elapsed_us() / 1e3
+                             / TIMED_CALLS)
+    return parts
+
+  def whole(part, request):
+    expect = request[-1]
+    return _reads_as(part, expect) and sum(
+        n for k, (n, _) in part.items()
+        if any(e in k for e in expect)) == TIMED_CALLS
+
+  for request in requests:  # warm: plans, tensor maps, first allocations
+    launches(request)
+  torch.cuda.synchronize()
+  parts = session(requests)
+  if len(parts) == len(requests) and all(map(whole, parts, requests)):
+    out = [({k: ms for k, (_, ms) in part.items()}, 1) for part in parts]
+  else:
+    print(f"by name: one session split into {len(parts)} parts for "
+          f"{len(requests)} requests, not one whole reading each; reading "
+          "each request in a session of its own", flush=True)
+    out = []
+    for request in requests:
+      for sessions in range(2, PROFILER_SESSIONS + 2):
+        names = {}
+        for part in session([request]):
+          for k, (_, ms) in part.items():
+            names[k] = names.get(k, 0.0) + ms
+        if _reads_as(names, request[-1]):
+          break
+        print(f"by name: session {sessions} read {names}, expected a "
+              f"kernel named {request[-1]}", flush=True)
+      else:
+        raise AssertionError(f"by name: no session of {PROFILER_SESSIONS} "
+                             f"read a kernel named {request[-1]}")
+      out.append((names, sessions))
+  torch.save(out, got)
+  return 0
 
 
 def kernels_gn(launches_by_shape, evals, n, listed=(), bf16=False):
@@ -3321,7 +3676,8 @@ def kernels_gn(launches_by_shape, evals, n, listed=(), bf16=False):
            "launches": launches,
            "launches_per_forward": launches / evals}
     if bf16:
-      row["device_ms_by_kernel"] = _by_kernel(kernel)
+      _by_name_later(row, ("gn_silu_conv3x3_bf16_kernel<false,",),
+                     gn_conv.gn_silu_conv3x3, *args, w_split=split)
     else:
       row.update(bound_3xtf32_ms=bound_3x, bound_fp32_pipe_ms=bound_fp32)
     log(f"{name} {(n, h, w, c, o)}: grid {plan.grid} (O tiles, M "
@@ -3444,9 +3800,8 @@ def kernels_fir(fir_launched, units, batch, per_key, bf16=False):
              "ab_direct_ms": ab[0::3], "ab_function_ms": ab[1::3],
              "ab_library_ms": ab[2::3], per_key: launches / units}
       if bf16:
-        row.update(_bf16_ulps(wrapper(x, FIR_KERNEL), want, mode, x),
-                   device_ms_by_kernel=_by_kernel(
-                       lambda: wrapper(x, FIR_KERNEL)))
+        row.update(_bf16_ulps(wrapper(x, FIR_KERNEL), want, mode, x))
+        _by_name_later(row, _fir_names(mode), wrapper, x, FIR_KERNEL)
     emit(row)
     rows.append(row)
   direct, function = (sum(sum(r[key]) / len(r[key]) * r[per_key]
@@ -3511,8 +3866,9 @@ def kernels_fir_backward(bwd_launched, steps, batch, bf16=False):
              "bound_by": bound_by, "launches": launches,
              "launches_per_step": launches / steps}
       if bf16:
-        row.update(_bf16_ulps(kernel(), plain(), mode, ybar),
-                   device_ms_by_kernel=_by_kernel(kernel))
+        row.update(_bf16_ulps(kernel(), plain(), mode, ybar))
+        _by_name_later(row, _fir_names(mode), fir.fir2_backward, ybar,
+                       FIR_KERNEL, 1.0, fwd, x_shape)
     emit(row)
     rows.append(row)
   # no config downsamples an odd size; its adjoint launches the upsample
@@ -3549,7 +3905,8 @@ def kernels_gn_jvp(jvp_launched, evals, bf16=False):
   that plain version and one library call, torch.func.jvp of GroupNorm ->
   SiLU -> cuDNN conv (TF32 off; it computes the primal too), kernel and
   library interleaved A B A B, issued and on the device; its device ms by
-  kernel name, in which no split-K reduce kernel may appear. The f32
+  kernel name, in which the tangent's kernel and no other (no split-K
+  reduce kernel) may appear. The f32
   tangent (csrc/gn_silu_conv3x3_jvp.cu) gives its plan and the same bits
   in two calls. With ``bf16``
   the bf16 tangent mode, its plain version against torch.func.jvp of the
@@ -3627,10 +3984,18 @@ def kernels_gn_jvp(jvp_launched, evals, bf16=False):
            "ab_library_device_ms": [ab_dev[1], ab_dev[3]],
            "bound_ms": bound, "bound_by": bound_by, "launches": launches,
            "launches_per_evaluation": launches / evals}
-    row["device_ms_by_kernel"] = _by_kernel(kernel)
-    if any("reduce" in k for k in row["device_ms_by_kernel"]):
-      raise AssertionError(f"{name} at {shape}: a reduce kernel beside the "
-                           f"conv: {row['device_ms_by_kernel']}")
+
+    expect = ("gn_silu_conv3x3_bf16_kernel<true," if bf16
+              else "gn_silu_conv3x3_jvp_kernel<")
+
+    def conv_alone(names, name=name, shape=shape, expect=expect):
+      # the tangent's conv and nothing else: no split-K reduce kernel
+      if not names or not all(expect in k for k in names):
+        raise AssertionError(f"{name} at {shape}: kernels {names}, "
+                             f"expected {expect} alone")
+
+    _by_name_later(row, (expect,), gn_conv.gn_silu_conv3x3_jvp, *args,
+                   w_split=split, check=conv_alone)
     emit(row)
     rows.append(row)
   return rows
@@ -3680,8 +4045,9 @@ def kernels_fir_jvp(jvp_launched, evals, bf16=False):
            "launches_per_evaluation": launches / evals}
     if bf16:
       with torch.inference_mode():
-        row.update(_bf16_ulps(kernel(), plain(dx, FIR_KERNEL), mode, dx),
-                   device_ms_by_kernel=_by_kernel(kernel))
+        row.update(_bf16_ulps(kernel(), plain(dx, FIR_KERNEL), mode, dx))
+        _by_name_later(row, _fir_names(mode), fir._resample, dx,
+                       FIR_KERNEL, 1.0, mode, wrapper, "jvp")
     emit(row)
     rows.append(row)
   return rows
@@ -3786,10 +4152,10 @@ def mesh_train(*argv) -> int:
   sys.path.insert(0, REPO)
   import torch
   from soft_truncation_tpu_torch import main as cli
-  from soft_truncation_tpu_torch import run_lib
   from soft_truncation_tpu_torch.parallel import spatial, world_from_env
+  from soft_truncation_tpu_torch.train import step as step_lib
   record = {"host_ms": [], "losses": []}
-  make = run_lib.make_train_step
+  make = step_lib.make_train_step
   first = os.path.join(argv[list(argv).index("--workdir") + 1],
                        "first_step.pt")
   main_rank = world_from_env().is_main
@@ -3801,10 +4167,10 @@ def mesh_train(*argv) -> int:
   def recording(config, sde):
     step = make(config, sde)
 
-    def run(state, batch, generator, draw=None):
+    def run(state, batch, generator, *rest):
       sync()
       t0 = time.perf_counter()
-      losses = step(state, batch, generator, draw)
+      losses = step(state, batch, generator, *rest)
       sync()
       record["host_ms"].append((time.perf_counter() - t0) * 1e3)
       record["local_shape"] = list(batch.shape)
@@ -3814,7 +4180,7 @@ def mesh_train(*argv) -> int:
       return losses
     return run
 
-  run_lib.make_train_step = recording
+  step_lib.make_train_step = recording
   _reset_launch_counts()
   spatial.calls.clear()
   cli.main(list(argv))
@@ -3848,12 +4214,14 @@ def _rank_rows(directory):
   return rows
 
 
-def phase_mesh_train(extra_flags=(), beside=None):
+def phase_mesh_train(extra_flags=(), beside=None, first=None):
   """12a (module docstring). Returns a (2, 2) rank's fir2 launches per
   shape, forward and adjoint, its batch and the steps, and what
   ``beside`` returned: a callable run in a thread while the (2, 2) ranks
-  train, which take a fifth of the card's memory (12b). ``extra_flags``:
-  more ``--config.*`` arguments (a rehearsal's cuts)."""
+  train, which take a fifth of the card's memory (12b); ``first``, a
+  callable run in a thread while the first two runs train (12b's
+  export). ``extra_flags``: more ``--config.*`` arguments (a rehearsal's
+  cuts)."""
   import torch
   from soft_truncation_tpu_torch.main import apply_overrides
 
@@ -3883,7 +4251,10 @@ def phase_mesh_train(extra_flags=(), beside=None):
   # once ran the card out of memory beside this process's own tensors
   # (cuDNN answered CUDNN_STATUS_INTERNAL_ERROR), and ``beside``'s ranks
   # beside alone and (1, 2) failed to load their artifact
-  runs = _ddp_runs(specs[:2], CELEBAHQ, worker, "mesh")
+  with concurrent.futures.ThreadPoolExecutor(1) as pool:
+    first_result = pool.submit(first or (lambda: None))
+    runs = _ddp_runs(specs[:2], CELEBAHQ, worker, "mesh")
+    first_result.result()
   with concurrent.futures.ThreadPoolExecutor(1) as pool:
     beside_result = pool.submit(beside or (lambda: None))
     runs.update(_ddp_runs(specs[2:], CELEBAHQ, worker, "mesh"))
@@ -4011,14 +4382,11 @@ def replay_ranks(artifact, params, requests, out) -> int:
   return 0
 
 
-def phase_mesh_replay(config, params, requests, one_process, sites,
-                      workdir):
-  """12b (module docstring): ``one_process`` is 11a's replay of
-  ``requests`` ((uint8, nfe, floats) each). Returns rank 0's
-  gn_silu_conv3x3 launches per shape, its score evaluations and batch."""
-  import numpy as np
+def mesh_export(config, params, workdir):
+  """12b's artifact: the flagship exported for MESH_REPLAY_RANKS ranks at
+  EXPORT_BATCH (run beside 12a's first runs); returns its path, the params
+  npz and the export's seconds."""
   from soft_truncation_tpu_torch.serve import export
-
   artifact = os.path.join(workdir, "mesh" + export.EXTENSION)
   npz = os.path.join(workdir, "flagship.params.npz")  # 11a's, the same
   t0 = time.perf_counter()
@@ -4029,7 +4397,17 @@ def phase_mesh_replay(config, params, requests, one_process, sites,
                                                       exported), artifact)
   if not os.path.exists(npz):
     export.save_params_npz(params, npz)
-  del exported
+  return artifact, npz, export_s
+
+
+def phase_mesh_replay(requests, one_process, sites, workdir, exported):
+  """12b (module docstring): ``exported`` is :func:`mesh_export`'s,
+  ``one_process`` 11a's replay of ``requests`` ((uint8, nfe, floats)
+  each). Returns rank 0's gn_silu_conv3x3 launches per shape, its score
+  evaluations and batch."""
+  import numpy as np
+
+  artifact, npz, export_s = exported
   out = os.path.join(workdir, "mesh_replay")
   cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc_per_node", str(MESH_REPLAY_RANKS),
@@ -4415,6 +4793,313 @@ def phase_bf16_serve(params, sites, workdir):
   return r_gn, r_evals
 
 
+# --- slice 16: the native pipeline and K-step windows (phase 14) -----------
+
+
+def phase_batcher():
+  """14a: the batch assembler built with g++ on the card's host; windows of
+  WINDOW batches of TRAIN_BATCH flagship images (Synthetic, uint8, flipped)
+  bit for bit the plain version (``data/native.py::gather_plain``, its
+  epoch permutation ``shuffle_plain``), a float32 batch with every flag
+  bit for bit ``assemble_plain``, and the window uploaded from pinned
+  memory bit for bit on the card. Returns a window (host, pinned)."""
+  import numpy as np
+  import torch
+  from soft_truncation_tpu_torch.data import datasets, native
+  t0 = time.perf_counter()
+  native.load_library()
+  build_s = time.perf_counter() - t0
+  config = load_config(FLAGSHIP)
+  images = datasets.synthetic_array(config, "train")
+  batcher = native.NativeBatcher(images, TRAIN_BATCH, random_flip=True,
+                                 seed=config.seed, dtype=np.uint8)
+  window = torch.empty((WINDOW,) + batcher.shape, dtype=torch.uint8,
+                       pin_memory=DEVICE == "cuda")
+  host_ms = []
+  for _ in range(3):
+    out = window.numpy()
+    t0 = time.perf_counter()
+    for k in range(WINDOW):
+      batcher.fill(out[k])
+    host_ms.append((time.perf_counter() - t0) * 1e3)
+    # the last batch against the plain version: its items and seed
+    idx = batcher._indices[batcher._pos - TRAIN_BATCH:batcher._pos]
+    seed = (batcher.seed + 1) * 1_000_003 + batcher._batch_counter * 65_537
+    if not np.array_equal(out[-1], native.gather_plain(images, idx,
+                                                       batcher.flags, seed)):
+      raise AssertionError("14a: a batch differs from the plain version")
+  if not np.array_equal(batcher._indices, native.shuffle_plain(
+      np.arange(len(images)), batcher.seed + 1)):
+    raise AssertionError("14a: the epoch permutation differs from the "
+                         "plain version")
+  every = native.NativeBatcher(images, 16, uniform_dequant=True,
+                               centered=True, seed=3)
+  got = next(every)
+  want = native.assemble_plain(images, every._indices[:16], every.flags,
+                               4 * 1_000_003 + 65_537)
+  if not np.array_equal(got.view(np.uint32), want.view(np.uint32)):
+    raise AssertionError("14a: a float32 batch differs from the plain "
+                         "version")
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  on_card = window.to(DEVICE, non_blocking=True)
+  end.record()
+  torch.cuda.synchronize()
+  if not torch.equal(on_card.cpu(), window):
+    raise AssertionError("14a: the uploaded window differs from the host's")
+  emit({"batcher": "flagship", "build_s": build_s, "images": len(images),
+        "window": list(window.shape), "host_ms_per_window": host_ms,
+        "upload_ms": start.elapsed_time(end),
+        "window_bytes": window.numel(), "same_bits_as_plain": True})
+  return window
+
+
+def phase_windowed_train(name, path, fir_sites, fir_bwd_sites, resume=True):
+  """14b: the CLI trainer with ``--config.data.pipeline native
+  --config.tpu.steps_per_dispatch WINDOW`` on a published config (batch
+  128, Synthetic data) as a user calls it: steps 0..WINDOW_ITERS (two
+  windows and a tail of one), the rolling checkpoint every
+  WINDOW_SAVE_FREQ steps, then (``resume``) a resume to
+  WINDOW_RESUME_ITERS (a window of two). Held: the log, rolling checkpoints and snapshots at the windows
+  that cross their steps, labelled as JAX's ``_crossed`` labels them;
+  finite losses; one graph replay per window (per width: 4, 4, 1, then 2);
+  fir2's launches per shape, forward and adjoint, equal to the sites x the
+  steps the trainer ran eagerly (a warm-up step per graph set) or
+  captured. Returns fir2's launches per shape made by the replays (the
+  sites x the steps replayed) and those steps."""
+  import torch
+  from soft_truncation_tpu_torch import main as port_main
+  from soft_truncation_tpu_torch import run_lib
+  from soft_truncation_tpu_torch.train import CheckpointManager
+  line = re.compile(r"step: (\d+), training loss mean: (\S+), training "
+                    r"loss std: (\S+) \((\S+) steps/s, (\S+) imgs/s\)")
+  workdir = os.path.join(REPO, "build", "chip_smoke_windows", name)
+  shutil.rmtree(workdir, ignore_errors=True)
+  argv = ["--config", path, "--workdir", workdir, "--mode", "train",
+          "--config.data.dataset", "Synthetic",
+          "--config.data.pipeline", "native",
+          "--config.tpu.steps_per_dispatch", str(WINDOW),
+          "--config.training.log_freq", "1",
+          "--config.training.snapshot_freq_for_preemption",
+          str(WINDOW_SAVE_FREQ),
+          "--config.training.snapshot_freq", "1000000"]
+  if DEVICE == "cpu":
+    argv.append("--cpu")
+  windows, saves = [], []
+  make, save_meta = run_lib.make_multi_train_step, CheckpointManager.save_meta
+  save_snapshot = CheckpointManager.save_snapshot
+
+  def kept(*args, **kwargs):
+    windows.append(make(*args, **kwargs))
+    return windows[-1]
+
+  def meta(self, state):
+    saves.append(("meta", state.step))
+    return save_meta(self, state)
+
+  def snapshot(self, state, label):
+    saves.append(("snapshot", state.step, label))
+    return save_snapshot(self, state, label)
+
+  run_lib.make_multi_train_step = kept
+  CheckpointManager.save_meta, CheckpointManager.save_snapshot = (meta,
+                                                                  snapshot)
+  try:
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    port_main.main(argv + ["--config.training.n_iters", str(WINDOW_ITERS)])
+    first_s = time.perf_counter() - t0
+    if resume:
+      port_main.main(argv + ["--config.training.n_iters",
+                             str(WINDOW_RESUME_ITERS)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    _, fir_fwd = _launch_counts()
+    fir_bwd = _backward_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+  finally:
+    run_lib.make_multi_train_step = make
+    CheckpointManager.save_meta = save_meta
+    CheckpointManager.save_snapshot = save_snapshot
+  with open(os.path.join(workdir, "stdout.txt")) as f:
+    logged = [m.groups() for m in map(line.search, f) if m]
+  shutil.rmtree(workdir, ignore_errors=True)
+  labels = [int(g[0]) for g in logged]
+  replays = [dict(w.replays) for w in windows]
+  captured = sum(w * (len(m.replays) > 0) for m in windows
+                 for w in m.replays)
+  replayed = sum(w * k for m in windows for w, k in m.replays.items())
+  eager = len(windows)  # each graph set's warm-up step
+  row = {"windowed_train": name, "batch": TRAIN_BATCH, "window": WINDOW,
+         "labels": labels, "saves": saves, "replays": replays,
+         "capture_launches": [{str(w): c for w, c in m.capture_launches
+                               .items()} for m in windows],
+         "first_run_s": first_s, "wall_s": wall_s,
+         "steps_per_s_logged": [float(g[3]) for g in logged],
+         "peak_memory_bytes": peak, "fir2_forward_launches": sum(
+             fir_fwd.values()), "fir2_backward_launches": sum(
+             fir_bwd.values())}
+  emit(row)
+  # JAX's _crossed: windows 0-3, 4-7, 8, then 9-10; the meta at the
+  # windows crossing 4 and 8 (their states after steps 7 and 8), none in
+  # 9-10; a snapshot at each run's last step
+  want_labels, want_saves = [3, 7, 8], [("meta", 8), ("meta", 9),
+                                        ("snapshot", 9, 0)]
+  want_replays = [{WINDOW: 2, 1: 1}]
+  if resume:
+    want_labels.append(10)
+    want_saves.append(("snapshot", 11, 0))
+    want_replays.append({2: 1})
+  if labels != want_labels:
+    raise AssertionError(f"14b {name}: logged steps {labels}, expected the "
+                         f"windows' crossed steps {want_labels}")
+  if saves != want_saves:
+    raise AssertionError(f"14b {name}: checkpoints {saves}, expected "
+                         f"{want_saves}")
+  if not all(math.isfinite(float(g[1])) and math.isfinite(float(g[2]))
+             for g in logged):
+    raise AssertionError(f"14b {name}: a training loss is not finite")
+  if replays != want_replays:
+    raise AssertionError(f"14b {name}: graph replays {replays}, expected "
+                         "one per window")
+  want_fwd = {k: n * (eager + captured) for k, n in fir_sites.items()}
+  want_bwd = {k: n * (eager + captured) for k, n in fir_bwd_sites.items()}
+  if fir_fwd != want_fwd or fir_bwd != want_bwd:
+    raise AssertionError(f"14b {name}: fir2 counted {fir_fwd} / {fir_bwd}, "
+                         f"expected {want_fwd} / {want_bwd}")
+  return ({k: n * replayed for k, n in fir_sites.items()},
+          {k: n * replayed for k, n in fir_bwd_sites.items()}, replayed)
+
+
+def _graph_state(config, seed=0):
+  from soft_truncation_tpu_torch.models import create_model
+  from soft_truncation_tpu_torch.train import init_train_state
+  return init_train_state(config, create_model(config, DEVICE, seed=seed))
+
+
+def _state_tensors(state):
+  opt = state.optimizer
+  out = {f"params.{k}": v for k, v in state.model.state_dict().items()}
+  out.update({f"ema.{k}": v for k, v in state.ema.items()})
+  out.update({f"adam_mu.{i}": v for i, v in enumerate(opt.mu)})
+  out.update({f"adam_nu.{i}": v for i, v in enumerate(opt.nu)})
+  return out
+
+
+def phase_graph_vs_eager(name, path, window, fir_steps=0):
+  """14c: from one state and generator state, a window of WINDOW steps at
+  batch 128 replayed from the captured graph and as WINDOW eager
+  ``make_train_step`` calls (with each step's preprocess): the losses,
+  parameters, Adam's moments and the EMA within GRAPH_REL_TOL of each
+  tensor's largest (bit for bit expected; the largest error printed), the
+  generators' states equal. Printed for information: ms per step each way
+  (the eager window by CUDA events, its state's first, so it pays its
+  first allocations; a later replay on the host's clock, synchronised, in
+  a trace of the device's activity), the device's busy share in that
+  replay and peak memory. 14d (with ``fir_steps``, UNCSN++): the fir2
+  launches and adjoints the capture recorded times the replays, and the
+  traced replay's kernels by name: fir2's every launch (``fir_steps`` per
+  step, both modes), by count."""
+  import torch
+  from soft_truncation_tpu_torch.data import make_preprocess_fn
+  from soft_truncation_tpu_torch.sde import get_sde
+  from soft_truncation_tpu_torch.train import (make_multi_train_step,
+                                               make_train_step)
+  config = load_config(path, init_scale=0.1)
+  config.tpu.steps_per_dispatch = WINDOW
+  sde = get_sde(config)
+  gc.collect()
+  torch.cuda.empty_cache()
+  graphed = _graph_state(config)
+  eager = copy.deepcopy(graphed)
+  gens = [torch.Generator(DEVICE).manual_seed(1) for _ in range(2)]
+  multi = make_multi_train_step(config, sde)
+  step, preprocess = make_train_step(config, sde), make_preprocess_fn(config)
+  batches = window.to(DEVICE)
+  torch.cuda.reset_peak_memory_stats()
+  got = multi(graphed, window, gens[0])
+  start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+  start.record()
+  want = torch.stack([step(eager, preprocess(b, gens[1]), gens[1])
+                      for b in batches])
+  end.record()
+  torch.cuda.synchronize()
+  pairs = {"losses": (got, want)}
+  mine = _state_tensors(eager)
+  pairs.update({k: (v, mine[k]) for k, v in _state_tensors(graphed).items()})
+  worst = 0.0
+  for key, (g, w) in pairs.items():
+    err = (g.float() - w.float()).abs().max().item()
+    scale = w.float().abs().max().item()
+    if not (torch.isfinite(g).all() and err <= GRAPH_REL_TOL * scale):
+      raise AssertionError(f"14c {name}: {key}: max|graph - eager| {err} "
+                           f"vs max|eager| {scale}")
+    worst = max(worst, err / scale if scale else err)
+  if not torch.equal(gens[0].get_state(), gens[1].get_state()):
+    raise AssertionError(f"14c {name}: the generators' states differ")
+  peak = torch.cuda.max_memory_allocated()
+  # a traced replay: the device's busy share, the kernels by name and count
+  events, wall_ms, sessions = _kernel_events(
+      lambda: multi(graphed, window, gens[0]), calls=1, warm=False)
+  busy_ms = sum(ms for _, ms in events.values())
+  captures = dict(multi.capture_launches)
+  out = {"graph_vs_eager": name, "batch": TRAIN_BATCH, "window": WINDOW,
+         "max_rel_err": worst, "bit_for_bit": worst == 0.0,
+         "graph_ms_per_step": wall_ms / WINDOW,
+         "eager_ms_per_step": start.elapsed_time(end) / WINDOW,
+         "peak_memory_bytes": peak, "replays": dict(multi.replays),
+         "capture_launches": {str(w): c for w, c in captures.items()},
+         "traced_window_ms": wall_ms, "device_busy_ms": busy_ms,
+         "device_busy_share": busy_ms / wall_ms,
+         "profiler_sessions": sessions,
+         "kernels_per_window": sum(n for n, _ in events.values())}
+  if fir_steps:
+    # per capture of WINDOW steps: fir_steps resamples and as many
+    # adjoints a step (each adjoint is fir2 in the other mode)
+    per_capture = sum(v for k, v in captures[WINDOW].items()
+                      if k.startswith("fir_"))
+    fir2 = {k: v for k, v in events.items() if "fir2_" in k}
+    out.update(fir2_launches_per_capture=per_capture,
+               fir2_launches_replayed=sum(
+                   n * sum(v for k, v in captures[w].items()
+                           if k.startswith("fir_"))
+                   for w, n in multi.replays.items()),
+               fir2_by_name_per_window={k: {"launches": n, "device_ms": ms}
+                                        for k, (n, ms) in fir2.items()})
+    if per_capture != 2 * fir_steps * WINDOW:
+      raise AssertionError(f"14d {name}: the capture recorded {per_capture}"
+                           f" fir2 launches, expected {2 * fir_steps} a "
+                           f"step x {WINDOW}")
+    if multi.replays != {WINDOW: 1 + sessions} or sum(
+        n for n, _ in fir2.values()) != per_capture:
+      raise AssertionError(f"14d {name}: a traced replay names fir2 "
+                           f"{fir2}, expected {per_capture} launches")
+  emit(out)
+  return out
+
+
+def _draw_synthetic_once():
+  """Every CLI run and phase of this process shares the Synthetic images
+  of a (size, channels, split): ``data/datasets.py::synthetic_array`` is
+  deterministic, and drawing it again took ~1.5 s per run at 32^2 and ~13
+  s at 1024^2 on the host. Consumers index or copy it, none writes it."""
+  from soft_truncation_tpu_torch.data import datasets
+  draw, drawn = datasets.synthetic_array, {}
+
+  def once(config, split="train"):
+    key = (config.data.image_size, config.data.num_channels, split)
+    if key not in drawn:
+      drawn[key] = draw(config, split)
+      drawn[key].flags.writeable = False
+    return drawn[key]
+
+  datasets.synthetic_array = once
+
+
 def main() -> int:
   try:
     import torch
@@ -4435,6 +5120,7 @@ def main() -> int:
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
   torch.backends.cudnn.deterministic = True
+  _draw_synthetic_once()
   kind = torch.cuda.get_device_name(0)
   t_all = time.perf_counter()
   dev = device_line()
@@ -4518,6 +5204,7 @@ def main() -> int:
   u_jvp, u_fir_jvp, u_lik_evals, _ = phase(
       "likelihood uncsnpp", phase_likelihood, "uncsnpp", UNCSNPP, u_workdir,
       u_sites, u_fir_sites, load_config(UNCSNPP, init_scale=0.1), u_params)
+  phase("fid resumed", _finish_fid_resume)
 
   # phase 9: the legacy networks and the fp8 knob
   t_legacy = time.perf_counter()
@@ -4593,11 +5280,15 @@ def main() -> int:
   torch.cuda.empty_cache()
   # 12b beside 12a's (2, 2) run: its two ranks and the export fit beside
   # the four
+  exported = []
   mesh_fir, mesh_bwd, mesh_batch, mesh_steps, replayed = phase(
       "mesh train celebahq 256 and mesh replay flagship", phase_mesh_train,
       (), lambda: phase("mesh replay flagship", phase_mesh_replay,
-                        load_config(FLAGSHIP, init_scale=0.1), flag_params,
-                        own + dpm, x_replayed, sites, export_dir))
+                        own + dpm, x_replayed, sites, export_dir,
+                        exported[0]),
+      lambda: exported.append(phase(
+          "mesh export flagship", mesh_export,
+          load_config(FLAGSHIP, init_scale=0.1), flag_params, export_dir)))
   mr_gn, mr_evals, mr_batch = replayed
   log(f"phases 12a-12b: {time.perf_counter() - t_12:.1f} s")
 
@@ -4624,9 +5315,27 @@ def main() -> int:
   shutil.rmtree(export_dir, ignore_errors=True)
   log(f"phases 13a-13d: {time.perf_counter() - t_13:.1f} s")
 
+  # phase 14: the native pipeline and K-step windows (CUDA graphs)
+  t_14 = time.perf_counter()
+  window = phase("batcher", phase_batcher)
+  # the resume (a checkpoint restored into a window of two) on UNCSN++
+  # alone, for the time limit (--windows resumes both)
+  phase("windows flagship", phase_windowed_train, "flagship", FLAGSHIP, {},
+        {}, False)
+  g_fwd, g_bwd, g_steps = phase(
+      "windows uncsnpp", phase_windowed_train, "uncsnpp", UNCSNPP,
+      UNCSNPP_FIR_SITES, UNCSNPP_FIR_BWD_SITES)
+  phase("graph vs eager flagship", phase_graph_vs_eager, "flagship",
+        FLAGSHIP, window)
+  phase("graph vs eager uncsnpp", phase_graph_vs_eager, "uncsnpp", UNCSNPP,
+        window, sum(UNCSNPP_FIR_SITES.values()))
+  del window
+  log(f"phases 14a-14d: {time.perf_counter() - t_14:.1f} s")
+
   gn_launched = collections.Counter(launched) + collections.Counter(
       u_launched)
   t0 = time.perf_counter()
+  _start_by_name()
   with torch.inference_mode():  # the direct route, as serving calls it
     gn_rows = kernels_gn(gn_launched, evals + u_evals, SERVE_BATCH,
                          LISTED_SHAPES)
@@ -4686,6 +5395,14 @@ def main() -> int:
       fir_rows, ux_fir, ux_evals, "launches_per_forward",
       lambda r: (r["kernel"][len("fir_"):-len("sample2")],
                  *r["shape_nhwc"][1:]))
+  # the windowed trainer's graph replays (14b) launch at phase 7's shapes
+  graph_fir_rows = _relaunched(
+      train_rows, g_fwd, g_steps, "launches_per_step",
+      lambda r: (r["kernel"][len("fir_"):-len("sample2")],
+                 *r["shape_nhwc"][1:]))
+  graph_bwd_rows = _relaunched(
+      bwd_rows, g_bwd, g_steps, "launches_per_step",
+      lambda r: (r["launched_mode"], *r["shape_nhwc"][1:]))
   # the mesh's halo'd shard shapes (12a, a (2, 2) rank) and batch (12b)
   mesh_fir_rows = kernels_fir(mesh_fir, mesh_steps, mesh_batch,
                               "launches_per_step")
@@ -4705,6 +5422,7 @@ def main() -> int:
                                  + collections.Counter(ub_jvp), 2, bf16=True)
   bf16_fir_jvp_rows = kernels_fir_jvp(ub_fir_jvp, 1, bf16=True)
   kernels_fir_bf16_ragged()
+  _take_by_name()
   log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 
   fir_src = "soft_truncation_tpu_torch/csrc/fir2.cu"
@@ -4886,6 +5604,19 @@ def main() -> int:
                       f"likelihood ODE at batch {LIKELIHOOD_BATCH}",
                       "launches_per_evaluation")
         for mode in ("up", "down")),
+      *(_kernel_entry(f"fir_{mode}sample2_train_graph", fir_src, fir_fwd,
+                      [r for r in graph_fir_rows
+                       if r["kernel"] == f"fir_{mode}sample2"],
+                      f"one UNCSN++ train step at batch {TRAIN_BATCH} of the "
+                      f"windowed trainer (a CUDA graph of {WINDOW} steps; "
+                      "counted at capture, times the replays)",
+                      "launches_per_step")
+        for mode in ("up", "down")),
+      _kernel_entry("fir2_backward_graph", fir_src,
+                    "soft_truncation_tpu/ops/pallas/fir.py:212",
+                    graph_bwd_rows, f"one UNCSN++ train step at batch "
+                    f"{TRAIN_BATCH} of the windowed trainer (a CUDA graph of "
+                    f"{WINDOW} steps)", "launches_per_step"),
       # the bf16 kernel's whole share of a step: forward and adjoint
       _kernel_entry("fir2_bf16", fir_bf16_src, fir_fwd,
                     bf16_train_rows + bf16_bwd_rows, f"one UNCSN++ train "
@@ -4906,7 +5637,35 @@ def main() -> int:
   return 0
 
 
+def windows_only() -> int:
+  """Phase 14 alone, after building fir2 (``chip_smoke.py --windows``):
+  the quickest check of the native pipeline and the K-step windows on the
+  card; the full script runs it after phase 13."""
+  import torch
+  from soft_truncation_tpu_torch.ops import _build
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cudnn.deterministic = True
+  _build.load_library("fir2")
+  log(device_line())
+  window = phase_batcher()
+  phase_windowed_train("flagship", FLAGSHIP, {}, {})
+  phase_windowed_train("uncsnpp", UNCSNPP, UNCSNPP_FIR_SITES,
+                       UNCSNPP_FIR_BWD_SITES)
+  phase_graph_vs_eager("flagship", FLAGSHIP, window)
+  phase_graph_vs_eager("uncsnpp", UNCSNPP, window,
+                       sum(UNCSNPP_FIR_SITES.values()))
+  return 0
+
+
+
 if __name__ == "__main__":
+  if sys.argv[1:2] == ["--by-name"]:
+    sys.exit(by_name(*sys.argv[2:5]))
+  if sys.argv[1:2] == ["--fid-resume"]:
+    sys.exit(fid_resume(*sys.argv[2:4]))
+  if sys.argv[1:2] == ["--windows"]:
+    sys.exit(windows_only())
   if sys.argv[1:2] == ["--replay-server"]:
     sys.exit(replay_server(*sys.argv[2:4]))
   if sys.argv[1:2] == ["--mesh-train"]:

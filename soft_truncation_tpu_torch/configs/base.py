@@ -22,8 +22,12 @@ no config file sets any of its knobs, and the port reads them so:
   * ``fid_resize``: the Inception's resize (``eval/inception.py``);
   * ``profile_dir``: no key, as in JAX; ``run_lib.train`` reads it with
     ``get`` and the CLI accepts it (``main.OPTIONAL_KEYS``);
-  * ``donate_state``, ``steps_per_dispatch``, ``compilation_cache_dir``:
-    no GPU meaning (eager PyTorch), not carried;
+  * ``steps_per_dispatch`` (1): train steps per window; K > 1 runs each
+    window as one CUDA graph replay of K steps on the card
+    (``train/step.py::make_multi_train_step``, ``run_lib.train``);
+  * ``donate_state``, ``compilation_cache_dir``: no GPU meaning (eager
+    PyTorch frees what it no longer holds; nothing is compiled ahead), not
+    carried;
   * ``compute_dtype``, ``norm_dtype``, ``ema_dtype``, ``adam_mu_dtype``:
     'float32' (the default) or 'bfloat16', read through :func:`tpu_dtype`
     (any other value raises): the NCSN++ family's convs, NINs and Denses
@@ -96,7 +100,7 @@ _CIFAR10 = dict(
         nll_iter=0, num_samples=50000),
     data=dict(dataset="CIFAR10", image_size=32, random_flip=True,
               centered=False, dequantization="none", num_channels=3,
-              transport_dtype="auto"),
+              transport_dtype="auto", pipeline="tf"),
     model=dict(
         sigma_min=0.01, sigma_max=50.0, num_scales=1000, beta_min=0.1,
         beta_max=20.0, dropout=0.1, embedding_type="fourier",
@@ -109,7 +113,8 @@ _CIFAR10 = dict(
              fid_resize="host", activation_dtype="",
              compute_dtype="float32", norm_dtype="float32",
              ema_dtype="float32", adam_mu_dtype="float32",
-             rng_impl="threefry2x32", dropout_bits=0),
+             rng_impl="threefry2x32", dropout_bits=0,
+             steps_per_dispatch=1),
 )
 
 # the tpu section's dtype knobs and the values the port takes for them

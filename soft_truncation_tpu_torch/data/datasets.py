@@ -37,11 +37,28 @@ from a seed, at ``eval.batch_size`` (the last batch may be short), without
 flips. The eval-loss, NELBO and NLL loops take :func:`eval_batches`, which
 starts a new pass when one ends, as the JAX package's ``get_batch`` does.
 
-Training batches are drawn by :class:`BatchIterator` (a fresh permutation
-per epoch, the resize, then a random left-right flip, from a seeded numpy
-generator); the order cannot match tf.data's 10k-element shuffle buffer,
-so the port and the JAX package see the same images in a different
-order. :func:`make_preprocess_fn` turns a batch into model input on the
+Training batches come from one of two pipelines, ``data.pipeline`` (any
+other value raises, as JAX's ``get_dataset`` does):
+
+- 'tf' (the default; JAX's tf.data pipeline): :class:`BatchIterator` (a
+  fresh permutation per epoch, the resize, then a random left-right flip,
+  from a seeded numpy generator); the order cannot match tf.data's
+  10k-element shuffle buffer, so the port and the JAX package see the same
+  images in a different order;
+- 'native' (JAX's ``_native_dataset``): the images at their final size
+  (the npz, else the Synthetic array; any other shape raises) resident on
+  the host, batched by ``data/native.py::NativeBatcher`` seeded
+  ``config.seed``, JAX's batches bit for bit (uint8 where
+  :func:`transport_uint8` says so, which it does under 'auto': the bytes
+  of JAX's ``_Uint8Transport``); evaluation takes the evaluation split's
+  images in order, in chunks of ``eval.batch_size``, as float32 k / 255,
+  as JAX's ``_NativeEvalDataset`` yields them.
+
+Under data parallelism every rank draws the global batch and takes its
+rows after the preprocess (``parallel/mesh.py::shard_batch``), so that a
+step is one process's; JAX's native pipeline instead gives each host
+``images[i::n]`` and a batch of its own. With one process the two are the
+same. :func:`make_preprocess_fn` turns a batch into model input on the
 device: x 1/255 (or the uniform dequantization ``(k + u) / 256``) for
 uint8, ``(255 x + u) / 256`` for float32, then the scaler.
 """
@@ -56,6 +73,7 @@ import numpy as np
 import torch
 
 from . import resize
+from .native import NativeBatcher
 from .tfrecords import TFRecordImages
 
 log = logging.getLogger(__name__)
@@ -104,18 +122,46 @@ def transport_uint8(config) -> bool:
   """Whether training batches travel as uint8: the JAX package's
   ``transport_uint8``. ``data.transport_dtype`` 'uint8' or 'float32'
   decides; 'auto' says uint8 only where the dataset's values stay on the
-  k/255 grid: Synthetic, and the uint8 sources at their native size."""
+  k/255 grid: the native pipeline (images at their final size), Synthetic,
+  and the uint8 sources at their native size."""
   mode = config.data.get("transport_dtype", "auto")
   if mode not in ("auto", "uint8", "float32"):
     raise ValueError(f"config.data.transport_dtype must be 'auto', "
                      f"'uint8' or 'float32', got {mode!r}")
   if mode != "auto":
     return mode == "uint8"
+  if pipeline(config) == "native":
+    return True
   if config.data.dataset == "Synthetic":
     return True
   native_sizes = {"CIFAR10": 32, "CIFAR100": 32, "SVHN": 32,
                   "IMAGENET32": 32, "STL10": 96}
   return native_sizes.get(config.data.dataset) == config.data.image_size
+
+
+def pipeline(config) -> str:
+  """``config.data.pipeline``: 'tf' (also where the config has no such
+  key) or 'native'; any other value raises."""
+  name = config.data.get("pipeline", "tf")
+  if name not in ("tf", "native"):
+    raise ValueError(f"config.data.pipeline must be 'tf' or 'native', "
+                     f"got {name!r}")
+  return name
+
+
+def native_array(config, split: str) -> np.ndarray:
+  """The native pipeline's images of ``split``: the npz, else the
+  Synthetic array, at the config's final size (another shape raises)."""
+  images = load_npz_array(config, split)
+  if images is None:
+    images = synthetic_array(config, split)
+  expect = (config.data.image_size, config.data.image_size,
+            config.data.num_channels)
+  if images.shape[1:] != expect:
+    raise ValueError(f"the native pipeline needs images at their final "
+                     f"size {expect}, got {images.shape[1:]}: rebuild the "
+                     f"npz at that size")
+  return images
 
 
 def resize_op(config) -> Callable[[np.ndarray], np.ndarray]:
@@ -285,10 +331,18 @@ class BatchIterator:
     return batch
 
 
-def get_train_iterator(config, seed) -> BatchIterator:
+def get_train_iterator(config, seed):
   """The training batches of ``config.data.dataset`` (see module
-  docstring), at ``config.training.batch_size``, shuffled and flipped from
-  ``seed`` (anything ``np.random.default_rng`` takes)."""
+  docstring), at ``config.training.batch_size``: under the 'tf' pipeline a
+  :class:`BatchIterator` shuffled and flipped from ``seed`` (anything
+  ``np.random.default_rng`` takes), under 'native' a ``NativeBatcher``
+  seeded ``config.seed``, as JAX seeds it."""
+  if pipeline(config) == "native":
+    return NativeBatcher(
+        native_array(config, "train"), config.training.batch_size,
+        random_flip=config.data.random_flip, uniform_dequant=False,
+        centered=False, seed=config.seed,
+        dtype=np.uint8 if transport_uint8(config) else np.float32)
   return BatchIterator(load_source(config, "train"),
                        config.training.batch_size, config.data.random_flip,
                        seed, host_transform(config))
@@ -316,11 +370,17 @@ def get_eval_iterator(config) -> Iterator[np.ndarray]:
   """One pass over the evaluation images (module docstring) as batches
   [B, H, W, C], uint8 or float32 as :func:`host_transform` makes them; the
   order is shuffled from ``config.seed``, so every call yields the same
-  batches."""
+  batches. Under the native pipeline: the images in order, float32
+  k / 255."""
+  size = config.eval.batch_size
+  if pipeline(config) == "native":
+    images = native_array(config, eval_split(config))
+    for start in range(0, len(images), size):
+      yield images[start:start + size].astype(np.float32) / 255.0
+    return
   images = load_source(config, eval_split(config))
   transform = host_transform(config, evaluation=True)
   order = np.random.default_rng(config.seed).permutation(len(images))
-  size = config.eval.batch_size
   for start in range(0, len(images), size):
     yield transform(images[order[start:start + size]])
 

@@ -10,8 +10,11 @@ Counterpart of ``soft_truncation_tpu/losses/losses.py``:
   warmup > 0) while Adam's moments still move. Plain tensor code; the
   parameters are updated in place on themselves under ``torch.no_grad()``,
   which bumps their ``_version`` (``DDPMConv.weight_hwio`` keys its cached
-  transpose by it). The JAX package's ``config.tpu.adam_mu_dtype`` (a
-  bf16 first moment, a TPU byte diet) is not read: the moments are f32.
+  transpose by it). The step's scalars (the learning rate and both bias
+  corrections) are a device tensor the host computes from the count
+  (:meth:`Optimizer.scalars`), so that a CUDA graph of steps reads each
+  step's values rather than holding the captured ones. The first moment
+  is stored in ``config.tpu.adam_mu_dtype`` (:class:`Optimizer`).
 - :func:`get_sde_loss_fn`: the continuous score-matching loss with the
   importance-sampling, likelihood (g^2) and default weightings and the
   reconstruction term with both decoders; per-example losses [B].
@@ -36,6 +39,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..configs.base import tpu_dtype
@@ -113,29 +117,44 @@ class Optimizer:
     self.nu_max = ([torch.zeros_like(p) for p in self.params]
                    if self.amsgrad else [])
 
+  def scalars(self, count: int) -> np.ndarray:
+    """The step's scalars at ``count`` (the pre-increment count), as f32:
+    the learning rate ``schedule(count)`` and the bias corrections
+    ``1 - b1^(count + 1)`` and ``1 - b2^(count + 1)``, each taken in
+    Python floats and rounded once."""
+    return np.array([self.schedule(count), 1.0 - self.b1 ** (count + 1),
+                     1.0 - self.b2 ** (count + 1)], np.float32)
+
   @torch.no_grad()
-  def step(self, grads: Optional[List[torch.Tensor]] = None) -> None:
-    """One update from ``grads`` (default: each parameter's ``.grad``)."""
+  def step(self, grads: Optional[List[torch.Tensor]] = None,
+           scalars: Optional[torch.Tensor] = None) -> None:
+    """One update from ``grads`` (default: each parameter's ``.grad``);
+    ``scalars`` is :meth:`scalars` of the count on the parameters' device
+    (default: made here from ``count``)."""
     if grads is None:
       grads = [p.grad for p in self.params]
+    if scalars is None:
+      scalars = torch.from_numpy(self.scalars(self.count)).to(
+          grads[0].device)
+    lr, bc1, bc2 = scalars.unbind()
     if self.grad_clip >= 0:
       norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-      scale = torch.where(norm < self.grad_clip, norm.new_tensor(1.0),
+      scale = torch.where(norm < self.grad_clip, torch.ones_like(norm),
                           self.grad_clip / norm)
       grads = torch._foreach_mul(grads, scale)
-    count_inc = self.count + 1
     if self.mu_dtype == torch.float32:
       mu = self.mu
       torch._foreach_mul_(mu, self.b1)
       torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
     else:
-      b1 = torch.tensor(self.b1, dtype=self.mu_dtype, device=grads[0].device)
+      b1 = torch.full((), self.b1, dtype=self.mu_dtype,
+                      device=grads[0].device)
       mu = torch._foreach_mul(grads, 1.0 - self.b1)
       torch._foreach_add_(mu, torch._foreach_mul(self.mu, b1))
     torch._foreach_mul_(self.nu, self.b2)
     torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - self.b2)
-    mu_hat = torch._foreach_div(mu, 1.0 - self.b1 ** count_inc)
-    nu_hat = torch._foreach_div(self.nu, 1.0 - self.b2 ** count_inc)
+    mu_hat = torch._foreach_div(mu, bc1)
+    nu_hat = torch._foreach_div(self.nu, bc2)
     if self.amsgrad:
       torch._foreach_maximum_(self.nu_max, nu_hat)
       nu_hat = self.nu_max
@@ -144,11 +163,12 @@ class Optimizer:
     updates = torch._foreach_div(mu_hat, denom)
     if self.weight_decay:
       torch._foreach_add_(updates, self.params, alpha=self.weight_decay)
-    lr = self.schedule(self.count)
-    torch._foreach_add_(self.params, updates, alpha=-lr)
+    # optax's order: the updates scaled by -lr, then added
+    torch._foreach_mul_(updates, -lr)
+    torch._foreach_add_(self.params, updates)
     if mu is not self.mu:
       torch._foreach_copy_(self.mu, mu)  # rounded to mu_dtype
-    self.count = count_inc
+    self.count += 1
 
   def state_dict(self) -> Dict:
     return {"count": self.count, "mu": self.mu, "nu": self.nu,

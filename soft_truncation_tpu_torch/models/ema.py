@@ -8,7 +8,10 @@ model's ``state_dict`` (the frozen Fourier ``W`` included, never moved); it
 is updated in place. ``config.tpu.ema_dtype`` = 'bfloat16' stores the
 shadow in bf16 (:func:`ema_init`'s ``dtype``); the step still runs in f32
 on the upcast shadow and rounds the result once into it, as JAX's
-``ema_update`` casts back to the storage dtype.
+``ema_update`` casts back to the storage dtype. The step's weight
+``1 - d`` is a device tensor (:func:`ema_apply`), which the host computes
+(:func:`ema_weight`), so that a CUDA graph of train steps reads each
+step's weight rather than holding the captured one.
 """
 
 from __future__ import annotations
@@ -28,19 +31,32 @@ def ema_init(model: torch.nn.Module,
           for k, v in model.state_dict().items()}
 
 
-@torch.no_grad()
+def ema_weight(decay: float, num_updates: int) -> np.float32:
+  """``1 - d`` of the step to ``num_updates``, in f32 as JAX takes it."""
+  d = np.minimum(np.float32(decay),
+                 np.float32(1.0 + num_updates) / np.float32(10.0 + num_updates))
+  return np.float32(1.0) - d
+
+
 def ema_update(ema: Dict[str, torch.Tensor], model: torch.nn.Module,
                decay: float, num_updates: int) -> None:
   """One EMA step of ``ema`` towards ``model``'s trainable parameters."""
-  d = np.minimum(np.float32(decay),
-                 np.float32(1.0 + num_updates) / np.float32(10.0 + num_updates))
+  device = next(iter(ema.values())).device
+  ema_apply(ema, model, torch.full((), ema_weight(decay, num_updates),
+                                   dtype=torch.float32, device=device))
+
+
+@torch.no_grad()
+def ema_apply(ema: Dict[str, torch.Tensor], model: torch.nn.Module,
+              weight: torch.Tensor) -> None:
+  """One EMA step with the f32 device scalar ``weight`` = ``1 - d``."""
   names, params = zip(*((n, p) for n, p in model.named_parameters()
                         if p.requires_grad))
   stored = [ema[n] for n in names]
   # a reduced-precision shadow: the step on f32 copies, rounded back once
   shadow = [e if e.dtype == torch.float32 else e.float() for e in stored]
   diff = torch._foreach_sub(shadow, list(params))
-  torch._foreach_mul_(diff, float(np.float32(1.0) - d))
+  torch._foreach_mul_(diff, weight)
   torch._foreach_sub_(shadow, diff)
   for e, s in zip(stored, shadow):
     if e is not s:

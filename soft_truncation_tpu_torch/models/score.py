@@ -124,8 +124,8 @@ def get_score_fn(config, sde: SDE, model, train: bool = False,
   def score_fn(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     if continuous or isinstance(sde, SubVPSDE):
       if unbounded:
-        lo = sde.antiderivative(t.new_tensor(1e-5), stab)
-        hi = sde.antiderivative(t.new_tensor(sde.T), stab)
+        lo = sde.antiderivative(t.new_full((), 1e-5), stab)
+        hi = sde.antiderivative(t.new_full((), sde.T), stab)
         labels = (sde.antiderivative(t, stab) - lo) / (hi - lo) * 999.0
       else:
         labels = t * 999.0

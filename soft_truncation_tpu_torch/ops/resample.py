@@ -19,6 +19,7 @@ kernel and its adjoint run on the halo'd rows as they are.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Sequence, Tuple, Union
 
@@ -98,10 +99,20 @@ def upfirdn2d(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
                    up, down)
 
 
+@functools.lru_cache(maxsize=None)
+def _taps_on(values: Tuple[float, ...], shape: Tuple[int, ...],
+             device: torch.device) -> torch.Tensor:
+  """The filter as an f32 tensor on ``device``, made once (a copy from
+  the host at every call could not be captured in a CUDA graph)."""
+  return torch.tensor(values, dtype=torch.float32,
+                      device=device).reshape(shape)
+
+
 def _upfirdn2d(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
                pad: Tuple[int, int] = (0, 0)) -> torch.Tensor:
   b, h, w, c = x.shape
-  k = torch.as_tensor(np.asarray(kernel, dtype=np.float32), device=x.device)
+  taps = np.asarray(kernel, dtype=np.float32)
+  k = _taps_on(tuple(taps.ravel().tolist()), taps.shape, x.device)
   kh, kw = k.shape
   y = x.permute(0, 3, 1, 2)
   if up > 1:  # zeros after every sample, the last one included

@@ -15,7 +15,15 @@ collectives the layers run over ``space`` are in ``spatial.py``.
 of ``ddp.py`` (a space of one rank): nothing here changes it.
 
 :func:`shard_batch` gives this rank's rows of the global batch and, with
-``spatial``, its H/s image rows. :func:`batch_sharded` /
+``spatial``, its H/s image rows. It is also the counterpart of JAX's
+``stacked_batch_sharding`` / ``shard_stacked_batch`` (this rank's rows of
+every step of a ``[K, B, ...]`` window): ``train/step.py::
+make_multi_train_step`` cuts each step of a window with it, after that
+step's preprocess, since the port draws the dequantization noise of the
+global batch from its one generator in step order (JAX draws it from
+per-step keys, so it can place the whole stack first). Windows of K > 1
+are refused under data parallelism and the mesh (a CUDA graph over NCCL
+collectives is not ported), so the cut runs at K = 1 there. :func:`batch_sharded` /
 :func:`batch_mean` let a sampler whose batch is split over the ranks take
 the means it steers by (dopri5's error norm, the Langevin step size) over
 the whole batch (``serve/server.py``'s replay on several ranks).

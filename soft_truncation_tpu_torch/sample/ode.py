@@ -1,6 +1,7 @@
-"""Adaptive Dormand-Prince 5(4) ODE integrator on torch tensors.
+"""ODE integrators on torch tensors: adaptive Dormand-Prince 5(4) and
+fixed-grid RK4.
 
-Counterpart of ``soft_truncation_tpu/sample/ode.py::odeint_dopri5``: the
+Counterpart of ``soft_truncation_tpu/sample/ode.py``. ``odeint_dopri5``: the
 same tableau (scipy's RK45), initial-step rule, PI step-size control and
 ``nfe`` bookkeeping (2 for the start, +6 per attempted step).
 
@@ -9,6 +10,8 @@ loop: the scalars that steer it (t, h, the error norm) live on the host as
 float32, with the same f32 arithmetic as the JAX version, and each step
 reads its error norm from the device once. That one synchronisation per
 step is accepted in this port; the model evaluations dominate the step.
+``odeint_rk4_fixed``: JAX's classic RK4 on ``torch.linspace(t0, t1, n +
+1)``, its stage times in f32, nfe 4n, status 0.
 Where the batch is split over ranks (the replay on several ranks,
 ``serve/server.py``) the error norms are the whole batch's.
 """
@@ -130,3 +133,21 @@ def odeint_dopri5(func: Callable[[np.float32, torch.Tensor], torch.Tensor],
     nfe += 6
     steps += 1
   return ODEResult(y=y, nfe=nfe, status=0 if done else 1)
+
+
+def odeint_rk4_fixed(func: Callable[[np.float32, torch.Tensor], torch.Tensor],
+                     y0: torch.Tensor, t0: float, t1: float,
+                     num_steps: int) -> ODEResult:
+  """Classic RK4 on the fixed grid ``torch.linspace(t0, t1, num_steps +
+  1)`` (f32); ``func(t, y)`` takes ``t`` as a np.float32, as
+  :func:`odeint_dopri5` gives it."""
+  ts = torch.linspace(t0, t1, num_steps + 1, dtype=torch.float32)
+  y = y0
+  for i in range(num_steps):
+    t, h = ts[i], ts[i + 1] - ts[i]  # 0-d f32 tensors, as JAX's scalars
+    k1 = func(_f32(t), y)
+    k2 = func(_f32(t + h / 2), y + h / 2 * k1)
+    k3 = func(_f32(t + h / 2), y + h / 2 * k2)
+    k4 = func(_f32(t + h), y + h * k3)
+    y = y + h / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
+  return ODEResult(y=y, nfe=4 * num_steps, status=0)

@@ -79,7 +79,7 @@ class SDE:
     sampling uniformly."""
     if importance_sampling:
       return self._importance_time(u, t_min)
-    return u * (self.T - t_min) + t_min, u.new_tensor(1.0)
+    return u * (self.T - t_min) + t_min, u.new_ones(())
 
   def _importance_time(self, u: Tensor, t_min: Tensor):
     raise NotImplementedError(
@@ -160,7 +160,7 @@ class VPSDE(SDE):
     return torch.log(1.0 - torch.exp(-ib) + stabilizing_constant) + ib
 
   def normalizing_constant(self, t_min):
-    return (self.antiderivative(t_min.new_tensor(self.T))
+    return (self.antiderivative(t_min.new_full((), self.T))
             - self.antiderivative(t_min))
 
   def _importance_time(self, u, t_min):
@@ -258,7 +258,7 @@ class VESDE(SDE):
     return 2.0 * (math.log(self.sigma_min) + t * self._log_ratio)
 
   def normalizing_constant(self, t_min):
-    return (self.antiderivative(t_min.new_tensor(self.T))
+    return (self.antiderivative(t_min.new_full((), self.T))
             - self.antiderivative(t_min))
 
   def _importance_time(self, u, t_min):
@@ -341,7 +341,7 @@ class ReciprocalVESDE(SDE):
     """Uniform in reciprocal time; the importance-sampling flag is ignored,
     as in the reference."""
     time = u * (1.0 / t_min - 1.0 / self.T) + 1.0 / self.T
-    return 1.0 / time, u.new_tensor(1.0)
+    return 1.0 / time, u.new_ones(())
 
   def sample_t_min(self, u, k, truncation_time):
     """The Soft-Truncation prior, uniform in reciprocal time (``k`` is not

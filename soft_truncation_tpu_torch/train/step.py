@@ -12,10 +12,23 @@ micro-batch with importance sampling and the second without, combined as
 when balanced). With ``training.continuous=False`` each micro-batch takes
 the discrete loss instead: SMLD for a VE SDE, DDPM for a VP SDE (any other
 raises, as does ``likelihood_weighting``); the ``t_min`` draw stays where
-JAX makes it (Soft-Truncation active), unread. ``make_multi_train_step``
-(K steps per dispatch) has no meaning without a dispatch cost to amortise:
-the port has none, and reads neither ``config.tpu.steps_per_dispatch`` nor
-``donate_state``.
+JAX makes it (Soft-Truncation active), unread. The step's scalars (the
+learning rate, Adam's bias corrections, the EMA's weight) are one device
+tensor of four the host computes from the step (:func:`window_scalars`),
+so that a captured step reads them rather than holding its capture's.
+
+:func:`make_multi_train_step` trains a window of K steps
+(``config.tpu.steps_per_dispatch``; JAX's ``make_multi_train_step``): each
+step's preprocess (the dequantization noise, the scaler) and then the step,
+K times, on a ``[K, B, H, W, C]`` stack of raw batches. On the card, with
+K > 1 and one process, a window is one CUDA graph replay of those K steps
+(one graph per window width, captured at the width's first window after a
+warm-up step that is then undone): the host issues one replay where the
+steps would issue ~10^4 launches each, and the replay draws from the train
+generator what K eager steps draw. Elsewhere (the CPU,
+K = 1) the window runs the same code eagerly. K > 1 under data
+parallelism or a ``(data, space)`` mesh raises: a graph over NCCL
+collectives is not ported.
 
 Data parallelism: with ``state.replica`` (``parallel.ddp.replicate``) the
 step runs its forwards through that DistributedDataParallel wrapper, on
@@ -42,25 +55,42 @@ the ranks of a space group).
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..data.datasets import make_preprocess_fn
 from ..losses.losses import (Draw, get_ddpm_loss_fn, get_sde_loss_fn,
                              get_smld_loss_fn, make_draw)
 from ..models.dropout import batch_shard
-from ..models.ema import ema_update
+from ..models.ema import ema_apply, ema_weight
+from ..ops import launch_totals
 from ..parallel import spatial
 from ..parallel.ddp import sharded_draw
+from ..parallel.mesh import shard_batch
 from ..sde.core import SDE, VESDE, VPSDE, st_active_for
 from .state import TrainState
 
 
+def window_scalars(state: TrainState, width: int) -> np.ndarray:
+  """The f32 scalars of the next ``width`` steps of ``state``, one row a
+  step: the optimizer's :meth:`~losses.Optimizer.scalars` (learning rate,
+  both bias corrections) at its count, and the EMA's ``1 - d`` at the
+  step it takes ``state`` to."""
+  opt = state.optimizer
+  return np.stack([np.append(opt.scalars(opt.count + k),
+                             ema_weight(state.ema_rate, state.step + k + 1))
+                   for k in range(width)]).astype(np.float32)
+
+
 def make_train_step(config, sde: SDE) -> Callable:
-  """Returns ``train_step(state, batch, generator, draw=None)`` -> the
-  per-example losses ([B], or [B/2] for mixed; this rank's under data
-  parallelism), updating ``state`` in place.
+  """Returns ``train_step(state, batch, generator, draw=None,
+  scalars=None)`` -> the per-example losses ([B], or [B/2] for mixed; this
+  rank's under data parallelism), updating ``state`` in place; ``scalars``
+  is :func:`window_scalars`'s row of the step on the model's device, made
+  here where it is not given.
 
   ``batch`` is [B, H, W, C] on the model's device; ``generator`` (on that
   device) feeds the dropout masks and, unless ``draw`` is given, every
@@ -108,9 +138,12 @@ def make_train_step(config, sde: SDE) -> Callable:
     return l_is + ddpm_weight * l_dd
 
   def train_step(state: TrainState, batch: torch.Tensor,
-                 generator: torch.Generator,
-                 draw: Optional[Draw] = None) -> torch.Tensor:
+                 generator: torch.Generator, draw: Optional[Draw] = None,
+                 scalars: Optional[torch.Tensor] = None) -> torch.Tensor:
     draw = draw or make_draw(generator, batch.device)
+    if scalars is None:
+      scalars = torch.from_numpy(window_scalars(state, 1)[0]).to(
+          batch.device)
     replica = state.replica
     mesh = state.mesh
     space = mesh.space_shard() if mesh is not None else None
@@ -125,7 +158,7 @@ def make_train_step(config, sde: SDE) -> Callable:
     if st:
       t_min = sde.sample_t_min(draw("uniform", ()), k_exp, trunc)
     else:
-      t_min = torch.tensor(trunc, dtype=torch.float32, device=batch.device)
+      t_min = torch.full((), trunc, dtype=torch.float32, device=batch.device)
     b = batch.shape[0]
     if b % num_micro:
       raise ValueError(f"batch {b} is not a multiple of num_micro_batch "
@@ -146,14 +179,158 @@ def make_train_step(config, sde: SDE) -> Callable:
         losses.append(micro.detach())
     if space is not None:
       _average_gradients(state.optimizer.params, ranks)
-    state.optimizer.step()
+    state.optimizer.step(scalars=scalars[:3])
     for p in state.optimizer.params:
       p.grad = None
     state.step += 1
-    ema_update(state.ema, state.model, state.ema_rate, state.step)
+    ema_apply(state.ema, state.model, scalars[3])
     return torch.cat(losses)
 
   return train_step
+
+
+def _refuse_sharded_window(width: int, ranks: bool) -> None:
+  """Raise for a window of more than one step over several ranks."""
+  if width > 1 and ranks:
+    raise NotImplementedError(
+        "tpu.steps_per_dispatch > 1 under data parallelism or a (data, "
+        "space) mesh is not ported: a CUDA graph over NCCL collectives is a "
+        "later slice (ROADMAP.md, Queue 1)")
+
+
+def make_multi_train_step(config, sde: SDE, mesh=None) -> Callable:
+  """Returns ``multi_step(state, batches, generator, draws=None,
+  scalars=None)`` -> the losses ``[K, B']`` of a window of K steps (module
+  docstring), updating ``state`` in place.
+
+  ``batches`` is a ``[K, B, H, W, C]`` stack of raw batches (uint8 or
+  float32 in [0, 1], the global batch of each step; on the host, pinned
+  for an asynchronous upload, or on the device); step k preprocesses
+  ``batches[k]`` from ``generator``, takes this rank's rows of it
+  (``parallel/mesh.py::shard_batch`` under ``mesh``) and trains on them,
+  as ``make_train_step`` does: the window is K eager steps, each step's
+  preprocess inside it. ``draws`` (K ``draw`` callables, tests) replace
+  the step's draws; ``scalars`` (``[K, 4]``, :func:`window_scalars` of the
+  state, host or device) are made here when not given.
+
+  ``multi_step.width`` is ``config.tpu.steps_per_dispatch``, K. With K >
+  1 on the card the window is a CUDA graph (one per width; the static
+  inputs take each window by one copy of ``batches`` and one of
+  ``scalars``). ``multi_step.replays`` and
+  ``multi_step.capture_launches`` give, per width, the graph's replays and
+  the kernel launches its capture recorded (``ops.launch_totals``): a
+  replay makes those launches without counting them."""
+  train_step = make_train_step(config, sde)
+  preprocess = make_preprocess_fn(config)
+  parts = config.optim.num_micro_batch * (
+      2 if config.training.get("mixed", False) else 1)
+  per_window = max(int(config.get("tpu", {}).get("steps_per_dispatch", 1)
+                       or 1), 1)
+  _refuse_sharded_window(per_window, mesh is not None and mesh.size > 1)
+  graphs: Dict[int, tuple] = {}
+  static = {}
+
+  def steps(state, batches, generator, draws, scalars):
+    losses = []
+    for k in range(batches.shape[0]):
+      x = preprocess(batches[k], generator)
+      if mesh is not None:
+        x = shard_batch(x, mesh, True, parts)
+      losses.append(train_step(state, x, generator,
+                               draws[k] if draws else None, scalars[k]))
+    return torch.stack(losses)
+
+  def multi_step(state: TrainState, batches: torch.Tensor,
+                 generator: torch.Generator,
+                 draws: Optional[Sequence[Draw]] = None,
+                 scalars=None) -> torch.Tensor:
+    width = batches.shape[0]
+    _refuse_sharded_window(width, state.replica is not None
+                           or state.mesh is not None)
+    device = state.optimizer.params[0].device
+    if scalars is None:
+      scalars = torch.from_numpy(window_scalars(state, width))
+    if not (per_window > 1 and device.type == "cuda"):
+      return steps(state, batches.to(device, non_blocking=True), generator,
+                   draws, scalars.to(device, non_blocking=True))
+    if draws is not None:
+      raise ValueError("a captured window draws from its generator: "
+                       "draws= is for eager windows")
+    if not static:
+      k = max(width, per_window)
+      static["batches"] = torch.empty((k,) + tuple(batches.shape[1:]),
+                                      dtype=batches.dtype, device=device)
+      static["scalars"] = torch.empty((k, 4), device=device)
+    static["batches"][:width].copy_(batches, non_blocking=True)
+    static["scalars"][:width].copy_(scalars, non_blocking=True)
+    if width not in graphs:
+      graphs[width] = _capture(state, generator, width)
+    graph, out = graphs[width]
+    graph.replay()
+    multi_step.replays[width] += 1
+    state.step += width
+    state.optimizer.count += width
+    return out.clone()
+
+  def _capture(state, generator, width):
+    """Capture ``steps`` of ``width`` on the static inputs; before the
+    first capture, one step on a side stream (the lazy set-up a capture
+    may not do: cuBLAS and cuDNN handles, the kernels' libraries and
+    plans), then the state, the step counts and the generator put back."""
+    batches = static["batches"][:width]
+    table = static["scalars"][:width]
+    if not graphs:
+      saved = _snapshot(state, generator)
+      side = torch.cuda.Stream()
+      side.wait_stream(torch.cuda.current_stream())
+      with torch.cuda.stream(side):
+        steps(state, batches[:1], generator, None, table[:1])
+      torch.cuda.current_stream().wait_stream(side)
+      _restore(state, generator, saved)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(generator)
+    counts = (state.step, state.optimizer.count)
+    before = launch_totals()
+    pool = next(iter(graphs.values()))[0].pool() if graphs else None
+    with torch.cuda.graph(graph, pool=pool):
+      out = steps(state, batches, generator, None, table)
+    state.step, state.optimizer.count = counts
+    multi_step.capture_launches[width] = {
+        k: v - before[k] for k, v in launch_totals().items()
+        if v != before[k]}
+    multi_step.replays[width] = 0
+    return graph, out
+
+  multi_step.width = per_window
+  multi_step.replays = {}
+  multi_step.capture_launches = {}
+  return multi_step
+
+
+def _snapshot(state: TrainState, generator: torch.Generator) -> dict:
+  """Copies of everything a train step changes."""
+  opt = state.optimizer
+  return {"model": {k: v.clone() for k, v in state.model.state_dict().items()},
+          "ema": {k: v.clone() for k, v in state.ema.items()},
+          "moments": [t.clone() for t in opt.mu + opt.nu + opt.nu_max],
+          "counts": (state.step, opt.count),
+          "generator": generator.get_state()}
+
+
+@torch.no_grad()
+def _restore(state: TrainState, generator: torch.Generator,
+             saved: dict) -> None:
+  opt = state.optimizer
+  for k, v in state.model.state_dict().items():
+    v.copy_(saved["model"][k])
+  for k, v in state.ema.items():
+    v.copy_(saved["ema"][k])
+  for t, v in zip(opt.mu + opt.nu + opt.nu_max, saved["moments"]):
+    t.copy_(v)
+  for p in opt.params:
+    p.grad = None
+  state.step, opt.count = saved["counts"]
+  generator.set_state(saved["generator"])
 
 
 def _average_gradients(params, ranks: int) -> None:

@@ -7,7 +7,9 @@ Counterpart of ``soft_truncation_tpu/utils/profiling.py``:
     Perfetto trace, ``dir/trace.json``, on exit; a no-op for no ``dir``.
   * ``StepTimer``: rolling steps/s and imgs/s since the last report on the
     host clock, with no device sync (a step's kernels may still be running
-    when it ticks; over a log interval that evens out).
+    when it ticks; over a log interval that evens out);
+  * ``annotate(name)``: a named region of a trace
+    (``torch.profiler.record_function``), e.g. ``run_lib.train``'s windows.
 """
 
 from __future__ import annotations
@@ -62,3 +64,8 @@ class StepTimer:
     sps = self._steps / max(now - self._t0, 1e-9)
     self._t0, self._steps = now, 0
     return sps, sps * self.batch_size
+
+
+def annotate(name: str):
+  """A named profiler region around a block (shows up in traces)."""
+  return torch.profiler.record_function(name)

@@ -126,6 +126,23 @@ def test_port_base_holds_the_dtype_knobs_with_jax_values():
       assert tpu_dtype(pc, knob) == "float32"
 
 
+# the keys of the native pipeline and the K-step windows (slice 16)
+SLICE_16_KEYS = {"data": {"pipeline"}, "tpu": {"steps_per_dispatch"}}
+
+
+@pytest.mark.parametrize("family", ["cifar10", "celeba", "lsun", "stl10"])
+def test_port_base_holds_the_pipeline_and_dispatch_keys_with_jax_values(
+    family):
+  from soft_truncation_tpu.configs.base import default_config as jax_default
+  from soft_truncation_tpu_torch.configs.base import default_config
+  jc, pc = jax_default(family), default_config(family)
+  for section, keys in SLICE_16_KEYS.items():
+    for key in keys:
+      assert key in pc[section], (section, key)
+      assert pc[section][key] == jc[section][key], (family, section, key)
+  assert pc.data.pipeline == "tf" and pc.tpu.steps_per_dispatch == 1
+
+
 SLICE_6C_MODULES = ("sample/parallel.py", "parallel/__init__.py",
                     "parallel/ddp.py", "utils/profiling.py",
                     "utils/torch_port.py")
