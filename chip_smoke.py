@@ -211,7 +211,13 @@ Phases; any failure exits non-zero before the last line is printed:
      gradients and the parameters' moves held to phase 6's bars, the
      errors against DDP_REL_TOL of each tensor's largest beside them; and
      beside them steps 0..DDP_TIMED_ITERS on two more ranks, the host's ms
-     per step from the log;
+     per step from the log. The NCCL rank (``chip_smoke.py
+     --ddp-window``) then, in its world, replays a window of DDP_WINDOW
+     steps at batch 128 from a CUDA graph (route 'graph': no DDP wrapper,
+     the world's (1, 1) mesh, the gradients' all-reduce captured) against
+     as many eager steps through the DDP wrapper from one state and
+     generator, within GRAPH_REL_TOL as 14c; its row gives the route,
+     replays, launches recorded at capture and collectives per capture;
   10d. the profiler: the CLI trainer on UNCSN++ (batch 128), steps 0..11
      with ``--config.tpu.profile_dir``: the trace of step 10 names 24 fir2
      launches (12 forward, 12 adjoint) and the adjoint's autograd node;
@@ -263,12 +269,17 @@ Phases; any failure exits non-zero before the last line is printed:
      alone,
      and under ``torch.distributed.run`` with ``--config.tpu.mesh_shape``
      (1, 2) and (2, 2), gloo ranks sharing the card, each holding its
-     samples' H/2 rows. Held: every rank logs its shard (H/s rows), its
-     losses within FORWARD_REL_TOL of alone's, each rank's fir2 and adjoint
-     launches summed over shapes equal alone's (every FIR site, on
-     halo'd rows), every rank the same space collectives (halo, sum,
-     gather, each way; printed per step), and phase 10c's bars on the
-     gradients and moves, with DDP_REL_TOL's errors beside them;
+     samples' H/2 rows; (2, 2) trains steps 0..1 as one window
+     (``tpu.steps_per_dispatch`` MESH_WINDOWS, route 'eager' on gloo
+     ranks), (1, 2) a step a window. Held: every rank logs its shard (H/s
+     rows), the route and width each run printed, both steps' losses
+     within FORWARD_REL_TOL of alone's, each rank's fir2 and adjoint
+     launches summed over shapes equal alone's (per step times the steps;
+     every FIR site, on halo'd rows), every rank the same collectives
+     (halo, sum, gather, each way, and the gradients' all-reduce), equal
+     in every step and mesh, the window's a step's times its steps, and
+     phase 10c's bars on the gradients and moves after step 0, with
+     DDP_REL_TOL's errors beside them;
   12b. the flagship exported with ``mesh=(MESH_REPLAY_RANKS,)`` (beside
      12a's first two runs) at batch EXPORT_BATCH (programs at
      EXPORT_BATCH / MESH_REPLAY_RANKS) and, beside 12a's (2, 2) run,
@@ -567,6 +578,7 @@ PICARD_UNCSNPP_REL_TOL = 1e-3
 # largest reported beside them; then steps 0..DDP_TIMED_ITERS on the ranks
 DDP_TIMED_ITERS = 1
 DDP_REL_TOL = 1e-5
+DDP_WINDOW = 2              # 10c nccl_1: the replayed window vs DDP steps
 PROFILE_ITERS = 11          # 10d: steps 0..11, the eleventh (10) traced
 EXPORT_BATCH = 8            # 11: the artifact's batch
 EXPORT_DPM_STEPS = 20       # 11: 'dpm_solver' steps served (of the config's 50)
@@ -588,6 +600,9 @@ REMAT_STEPS = 2             # 10e: steps per policy, the first compared
 MESH_TRAIN_BATCH = 4        # 12a: CelebA-HQ 256^2's global batch
 MESH_TRAIN_ITERS = 1        # 12a: steps 0..1: the first held, both timed
 MESH_SHAPES = ((1, 2), (2, 2))  # 12a: tpu.mesh_shape of the ranked runs
+# 12a: tpu.steps_per_dispatch of each: (2, 2) trains its steps as one
+# window (route 'eager' on gloo ranks), (1, 2) one step a window
+MESH_WINDOWS = {(1, 2): 1, (2, 2): MESH_TRAIN_ITERS + 1}
 MESH_REPLAY_RANKS = 2       # 12b: ranks the exported batch is split over
 MESH_REPLAY_REL_TOL = 1e-4  # 12b: vs the one-process replay, of max |x|
 # slice 16 (phase 14)
@@ -2667,19 +2682,20 @@ def phase_picard_uncsnpp(sites, fir_sites, params):
 def _ddp_runs(specs, config=FLAGSHIP, entry=("soft_truncation_tpu_torch.main",),
               tag="ddp"):
   """The CLI trainer on ``config`` under each ``(name, launcher, flags)``
-  of ``specs`` (a command prefix, then ``entry``, and its ``--config.*``
-  arguments), each in its own workdir, all at once; returns name ->
+  of ``specs`` (a command prefix, then ``entry`` or the spec's own fourth
+  element, and its ``--config.*`` arguments), each in its own workdir, all
+  at once; returns name ->
   (workdir, wall, output). The processes are waited for, and killed if
   they outlive the phase."""
   env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
              + os.environ.get("PYTHONPATH", ""))
   procs = {}
   try:
-    for name, launcher, flags in specs:
+    for name, launcher, flags, *own in specs:
       workdir = os.path.join(REPO, "build", f"chip_smoke_{tag}", name)
       shutil.rmtree(workdir, ignore_errors=True)
-      cmd = launcher + [*entry, "--config", config, "--workdir", workdir,
-                        "--mode", "train", *flags]
+      cmd = launcher + [*(own[0] if own else entry), "--config", config,
+                        "--workdir", workdir, "--mode", "train", *flags]
       procs[name] = (workdir, time.perf_counter(), subprocess.Popen(
           cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
           stderr=subprocess.STDOUT, text=True))
@@ -2696,6 +2712,58 @@ def _ddp_runs(specs, config=FLAGSHIP, entry=("soft_truncation_tpu_torch.main",),
       if proc.poll() is None:
         proc.kill()
         proc.wait()
+
+
+def ddp_window(*argv) -> int:
+  """10c's one-NCCL-rank run (``chip_smoke.py --ddp-window`` under
+  ``torch.distributed.run --nproc_per_node 1``): this process joins its
+  world (one NCCL rank), runs the CLI trainer with ``argv`` in it, then,
+  in the same world, a 14c-style check at the CLI's config and batch:
+  a window of DDP_WINDOW steps replayed from a CUDA graph (route 'graph':
+  no DDP wrapper, the world's mesh, the gradients' all-reduce in the
+  graph) against as many eager steps through the DDP wrapper
+  (:func:`_window_vs_steps`). Its row goes to ``<workdir>/window.json``:
+  the route, replays, the launches recorded at capture and the
+  collectives per capture."""
+  sys.path.insert(0, REPO)
+  import torch
+  import torch.distributed as dist
+  from soft_truncation_tpu_torch import main as cli
+  from soft_truncation_tpu_torch.main import apply_overrides
+  from soft_truncation_tpu_torch.parallel import ddp
+  world, _, joined = ddp.join(DEVICE)
+  try:
+    cli.main(list(argv))
+    # the CLI turns TF32 off; a replay is held bit for bit to eager steps
+    torch.backends.cudnn.deterministic = True
+    flags = [f for f in argv[list(argv).index("--mode") + 2:]
+             if f != "--cpu"]
+    config = apply_overrides(load_config(FLAGSHIP), flags)
+    config.tpu.steps_per_dispatch = DDP_WINDOW
+    data = torch.Generator().manual_seed(2)
+    size = config.data.image_size
+    window = torch.randint(0, 256, (DDP_WINDOW, TRAIN_BATCH, size, size,
+                                    3), generator=data, dtype=torch.uint8)
+    multi, graphed, _, worst, eager_ms = _window_vs_steps(
+        "10c nccl_1 window", config, window, world)
+    row = {"route": multi.route, "backend": ddp.backend(),
+           "window": DDP_WINDOW, "batch": TRAIN_BATCH, "max_rel_err": worst,
+           "bit_for_bit": worst == 0.0, "replays": dict(multi.replays),
+           "capture_launches": {str(w): c for w, c in
+                                multi.capture_launches.items()},
+           "collectives_per_capture": {
+               str(w): c for w, c in multi.capture_collectives.items()},
+           "eager_ms_per_step": eager_ms / DDP_WINDOW}
+    if (multi.replays != {DDP_WINDOW: 1} or multi.capture_collectives !=
+        {DDP_WINDOW: {"gradients": DDP_WINDOW}}):
+      raise AssertionError(f"10c nccl_1 window: {row}")
+  finally:
+    if joined:
+      dist.destroy_process_group()
+  with open(os.path.join(argv[list(argv).index("--workdir") + 1],
+                         "window.json"), "w") as f:
+    json.dump(row, f)
+  return 0
 
 
 def _trainable(config):
@@ -2783,8 +2851,8 @@ def phase_ddp(extra_flags=()):
   # the three one-step runs and the timed run side by side (~50 GB of the
   # card); the timed steps after the first come when the others are done
   runs = _ddp_runs([("alone", run, one_step), ("gloo_2", gloo_2, one_step),
-                    ("nccl_1", torchrun + ["--nproc_per_node", "1", "-m"],
-                     one_step),
+                    ("nccl_1", torchrun + ["--nproc_per_node", "1"],
+                     one_step, (os.path.abspath(__file__), "--ddp-window")),
                     ("gloo_2_timed", gloo_2, flags + [
                         "--config.training.n_iters", str(DDP_TIMED_ITERS)])])
   line = re.compile(r"step: (\d+), training loss mean: (\S+), .*\((\S+) "
@@ -2806,7 +2874,9 @@ def phase_ddp(extra_flags=()):
   for name, backend in (("gloo_2", "gloo"),
                         ("nccl_1", "nccl" if DEVICE == "cuda" else "gloo")):
     output = runs[name][2]
-    if f"process group: {backend}" not in output:
+    # the trainer's line (nccl_1's process joins its group before the CLI
+    # logs)
+    if f"route eager (process group {backend})" not in output:
       raise AssertionError(f"ddp {name}: no '{backend}' process group in "
                            f"its log:\n{output[-2000:]}")
     row = {"ddp": name, "backend": backend, "global_batch": TRAIN_BATCH,
@@ -2815,6 +2885,9 @@ def phase_ddp(extra_flags=()):
            "loss_vs_alone": [float(logged(name)[0][1]),
                              float(logged("alone")[0][1])],
            "run_wall_s": runs[name][1], "alone_run_wall_s": runs["alone"][1]}
+    if name == "nccl_1":  # ddp_window's check, after its CLI run
+      with open(os.path.join(runs[name][0], "window.json")) as f:
+        row["graph_window_vs_ddp_steps"] = json.load(f)
     emit(row)
   # the log's steps/s: the host's clock per step (each log line gathers
   # the ranks' losses and reads them back, a synchronisation)
@@ -4146,16 +4219,19 @@ def mesh_train(*argv) -> int:
   (``soft_truncation_tpu_torch.main``) with ``argv`` in this process,
   whose train step is wrapped to record what it took (its batch's shape)
   and gave (the per-sample losses) and its host ms, and on rank 0 to save
-  the state after the first step to ``<workdir>/first_step.pt``; then its
-  row (:func:`_write_row`, in the workdir) with those and fir2's launches
-  per shape, forward and adjoint."""
+  the state after the first step to ``<workdir>/first_step.pt``, and its
+  window maker to record the route and width; then its row
+  (:func:`_write_row`, in the workdir) with those, the collectives of each
+  step and in all, and fir2's launches per shape, forward and adjoint."""
   sys.path.insert(0, REPO)
   import torch
   from soft_truncation_tpu_torch import main as cli
+  from soft_truncation_tpu_torch import run_lib
   from soft_truncation_tpu_torch.parallel import spatial, world_from_env
   from soft_truncation_tpu_torch.train import step as step_lib
-  record = {"host_ms": [], "losses": []}
+  record = {"host_ms": [], "losses": [], "collectives_by_step": []}
   make = step_lib.make_train_step
+  make_window = run_lib.make_multi_train_step
   first = os.path.join(argv[list(argv).index("--workdir") + 1],
                        "first_step.pt")
   main_rank = world_from_env().is_main
@@ -4169,10 +4245,12 @@ def mesh_train(*argv) -> int:
 
     def run(state, batch, generator, *rest):
       sync()
+      before = collections.Counter(spatial.calls)
       t0 = time.perf_counter()
       losses = step(state, batch, generator, *rest)
       sync()
       record["host_ms"].append((time.perf_counter() - t0) * 1e3)
+      record["collectives_by_step"].append(dict(spatial.calls - before))
       record["local_shape"] = list(batch.shape)
       record["losses"].append(losses.cpu().tolist())
       if len(record["losses"]) == 1 and main_rank:  # what 12a holds
@@ -4180,7 +4258,13 @@ def mesh_train(*argv) -> int:
       return losses
     return run
 
+  def window(*args, **kw):
+    multi = make_window(*args, **kw)
+    record["route"], record["width"] = multi.route, multi.width
+    return multi
+
   step_lib.make_train_step = recording
+  run_lib.make_multi_train_step = window
   _reset_launch_counts()
   spatial.calls.clear()
   cli.main(list(argv))
@@ -4246,7 +4330,9 @@ def phase_mesh_train(extra_flags=(), beside=None, first=None):
   for d, s in MESH_SHAPES:
     specs.append((f"mesh_{d}x{s}", torchrun + ["--nproc_per_node",
                                                 str(d * s)],
-                  flags + ["--config.tpu.mesh_shape", f"({d}, {s})"]))
+                  flags + ["--config.tpu.mesh_shape", f"({d}, {s})",
+                           "--config.tpu.steps_per_dispatch",
+                           str(MESH_WINDOWS[d, s])]))
   # alone and (1, 2) side by side, then (2, 2): all seven processes at
   # once ran the card out of memory beside this process's own tensors
   # (cuDNN answered CUDNN_STATUS_INTERNAL_ERROR), and ``beside``'s ranks
@@ -4276,7 +4362,7 @@ def phase_mesh_train(extra_flags=(), beside=None, first=None):
   alone_losses = alone["losses"][0]
   if len(alone["losses"]) != MESH_TRAIN_ITERS + 1:
     raise AssertionError(f"mesh alone: {len(alone['losses'])} steps")
-  quad = None
+  quad, step_collectives = None, None
   for (d, s), (name, _, _) in zip(MESH_SHAPES, specs[1:]):
     ranks = _rank_rows(runs[name][0])
     if sorted(ranks) != list(range(d * s)) or any(
@@ -4304,12 +4390,28 @@ def phase_mesh_train(extra_flags=(), beside=None, first=None):
         raise AssertionError(f"mesh {name} rank {r}: space collectives "
                              f"{row['collectives']}, rank 0 "
                              f"{ranks[0]['collectives']}")
+      # the window's: those of a step (every step's and every mesh's the
+      # same: one space axis of 2) times the steps
+      per_step = row["collectives_by_step"][0]
+      step_collectives = step_collectives or per_step
+      if (row["collectives_by_step"] != [per_step] * len(row["losses"])
+          or row["collectives"] != {k: v * len(row["losses"])
+                                    for k, v in per_step.items()}
+          or per_step != step_collectives):
+        raise AssertionError(f"mesh {name} rank {r}: collectives by step "
+                             f"{row['collectives_by_step']}, in all "
+                             f"{row['collectives']}, the first mesh's a "
+                             f"step {step_collectives}")
+      if (row["route"], row["width"]) != ("eager", MESH_WINDOWS[d, s]):
+        raise AssertionError(f"mesh {name} rank {r}: route {row['route']}"
+                             f" of width {row['width']}")
       if fwd != fwd_sites or bwd != bwd_sites:
         raise AssertionError(f"mesh {name} rank {r}: {fwd} fir2 and {bwd} "
                              f"adjoint launches, alone {fwd_sites} and "
                              f"{bwd_sites}")
     emit({"mesh": name, "mesh_shape": [d, s],
-          "global_batch": MESH_TRAIN_BATCH,
+          "global_batch": MESH_TRAIN_BATCH, "route": ranks[0]["route"],
+          "steps_per_dispatch": ranks[0]["width"],
           **_against_alone(f"mesh {name}", state(name), want, lr, names),
           "loss_max_rel_err": loss_err,
           "losses_by_rank": {r: row["losses"][0] for r, row in ranks.items()},
@@ -4323,9 +4425,8 @@ def phase_mesh_train(extra_flags=(), beside=None, first=None):
           "alone_host_ms_by_step": alone["host_ms"],
           "peak_memory_bytes_by_rank": {r: row["peak_memory_bytes"]
                                         for r, row in ranks.items()},
-          "space_collectives_per_step_rank0": {
-              k: v / (MESH_TRAIN_ITERS + 1)
-              for k, v in ranks[0]["collectives"].items()},
+          "collectives_per_step_rank0": ranks[0]["collectives_by_step"][0],
+          "collectives_rank0": ranks[0]["collectives"],
           "alone_peak_memory_bytes": alone["peak_memory_bytes"],
           "run_wall_s": runs[name][1], "alone_run_wall_s": runs["alone"][1]})
     if not loss_err <= FORWARD_REL_TOL:
@@ -4990,34 +5091,37 @@ def _state_tensors(state):
   return out
 
 
-def phase_graph_vs_eager(name, path, window, fir_steps=0):
-  """14c: from one state and generator state, a window of WINDOW steps at
-  batch 128 replayed from the captured graph and as WINDOW eager
-  ``make_train_step`` calls (with each step's preprocess): the losses,
-  parameters, Adam's moments and the EMA within GRAPH_REL_TOL of each
-  tensor's largest (bit for bit expected; the largest error printed), the
-  generators' states equal. Printed for information: ms per step each way
-  (the eager window by CUDA events, its state's first, so it pays its
-  first allocations; a later replay on the host's clock, synchronised, in
-  a trace of the device's activity), the device's busy share in that
-  replay and peak memory. 14d (with ``fir_steps``, UNCSN++): the fir2
-  launches and adjoints the capture recorded times the replays, and the
-  traced replay's kernels by name: fir2's every launch (``fir_steps`` per
-  step, both modes), by count."""
+def _window_vs_steps(label, config, window, world=None):
+  """From one state and generator state, the raw ``window`` ([K, B, H, W,
+  C] on the host) as one window of ``make_multi_train_step`` (a CUDA
+  graph replay, route 'graph') and as K eager ``make_train_step`` calls,
+  each with its preprocess; with ``world`` the window's state takes the
+  world's mesh (no DDP wrapper: ``run_lib._train`` on route 'graph') and
+  the eager state its DDP wrapper (``parallel.ddp.replicate``), which the
+  eager steps run through. Held:
+  the losses, parameters, Adam's moments and the EMA within GRAPH_REL_TOL
+  of each tensor's largest (bit for bit expected), the generators' states
+  equal. Returns the window, its state, its generator, the largest
+  relative error and the eager steps' ms (CUDA events; the state's
+  first, so they pay its first allocations)."""
   import torch
   from soft_truncation_tpu_torch.data import make_preprocess_fn
+  from soft_truncation_tpu_torch.parallel import make_mesh, replicate
   from soft_truncation_tpu_torch.sde import get_sde
   from soft_truncation_tpu_torch.train import (make_multi_train_step,
                                                make_train_step)
-  config = load_config(path, init_scale=0.1)
-  config.tpu.steps_per_dispatch = WINDOW
   sde = get_sde(config)
   gc.collect()
   torch.cuda.empty_cache()
   graphed = _graph_state(config)
   eager = copy.deepcopy(graphed)
+  multi = make_multi_train_step(config, sde, device=DEVICE)
+  if multi.route != "graph":
+    raise AssertionError(f"{label}: route {multi.route}, not 'graph'")
+  if world is not None:
+    graphed.mesh = make_mesh((), world)
+    eager.replica = replicate(eager.model, world)
   gens = [torch.Generator(DEVICE).manual_seed(1) for _ in range(2)]
-  multi = make_multi_train_step(config, sde)
   step, preprocess = make_train_step(config, sde), make_preprocess_fn(config)
   batches = window.to(DEVICE)
   torch.cuda.reset_peak_memory_stats()
@@ -5036,21 +5140,41 @@ def phase_graph_vs_eager(name, path, window, fir_steps=0):
     err = (g.float() - w.float()).abs().max().item()
     scale = w.float().abs().max().item()
     if not (torch.isfinite(g).all() and err <= GRAPH_REL_TOL * scale):
-      raise AssertionError(f"14c {name}: {key}: max|graph - eager| {err} "
+      raise AssertionError(f"{label}: {key}: max|graph - eager| {err} "
                            f"vs max|eager| {scale}")
     worst = max(worst, err / scale if scale else err)
   if not torch.equal(gens[0].get_state(), gens[1].get_state()):
-    raise AssertionError(f"14c {name}: the generators' states differ")
+    raise AssertionError(f"{label}: the generators' states differ")
+  return multi, graphed, gens[0], worst, start.elapsed_time(end)
+
+
+def phase_graph_vs_eager(name, path, window, fir_steps=0):
+  """14c: from one state and generator state, a window of WINDOW steps at
+  batch 128 replayed from the captured graph and as WINDOW eager
+  ``make_train_step`` calls (:func:`_window_vs_steps`; the largest error
+  printed). Printed for information: ms per step each way
+  (the eager window by CUDA events, its state's first, so it pays its
+  first allocations; a later replay on the host's clock, synchronised, in
+  a trace of the device's activity), the device's busy share in that
+  replay and peak memory. 14d (with ``fir_steps``, UNCSN++): the fir2
+  launches and adjoints the capture recorded times the replays, and the
+  traced replay's kernels by name: fir2's every launch (``fir_steps`` per
+  step, both modes), by count."""
+  import torch
+  config = load_config(path, init_scale=0.1)
+  config.tpu.steps_per_dispatch = WINDOW
+  multi, graphed, gen, worst, eager_ms = _window_vs_steps(f"14c {name}",
+                                                          config, window)
   peak = torch.cuda.max_memory_allocated()
   # a traced replay: the device's busy share, the kernels by name and count
   events, wall_ms, sessions = _kernel_events(
-      lambda: multi(graphed, window, gens[0]), calls=1, warm=False)
+      lambda: multi(graphed, window, gen), calls=1, warm=False)
   busy_ms = sum(ms for _, ms in events.values())
   captures = dict(multi.capture_launches)
   out = {"graph_vs_eager": name, "batch": TRAIN_BATCH, "window": WINDOW,
          "max_rel_err": worst, "bit_for_bit": worst == 0.0,
          "graph_ms_per_step": wall_ms / WINDOW,
-         "eager_ms_per_step": start.elapsed_time(end) / WINDOW,
+         "eager_ms_per_step": eager_ms / WINDOW,
          "peak_memory_bytes": peak, "replays": dict(multi.replays),
          "capture_launches": {str(w): c for w, c in captures.items()},
          "traced_window_ms": wall_ms, "device_busy_ms": busy_ms,
@@ -5668,6 +5792,8 @@ if __name__ == "__main__":
     sys.exit(windows_only())
   if sys.argv[1:2] == ["--replay-server"]:
     sys.exit(replay_server(*sys.argv[2:4]))
+  if sys.argv[1:2] == ["--ddp-window"]:
+    sys.exit(ddp_window(*sys.argv[2:]))
   if sys.argv[1:2] == ["--mesh-train"]:
     sys.exit(mesh_train(*sys.argv[2:]))
   if sys.argv[1:2] == ["--replay-ranks"]:

@@ -22,9 +22,15 @@ no config file sets any of its knobs, and the port reads them so:
   * ``fid_resize``: the Inception's resize (``eval/inception.py``);
   * ``profile_dir``: no key, as in JAX; ``run_lib.train`` reads it with
     ``get`` and the CLI accepts it (``main.OPTIONAL_KEYS``);
-  * ``steps_per_dispatch`` (1): train steps per window; K > 1 runs each
-    window as one CUDA graph replay of K steps on the card
-    (``train/step.py::make_multi_train_step``, ``run_lib.train``);
+  * ``steps_per_dispatch`` (1): train steps per window, on one of two
+    routes chosen before the first window and logged
+    (``train/step.py::window_route``, ``run_lib.train``): 'graph', one
+    CUDA graph replay of K steps, for K > 1 on the card alone or as the
+    one rank of an NCCL group (its gradients' all-reduce captured);
+    'eager', the K steps issued one by one, on the CPU, at K = 1, on gloo
+    ranks (ranks sharing a card) and on NCCL groups of several ranks (a
+    captured window across cards has not yet run). Either route trains
+    what K steps train;
   * ``donate_state``, ``compilation_cache_dir``: no GPU meaning (eager
     PyTorch frees what it no longer holds; nothing is compiled ahead), not
     carried;

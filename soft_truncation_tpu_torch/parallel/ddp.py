@@ -113,6 +113,13 @@ def process_group(config, device="cuda"):
       dist.destroy_process_group()
 
 
+def backend() -> Optional[str]:
+  """The backend of the process group this process is in ('nccl',
+  'gloo'), or None outside one: how ``train/step.py::window_route``
+  issues a window."""
+  return dist.get_backend() if dist.is_initialized() else None
+
+
 def replicate(model: torch.nn.Module, world: World) -> Optional[torch.nn.Module]:
   """The DistributedDataParallel wrapper the train step runs its forwards
   through, or None when the world is not launched."""
@@ -121,6 +128,16 @@ def replicate(model: torch.nn.Module, world: World) -> Optional[torch.nn.Module]
   device = next(model.parameters()).device
   return torch.nn.parallel.DistributedDataParallel(
       model, device_ids=[device] if device.type == "cuda" else None)
+
+
+@torch.no_grad()
+def broadcast(model: torch.nn.Module, world: World) -> None:
+  """Rank 0's parameters and buffers on every rank, as DDP's constructor
+  sets them, for ranks that train without the wrapper (``state.mesh``:
+  ``train/step.py``)."""
+  if world.launched:
+    for t in model.state_dict().values():
+      dist.broadcast(t, 0)
 
 
 def shard(batch: torch.Tensor, world: World, parts: int) -> torch.Tensor:

@@ -21,9 +21,8 @@ every step of a ``[K, B, ...]`` window): ``train/step.py::
 make_multi_train_step`` cuts each step of a window with it, after that
 step's preprocess, since the port draws the dequantization noise of the
 global batch from its one generator in step order (JAX draws it from
-per-step keys, so it can place the whole stack first). Windows of K > 1
-are refused under data parallelism and the mesh (a CUDA graph over NCCL
-collectives is not ported), so the cut runs at K = 1 there. :func:`batch_sharded` /
+per-step keys, so it can place the whole stack first); on every route of
+the window (``train/step.py::window_route``). :func:`batch_sharded` /
 :func:`batch_mean` let a sampler whose batch is split over the ranks take
 the means it steers by (dopri5's error norm, the Langevin step size) over
 the whole batch (``serve/server.py``'s replay on several ranks).

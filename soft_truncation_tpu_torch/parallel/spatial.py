@@ -30,7 +30,12 @@ The layers read the current space from :func:`current`, set for a block by
 :func:`sharded` (``train/step.py`` sets it for the step's forwards and
 losses); ``None`` (no space axis, or s = 1) leaves every layer as it is
 and launches no collective. :data:`calls` counts the collectives by
-Function and direction ('halo', 'halo_backward', 'sum', ...).
+Function and direction ('halo', 'halo_backward', 'sum', ...), and those
+the train step issues itself ('gradients': its one all-reduce of the
+flattened gradients; 'ratio': the balanced mixed loss's), when Python
+issues them: a CUDA graph's replay counts nothing, so a captured window
+records its own per capture (``train/step.py::make_multi_train_step``'s
+``capture_collectives``), to be taken times its replays.
 """
 
 from __future__ import annotations

@@ -15,7 +15,9 @@ with ``get``, as JAX reads it) a ``torch.profiler`` trace of the window
 that holds the run's eleventh step, the step JAX traces. The steps run in
 windows of ``config.tpu.steps_per_dispatch`` (K; the last may be
 narrower), as JAX's loop runs them: each window is one call of
-``make_multi_train_step`` (one CUDA graph replay on the card for K > 1),
+``make_multi_train_step`` (one CUDA graph replay on the card for K > 1
+alone or on one NCCL rank, else the K steps one by one: its route, logged
+once with the backend),
 its batches one ``[K, B, H, W, C]`` stack uploaded at once, which a
 background thread assembles (into pinned memory on the card) while the
 window before it trains. Logging, checkpoints, snapshots, the bpd and
@@ -167,7 +169,11 @@ def _train(config, workdir, assetdir, world, device):
   ckpt.restore_meta(state)
   initial_step = state.step
   mesh = make_mesh(config.get("tpu", {}).get("mesh_shape", ()), world)
-  if mesh.space > 1:  # the step all-reduces the gradients itself
+  multi_step = make_multi_train_step(config, sde, mesh, device)
+  if mesh.space > 1 or (world.launched and multi_step.route == "graph"):
+    # no DDP wrapper (none in a captured window): the step all-reduces the
+    # gradients itself
+    ddp.broadcast(model, world)
     state.mesh = mesh
     log.info("mesh (data %d, space %d): rank %d at (%d, %d), local batch "
              "%s", mesh.data, mesh.space, world.rank, mesh.data_index,
@@ -175,12 +181,13 @@ def _train(config, workdir, assetdir, world, device):
                  config, mesh, config.training.batch_size)))
   else:
     state.replica = ddp.replicate(model, world)
+  log.info("train windows of %d steps: route %s (process group %s)",
+           multi_step.width, multi_step.route, ddp.backend() or "none")
 
   log.info("loading %s...", config.data.dataset)
   # a resumed run draws data and noise afresh, from the seed and its step
   seed = np.random.SeedSequence([config.seed, initial_step])
   batches = datasets.get_train_iterator(config, seed)
-  multi_step = make_multi_train_step(config, sde, mesh)
   width = multi_step.width
   generator = torch.Generator(device).manual_seed(
       int(seed.generate_state(1)[0]))

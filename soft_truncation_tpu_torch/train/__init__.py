@@ -3,8 +3,8 @@
 from .checkpoint import CheckpointManager
 from .state import TrainState, init_train_state
 from .step import (make_eval_loss_step, make_multi_train_step,
-                   make_train_step, window_scalars)
+                   make_train_step, window_route, window_scalars)
 
 __all__ = ["CheckpointManager", "TrainState", "init_train_state",
            "make_eval_loss_step", "make_multi_train_step", "make_train_step",
-           "window_scalars"]
+           "window_route", "window_scalars"]

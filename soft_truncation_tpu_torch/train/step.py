@@ -20,15 +20,21 @@ so that a captured step reads them rather than holding its capture's.
 :func:`make_multi_train_step` trains a window of K steps
 (``config.tpu.steps_per_dispatch``; JAX's ``make_multi_train_step``): each
 step's preprocess (the dequantization noise, the scaler) and then the step,
-K times, on a ``[K, B, H, W, C]`` stack of raw batches. On the card, with
-K > 1 and one process, a window is one CUDA graph replay of those K steps
-(one graph per window width, captured at the width's first window after a
-warm-up step that is then undone): the host issues one replay where the
-steps would issue ~10^4 launches each, and the replay draws from the train
-generator what K eager steps draw. Elsewhere (the CPU,
-K = 1) the window runs the same code eagerly. K > 1 under data
-parallelism or a ``(data, space)`` mesh raises: a graph over NCCL
-collectives is not ported.
+K times, on a ``[K, B, H, W, C]`` stack of raw batches. The window's route
+is fixed when it is made, from the device, K and the process group
+(:func:`window_route`). On route 'graph' a window is one CUDA graph
+replay of those K steps (one graph per window width, captured at the
+width's first window after a warm-up step that is then undone): the host
+issues one replay where the steps would issue ~10^4 launches each, and the
+replay draws from the train generator what K eager steps draw. That route
+is taken for K > 1 on the card alone or as the one rank of an NCCL group.
+On route 'eager' (the CPU, K = 1, gloo ranks, whose collectives run on the
+host outside any graph, and NCCL groups of several ranks, where a captured
+window has not yet run) the same K steps are issued one by one. The ranks
+of a captured window train without the DDP wrapper (its reducer's hooks
+and bookkeeping are not safe to capture): they take ``state.mesh``, a
+``(world size, 1)`` mesh, and its one all-reduce of the flattened
+gradients.
 
 Data parallelism: with ``state.replica`` (``parallel.ddp.replicate``) the
 step runs its forwards through that DistributedDataParallel wrapper, on
@@ -38,10 +44,11 @@ accumulate under ``no_sync``, and the balanced mixed loss's batch mean is
 averaged over the ranks, so that the step equals one process's on the
 whole batch.
 
-Under a space axis (``state.mesh``, ``parallel/mesh.py``: the batch split
-over ``data`` and each image's rows over ``space``) there is no DDP
-wrapper: the forwards and losses run within ``parallel.spatial.sharded``
-(halo rows, space-wide sums and gathers), every draw and dropout mask is
+Under ``state.mesh`` (``parallel/mesh.py``: the batch split over
+``data`` and, with a space axis, each image's rows over ``space``) there
+is no DDP wrapper: the forwards and losses run within
+``parallel.spatial.sharded`` (halo rows, space-wide sums and gathers; none
+without a space axis), every draw and dropout mask is
 the global batch's cut to this rank's samples and rows, and after the last
 backward one all-reduce averages the gradients over the world. Each
 collective's backward is its exact adjoint, so each rank holds its share of
@@ -54,6 +61,7 @@ the ranks of a space group).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 from typing import Callable, Dict, Optional, Sequence
 
@@ -68,6 +76,7 @@ from ..models.dropout import batch_shard
 from ..models.ema import ema_apply, ema_weight
 from ..ops import launch_totals
 from ..parallel import spatial
+from ..parallel.ddp import backend as ddp_backend
 from ..parallel.ddp import sharded_draw
 from ..parallel.mesh import shard_batch
 from ..sde.core import SDE, VESDE, VPSDE, st_active_for
@@ -132,6 +141,7 @@ def make_train_step(config, sde: SDE) -> Callable:
     if balanced:
       ratio = torch.mean(l_is / l_dd).detach()
       if ranks > 1:  # the global batch's mean: equal rows on every rank
+        spatial.calls["ratio"] += 1
         dist.all_reduce(ratio)
         ratio = ratio / ranks
       return l_is + ddpm_weight * ratio * l_dd
@@ -148,7 +158,7 @@ def make_train_step(config, sde: SDE) -> Callable:
     mesh = state.mesh
     space = mesh.space_shard() if mesh is not None else None
     shards = (0, 1, 0, 1)  # (data rank, data ranks, space rank, space ranks)
-    if space is not None:
+    if mesh is not None:
       shards = (mesh.data_index, mesh.data, mesh.space_index, mesh.space)
     elif replica is not None:
       shards = (dist.get_rank(), dist.get_world_size(), 0, 1)
@@ -177,7 +187,7 @@ def make_train_step(config, sde: SDE) -> Callable:
                                generator, ranks)
           micro.mean().backward()
         losses.append(micro.detach())
-    if space is not None:
+    if mesh is not None:
       _average_gradients(state.optimizer.params, ranks)
     state.optimizer.step(scalars=scalars[:3])
     for p in state.optimizer.params:
@@ -189,19 +199,25 @@ def make_train_step(config, sde: SDE) -> Callable:
   return train_step
 
 
-def _refuse_sharded_window(width: int, ranks: bool) -> None:
-  """Raise for a window of more than one step over several ranks."""
-  if width > 1 and ranks:
-    raise NotImplementedError(
-        "tpu.steps_per_dispatch > 1 under data parallelism or a (data, "
-        "space) mesh is not ported: a CUDA graph over NCCL collectives is a "
-        "later slice (ROADMAP.md, Queue 1)")
+def window_route(device_type: str, width: int, backend: Optional[str],
+                 ranks: int = 1) -> str:
+  """How a window of ``width`` steps is issued: 'graph' (one CUDA graph
+  replay) for K > 1 on 'cuda' with no process group (``backend`` None) or
+  as the one rank of an NCCL group; 'eager' (the steps one by one) on the
+  CPU, at K = 1, under gloo, whose collectives run on the host outside any
+  graph, and on NCCL groups of several ``ranks``, where a captured window
+  has not yet run (``ROADMAP.md``, Queue 1 item 2)."""
+  if width > 1 and device_type == "cuda" and (
+      backend is None or (backend == "nccl" and ranks == 1)):
+    return "graph"
+  return "eager"
 
 
-def make_multi_train_step(config, sde: SDE, mesh=None) -> Callable:
+def make_multi_train_step(config, sde: SDE, mesh=None,
+                          device="cuda") -> Callable:
   """Returns ``multi_step(state, batches, generator, draws=None,
   scalars=None)`` -> the losses ``[K, B']`` of a window of K steps (module
-  docstring), updating ``state`` in place.
+  docstring), updating ``state`` (on ``device``) in place.
 
   ``batches`` is a ``[K, B, H, W, C]`` stack of raw batches (uint8 or
   float32 in [0, 1], the global batch of each step; on the host, pinned
@@ -213,20 +229,31 @@ def make_multi_train_step(config, sde: SDE, mesh=None) -> Callable:
   the step's draws; ``scalars`` (``[K, 4]``, :func:`window_scalars` of the
   state, host or device) are made here when not given.
 
-  ``multi_step.width`` is ``config.tpu.steps_per_dispatch``, K. With K >
-  1 on the card the window is a CUDA graph (one per width; the static
+  ``multi_step.width`` is ``config.tpu.steps_per_dispatch``, K;
+  ``multi_step.route`` is :func:`window_route` of ``device``, K and the
+  process group (``parallel.ddp.backend``, its world size), fixed here.
+  On route 'graph' the window is a CUDA graph (one per width; the static
   inputs take each window by one copy of ``batches`` and one of
-  ``scalars``). ``multi_step.replays`` and
-  ``multi_step.capture_launches`` give, per width, the graph's replays and
-  the kernel launches its capture recorded (``ops.launch_totals``): a
-  replay makes those launches without counting them."""
+  ``scalars``); the state takes no DDP wrapper there (``state.replica``
+  None; in a group, ``state.mesh``): DDP keeps the parameters' gradient
+  accumulators, bound to the stream it was made on, and a captured
+  backward that reaches one bound to another stream breaks the capture.
+  ``multi_step.replays``,
+  ``multi_step.capture_launches`` and ``multi_step.capture_collectives``
+  give, per width, the graph's replays, the kernel launches its capture
+  recorded (``ops.launch_totals``) and the collectives it recorded
+  (``parallel.spatial.calls``: the mesh's, the gradients' all-reduce,
+  the balanced loss's ratio): a replay makes those without counting
+  them."""
   train_step = make_train_step(config, sde)
   preprocess = make_preprocess_fn(config)
   parts = config.optim.num_micro_batch * (
       2 if config.training.get("mixed", False) else 1)
   per_window = max(int(config.get("tpu", {}).get("steps_per_dispatch", 1)
                        or 1), 1)
-  _refuse_sharded_window(per_window, mesh is not None and mesh.size > 1)
+  device_type = torch.device(device).type
+  route = window_route(device_type, per_window, ddp_backend(),
+                       dist.get_world_size() if dist.is_initialized() else 1)
   graphs: Dict[int, tuple] = {}
   static = {}
 
@@ -245,17 +272,21 @@ def make_multi_train_step(config, sde: SDE, mesh=None) -> Callable:
                  draws: Optional[Sequence[Draw]] = None,
                  scalars=None) -> torch.Tensor:
     width = batches.shape[0]
-    _refuse_sharded_window(width, state.replica is not None
-                           or state.mesh is not None)
     device = state.optimizer.params[0].device
+    if device.type != device_type:
+      raise ValueError(f"a window made for {device_type} given a state on "
+                       f"{device}")
     if scalars is None:
       scalars = torch.from_numpy(window_scalars(state, width))
-    if not (per_window > 1 and device.type == "cuda"):
+    if route == "eager":
       return steps(state, batches.to(device, non_blocking=True), generator,
                    draws, scalars.to(device, non_blocking=True))
     if draws is not None:
       raise ValueError("a captured window draws from its generator: "
                        "draws= is for eager windows")
+    if state.replica is not None:
+      raise ValueError("a captured window trains without the DDP wrapper: "
+                       "give its ranks state.mesh (run_lib._train)")
     if not static:
       k = max(width, per_window)
       static["batches"] = torch.empty((k,) + tuple(batches.shape[1:]),
@@ -291,6 +322,7 @@ def make_multi_train_step(config, sde: SDE, mesh=None) -> Callable:
     graph.register_generator_state(generator)
     counts = (state.step, state.optimizer.count)
     before = launch_totals()
+    issued = collections.Counter(spatial.calls)
     pool = next(iter(graphs.values()))[0].pool() if graphs else None
     with torch.cuda.graph(graph, pool=pool):
       out = steps(state, batches, generator, None, table)
@@ -298,12 +330,15 @@ def make_multi_train_step(config, sde: SDE, mesh=None) -> Callable:
     multi_step.capture_launches[width] = {
         k: v - before[k] for k, v in launch_totals().items()
         if v != before[k]}
+    multi_step.capture_collectives[width] = dict(spatial.calls - issued)
     multi_step.replays[width] = 0
     return graph, out
 
   multi_step.width = per_window
+  multi_step.route = route
   multi_step.replays = {}
   multi_step.capture_launches = {}
+  multi_step.capture_collectives = {}
   return multi_step
 
 
@@ -339,6 +374,7 @@ def _average_gradients(params, ranks: int) -> None:
   grads = [p.grad if p.grad is not None else torch.zeros_like(p)
            for p in params]
   flat = torch.cat([g.reshape(-1) for g in grads])
+  spatial.calls["gradients"] += 1
   dist.all_reduce(flat)
   flat /= ranks
   for p, g in zip(params, flat.split([g.numel() for g in grads])):

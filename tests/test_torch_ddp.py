@@ -9,9 +9,12 @@ global batch: after one step the last step's snapshot's parameters and EMA
 within 1e-6, and Adam's moments within 1e-5 of their largest value (the
 sums over the batch are reassociated across the ranks). Then both resume
 from the one process's checkpoint (every rank restores it) for one more
-step, to the same bars in the rolling checkpoint. Then the mesh check (the
-1-D mesh and the rules of a 2-D one; tests/test_torch_mesh.py trains on
-it) and the shard of the global batch.
+step, to the same bars in the rolling checkpoint. In the first launch the
+ranks also train steps 0..2 at ``tpu.steps_per_dispatch`` 2 (route
+'eager' under gloo: a window of 2 and a tail of 1) against one process a
+step at a time, to the same bars, logging at JAX's ``_crossed`` labels.
+Then the mesh check (the 1-D mesh and the rules of a 2-D one;
+tests/test_torch_mesh.py trains on it) and the shard of the global batch.
 
 Adam's ``eps`` is 1e-3 here, not the configs' 1e-8: an update is lr * g /
 (|g| + eps), whose gain near g = 0 is lr / eps, so at 1e-8 a weight whose
@@ -35,6 +38,10 @@ from soft_truncation_tpu_torch.configs.base import default_config, load_config
 from soft_truncation_tpu_torch.parallel import ddp
 
 import torch_tiny
+from soft_truncation_tpu.run_lib import _crossed as jax_crossed
+
+WINDOW = 2        # tpu.steps_per_dispatch of the windowed run
+WINDOW_ITERS = 2  # its last step: a window of 2 and a tail of 1
 
 FLAGS = ["--config.data.dataset", "Synthetic",
          "--config.data.image_size", "16", "--config.model.nf", "16",
@@ -50,10 +57,13 @@ FLAGS = ["--config.data.dataset", "Synthetic",
          "--config.training.snapshot_freq_for_preemption", "1"]
 
 
-def _argv(workdir, n_iters):
+WORKER = os.path.join(torch_tiny.REPO, "tests", "torch_mesh_ranks.py")
+
+
+def _argv(workdir, n_iters, *flags):
   return ["--config", torch_tiny.PORT_FLAGSHIP, "--workdir", str(workdir),
           "--mode", "train", "--cpu",
-          "--config.training.n_iters", str(n_iters)] + FLAGS
+          "--config.training.n_iters", str(n_iters)] + FLAGS + list(flags)
 
 
 def _free_port() -> int:
@@ -64,17 +74,26 @@ def _free_port() -> int:
   return port
 
 
-def _two_ranks(workdir, n_iters, meanwhile):
-  """The CLI trainer on two gloo ranks, ``meanwhile()`` run while they
-  train; returns each rank's output."""
+def _two_ranks(argvs, meanwhile, spec_dir=None):
+  """The CLI trainer on two gloo ranks with each argument list of
+  ``argvs`` in turn, ``meanwhile()`` run while they train; returns each
+  rank's output. One list runs as ``python -m
+  soft_truncation_tpu_torch.main``, as torchrun starts it; more run in
+  one process per rank through tests/torch_mesh_ranks.py (its spec and
+  results in ``spec_dir``), which joins the group before the first."""
   env = dict(os.environ, WORLD_SIZE="2", LOCAL_WORLD_SIZE="2",
              MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
              OMP_NUM_THREADS="1",
              PYTHONPATH=torch_tiny.REPO + os.pathsep
              + os.environ.get("PYTHONPATH", ""))
+  if len(argvs) == 1:
+    cmd = ["-m", "soft_truncation_tpu_torch.main"] + argvs[0]
+  else:
+    spec = os.path.join(spec_dir, "spec.pt")
+    torch.save({"mesh_shape": (), "cli": argvs}, spec)
+    cmd = [WORKER, spec, str(spec_dir)]
   procs = [subprocess.Popen(
-      [sys.executable, "-m", "soft_truncation_tpu_torch.main"]
-      + _argv(workdir, n_iters),
+      [sys.executable] + cmd,
       env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), cwd=torch_tiny.REPO,
       stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
            for r in range(2)]
@@ -94,16 +113,30 @@ def _checkpoint(workdir, snapshot=False):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-  """Two ranks and one process, step 0; then both resumed from the one
-  process's checkpoint, step 1."""
-  ranks, alone = (tmp_path_factory.mktemp(d) for d in ("ranks", "alone"))
+  """Two ranks and one process, step 0, and in the same launch steps 0..2
+  on the ranks in windows of WINDOW (one of 2, a tail of 1) and in the
+  one process a step at a time; then both resumed from the one process's
+  checkpoint, step 1."""
+  ranks, alone, windows, steps, spec = (
+      tmp_path_factory.mktemp(d) for d in ("ranks", "alone", "windows",
+                                           "steps", "spec"))
   out = {}
-  out["ranks"] = _two_ranks(ranks, 0, lambda: cli.main(_argv(alone, 0)))
+
+  def alone_runs():
+    cli.main(_argv(alone, 0))
+    cli.main(_argv(steps, WINDOW_ITERS))
+
+  out["ranks"] = _two_ranks(
+      [_argv(ranks, 0), _argv(windows, WINDOW_ITERS,
+                              "--config.tpu.steps_per_dispatch",
+                              str(WINDOW))], alone_runs, spec)
   out["first"] = _checkpoint(ranks, True), _checkpoint(alone, True)
+  out["windows"] = _checkpoint(windows, True), _checkpoint(steps, True)
+  out["windows_log"] = (windows / "stdout.txt").read_text()
   for workdir in (ranks, alone):
     shutil.copy(os.path.join(alone, "checkpoints", "checkpoint_0"),
                 os.path.join(workdir, "checkpoints-meta", "checkpoint"))
-  out["resumed_ranks"] = _two_ranks(ranks, 1,
+  out["resumed_ranks"] = _two_ranks([_argv(ranks, 1)],
                                     lambda: cli.main(_argv(alone, 1)))
   out["resumed"] = _checkpoint(ranks), _checkpoint(alone)
   out["log"] = (ranks / "stdout.txt").read_text()
@@ -134,6 +167,29 @@ def test_two_ranks_step_as_one_process(runs):
   _assert_same_state(got, want)
   for out in runs["ranks"]:
     assert "Starting training loop at step 0." in out
+
+
+def test_two_ranks_train_windows_as_one_process(runs):
+  """Steps 0..2 on two gloo ranks in windows of 2 (route 'eager': a
+  window of 2, a tail of 1) against one process a step at a time: the
+  same state, to the bars of one step; rank 0's log at the step each
+  window crosses, as JAX's run_lib._crossed labels it."""
+  got, want = runs["windows"]
+  assert want["step"] == WINDOW_ITERS + 1
+  _assert_same_state(got, want)
+  for out in runs["ranks"]:
+    assert (f"train windows of {WINDOW} steps: route eager (process group "
+            "gloo)") in out
+  labels, step0 = [], 0
+  while step0 <= WINDOW_ITERS:
+    last = min(step0 + WINDOW, WINDOW_ITERS + 1) - 1
+    label = jax_crossed(step0, last, 1, allow_zero=True)
+    labels += [] if label is None else [label]
+    step0 = last + 1
+  logged = [int(line.split("step: ")[1].split(",")[0])
+            for line in runs["windows_log"].splitlines()
+            if "training loss mean" in line]
+  assert logged == labels == [1, 2]
 
 
 def test_two_ranks_save_restore_and_resume(runs):

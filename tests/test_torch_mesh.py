@@ -22,8 +22,16 @@ Four gloo processes on the CPU as a ``(2, 2)`` mesh, launched once as
   process on the same batch and generator (earlier tests hold that to
   JAX): losses to the same bar, parameters and EMA within 1e-5, Adam's
   moments within 1e-5 of their largest;
+- a window of 2 steps (``make_multi_train_step`` on the mesh, route
+  'eager' on gloo ranks) at the 8px config from the same weights, on
+  uint8 batches with JAX's draws: bit for bit the same 2 steps as
+  ``make_train_step`` calls on each rank, and against JAX's
+  ``make_multi_train_step`` on one device (compiled in a second thread)
+  to the 8px step's bars;
 - the CLI trainer with ``--config.tpu.mesh_shape "(2, 2)"`` against one
   process's CLI run: the checkpoint, the log, each rank's logged shard;
+  and at ``tpu.steps_per_dispatch`` 2, steps 0..1 as one window, against
+  one process a step at a time;
 - the tiny flagship exported with ``mesh=(4,)`` at batch 8 and replayed on
   the four ranks (``SamplingService.from_artifact``, rank 0 taking the
   requests) against the one-process artifact at batch 8: ``dpm_solver``,
@@ -46,9 +54,12 @@ import numpy as np
 import pytest
 import torch
 
+from soft_truncation_tpu.data import datasets as jax_datasets
 from soft_truncation_tpu.losses import get_optimizer as jax_get_optimizer
 from soft_truncation_tpu.models import create_model as jax_create_model
 from soft_truncation_tpu.sde import get_sde as jax_get_sde
+from soft_truncation_tpu.train import (make_multi_train_step as
+                                       jax_make_multi_train_step)
 from soft_truncation_tpu.train import make_train_step as jax_make_train_step
 from soft_truncation_tpu.train.state import TrainState as JaxTrainState
 from soft_truncation_tpu_torch import main as cli
@@ -72,6 +83,7 @@ from test_torch_train_step import _adam_state, _step_draws
 
 MESH = (2, 2)
 RANKS = 4
+WINDOW = 2  # tpu.steps_per_dispatch of the window case and CLI run
 WORKER = os.path.join(torch_tiny.REPO, "tests", "torch_mesh_ranks.py")
 
 # the JAX bar config's knobs, as the port's overrides
@@ -161,6 +173,44 @@ def _jax_case():
                                         batch=batch, seed=0, draws=draws)
 
 
+def _window_case(jc, params):
+  """A window of WINDOW steps at the 8px case's config, weights and bar,
+  on uint8 batches (no dequantization: neither side draws anything but
+  the steps' draws), each step's draws JAX's for its key in the window's
+  chain (``key, _, k_step = split(key, 3)``)."""
+  config = _port_config("8px")
+  config.tpu.steps_per_dispatch = WINDOW
+  size = config.data.image_size
+  batches = np.random.default_rng(3).integers(
+      0, 256, (WINDOW, config.training.batch_size, size, size, 3),
+      dtype=np.uint8)
+  key = chain = jax.random.PRNGKey(4)
+  draws = []
+  for _ in range(WINDOW):
+    chain, _, k_step = jax.random.split(chain, 3)
+    draws.append([(k, np.asarray(v)) for k, v in _step_draws(
+        jc, jax_get_sde(jc), k_step, batches.shape[1:])])
+  return key, dict(config=config, params=params, batches=batches, seed=0,
+                   draws=draws)
+
+
+def _jax_window(jc, jmodel, jparams, key, batches):
+  """JAX's ``make_multi_train_step`` (a scan of the steps, each step's
+  preprocess inside it) on one device."""
+  sde, tx = jax_get_sde(jc), jax_get_optimizer(jc)
+  state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=jparams,
+                        opt_state=tx.init(jparams),
+                        ema_params=jax.tree.map(jnp.array, jparams),
+                        ema_rate=float(jc.model.ema_rate))
+  state, _, losses = jax.jit(jax_make_multi_train_step(
+      jc, sde, jmodel, tx, preprocess=jax_datasets.make_preprocess_fn(jc)))(
+          state, batches, key)
+  return {"losses": np.asarray(losses), "step": int(state.step),
+          "params": from_jax_params(jax.tree.map(np.asarray, state.params)),
+          "mu": from_jax_params(jax.tree.map(
+              np.asarray, _adam_state(state.opt_state).mu))}
+
+
 def _jax_step(jc, jmodel, jparams, key, batch):
   sde, tx = jax_get_sde(jc), jax_get_optimizer(jc)
   state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=jparams,
@@ -187,9 +237,10 @@ def _port_step(case):
   return losses, state.state_dict()
 
 
-def _cli_argv(workdir, mesh=None):
+def _cli_argv(workdir, mesh=None, n_iters=0, window=1):
   argv = ["--config", torch_tiny.PORT_FLAGSHIP, "--workdir", str(workdir),
-          "--mode", "train", "--cpu", "--config.training.n_iters", "0"]
+          "--mode", "train", "--cpu", "--config.training.n_iters",
+          str(n_iters), "--config.tpu.steps_per_dispatch", str(window)]
   argv += DDP_FLAGS
   if mesh:
     argv += ["--config.tpu.mesh_shape", str(mesh)]
@@ -218,9 +269,12 @@ def runs(tmp_path_factory):
   jc, jmodel, jparams, key, jax_case = _jax_case()
   # JAX compiles its step in a thread (XLA's compile drops the GIL) while
   # the ranks and this process run the port
-  jax_thread = concurrent.futures.ThreadPoolExecutor(1)
+  window_key, window_case = _window_case(jc, jax_case["params"])
+  jax_thread = concurrent.futures.ThreadPoolExecutor(2)
   jax_step = jax_thread.submit(_jax_step, jc, jmodel, jparams, key,
                                jax_case["batch"])
+  jax_window = jax_thread.submit(_jax_window, jc, jmodel, jparams,
+                                 window_key, window_case["batches"])
   steps = {"8px": jax_case}
   for seed, name in enumerate(("64px", "256px")):
     config = _port_config(name)
@@ -234,7 +288,9 @@ def runs(tmp_path_factory):
   export.save_params_npz(params, npz)
   mesh_artifact, one_artifact = str(tmp / "mesh.pt2"), str(tmp / "one.pt2")
   spec = {"mesh_shape": MESH, "steps": steps,
-          "cli": [_cli_argv(tmp / "cli_ranks", MESH)],
+          "windows": {"8px": window_case},
+          "cli": [_cli_argv(tmp / "cli_ranks", MESH),
+                  _cli_argv(tmp / "cli_windows", MESH, WINDOW - 1, WINDOW)],
           "replays": {"flagship": dict(
               config=replay_config, weights=params, batch=8,
               artifact=mesh_artifact, params=npz, requests=REQUESTS)}}
@@ -257,9 +313,11 @@ def runs(tmp_path_factory):
     service = SamplingService.from_artifact(one_artifact, npz, "cpu")
     want = {"replays": [service.sample(*r) for r in REQUESTS]}
     cli.main(_cli_argv(tmp / "cli_alone"))
+    cli.main(_cli_argv(tmp / "cli_steps", n_iters=WINDOW - 1))
     want["steps"] = {name: _port_step(steps[name])
                      for name in ("64px", "256px")}
     want["jax"] = jax_step.result()
+    want["jax_window"] = jax_window.result()
     outs = [p.communicate(timeout=600)[0] for p in procs]
   finally:
     jax_thread.shutdown()
@@ -270,7 +328,7 @@ def runs(tmp_path_factory):
   got = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
          for r in range(RANKS)]
   return {"got": got, "want": want, "steps": steps, "outs": outs,
-          "tmp": tmp}
+          "tmp": tmp, "window": window_case}
 
 
 def _data_rows(losses, config, data_index):
@@ -325,6 +383,55 @@ def test_8px_step_matches_jax_one_device(runs):
              err_msg=f"rank {r} mu {name}")
 
 
+def test_window_on_the_mesh_is_its_steps_bit_for_bit(runs):
+  """A window of 2 on the (2, 2) mesh (route 'eager' on gloo ranks)
+  against the same 2 steps as make_train_step calls on the same rank:
+  the same bits in the losses and the state, the same collectives, each
+  step's those of the 8px step case (the same config and shapes)."""
+  for r, got in enumerate(runs["got"]):
+    window = got["windows"]["8px"]
+    assert window["route"] == "eager"
+    assert torch.equal(window["losses"], window["step_losses"]), r
+    state, want = window["state"], window["step_state"]
+    assert state["step"] == want["step"] == WINDOW
+    for part in ("model", "ema"):
+      for k, w in want[part].items():
+        assert torch.equal(state[part][k], w), (r, part, k)
+    for k in ("mu", "nu"):
+      for g, w in zip(state["optimizer"][k], want["optimizer"][k]):
+        assert torch.equal(g, w), (r, k)
+    per_step = got["steps"]["8px"]["collectives"]
+    assert window["collectives"] == window["step_collectives"] == {
+        k: WINDOW * n for k, n in per_step.items()}, r
+    assert per_step["gradients"] == 1
+
+
+def test_window_on_the_mesh_matches_jax_one_device(runs):
+  """The window against JAX's make_multi_train_step on one device, to
+  test_8px_step_matches_jax_one_device's bars."""
+  want, config = runs["want"]["jax_window"], runs["window"]["config"]
+  assert want["step"] == WINDOW
+  for r, got in enumerate(runs["got"]):
+    window = got["windows"]["8px"]
+    assert window["losses"].shape == (WINDOW, config.training.batch_size
+                                      // MESH[0])
+    for k in range(WINDOW):
+      _close(window["losses"][k], _data_rows(want["losses"][k], config,
+                                             r // MESH[1]),
+             err_msg=f"rank {r} step {k}")
+    model = window["state"]["model"]
+    assert max(float(np.abs(model[k].numpy() - v.numpy()).max())
+               for k, v in want["params"].items()) < 1e-5
+    names = [n for n, p in create_model(config, "cpu").named_parameters()
+             if p.requires_grad]
+    mu = dict(zip(names, window["state"]["optimizer"]["mu"]))
+    assert len(mu) > 30
+    for name, g in mu.items():
+      w = want["mu"][name].numpy()
+      _close(g, w, rtol=0, atol=1e-3 * max(np.abs(w).max(), 1e-12),
+             err_msg=f"rank {r} mu {name}")
+
+
 @pytest.mark.parametrize("name", ["64px", "256px"])
 def test_step_matches_one_process(runs, name):
   losses, state = runs["want"]["steps"][name]
@@ -336,8 +443,8 @@ def test_step_matches_one_process(runs, name):
     _assert_same_state(step["state"], state, atol=1e-5)
 
 
-def _assert_same_state(got, want, atol):
-  assert got["step"] == want["step"] == 1
+def _assert_same_state(got, want, atol, steps=1):
+  assert got["step"] == want["step"] == steps
   moved = 0
   for part in ("model", "ema"):
     for k, w in want[part].items():
@@ -367,6 +474,25 @@ def test_cli_trainer_on_the_mesh_trains_as_one_process(runs):
             for line in log.splitlines() if "training loss mean" in line]
            for log in logs]
   assert len(means[0]) == 1 and means[0] == means[1]
+
+
+def test_cli_trainer_on_the_mesh_trains_windows_as_one_process(runs):
+  """The CLI trainer on the mesh at ``tpu.steps_per_dispatch`` 2, steps
+  0..1 in one eager window, against one process a step at a time: the
+  same checkpoint, the log at the window's last step."""
+  tmp = runs["tmp"]
+  got, want = (torch.load(tmp / d / "checkpoints" / "checkpoint_0",
+                          map_location="cpu", weights_only=True)
+               for d in ("cli_windows", "cli_steps"))
+  _assert_same_state(got, want, atol=1e-6, steps=WINDOW)
+  for out in runs["outs"]:
+    assert (f"train windows of {WINDOW} steps: route eager (process group "
+            "gloo)") in out
+  logged = [[int(line.split("step: ")[1].split(",")[0])
+             for line in (tmp / d / "stdout.txt").read_text().splitlines()
+             if "training loss mean" in line]
+            for d in ("cli_windows", "cli_steps")]
+  assert logged == [[WINDOW - 1], list(range(WINDOW))]
 
 
 def test_sharded_replay_is_one_process(runs):

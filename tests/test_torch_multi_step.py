@@ -2,7 +2,9 @@
 make_multi_train_step, run_lib.train's window loop) against the port's own
 steps and the JAX package's ``make_multi_train_step`` / ``run_lib._crossed``
 on the CPU, where a window runs eagerly (the card's CUDA graph is held to
-the eager window by tests/test_torch_multi_step_gpu.py); and the two
+the eager window by tests/test_torch_multi_step_gpu.py); the window's
+route (windows on gloo ranks: tests/test_torch_ddp.py and
+tests/test_torch_mesh.py); and the two
 leftover public functions, ``sample/ode.py::odeint_rk4_fixed`` and
 ``utils/profiling.py::annotate``.
 
@@ -46,7 +48,7 @@ from soft_truncation_tpu_torch.sde import get_sde
 from soft_truncation_tpu_torch.sde.core import ReverseSDE
 from soft_truncation_tpu_torch.train import (init_train_state,
                                              make_multi_train_step,
-                                             make_train_step)
+                                             make_train_step, window_route)
 from soft_truncation_tpu_torch.utils.jax_params import from_jax_params
 from soft_truncation_tpu_torch.utils.profiling import TRACE_FILE, annotate
 
@@ -103,7 +105,7 @@ def test_window_equals_its_train_steps_bit_for_bit(case):
   states = [init_train_state(config, create_model(config, "cpu", seed=1))
             for _ in range(2)]
   gens = [torch.Generator().manual_seed(5) for _ in range(2)]
-  window = make_multi_train_step(config, sde)
+  window = make_multi_train_step(config, sde, device="cpu")
   step, preprocess = make_train_step(config, sde), make_preprocess_fn(config)
   for seed, width in ((0, 3), (1, 1)):
     batches = _window(seed, width)
@@ -146,7 +148,7 @@ def jax_window():
                                      (BATCH, SIZE, SIZE, 3))))
   pstate = init_train_state(pc, pmodel)
   params0 = {k: v.clone() for k, v in pmodel.state_dict().items()}
-  losses = make_multi_train_step(pc, get_sde(pc))(
+  losses = make_multi_train_step(pc, get_sde(pc), device="cpu")(
       pstate, torch.from_numpy(batches), torch.Generator(), draws=draws)
   assert all(next(d.left, None) is None for d in draws)
   adam = _adam_state(state.opt_state)
@@ -262,21 +264,33 @@ def test_cli_windows_tail_and_resume(tmp_path):
   assert all(np.isfinite(v.numpy()).all() for v in last["model"].values())
 
 
-def test_windows_refused_under_data_parallelism_and_the_mesh():
-  """K > 1 with ranks: a graph over NCCL collectives is not ported, and
-  an eager loop in its place would be a quiet fallback."""
+@pytest.mark.parametrize("device, width, backend, ranks, route", [
+    ("cpu", 2, None, 1, "eager"),
+    ("cpu", 2, "gloo", 2, "eager"),
+    ("cuda", 1, None, 1, "eager"),
+    ("cuda", 1, "nccl", 1, "eager"),
+    ("cuda", 2, None, 1, "graph"),
+    ("cuda", 4, "nccl", 1, "graph"),
+    ("cuda", 2, "nccl", 2, "eager"),
+    ("cuda", 2, "gloo", 2, "eager"),
+])
+def test_window_route(device, width, backend, ranks, route):
+  """The route of a window of ``width`` steps: a CUDA graph on the card
+  alone or as the one rank of an NCCL group; the steps one by one on the
+  CPU, at K = 1, on gloo ranks (whose collectives run on the host) and on
+  NCCL groups of several ranks (a captured window across cards has not
+  yet run)."""
+  assert window_route(device, width, backend, ranks) == route
+
+
+def test_windows_build_under_data_parallelism_and_the_mesh():
+  """K = 2 on the CPU under DDP and each mesh shape: route 'eager', fixed
+  when the window is made."""
   config = _config(torch_tiny.FLAGSHIP, {}, 2)
   sde = get_sde(config)
   for mesh in (Mesh(data=2), Mesh(data=1, space=2), Mesh(data=2, space=2)):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-      make_multi_train_step(config, sde, mesh)
-  state = init_train_state(config, create_model(config, "cpu", seed=1))
-  state.replica = state.model  # as a DDP wrapper would stand
-  window = make_multi_train_step(config, sde)
-  with pytest.raises(NotImplementedError, match="steps_per_dispatch"):
-    window(state, _window(0, 2), torch.Generator())
-  config.tpu.steps_per_dispatch = 1  # K = 1 takes a mesh
-  make_multi_train_step(config, sde, Mesh(data=2, space=2))
+    window = make_multi_train_step(config, sde, mesh, device="cpu")
+    assert (window.width, window.route) == (2, "eager")
 
 
 def test_rk4_fixed_matches_jax():

@@ -1,9 +1,11 @@
 """A window of train steps captured as one CUDA graph
 (``train/step.py::make_multi_train_step`` with ``tpu.steps_per_dispatch``
-3) on the card against the same steps run eagerly, at a small width. The
-file imports no JAX, so it runs where the card is: ``python -m pytest
---noconftest -m gpu tests/test_torch_multi_step_gpu.py`` (the suite's
-conftest configures JAX); without a card its tests skip.
+3) on the card against the same steps run eagerly, at a small width: in
+a process alone, and on one NCCL rank (route 'graph' in a group: no DDP
+wrapper, the world's mesh and its gradients' all-reduce captured in the
+graph) against the steps through the DDP wrapper. The file imports no JAX, so it runs where the card is:
+``python -m pytest --noconftest -m gpu tests/test_torch_multi_step_gpu.py``
+(the suite's conftest configures JAX); without a card its tests skip.
 """
 
 import copy
@@ -11,12 +13,17 @@ import os
 
 import pytest
 import torch
+import torch.distributed as dist
 
 from soft_truncation_tpu_torch.configs.base import load_config, override
+from soft_truncation_tpu_torch.data import make_preprocess_fn
 from soft_truncation_tpu_torch.models import create_model
+from soft_truncation_tpu_torch.parallel import (World, make_mesh, replicate,
+                                                spatial)
 from soft_truncation_tpu_torch.sde import get_sde
 from soft_truncation_tpu_torch.train import (init_train_state,
-                                             make_multi_train_step)
+                                             make_multi_train_step,
+                                             make_train_step)
 
 CONFIGS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "soft_truncation_tpu_torch", "configs")
@@ -70,6 +77,7 @@ def test_captured_window_equals_eager_steps(family):
   graphed, eager = _state(config), _state(config)
   windows = make_multi_train_step(config, sde)
   steps = make_multi_train_step(eager_config, sde)
+  assert (windows.route, steps.route) == ("graph", "eager")
   gens = [torch.Generator("cuda").manual_seed(7) for _ in range(2)]
   data = torch.Generator().manual_seed(3)
   worst = 0.0
@@ -101,3 +109,70 @@ def test_captured_window_equals_eager_steps(family):
     assert launches[3] == {k: 3 * v for k, v in per_step.items()}
   else:
     assert launches == {3: {}, 1: {}}
+
+
+def _worst_rel_err(pairs, label):
+  worst = 0.0
+  for name, g, w in pairs:
+    err = (g.float() - w.float()).abs().max().item()
+    scale = w.float().abs().max().item()
+    worst = max(worst, err / max(scale, 1e-30))
+    assert err <= REL_TOL * scale, (label, name, err, scale)
+  return worst
+
+
+@pytest.mark.gpu
+def test_captured_window_on_one_nccl_rank_equals_ddp_steps():
+  """A world of one NCCL rank in this process: two windows of 3 of the
+  tiny UNCSN++ on route 'graph' (no DDP wrapper: the world's mesh, the
+  flattened gradients' all-reduce, fir2 and its adjoint in the graph)
+  against 6 eager steps through the DDP wrapper from the same state and
+  generator: within REL_TOL (bit for bit expected), the generators' states
+  equal; the collectives recorded per capture, times the replays, one
+  gradient all-reduce per step trained."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card: a CUDA graph has no CPU mode")
+  torch.backends.cudnn.deterministic = True
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  config = load_config(FAMILIES["uncsnpp"])
+  override(config, SMALL)
+  sde = get_sde(config)
+  dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                          world_size=1)
+  try:
+    world = World(rank=0, size=1, launched=True)
+    graphed, eager = _state(config), _state(config)
+    windows = make_multi_train_step(config, sde)
+    assert windows.route == "graph"
+    graphed.mesh = make_mesh((), world)  # as run_lib._train gives it
+    eager.replica = replicate(eager.model, world)
+    step, preprocess = make_train_step(config, sde), make_preprocess_fn(config)
+    gens = [torch.Generator("cuda").manual_seed(7) for _ in range(2)]
+    data = torch.Generator().manual_seed(3)
+    worst = 0.0
+    spatial.calls.clear()
+    for _ in range(2):
+      batches = torch.randint(0, 256, (3, 8, 16, 16, 3), generator=data,
+                              dtype=torch.uint8)
+      got = windows(graphed, batches.pin_memory(), gens[0])
+      want = torch.stack([step(eager, preprocess(b, gens[1]), gens[1])
+                          for b in batches.cuda()])
+      torch.cuda.synchronize()
+      pairs = [("losses", got, want)] + [
+          (k, v, _tensors(eager)[k]) for k, v in _tensors(graphed).items()]
+      worst = max(worst, _worst_rel_err(pairs, "nccl_1"))
+    print(f"one NCCL rank: worst max|graph - eager| / max|eager| = "
+          f"{worst:.3g}")
+    assert graphed.step == eager.step == 6
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())
+    assert windows.replays == {3: 2}
+    per_capture = windows.capture_collectives[3]
+    assert per_capture == {"gradients": 3}
+    assert {k: n * windows.replays[3] for k, n in per_capture.items()} == {
+        "gradients": graphed.step}
+    launches = windows.capture_launches[3]
+    assert launches["fir_upsample2.launches"] > 0
+    assert launches["fir_downsample2.backward_launches"] > 0
+  finally:
+    dist.destroy_process_group()

@@ -10,6 +10,12 @@ sets (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
   rank's samples and rows of it, the draws from ``torch.Generator(seed)``
   or replayed from ``draws`` ((kind, array) in the order the step makes
   them, each the global batch's);
+- ``windows``: name -> {config, params, batches, seed, draws}: a window
+  of K steps (``make_multi_train_step`` on the mesh, on the CPU: route
+  'eager') from ``params`` on the ``[K, B, H, W, C]`` raw ``batches``,
+  step k's draws replayed from ``draws[k]``, and the same K steps as
+  preprocess + ``make_train_step`` calls from the same state and
+  generator;
 - ``cli``: argument lists of ``soft_truncation_tpu_torch.main``, run in
   turn;
 - ``replays``: name -> {config, weights, batch, artifact, params,
@@ -20,7 +26,9 @@ sets (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
   seed, method) and the others following it.
 
 Each rank writes ``<out>/rank<r>.pt``: per step its losses, its state
-after the step, its shard's shape and the space collectives it ran; per replay the (uint8 samples, nfe)
+after the step, its shard's shape and the space collectives it ran; per
+window its route, losses, state and collectives and those of its K
+steps; per replay the (uint8 samples, nfe)
 of each request (rank 0), or the nfe each rank's own loop counted.
 """
 
@@ -71,6 +79,49 @@ def _steps(cases, mesh):
   return out
 
 
+def _windows(cases, mesh):
+  from soft_truncation_tpu_torch.data import make_preprocess_fn
+  from soft_truncation_tpu_torch.models import create_model
+  from soft_truncation_tpu_torch.parallel import spatial
+  from soft_truncation_tpu_torch.parallel.mesh import shard_batch
+  from soft_truncation_tpu_torch.sde import get_sde
+  from soft_truncation_tpu_torch.train import (init_train_state,
+                                               make_multi_train_step,
+                                               make_train_step)
+  out = {}
+  for name, case in cases.items():
+    config = case["config"]
+    sde = get_sde(config)
+    states = []
+    for _ in range(2):
+      model = create_model(config, "cpu")
+      model.load_state_dict(case["params"])
+      states.append(init_train_state(config, model))
+      states[-1].mesh = mesh
+    batches = torch.from_numpy(case["batches"])
+    window = make_multi_train_step(config, sde, mesh, "cpu")
+    spatial.calls.clear()
+    losses = window(states[0], batches,
+                    torch.Generator().manual_seed(case["seed"]),
+                    draws=[_replay(d) for d in case["draws"]])
+    collectives = dict(spatial.calls)
+    step, preprocess = make_train_step(config, sde), make_preprocess_fn(config)
+    parts = config.optim.num_micro_batch * (
+        2 if config.training.get("mixed", False) else 1)
+    generator = torch.Generator().manual_seed(case["seed"])
+    spatial.calls.clear()
+    step_losses = torch.stack([
+        step(states[1], shard_batch(preprocess(b, generator), mesh, True,
+                                    parts), generator, _replay(d))
+        for b, d in zip(batches, case["draws"])])
+    out[name] = {"route": window.route, "losses": losses,
+                 "state": states[0].state_dict(), "collectives": collectives,
+                 "step_losses": step_losses,
+                 "step_state": states[1].state_dict(),
+                 "step_collectives": dict(spatial.calls)}
+  return out
+
+
 def _replays(cases, world):
   import torch.distributed as dist
   from soft_truncation_tpu_torch.serve import export
@@ -107,6 +158,7 @@ def main(spec_path, out_dir):
   out = {"mesh": (mesh.data_index, mesh.space_index)}
   start = time.perf_counter()
   out["steps"] = _steps(spec.get("steps", {}), mesh)
+  out["windows"] = _windows(spec.get("windows", {}), mesh)
   steps = time.perf_counter()
   for argv in spec.get("cli", ()):
     cli.main(argv)
